@@ -1,0 +1,273 @@
+"""The BBMM inference engine, serving subset (counterpart of
+``repro.core.inference``).
+
+A single mBCG call over [y | Z] yields the solve K̂⁻¹y, the probe solves
+and the Lanczos tridiagonals for the SLQ log-determinant.
+:func:`build_posterior_cache` runs the engine once and packages every
+reusable solve (K̂⁻¹y, an orthonormal Krylov basis with its Rayleigh–Ritz
+Gram factor, the preconditioner) into a :class:`PosteriorCache`; repeated
+posterior queries then cost O(n·m) and no CG.  :func:`solve` is the plain
+preconditioned solve behind uncached predictions.
+
+The differentiable MLL (``inv_quad_logdet``) comes with the training slice,
+ROADMAP Queue A step 7.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Any, NamedTuple
+
+import torch
+
+from . import health
+from .health import SolveFailure, SolveHealthWarning, classify_mbcg
+from .linear_operator import LinearOperator
+from .mbcg import mbcg
+from .precision import MIXED_NOT_PORTED, validate_precision
+from .preconditioner import IdentityPreconditioner, build_preconditioner
+from .slq import logdet_from_mbcg
+
+
+@dataclasses.dataclass(frozen=True)
+class BBMMSettings:
+    """Inference-engine knobs — every field of the reference's
+    ``BBMMSettings``, with the same defaults.  Fields whose path is not
+    ported yet are kept so configurations carry over; the engine refuses
+    their non-default values with ``NotImplementedError`` naming the
+    ROADMAP Queue A step that brings them."""
+
+    num_probes: int = 10  # t — probe vectors for trace/logdet
+    max_cg_iters: int = 20  # p — mBCG iterations
+    cg_tol: float = 1e-4  # per-column relative residual target
+    precond_rank: int = 5  # k — pivoted-Cholesky rank (0 = off)
+    precond_jitter: float = 1e-8
+    precision: str = "highest"  # "highest" | "mixed" (step 10)
+    cg_refresh_every: int = 2  # mixed: f32 residual-refresh period (step 10)
+    cg_refresh_adaptive: bool = False  # mixed (step 10)
+    cg_refresh_max_period: int = 16  # mixed (step 10)
+    fuse_cg: bool = False  # one fused launch per CG iteration (step 9)
+    on_failure: str = "warn"  # "raise" | "warn" | "degrade" (step 13)
+    dense_fallback_max_n: int = 2048  # degradation ladder's dense rung (step 13)
+    max_basis_columns: int = 0  # streaming cache compaction (step 14)
+    panel_rows: int = 0  # partitioned path (step 12)
+    panel_budget_bytes: int = 0  # partitioned path (step 12)
+    dense_direct_max_n: int = 0  # dense-Cholesky routing for tiny n (step 13)
+
+    def __post_init__(self):
+        if self.on_failure not in ("raise", "degrade", "warn"):
+            raise ValueError(
+                f"on_failure must be 'raise', 'degrade' or 'warn', got "
+                f"{self.on_failure!r}"
+            )
+
+
+def _solver_matmuls(op: LinearOperator, settings: BBMMSettings):
+    """The precision-policy split of one operator into the mBCG matmul.
+    "highest" → one f32 matmul of the prepared operator (X/ℓ hoisted), no
+    refresh.  "mixed" and ``fuse_cg`` are not ported yet."""
+    validate_precision(settings.precision)
+    if settings.precision == "mixed":
+        raise NotImplementedError(MIXED_NOT_PORTED)
+    if settings.fuse_cg:
+        raise NotImplementedError(
+            "fuse_cg (one fused kernel launch per CG iteration) is not ported "
+            "yet: ROADMAP Queue A step 9"
+        )
+    return op.prepare().matmul
+
+
+def _precond_solve_arg(precond):
+    """mbcg's ``precond_solve``: None for the identity, the Woodbury solve
+    otherwise."""
+    return None if isinstance(precond, IdentityPreconditioner) else precond.solve
+
+
+def _run_with_ladder(run, settings: BBMMSettings, *, context):
+    """Execute ``run(settings) -> (value, report)`` under the ``on_failure``
+    policy: "warn" serves an unhealthy solve with a
+    :class:`SolveHealthWarning`, "raise" raises :class:`SolveFailure`.
+    Every final report is ``health.record``-ed, stamped with its wall time.
+    The "degrade" ladder and ``dense_direct_max_n`` routing are not ported
+    yet (ROADMAP Queue A step 13)."""
+    if settings.on_failure == "degrade":
+        raise NotImplementedError(
+            "on_failure='degrade' (the degradation ladder) is not ported yet: "
+            "ROADMAP Queue A step 13"
+        )
+    if settings.dense_direct_max_n > 0:
+        raise NotImplementedError(
+            "dense_direct_max_n (dense-Cholesky routing for small n) is not "
+            "ported yet: ROADMAP Queue A step 13"
+        )
+    t0 = time.perf_counter()
+    value, report = run(settings)
+    rung = dataclasses.replace(report.rungs[-1], duration_s=time.perf_counter() - t0)
+    report = dataclasses.replace(report, context=context, rungs=report.rungs[:-1] + (rung,))
+    health.record(report)
+    if not report.healthy:
+        if settings.on_failure == "raise":
+            raise SolveFailure(report.describe(), report)
+        warnings.warn(
+            f"unhealthy solve served as-is ({report.describe()})",
+            SolveHealthWarning,
+            stacklevel=3,
+        )
+    return value
+
+
+class PosteriorCache(NamedTuple):
+    """Reusable posterior-solve state for cheap repeated predictions.
+
+      * mean queries reuse ``alpha`` — O(n·s), zero CG iterations;
+      * variance queries use the Rayleigh–Ritz pair (``basis``,
+        ``gram_chol``): k*ᵀK̂⁻¹k* ≈ vᵀG⁻¹v with v = basisᵀk*,
+        G = basisᵀK̂basis — O(n·m) per query and conservative.
+    """
+
+    alpha: torch.Tensor  # (n,)  K̂⁻¹y
+    basis: torch.Tensor | None  # (n, m) orthonormal Krylov cache columns
+    gram_chol: torch.Tensor | None  # (m, m) chol(basisᵀ K̂ basis)
+    probes: torch.Tensor  # (n, t)  zᵢ
+    probe_solves: torch.Tensor  # (n, t) K̂⁻¹zᵢ
+    precond: Any  # preconditioner factors (reused by uncached predict solves)
+    inv_quad: torch.Tensor  # yᵀK̂⁻¹y
+    logdet: torch.Tensor  # log|K̂| estimate (NaN without the variance stage)
+    cg_iters: torch.Tensor  # (t+1,) iterations the build used per RHS
+
+
+def _run_engine(
+    op: LinearOperator,
+    y: torch.Tensor,
+    generator: torch.Generator,
+    settings: BBMMSettings,
+    *,
+    return_basis: bool = False,
+    with_logdet: bool = True,
+):
+    """The shared engine forward pass: preconditioner + probes + ONE mBCG
+    over [y | Z] and (optionally) the SLQ log-det.
+
+    Returns (precond, Z, res, probe_solves, logdet)."""
+    n = y.shape[-1]
+    precond = build_preconditioner(op, settings.precond_rank, jitter=settings.precond_jitter)
+    Z = precond.sample_probes(generator, settings.num_probes, n).to(y.dtype)
+    B = torch.cat([y[:, None], Z], dim=-1)
+
+    res = mbcg(
+        _solver_matmuls(op, settings),
+        B,
+        precond_solve=_precond_solve_arg(precond),
+        max_iters=settings.max_cg_iters,
+        tol=settings.cg_tol,
+        return_basis=return_basis,
+    )
+    probe_solves = res.solves[..., 1:]
+
+    if with_logdet:
+        probe_res = res._replace(
+            solves=probe_solves,
+            tridiag_alpha=res.tridiag_alpha[..., 1:, :],
+            tridiag_beta=res.tridiag_beta[..., 1:, :],
+            active_steps=res.active_steps[..., 1:, :],
+            num_iters=res.num_iters[..., 1:],
+            residual_norm=res.residual_norm[..., 1:],
+        )
+        logdet = logdet_from_mbcg(probe_res, precond.inv_quad(Z), precond.logdet())
+    else:
+        logdet = torch.full((), torch.nan, device=y.device)  # mean-only build
+    return precond, Z, res, probe_solves, logdet
+
+
+def build_posterior_cache(
+    op: LinearOperator,
+    y: torch.Tensor,
+    generator: torch.Generator,
+    settings: BBMMSettings = BBMMSettings(),
+    *,
+    variance_cache: bool = True,
+) -> PosteriorCache:
+    """One engine call → a :class:`PosteriorCache` for O(n·m) queries.
+
+    The cache basis spans every solve the engine produced plus all
+    preconditioned-Lanczos directions recovered from the CG run,
+    orthonormalized by one QR; its Gram matrix against K̂ costs one extra
+    blackbox matmul.  ``variance_cache=False`` skips the Lanczos-basis
+    recording, the QR / extra matmul / Cholesky and the SLQ log-det."""
+    if y.dim() != 1:
+        raise ValueError("posterior cache supports a single problem (y of shape (n,))")
+    n = y.shape[0]
+
+    def run(s):
+        precond, Z, res, probe_solves, logdet = _run_engine(
+            op, y, generator, s, return_basis=variance_cache, with_logdet=variance_cache
+        )
+        alpha = res.solves[:, 0]
+        basis = gram_chol = None
+        if variance_cache:
+            span = torch.cat([res.solves, res.basis.reshape(n, -1)], dim=-1)
+            basis, _ = torch.linalg.qr(span.to(torch.float32))  # (n, m)
+            KQ = op.prepare().matmul(basis)  # ONE extra blackbox matmul
+            gram = basis.T @ KQ
+            gram = 0.5 * (gram + gram.T)
+            m = gram.shape[0]
+            jitter = 1e-6 * torch.trace(gram) / m
+            eye = torch.eye(m, dtype=gram.dtype, device=gram.device)
+            gram_chol = torch.linalg.cholesky(gram + jitter * eye)
+
+        cache = PosteriorCache(
+            alpha=alpha,
+            basis=basis,
+            gram_chol=gram_chol,
+            probes=Z,
+            probe_solves=probe_solves,
+            precond=precond,
+            inv_quad=torch.dot(y, alpha),
+            logdet=logdet,
+            cg_iters=res.num_iters,
+        )
+        return cache, classify_mbcg(res, s.cg_tol, max_iters=s.max_cg_iters)
+
+    return _run_with_ladder(run, settings, context="cache_build")
+
+
+def cached_mean(cache: PosteriorCache, Kxs: torch.Tensor) -> torch.Tensor:
+    """Posterior mean k(X*, X) K̂⁻¹y from the cache — O(n·s), no CG."""
+    return Kxs.T @ cache.alpha
+
+
+def cached_inv_quad(cache: PosteriorCache, Kxs: torch.Tensor) -> torch.Tensor:
+    """k*ᵀK̂⁻¹k* per column of Kxs via the Rayleigh–Ritz cache — O(n·m)."""
+    if cache.basis is None:
+        raise ValueError(
+            "cache was built with variance_cache=False; rebuild with "
+            "variance_cache=True for variance queries"
+        )
+    v = cache.basis.T @ Kxs  # (m, s)
+    w = torch.cholesky_solve(v, cache.gram_chol)
+    return torch.sum(v * w, dim=0)
+
+
+def solve(op, B, settings: BBMMSettings = BBMMSettings(), *, precond=None):
+    """Plain preconditioned solve K̂⁻¹B (prediction-time helper).
+
+    ``precond``: a prebuilt preconditioner (e.g. ``PosteriorCache.precond``)
+    to reuse instead of rebuilding the pivoted-Cholesky factors.
+    Health-checked per ``settings.on_failure``."""
+
+    def run(s):
+        p = precond
+        if p is None:
+            p = build_preconditioner(op, s.precond_rank, jitter=s.precond_jitter)
+        res = mbcg(
+            _solver_matmuls(op, s),
+            B,
+            precond_solve=_precond_solve_arg(p),
+            max_iters=s.max_cg_iters,
+            tol=s.cg_tol,
+        )
+        return res.solves, classify_mbcg(res, s.cg_tol, max_iters=s.max_cg_iters)
+
+    return _run_with_ladder(run, settings, context="solve")

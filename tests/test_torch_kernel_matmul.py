@@ -1,0 +1,240 @@
+"""The port's fused kernel matmul against the reference's.
+
+Inputs are made from a seed with numpy and go through both packages: the
+reference's Pallas kernel in interpret mode (``fused_kernel_matmul``) and
+its dense oracle (``kernel_matmul_ref``), the port's wrapper on CPU tensors
+(which runs the plain PyTorch version).  Tolerances are the reference's own:
+2e-4 against the oracle (tests/test_kernel_matmul_pallas.py:23), 1e-5 for
+row-offset slices reassembling the full product (:132).
+
+The CUDA kernel itself is held against the plain version on the card by
+``tests/test_torch_cuda.py`` (which imports no JAX) and by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.kernel_matmul.ops import (
+    fused_kernel_matmul as ref_fused_kernel_matmul,
+    fused_kernel_matmul_prescaled as ref_fused_prescaled,
+    prescale_inputs as ref_prescale_inputs,
+)
+from repro.kernels.kernel_matmul.ref import kernel_matmul_ref as ref_kernel_matmul_ref
+from repro_torch.kernels.kernel_matmul import build
+from repro_torch.kernels.kernel_matmul import kernel_matmul as km
+from repro_torch.kernels.kernel_matmul.ops import (
+    fused_kernel_matmul,
+    fused_kernel_matmul_prescaled,
+    prescale_inputs,
+)
+from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_plain, kernel_matmul_ref
+
+KERNEL_TYPES = ["rbf", "matern12", "matern32", "matern52"]
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _inputs(seed, n, d, t, *, batch=None, ard=False):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    shape = (n, t) if batch is None else (batch, n, t)
+    M = rng.standard_normal(shape).astype(np.float32)
+    ell = (
+        rng.uniform(0.4, 1.5, d).astype(np.float32) if ard else np.float32(0.7)
+    )
+    return X, M, ell
+
+
+def _port(X, M, ell, s, s2, kernel_type):
+    out = fused_kernel_matmul(
+        torch.from_numpy(X), torch.from_numpy(M), torch.as_tensor(ell), s, s2,
+        kernel_type=kernel_type,
+    )
+    return out.numpy()
+
+
+def _exact_f64(X, M, ell, s, s2, kernel_type):
+    """(K + σ²I) @ M in float64 from direct differences — no cancellation."""
+    Xs = X.astype(np.float64) / np.asarray(ell, np.float64)
+    dist = np.sqrt(((Xs[:, None, :] - Xs[None, :, :]) ** 2).sum(-1))
+    if kernel_type == "rbf":
+        K = np.exp(-0.5 * dist * dist)
+    elif kernel_type == "matern12":
+        K = np.exp(-dist)
+    elif kernel_type == "matern32":
+        a = np.sqrt(3.0) * dist
+        K = (1.0 + a) * np.exp(-a)
+    else:
+        a = np.sqrt(5.0) * dist
+        K = (1.0 + a + a * a / 3.0) * np.exp(-a)
+    return (s * K + s2 * np.eye(len(X))) @ M.astype(np.float64)
+
+
+def _assert_matches_reference(out, ref, exact, kernel_type):
+    """2e-4 against a reference path; for Matérn-½ plus that path's own
+    distance from the exact f64 product (see the test below)."""
+    if kernel_type != "matern12":
+        np.testing.assert_allclose(out, ref, **TOL)
+    allowed = TOL["atol"] + TOL["rtol"] * np.abs(ref) + np.abs(ref - exact)
+    assert np.all(np.abs(out - ref) <= allowed)
+
+
+def _reference(X, M, ell, s, s2, kernel_type):
+    return np.asarray(
+        ref_fused_kernel_matmul(
+            jnp.asarray(X), jnp.asarray(M), jnp.asarray(ell), jnp.float32(s),
+            jnp.float32(s2), kernel_type=kernel_type, interpret=True,
+        )
+    )
+
+
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+@pytest.mark.parametrize(
+    "n,d,t,ard", [(97, 3, 1, False), (131, 4, 9, True), (257, 2, 5, False)]
+)
+def test_plain_matches_reference_kernel_and_oracle(kernel_type, n, d, t, ard):
+    """2e-4 against the reference's Pallas kernel and its oracle.
+
+    Matérn-½ is the exception the reference brings itself: its distance
+    expansion rounds some coincident-point distances² to ~1e-6 instead of
+    0, and the kernel's sqrt turns that into up to ~4e-3 in K̂·M (measured
+    here against an f64 evaluation).  So for every kernel type the port is
+    held at 2e-4 against the exact f64 product, and against each reference
+    path at 2e-4 plus that path's own measured distance from it; for the
+    three smooth kernels that distance is ~1e-5 and the plain 2e-4 holds."""
+    X, M, ell = _inputs(KERNEL_TYPES.index(kernel_type) * 1000 + n, n, d, t, ard=ard)
+    out = _port(X, M, ell, 1.3, 0.05, kernel_type)
+    assert out.shape == (n, t) and out.dtype == np.float32
+    exact = _exact_f64(X, M, ell, 1.3, 0.05, kernel_type)
+    np.testing.assert_allclose(out, exact, **TOL)
+    oracle = np.asarray(
+        ref_kernel_matmul_ref(
+            jnp.asarray(X), jnp.asarray(M), jnp.asarray(ell), 1.3, 0.05,
+            kernel_type=kernel_type,
+        )
+    )
+    pallas = _reference(X, M, ell, 1.3, 0.05, kernel_type)
+    for ref in (oracle, pallas):
+        _assert_matches_reference(out, ref, exact, kernel_type)
+
+
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+def test_port_oracle_matches_reference_oracle(kernel_type):
+    X, M, ell = _inputs(3, 120, 3, 6, ard=True)
+    out = kernel_matmul_ref(
+        torch.from_numpy(X), torch.from_numpy(M), torch.from_numpy(ell), 0.9, 0.1,
+        kernel_type=kernel_type,
+    )
+    ref = ref_kernel_matmul_ref(
+        jnp.asarray(X), jnp.asarray(M), jnp.asarray(ell), 0.9, 0.1, kernel_type=kernel_type
+    )
+    exact = _exact_f64(X, M, ell, 0.9, 0.1, kernel_type)
+    np.testing.assert_allclose(out.numpy(), exact, **TOL)
+    _assert_matches_reference(out.numpy(), np.asarray(ref), exact, kernel_type)
+
+
+def test_vector_rhs():
+    X, M, ell = _inputs(4, 200, 3, 1)
+    m = M[:, 0]
+    out = _port(X, m, ell, 1.0, 0.01, "rbf")
+    assert out.shape == (200,)
+    np.testing.assert_allclose(out, _reference(X, m, ell, 1.0, 0.01, "rbf"), **TOL)
+
+
+def test_row_offset_slices_reassemble_full_product():
+    """Row slices with a global row_offset reassemble the full product: the
+    σ² diagonal lands at global coordinates."""
+    n, shards = 120, 3
+    X, M, ell = _inputs(12, n, 4, 6)
+    Xs = prescale_inputs(torch.from_numpy(X), torch.as_tensor(ell))
+    Mt = torch.from_numpy(M)
+    full = fused_kernel_matmul_prescaled(Xs, Xs, Mt, 1.2, 0.5)
+    n_loc = n // shards
+    parts = [
+        fused_kernel_matmul_prescaled(
+            Xs[i * n_loc : (i + 1) * n_loc], Xs, Mt, 1.2, 0.5, row_offset=i * n_loc
+        )
+        for i in range(shards)
+    ]
+    np.testing.assert_allclose(torch.cat(parts).numpy(), full.numpy(), rtol=1e-5, atol=1e-5)
+    # and each slice equals the reference's slice
+    Xr = ref_prescale_inputs(jnp.asarray(X), jnp.float32(ell))
+    for i, part in enumerate(parts):
+        ref = ref_fused_prescaled(
+            Xr[i * n_loc : (i + 1) * n_loc], Xr, jnp.asarray(M), jnp.float32(1.2),
+            jnp.float32(0.5), row_offset=i * n_loc, interpret=True,
+        )
+        np.testing.assert_allclose(part.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("n,t,b", [(64, 4, 2), (100, 3, 3)])
+def test_batched_rhs_matches_slices_and_reference(n, t, b):
+    """A 3-D M (the B2 form) equals per-slice products and the reference's
+    native batch grid."""
+    X, M, ell = _inputs(19, n, 3, t, batch=b)
+    out = _port(X, M, ell, 1.0, 0.1, "matern32")
+    assert out.shape == (b, n, t)
+    for i in range(b):
+        np.testing.assert_allclose(
+            out[i], _port(X, M[i], ell, 1.0, 0.1, "matern32"), rtol=1e-5, atol=1e-5
+        )
+    np.testing.assert_allclose(out, _reference(X, M, ell, 1.0, 0.1, "matern32"), **TOL)
+
+
+def test_non_contiguous_rhs_is_read_with_its_strides():
+    """A column slice of a solve block arrives non-contiguous; the ops layer
+    hands the kernel a contiguous copy, never the wrong strides."""
+    X, M, ell = _inputs(5, 90, 3, 8)
+    Mt = torch.from_numpy(M)
+    sliced = Mt[:, 1::2]
+    assert not sliced.is_contiguous()
+    Xt = torch.from_numpy(X)
+    out = fused_kernel_matmul(Xt, sliced, torch.as_tensor(ell), 1.0, 0.2)
+    expect = fused_kernel_matmul(Xt, sliced.contiguous(), torch.as_tensor(ell), 1.0, 0.2)
+    np.testing.assert_array_equal(out.numpy(), expect.numpy())
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting_a_launch():
+    X, M, ell = _inputs(6, 50, 2, 3)
+    km.reset_launch_counts()
+    Xs = torch.from_numpy(X) / 0.7
+    out = km.kernel_matmul_cuda(Xs, Xs, torch.from_numpy(M), 1.0, 0.1, kernel_type="matern52")
+    plain = kernel_matmul_plain(Xs, Xs, torch.from_numpy(M), 1.0, 0.1, kernel_type="matern52")
+    np.testing.assert_array_equal(out.numpy(), plain.numpy())
+    assert km.launches == 0 and km.batched_launches == 0
+
+
+def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
+    """A tensor that is not on the CPU launches the kernel or raises: here
+    the meta device, which is neither CPU nor CUDA, must raise."""
+    X = torch.empty((8, 2), device="meta")
+    M = torch.empty((8, 3), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        km.kernel_matmul_cuda(X, X, M, 1.0, 0.0)
+
+
+def test_ctypes_signature_matches_the_c_entry_point():
+    """The binding's argtypes follow the source's extern "C" signature, one
+    for one, with every pointer (and the stream) as c_void_p."""
+    import ctypes
+    import re
+
+    src = build.SOURCE.read_text()
+    params = re.search(r'extern "C" int kernel_matmul_f32\(([^)]*)\)', src).group(1)
+    expected = []
+    for param in params.split(","):
+        if "*" in param:
+            expected.append(ctypes.c_void_p)
+        elif param.split()[0] == "int":
+            expected.append(ctypes.c_int)
+        else:
+            expected.append(ctypes.c_float)
+    assert build.ARGTYPES == expected
+
+
+def test_build_without_nvcc_is_an_error(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        build._nvcc()
