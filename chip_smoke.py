@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: builds its CUDA kernels, holds each
 against its plain PyTorch version on the card, and drives the exact-GP
-serving slice at full size through the kernels.
+serving and training slices at full size through the kernels.
 
     python3 chip_smoke.py [--seed 0] [--n 40000]
 
 Phases (each prints one JSON object per line; any failure exits non-zero
 and the final line is then not printed):
 
-  1. build      nvcc of ``src/repro_torch/kernels/kernel_matmul/csrc``
+  1. build      nvcc of every ``src/repro_torch/kernels/kernel_matmul/csrc``
+                source, one process per source, all at once
   2. kernel     B1 (2-D M) and B2 (3-D M) against ``kernel_matmul_plain``
                 for rbf / matern12/32/52 at odd n, ARD, t ∈ {1, 9, 234, 256};
                 row_offset slices of the n=40,000 product; b=4 batches;
                 tolerance 2e-4 relative (max |Δ| / max |plain|)
+     fused_kernel  B3 against ``fused_cg_step_plain``: odd n, t ∈ {1, 9, 33},
+                b ∈ {1, 3}, the four kernel types, frozen and all-zero
+                columns, the no-op prologue (γ = 0), row_offset shards that
+                reassemble the full step, one case at n=40,000; state rtol /
+                atol 2e-4, reductions rtol 2e-4 / atol 2e-3
+     grad_kernel   the gradient kernel against ``kernel_matmul_grad_plain``:
+                the four kernel types, scalar and ARD ℓ (through the chain
+                to ℓ), rows ≠ columns, coincident points, one case at
+                n=40,000; tolerance 2e-4 relative
   3. timing     the kernels at the slice's shapes beside the plain version,
-                a torch.cdist → kernel map → torch.matmul yardstick and the
-                card's bound, CUDA events around synchronised launches
+                a library yardstick (torch.cdist → kernel map → torch.matmul,
+                autograd through it for the gradient) and the card's bound,
+                CUDA events around synchronised launches
   4. serve      ExactGP(matern52, mode="cuda") on n=40,000, d=8 synthetic
                 kin40k-shaped data: one posterior_cache build, eight
                 1,024-point predict_cached requests, one 256-point predict;
@@ -29,6 +40,16 @@ and the final line is then not printed):
   6. witness    the full 25 iterations on the plain path, the same mBCG in
                 f64 and the exact f64 posterior beside the kernel path's
                 outputs; the cached variance must stay conservative
+  7. train      ExactGP(matern52, mode="cuda", fuse_cg=True, precond_rank=0)
+                .fit on the same data, 5 Adam steps, each synchronised and
+                timed with its launches (B3 max_cg_iters per forward, the
+                gradient kernel in the backward); the anatomy of one step
+                (no B1 in the fused forward); peak device memory (K never
+                formed); a 5-iteration prefix of the first step held to
+                the unfused path with every kernel replaced by its plain
+                version (MLL rtol 1e-4, every gradient rtol 1e-3) and the
+                fused solves to the unfused B1 solves (rtol 1e-3 / atol
+                1e-4); one unfused step at precond_rank=5
 
 The last line is ``{"ok": true, "device": {...}}``.  Run from a checkout of
 the repository; needs one CUDA device.
@@ -37,6 +58,7 @@ the repository; needs one CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -60,7 +82,16 @@ REL_TOL = 2e-4
 MEAN_TOL = dict(rtol=1e-3, atol=1e-4)
 VAR_TOL = dict(rtol=5e-3, atol=1e-4)
 PREFIX_ITERS = 5  # CG iterations over which the kernel and plain paths must agree
-KERNEL_SOURCE = "src/repro_torch/kernels/kernel_matmul/csrc/kernel_matmul.cu"
+FUSED_STATE_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_fused_cg.py:84-86
+FUSED_RED_TOL = dict(rtol=2e-4, atol=2e-3)
+MLL_RTOL = 1e-4  # tests/test_fused_cg.py:309
+SOLVE_TOL = dict(rtol=1e-3, atol=1e-4)  # tests/test_fused_cg.py:311
+GRAD_RTOL = 1e-3  # per parameter, relative to its gradient (the reason: PERF.md §2)
+TRAIN_STEPS = 5
+CSRC = "src/repro_torch/kernels/kernel_matmul/csrc/"
+KERNEL_SOURCE = CSRC + "kernel_matmul.cu"
+FUSED_SOURCE = CSRC + "fused_cg_step.cu"
+GRAD_SOURCE = CSRC + "kernel_matmul_grad.cu"
 
 
 class CheckFailed(AssertionError):
@@ -126,6 +157,34 @@ def kernel_bound(rows: int, cols: int, d: int, t: int, batch: int = 1):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def fused_bound(n: int, d: int, t: int, batch: int = 1):
+    """Least time for one fused CG step (B3) on an H100: B1's operations
+    (the kernel tile once, 2t flops per entry per batch element) plus the
+    prologue and the four reductions (~14 flops per state element),
+    against X read once, the state U, R, D, V and α, β, γ read once and
+    U′, R′, D′, V′ and the reductions written once."""
+    ops = n * n * (2 * d + 1) + 2 * n * n * t * batch + 14 * n * t * batch
+    nbytes = 4 * (n * d + 8 * batch * n * t + 7 * batch * t)
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def grad_bound(n: int, d: int, t: int):
+    """Least time for B1's vector-Jacobian product for both inputs and the
+    outputscale on an H100: per kernel entry the differences and the
+    distance from them (3d), the weight ⟨Cᵢ, Mⱼ⟩ (2t), f, f′ and the
+    coefficient as the kernel executes them for Matérn-5/2 (~20, one exp)
+    and one FMA per feature for each gradient sum, rows and columns, which
+    share the differences (2 × 2d), against X, M and C read once and both
+    gradients written once."""
+    ops = n * n * (7 * d + 2 * t + 20)
+    nbytes = 4 * (n * d + 2 * n * t + 2 * n * d)
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
@@ -133,15 +192,18 @@ def kernel_bound(rows: int, cols: int, d: int, t: int, batch: int = 1):
 
 def phase_build(build):
     t0 = time.perf_counter()
-    info = build.build()
-    build.load_library()
-    ptxas = [ln.strip() for ln in info.log.splitlines() if "registers" in ln or "spill" in ln]
+    infos = build.build_all()
+    for name in infos:
+        build.load_library(name)
     emit({
         "phase": "build",
-        "library": info.path.name,
-        "nvcc_seconds": round(info.seconds, 3),
         "seconds": round(time.perf_counter() - t0, 3),
-        "ptxas": ptxas,
+        "libraries": {
+            name: {"file": info.path.name, "nvcc_seconds": round(info.seconds, 3),
+                   "ptxas": sorted({ln.strip() for ln in info.log.splitlines()
+                                    if "registers" in ln or "spill" in ln})}
+            for name, info in infos.items()
+        },
     })
 
 
@@ -209,6 +271,164 @@ def phase_kernel(km, plain, rng, errs):
           "max_abs_err": {k: v for k, v in errs.items()}})
 
 
+def _randn(rng, shape, dev, scale=1.0):
+    return torch.from_numpy((scale * rng.standard_normal(shape)).astype("float32")).to(dev)
+
+
+def _cg_inputs(rng, dev, b, n, t):
+    """A random fused-step state (U, R, D, V) and pending scalars α, β, γ."""
+    state = [_randn(rng, (b, n, t), dev) for _ in range(4)]
+    alpha = _randn(rng, (b, t), dev)
+    beta = _randn(rng, (b, t), dev, 0.5)
+    return state, [alpha, beta, torch.ones_like(alpha)]
+
+
+def phase_fused_kernel(km, rng, errs):
+    """B3 against its plain version, case by case (the state at rtol /
+    atol 2e-4, the reductions at rtol 2e-4 / atol 2e-3)."""
+    from repro_torch.kernels.kernel_matmul.ref import fused_cg_step_plain
+
+    dev = torch.device("cuda")
+    d = 8
+    cases = []
+
+    def run(Xr, Xc, state, cols, scalars, kt, off=0, s=1.1, s2=0.1):
+        out = km.fused_cg_step_cuda(Xr, Xc, *state, *cols, *scalars, s, s2, off, kernel_type=kt)
+        ref = fused_cg_step_plain(Xr, Xc, *state, *cols, *scalars, s, s2, off, kernel_type=kt)
+        return out, ref
+
+    def compare(name, out, ref):
+        torch.cuda.synchronize()
+        state_err = max(_err(a, b) for a, b in zip(out[:4], ref[:4]))
+        red_rel = float(((out[4] - ref[4]).abs() / ref[4].abs().clamp(min=1e-30)).max())
+        errs["B3"] = max(errs["B3"], state_err)
+        cases.append({"case": name, "state_max_abs_err": state_err, "red_max_rel_err": red_rel})
+        check(all(bool(torch.isfinite(a).all()) for a in out), f"{name}: non-finite B3 output")
+        for a, b, nm in zip(out, ref, ("U", "R", "D", "V", "red")):
+            tol = FUSED_RED_TOL if nm == "red" else FUSED_STATE_TOL
+            check(_within(a, b, tol), f"{name}: B3 {nm} outside {tol} (max |Δ| {_err(a, b):.3e})")
+
+    for n in (1001, 4097):
+        Xs = torch.from_numpy(rng.standard_normal((n, d)).astype("float32") / 0.7).to(dev)
+        for t in (1, 9, 33):
+            for b in (1, 3):
+                state, scalars = _cg_inputs(rng, dev, b, n, t)
+                for kt in KERNEL_TYPES:
+                    out, ref = run(Xs, Xs, state, state[1:], scalars, kt)
+                    compare(f"B3 {kt} n={n} t={t} b={b}", out, ref)
+
+    # column 0 frozen (α = β = γ = 0), column 1 an all-zero padded column
+    n, t, b = 1001, 9, 2
+    Xs = torch.from_numpy(rng.standard_normal((n, d)).astype("float32")).to(dev)
+    state, scalars = _cg_inputs(rng, dev, b, n, t)
+    for x in scalars:
+        x[:, :2] = 0.0
+    for x in state:
+        x[:, :, 1] = 0.0
+    out, ref = run(Xs, Xs, state, state[1:], scalars, "matern52")
+    compare("B3 frozen and zero columns", out, ref)
+    check(torch.equal(out[0][..., 0], state[0][..., 0]) and torch.equal(out[1][..., 0], state[1][..., 0]),
+          "B3: a frozen column's U or R changed")
+    check(all(bool((x[..., 1] == 0).all()) for x in out),
+          "B3: an all-zero column with α = β = γ = 0 gave a non-zero output or reduction")
+
+    # γ = 0, α = 0, β = 1: the no-op prologue leaves U, R, D as they were
+    state, scalars = _cg_inputs(rng, dev, 1, n, t)
+    scalars = [torch.zeros_like(scalars[0]), torch.ones_like(scalars[0]), torch.zeros_like(scalars[0])]
+    out, ref = run(Xs, Xs, state, state[1:], scalars, "rbf")
+    compare("B3 no-op prologue", out, ref)
+    check(all(torch.equal(a, b) for a, b in zip(out[:3], state[:3])),
+          "B3: the no-op prologue (α=0, β=1, γ=0) changed U, R or D")
+
+    # row_offset shards of an odd n reassemble the full step
+    n = 4097
+    Xs = torch.from_numpy(rng.standard_normal((n, d)).astype("float32") / 0.7).to(dev)
+    state, scalars = _cg_inputs(rng, dev, 3, n, t)
+    full = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.1, 0.1,
+                                 kernel_type="matern32")
+    parts = []
+    for lo, hi in ((0, 1366), (1366, 2732), (2732, n)):
+        rows = [x[:, lo:hi].contiguous() for x in state]
+        out, ref = run(Xs[lo:hi].contiguous(), Xs, rows, state[1:], scalars, "matern32", lo)
+        compare(f"B3 shard rows={lo}:{hi}", out, ref)
+        parts.append(out)
+    whole = [torch.cat([p[k] for p in parts], dim=1) for k in range(4)]
+    whole.append(sum(p[4] for p in parts))
+    compare("B3 shards reassembled vs the full step", whole, full)
+
+    # the slice's shape
+    n = 40_000
+    X = rng.uniform(-1, 1, (n, d)).astype("float32")
+    Xs = torch.from_numpy(X / 0.5).to(dev)
+    state, scalars = _cg_inputs(rng, dev, 1, n, 9)
+    out, ref = run(Xs, Xs, state, state[1:], scalars, "matern52", s=1.0)
+    compare("B3 matern52 n=40000 t=9", out, ref)
+    del out, ref
+    torch.cuda.empty_cache()
+    emit({"phase": "fused_kernel", "cases": len(cases), "state_tol": FUSED_STATE_TOL,
+          "red_tol": FUSED_RED_TOL, "state_max_abs_err": errs["B3"],
+          "red_max_rel_err": max(c["red_max_rel_err"] for c in cases)})
+
+
+def phase_grad_kernel(km, rng, errs):
+    """The gradient kernel against ``kernel_matmul_grad_plain``, output by
+    output (2e-4 relative: max |Δ| / max |plain|), and through X/ℓ to a
+    scalar or ARD ℓ."""
+    from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_grad_plain
+
+    dev = torch.device("cuda")
+    d = 8
+    cases = []
+
+    def compare(name, out, ref):
+        torch.cuda.synchronize()
+        for a, b, nm in zip(out, ref, ("X1", "X2", "outputscale", "sigma2", "lengthscale")):
+            abs_err, rel = rel_err(a, b)
+            errs["grad"] = max(errs["grad"], abs_err)
+            cases.append({"case": f"{name} d/d{nm}", "max_abs_err": abs_err, "rel_err": rel})
+            check(bool(torch.isfinite(a).all()), f"{name}: non-finite gradient for {nm}")
+            check(rel <= REL_TOL, f"{name}: d/d{nm} relative error {rel:.3e} > {REL_TOL}")
+
+    def with_lengthscale(X1, X2, ell, M, C, kt, off=0):
+        """Both versions' gradients, and each carried through X/ℓ to ℓ."""
+        ell = ell.clone().requires_grad_()
+        Xs1, Xs2 = X1 / ell, X2 / ell
+        outs = []
+        for fn in (km.kernel_matmul_grad_cuda, kernel_matmul_grad_plain):
+            g = fn(Xs1.detach(), Xs2.detach(), M, C, 1.1, 0.1, off, kernel_type=kt)
+            (g_ell,) = torch.autograd.grad((Xs1, Xs2), ell, (g[0], g[1]), retain_graph=True)
+            outs.append((*g, g_ell))
+        return outs
+
+    for rows, cols in ((1001, 1001), (1001, 2049)):
+        for ard in (False, True):
+            X1 = _randn(rng, (rows, d), dev)
+            X2 = X1 if rows == cols else _randn(rng, (cols, d), dev)
+            if rows != cols:
+                X2[7] = X1[3]  # coincident points off the diagonal
+            ell = (torch.from_numpy(rng.uniform(0.4, 1.5, d).astype("float32")).to(dev) if ard
+                   else torch.tensor(0.7, device=dev))
+            for t in (1, 9, 33):
+                M, C = _randn(rng, (cols, t), dev), _randn(rng, (rows, t), dev)
+                for kt in KERNEL_TYPES:
+                    off = 0 if rows == cols else 5
+                    ours, ref = with_lengthscale(X1, X2, ell, M, C, kt, off)
+                    compare(f"grad {kt} rows={rows} cols={cols} t={t} ard={ard}", ours, ref)
+
+    # the slice's shape: one tensor on both sides, as in training
+    n = 40_000
+    Xs = torch.from_numpy((rng.uniform(-1, 1, (n, d)) / 0.5).astype("float32")).to(dev)
+    M, C = _randn(rng, (n, 9), dev), _randn(rng, (n, 9), dev)
+    ours = km.kernel_matmul_grad_cuda(Xs, Xs, M, C, 1.0, 0.1, kernel_type="matern52")
+    ref = kernel_matmul_grad_plain(Xs, Xs, M, C, 1.0, 0.1, kernel_type="matern52")
+    compare(f"grad matern52 n={n} t=9", ours, ref)
+    del ours, ref
+    torch.cuda.empty_cache()
+    emit({"phase": "grad_kernel", "cases": len(cases), "tolerance_rel": REL_TOL,
+          "largest_n": n, "max_rel_err": max(c["rel_err"] for c in cases),
+          "max_abs_err": errs["grad"]})
+
+
 def library_yardstick(Xs, M, outputscale, sigma2):
     """torch.cdist → Matérn-5/2 map → torch.matmul: the library composition
     a user would write for (K + σ²I)·M.  Timed here only."""
@@ -249,7 +469,74 @@ def phase_timing(km, plain, rng, n, t_gram):
         emit({"phase": "timing", "kernel": label, **rows[label]})
         del M
         torch.cuda.empty_cache()
+    rows["B3"] = time_fused_step(km, rng, Xs, n, d)
+    rows["grad"] = time_grad(km, rng, Xs, n, d)
     return rows
+
+
+def fused_library_yardstick(Xs, state, scalars, outputscale, sigma2):
+    """The fused step composed of library calls: the torch state update,
+    torch.cdist → Matérn-5/2 map → torch.matmul for K̂·D′, the torch
+    reductions.  Timed here only."""
+    U, R, D, V = state
+    a, b, g = (x[..., None, :] for x in scalars)
+    U, R = U + a * D, R - a * V
+    D = g * R + b * D
+    V = library_yardstick(Xs, D[0], outputscale, sigma2)[None]
+    return U, R, D, V, torch.stack([(D * V).sum(-2), (R * R).sum(-2), (R * V).sum(-2),
+                                    (V * V).sum(-2)], dim=-2)
+
+
+def grad_library_yardstick(Xs, M, C, outputscale, rows=8192):
+    """Autograd through torch.cdist → Matérn-5/2 map → torch.matmul, the
+    gradient for X (both sides) and the outputscale, a row slice at a time
+    so that K's intermediates fit.  Timed here only."""
+    X1 = Xs.detach().requires_grad_()
+    s = torch.tensor(float(outputscale), device=Xs.device, requires_grad=True)
+    for i in range(0, Xs.shape[0], rows):
+        a = math.sqrt(5.0) * torch.cdist(X1[i : i + rows], X1)
+        K = s * (1.0 + a + a * a / 3.0) * torch.exp(-a)
+        (K @ M).backward(C[i : i + rows])
+    return X1.grad, s.grad
+
+
+def time_fused_step(km, rng, Xs, n, d, t=9):
+    from repro_torch.kernels.kernel_matmul.ref import fused_cg_step_plain
+
+    state, scalars = _cg_inputs(rng, Xs.device, 1, n, t)
+    args = (Xs, Xs, *state, *state[1:], *scalars, 1.0, 0.1)
+    ms = time_ms(lambda: km.fused_cg_step_cuda(*args, kernel_type="matern52"), reps=10)
+    plain_ms = time_ms(lambda: fused_cg_step_plain(*args, kernel_type="matern52"), reps=3)
+    library_ms = time_ms(lambda: fused_library_yardstick(Xs, state, scalars, 1.0, 0.1), reps=3)
+    bound_ms, bound_by = fused_bound(n, d, t)
+    row = {"n": n, "d": d, "t": t, "batch": 1, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / ms}
+    emit({"phase": "timing", "kernel": "B3", **row})
+    torch.cuda.empty_cache()
+    return row
+
+
+def time_grad(km, rng, Xs, n, d, t=9):
+    """The whole VJP (two gradient-kernel launches and the σ² term) and one
+    launch alone."""
+    from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_grad_plain
+
+    M, C = _randn(rng, (n, t), Xs.device), _randn(rng, (n, t), Xs.device)
+    ms = time_ms(lambda: km.kernel_matmul_grad_cuda(Xs, Xs, M, C, 1.0, 0.1,
+                                                    kernel_type="matern52"), reps=10)
+    scal = torch.ones(1, device=Xs.device)
+    launch_ms = time_ms(lambda: km._grad_launch(Xs, Xs, C, M, scal, "matern52"), reps=10)
+    plain_ms = time_ms(lambda: kernel_matmul_grad_plain(Xs, Xs, M, C, 1.0, 0.1,
+                                                        kernel_type="matern52"), reps=1)
+    library_ms = time_ms(lambda: grad_library_yardstick(Xs, M, C, 1.0), reps=1)
+    bound_ms, bound_by = grad_bound(n, d, t)
+    row = {"n": n, "d": d, "t": t, "batch": 1, "ms": ms, "ms_per_launch": launch_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_share": bound_ms / ms}
+    emit({"phase": "timing", "kernel": "grad", **row})
+    torch.cuda.empty_cache()
+    return row
 
 
 def make_data(rng, n, d):
@@ -556,6 +843,189 @@ def phase_witness(km, gp, settings, data, cache, ours):
     check(under <= 1e-3, f"cached variance undershoots the exact one by {under:.3e}")
 
 
+@contextlib.contextmanager
+def plain_kernels(km):
+    """B1's wrapper and the gradient kernel's replaced by their plain
+    versions (K formed, autograd for the gradient), so the unfused path
+    runs without any kernel: nothing launches inside."""
+    from repro_torch.kernels.kernel_matmul import ref
+
+    saved = km.kernel_matmul_cuda, km.kernel_matmul_grad_cuda
+
+    def grad_plain(*args, need_cols=True, **kw):
+        return ref.kernel_matmul_grad_plain(*args, **kw)
+
+    km.kernel_matmul_cuda = ref.kernel_matmul_plain
+    km.kernel_matmul_grad_cuda = grad_plain
+    try:
+        yield
+    finally:
+        km.kernel_matmul_cuda, km.kernel_matmul_grad_cuda = saved
+
+
+def _counts(km):
+    return {"B3": km.fused_launches, "B1": km.launches, "grad": km.grad_launches}
+
+
+def phase_train(km, seed, n):
+    """The training slice: ExactGP(mode="cuda", fuse_cg=True,
+    precond_rank=0).fit for TRAIN_STEPS Adam steps on the serving data,
+    then the checks described in the module docstring.  Returns the
+    launches of the slice's runs."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings
+
+    d = 8
+    X, y = make_data(np.random.default_rng(seed), n, d)
+    Xd, yd = torch.from_numpy(X).cuda(), torch.from_numpy(y).cuda()
+    settings = BBMMSettings(num_probes=8, max_cg_iters=25, precond_rank=0)
+    p = settings.max_cg_iters
+    gp = ExactGP(kernel_type="matern52", mode="cuda", fuse_cg=True, settings=settings)
+
+    # the main path: fit, each step synchronised, timed and counted
+    steps = []
+    clock = [0.0]
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append({"step": i, "loss": loss, "ms": (now - clock[0]) * 1e3, **_counts(km)})
+        km.reset_launch_counts()
+        clock[0] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.reset_launch_counts()
+    clock[0] = time.perf_counter()
+    params, history = gp.fit(Xd, yd, steps=TRAIN_STEPS, callback=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: sum(st[k] for st in steps) for k in ("B3", "B1", "grad")}
+    emit({"phase": "train", "path": "cuda fused", "n": n, "d": d, "kernel": "matern52",
+          "settings": {"num_probes": 8, "max_cg_iters": p, "precond_rank": 0, "fuse_cg": True},
+          "lr": 0.1, "steps": steps, "loss_history": history,
+          "step_ms_mean": sum(st["ms"] for st in steps) / len(steps),
+          "peak_device_bytes": peak, "dense_K_bytes": 4 * n * n,
+          "params": {k: v.tolist() for k, v in params.items()}})
+    check(len(history) == TRAIN_STEPS and all(math.isfinite(v) for v in history),
+          f"non-finite loss history {history}")
+    check(all(bool(torch.isfinite(v).all()) for v in params.values()), "non-finite parameters")
+    for st in steps:
+        check(st["B3"] == p and st["grad"] == 2 and st["B1"] == 1,
+              f"step {st['step']}: launches {st} != B3 {p}, B1 1 (the VJP's primal), grad 2")
+    check(peak < 4 * n * n / 4, f"peak device memory {peak} B: a quarter of K is 1.6 GB")
+
+    # the anatomy of one step: B3 only in the forward, the VJP in the backward
+    p0 = {k: v.clone().requires_grad_() for k, v in gp.init_params(Xd).items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    km.reset_launch_counts()
+    loss = gp.loss(p0, Xd, yd, gen)
+    forward = _counts(km)
+    km.reset_launch_counts()
+    loss.backward()
+    torch.cuda.synchronize()
+    backward = _counts(km)
+    emit({"phase": "train_step_anatomy", "forward": forward, "backward": backward,
+          "device_ms_by_kernel": profile_step(gp, Xd, yd)})
+    check(forward == {"B3": p, "B1": 0, "grad": 0}, f"fused forward launches {forward}")
+    check(backward == {"B3": 0, "B1": 1, "grad": 2}, f"backward launches {backward}")
+    main = dict(launches)
+
+    phase_train_prefix(km, gp, settings, Xd, yd)
+
+    # one unfused step at the default preconditioner: B1 forward, same VJP
+    s5 = dataclasses.replace(settings, precond_rank=5)
+    gp5 = ExactGP(kernel_type="matern52", mode="cuda", settings=s5)
+    km.reset_launch_counts()
+    (params5, hist5), ms5, _ = timed(lambda: gp5.fit(Xd, yd, steps=1))
+    unfused = _counts(km)
+    emit({"phase": "train_unfused", "settings": {"num_probes": 8, "max_cg_iters": p,
+                                                   "precond_rank": 5, "fuse_cg": False},
+          "step_ms": ms5, "loss": hist5, "launches": unfused})
+    check(unfused == {"B3": 0, "B1": p + 1, "grad": 2}, f"unfused step launches {unfused}")
+    check(all(math.isfinite(v) for v in hist5), "unfused step: non-finite loss")
+    for k in main:
+        main[k] += unfused[k]
+    return main, history, steps
+
+
+def profile_step(gp, Xd, yd, top=6):
+    """Device time of one warm training step (loss and backward) by kernel,
+    from torch.profiler: the largest ``top`` entries, the rest summed, and
+    the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p0 = {k: v.clone().requires_grad_() for k, v in gp.init_params(Xd).items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gp.loss(p0, Xd, yd, gen).backward()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+         if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda kv: -kv[1],
+    )
+    out = {name[:60]: ms for name, ms in kernels[:top]}
+    out["other"] = sum(ms for _, ms in kernels[top:])
+    out["step_wall_ms_profiled"] = wall
+    return out
+
+
+def phase_train_prefix(km, gp, settings, Xd, yd):
+    """The first step cut to PREFIX_ITERS CG iterations, with the same
+    probes on every path: the fused kernel path against the unfused path
+    with every kernel replaced by its plain version (loss and each
+    parameter's gradient), and the fused B3 solves against the unfused B1
+    solves."""
+    from repro_torch import ExactGP
+    from repro_torch.core import engine_state
+
+    s = dataclasses.replace(settings, max_cg_iters=PREFIX_ITERS)
+    fused = ExactGP(kernel_type="matern52", mode="cuda", fuse_cg=True, settings=s)
+    unfused = ExactGP(kernel_type="matern52", mode="cuda", settings=s)
+    p0 = gp.init_params(Xd)
+
+    def generator():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        return g
+
+    def loss_and_grads(model):
+        p = {k: v.clone().requires_grad_() for k, v in p0.items()}
+        loss = model.loss(p, Xd, yd, generator())
+        loss.backward()
+        return loss.detach(), {k: v.grad for k, v in p.items()}
+
+    lf, gf = loss_and_grads(fused)
+    with plain_kernels(km):
+        km.reset_launch_counts()
+        lp, gp_ = loss_and_grads(unfused)
+        plain_launches = _counts(km)
+    sf = engine_state(fused.operator(p0, Xd), yd, generator(), fused.settings)
+    su = engine_state(unfused.operator(p0, Xd), yd, generator(), unfused.settings)
+    grads = {k: {"fused_kernel": gf[k].tolist(), "unfused_plain": gp_[k].tolist(),
+                 "rel_err": float((gf[k] - gp_[k]).abs().max() / gp_[k].abs().max())}
+             for k in gf}
+    solves = {"solve_y": _err(sf.solve_y, su.solve_y),
+              "probe_solves": _err(sf.probe_solves, su.probe_solves)}
+    emit({"phase": "train_prefix", "max_cg_iters": PREFIX_ITERS,
+          "loss": {"fused_kernel": float(lf), "unfused_plain": float(lp)},
+          "loss_rel_err": abs(float(lf - lp)) / abs(float(lp)), "mll_rtol": MLL_RTOL,
+          "grads": grads, "grad_rtol": GRAD_RTOL, "solves_fused_vs_b1_max_abs": solves,
+          "solve_tol": SOLVE_TOL, "plain_launches": plain_launches})
+    check(sum(plain_launches.values()) == 0, "the plain path launched a kernel")
+    check(abs(float(lf - lp)) <= MLL_RTOL * abs(float(lp)),
+          f"prefix MLL: fused kernel {float(lf)} vs unfused plain {float(lp)}")
+    for k, g in grads.items():
+        check(g["rel_err"] <= GRAD_RTOL, f"prefix gradient {k}: relative error {g['rel_err']:.3e}")
+    check(_within(sf.solve_y, su.solve_y, SOLVE_TOL) and _within(sf.probe_solves, su.probe_solves, SOLVE_TOL),
+          f"prefix solves: fused B3 vs unfused B1 {solves}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -584,16 +1054,21 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0), "seed": args.seed})
 
     rng = np.random.default_rng(args.seed)
-    errs = {"B1": 0.0, "B2": 0.0}
+    errs = {"B1": 0.0, "B2": 0.0, "B3": 0.0, "grad": 0.0}
     t_gram = 9 * 26  # (num_probes + 1) · (max_cg_iters + 1) basis columns
+    t_start = time.perf_counter()
     try:
         phase_build(build)
         phase_kernel(km, kernel_matmul_plain, rng, errs)
+        phase_fused_kernel(km, rng, errs)
+        phase_grad_kernel(km, rng, errs)
         timing = phase_timing(km, kernel_matmul_plain, rng, args.n, t_gram)
-        # the serving data has its own generator, so adding a case to an
-        # earlier phase does not change the problem the slice solves
+        # the serving and training data have their own generator, so adding
+        # a case to an earlier phase does not change the problem the slices
+        # solve
         launches, batched, build_ms, req_ms = phase_serve(
             km, np.random.default_rng(args.seed), args.n)
+        train, history, steps = phase_train(km, args.seed, args.n)
     except Exception:  # every phase failure ends the run non-zero
         traceback.print_exc()
         return 1
@@ -602,17 +1077,26 @@ def main() -> int:
                       "request_ms_mean": sum(req_ms) / len(req_ms),
                       "b1_ms_per_launch_n_t9": timing["B1"]["ms"],
                       "b1_ms_gram_t": timing["B1_gram"]["ms"],
-                      "b1_ms_t256": timing["B1_predict"]["ms"]}})
+                      "b1_ms_t256": timing["B1_predict"]["ms"]},
+          "training": {"loss_history": history,
+                       "step_ms": [st["ms"] for st in steps],
+                       "b3_ms_per_launch_n_t9": timing["B3"]["ms"],
+                       "grad_ms_per_vjp_n_t9": timing["grad"]["ms"]},
+          "seconds": time.perf_counter() - t_start})
     kernels = []
-    for name, key, replaces, count in (
-        ("kernel_matmul (B1)", "B1",
-         "src/repro/kernels/kernel_matmul/kernel_matmul.py:298", launches),
-        ("kernel_matmul batched (B2)", "B2",
+    for name, key, source, replaces, count in (
+        ("kernel_matmul (B1)", "B1", KERNEL_SOURCE,
+         "src/repro/kernels/kernel_matmul/kernel_matmul.py:298", launches + train["B1"]),
+        ("kernel_matmul batched (B2)", "B2", KERNEL_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:199", batched),
+        ("fused_cg_step (B3)", "B3", FUSED_SOURCE,
+         "src/repro/kernels/kernel_matmul/kernel_matmul.py:487", train["B3"]),
+        ("kernel_matmul_grad (port-only VJP, 2 launches per call)", "grad", GRAD_SOURCE,
+         "src/repro/core/inference.py:641 (jax.vjp, no TPU kernel)", train["grad"]),
     ):
         row = timing[key]
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": count, "max_abs_err": errs[key],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,5 +1,6 @@
-"""BBMM core in PyTorch: mBCG, pivoted-Cholesky preconditioning, SLQ
-log-dets and the serving engine (counterpart of ``repro.core``)."""
+"""BBMM core in PyTorch: mBCG (unfused and fused), pivoted-Cholesky
+preconditioning, SLQ log-dets, the differentiable MLL and the serving
+engine (counterpart of ``repro.core``)."""
 
 from .health import (
     RungRecord,
@@ -12,14 +13,25 @@ from .health import (
 )
 from .inference import (
     BBMMSettings,
+    InferenceState,
     PosteriorCache,
     build_posterior_cache,
     cached_inv_quad,
     cached_mean,
+    engine_state,
+    inv_quad_logdet,
+    marginal_log_likelihood,
     solve,
 )
-from .linear_operator import AddedDiagOperator, DenseOperator, DiagOperator, LinearOperator
-from .mbcg import MBCGResult, mbcg, tridiag_matrices
+from .linear_operator import (
+    AddedDiagOperator,
+    DenseOperator,
+    DiagOperator,
+    LinearOperator,
+    replace_tensor_leaves,
+    tensor_leaves,
+)
+from .mbcg import MBCGResult, mbcg, plain_cg_step, tridiag_matrices
 from .pivoted_cholesky import pivoted_cholesky, pivoted_cholesky_dense
 from .precision import normalize_compute_dtype, validate_precision
 from .preconditioner import (

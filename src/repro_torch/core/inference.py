@@ -1,21 +1,29 @@
-"""The BBMM inference engine, serving subset (counterpart of
-``repro.core.inference``).
+"""The BBMM inference engine (counterpart of ``repro.core.inference``).
 
 A single mBCG call over [y | Z] yields the solve K̂⁻¹y, the probe solves
 and the Lanczos tridiagonals for the SLQ log-determinant.
-:func:`build_posterior_cache` runs the engine once and packages every
-reusable solve (K̂⁻¹y, an orthonormal Krylov basis with its Rayleigh–Ritz
-Gram factor, the preconditioner) into a :class:`PosteriorCache`; repeated
-posterior queries then cost O(n·m) and no CG.  :func:`solve` is the plain
-preconditioned solve behind uncached predictions.
 
-The differentiable MLL (``inv_quad_logdet``) comes with the training slice,
-ROADMAP Queue A step 7.
+  * :func:`marginal_log_likelihood` / :func:`inv_quad_logdet` — the
+    differentiable MLL: a ``torch.autograd.Function`` whose forward is one
+    engine call and whose backward is ONE vector-Jacobian product through
+    K̂·[u | K̂⁻¹Z] (on the GPU, the gradient kernel);
+  * :func:`build_posterior_cache` runs the engine once and packages every
+    reusable solve (K̂⁻¹y, an orthonormal Krylov basis with its
+    Rayleigh–Ritz Gram factor, the preconditioner) into a
+    :class:`PosteriorCache`; repeated posterior queries then cost O(n·m)
+    and no CG;
+  * :func:`solve` is the plain preconditioned solve behind uncached
+    predictions; :func:`engine_state` the full, non-differentiable state.
+
+Under ``BBMMSettings(fuse_cg=True)`` every mBCG iteration is one fused
+step of the operator (on the GPU one B3 launch), where the operator has
+one; only ``precond_rank=0`` composes with it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 import warnings
 from typing import Any, NamedTuple
@@ -24,7 +32,7 @@ import torch
 
 from . import health
 from .health import SolveFailure, SolveHealthWarning, classify_mbcg
-from .linear_operator import LinearOperator
+from .linear_operator import LinearOperator, replace_tensor_leaves, tensor_leaves
 from .mbcg import mbcg
 from .precision import MIXED_NOT_PORTED, validate_precision
 from .preconditioner import IdentityPreconditioner, build_preconditioner
@@ -64,19 +72,25 @@ class BBMMSettings:
             )
 
 
+def _fused_step_of(op: LinearOperator, settings: BBMMSettings):
+    """The operator's CGStepFn when ``fuse_cg`` asks for it and the operator
+    has one; None otherwise (mbcg then runs the unfused loop)."""
+    if not settings.fuse_cg:
+        return None
+    return op.fused_cg_step_fn()
+
+
 def _solver_matmuls(op: LinearOperator, settings: BBMMSettings):
-    """The precision-policy split of one operator into the mBCG matmul.
-    "highest" → one f32 matmul of the prepared operator (X/ℓ hoisted), no
-    refresh.  "mixed" and ``fuse_cg`` are not ported yet."""
+    """The precision-policy split of one operator into the mBCG inputs:
+    (hot-loop matmul, fused CG step or None).  "highest" → one f32 matmul
+    of the prepared operator (X/ℓ hoisted), no refresh, and under
+    ``fuse_cg`` the prepared operator's fused step.  "mixed" is not ported
+    yet."""
     validate_precision(settings.precision)
     if settings.precision == "mixed":
         raise NotImplementedError(MIXED_NOT_PORTED)
-    if settings.fuse_cg:
-        raise NotImplementedError(
-            "fuse_cg (one fused kernel launch per CG iteration) is not ported "
-            "yet: ROADMAP Queue A step 9"
-        )
-    return op.prepare().matmul
+    solver = op.prepare()
+    return solver.matmul, _fused_step_of(solver, settings)
 
 
 def _precond_solve_arg(precond):
@@ -156,13 +170,15 @@ def _run_engine(
     Z = precond.sample_probes(generator, settings.num_probes, n).to(y.dtype)
     B = torch.cat([y[:, None], Z], dim=-1)
 
+    matmul, fused_step = _solver_matmuls(op, settings)
     res = mbcg(
-        _solver_matmuls(op, settings),
+        matmul,
         B,
         precond_solve=_precond_solve_arg(precond),
         max_iters=settings.max_cg_iters,
         tol=settings.cg_tol,
         return_basis=return_basis,
+        fused_step=fused_step,
     )
     probe_solves = res.solves[..., 1:]
 
@@ -261,13 +277,142 @@ def solve(op, B, settings: BBMMSettings = BBMMSettings(), *, precond=None):
         p = precond
         if p is None:
             p = build_preconditioner(op, s.precond_rank, jitter=s.precond_jitter)
+        matmul, fused_step = _solver_matmuls(op, s)
         res = mbcg(
-            _solver_matmuls(op, s),
+            matmul,
             B,
             precond_solve=_precond_solve_arg(p),
             max_iters=s.max_cg_iters,
             tol=s.cg_tol,
+            fused_step=fused_step,
         )
         return res.solves, classify_mbcg(res, s.cg_tol, max_iters=s.max_cg_iters)
 
     return _run_with_ladder(run, settings, context="solve")
+
+
+class InferenceState(NamedTuple):
+    """Every quantity a downstream consumer might want from one engine call."""
+
+    solve_y: torch.Tensor  # (n,)  K̂⁻¹y
+    inv_quad: torch.Tensor  # () yᵀK̂⁻¹y
+    logdet: torch.Tensor  # () log|K̂| estimate
+    probe_solves: torch.Tensor  # (n, t) K̂⁻¹zᵢ
+    probes: torch.Tensor  # (n, t) zᵢ
+    precond_probes: torch.Tensor  # (n, t) P̂⁻¹zᵢ
+    cg_iters: torch.Tensor  # (t+1,) iterations per RHS
+    residual: torch.Tensor  # (t+1,) final relative residuals
+
+
+def _apply_policy(report, settings: BBMMSettings, context: str):
+    """Check-only health enforcement (no ladder): record, then raise under
+    ``on_failure="raise"`` and warn otherwise.  Used by the differentiable
+    MLL, where a retry would desynchronise the backward's residuals;
+    training's recovery policy lives in ``fit_gp``."""
+    report = dataclasses.replace(report, context=context)
+    health.record(report)
+    if not report.healthy and settings.on_failure == "raise":
+        raise SolveFailure(report.describe(), report)
+    if not report.healthy:
+        warnings.warn(
+            f"unhealthy solve served as-is ({report.describe()})",
+            SolveHealthWarning,
+            stacklevel=4,
+        )
+    return report
+
+
+def _engine_forward(op, y, generator, settings: BBMMSettings, *, context: str = "mll"):
+    """Engine forward pass → :class:`InferenceState`, health-checked
+    (check-only, see :func:`_apply_policy`) and stamped with its wall
+    time."""
+    if y.dim() != 1:
+        raise ValueError(
+            "the MLL takes a single problem (y of shape (n,)); batched y is "
+            "ROADMAP Queue A step 11"
+        )
+    t0 = time.perf_counter()
+    precond, Z, res, probe_solves, logdet = _run_engine(op, y, generator, settings)
+    u = res.solves[..., 0]
+    state = InferenceState(
+        solve_y=u,
+        inv_quad=torch.dot(y, u),
+        logdet=logdet,
+        probe_solves=probe_solves,
+        probes=Z,
+        precond_probes=precond.solve(Z),
+        cg_iters=res.num_iters,
+        residual=res.residual_norm,
+    )
+    report = classify_mbcg(res, settings.cg_tol, max_iters=settings.max_cg_iters)
+    rung = dataclasses.replace(report.rungs[-1], duration_s=time.perf_counter() - t0)
+    _apply_policy(dataclasses.replace(report, rungs=report.rungs[:-1] + (rung,)),
+                  settings, context)
+    return state
+
+
+class _InvQuadLogdet(torch.autograd.Function):
+    """(yᵀK̂⁻¹y, log|K̂|) with the BBMM gradient estimators.
+
+    Inputs after the non-tensor ones are y and the operator's tensor
+    leaves, so autograd reaches every hyperparameter the operator holds.
+    Backward: ONE vector-Jacobian product through the blackbox matmul,
+    K̂·[u | K̂⁻¹Z] with the cotangent [−g_iq·u | (g_ld/t)·P̂⁻¹Z], which gives
+    −g_iq·uᵀ(∂K̂)u + g_ld·(1/t)Σᵢ(P̂⁻¹zᵢ)ᵀ(∂K̂)(K̂⁻¹zᵢ) for every leaf, and
+    d_y = 2·g_iq·u."""
+
+    @staticmethod
+    def forward(ctx, op, generator, settings, y, *leaves):
+        state = _engine_forward(op, y, generator, settings)
+        ctx.op = op
+        ctx.save_for_backward(state.solve_y, state.probe_solves, state.precond_probes)
+        return state.inv_quad, state.logdet
+
+    @staticmethod
+    def backward(ctx, g_iq, g_ld):
+        u, probe_solves, pinv_z = ctx.saved_tensors
+        t = probe_solves.shape[-1]
+        need = ctx.needs_input_grad[4:]
+        leaves = [
+            leaf.detach().requires_grad_(n) for leaf, n in zip(tensor_leaves(ctx.op), need)
+        ]
+        grads = [None] * len(leaves)
+        wanted = [i for i, n in enumerate(need) if n]
+        if wanted:
+            rhs = torch.cat([u[:, None], probe_solves], dim=-1)
+            cot = torch.cat([-g_iq * u[:, None], (g_ld / t) * pinv_z], dim=-1)
+            with torch.enable_grad():
+                op = replace_tensor_leaves(ctx.op, leaves)
+                out = op.prepare().matmul(rhs)
+                got = torch.autograd.grad(
+                    out, [leaves[i] for i in wanted], cot, allow_unused=True
+                )
+            for i, g in zip(wanted, got):
+                grads[i] = torch.zeros_like(leaves[i]) if g is None else g
+        d_y = 2.0 * g_iq * u if ctx.needs_input_grad[3] else None
+        return (None, None, None, d_y, *grads)
+
+
+def inv_quad_logdet(op: LinearOperator, y: torch.Tensor, generator: torch.Generator,
+                    settings: BBMMSettings = BBMMSettings()):
+    """Differentiable (yᵀK̂⁻¹y, log|K̂|) for any operator built of
+    dataclasses and tensors (its hyperparameters, noise and inputs are
+    found by :func:`tensor_leaves`).  ``generator`` draws the probes."""
+    return _InvQuadLogdet.apply(op, generator, settings, y, *tensor_leaves(op))
+
+
+def marginal_log_likelihood(op: LinearOperator, y: torch.Tensor, generator: torch.Generator,
+                            settings: BBMMSettings = BBMMSettings()):
+    """GP marginal log likelihood −½(yᵀK̂⁻¹y + log|K̂| + n·log 2π) (Eq. 2),
+    differentiable w.r.t. every tensor the operator holds and y."""
+    n = y.shape[-1]
+    inv_quad, logdet = inv_quad_logdet(op, y, generator, settings)
+    return -0.5 * (inv_quad + logdet + n * math.log(2.0 * math.pi))
+
+
+def engine_state(op: LinearOperator, y: torch.Tensor, generator: torch.Generator,
+                 settings: BBMMSettings = BBMMSettings()) -> InferenceState:
+    """Non-differentiable full engine state (prediction paths,
+    diagnostics), health-checked check-only per ``settings.on_failure``."""
+    with torch.no_grad():
+        return _engine_forward(op, y, generator, settings, context="engine_state")

@@ -8,6 +8,10 @@ Counterpart of ``repro.core.linear_operator``, main-path subset:
 
 Operators are frozen dataclasses holding tensors; there are no pytrees and
 no jit.  The device is the device of the tensors they hold.
+:func:`tensor_leaves` / :func:`replace_tensor_leaves` list and swap the
+tensors an operator holds (its kernel's hyperparameters included) — the
+counterpart of the reference's pytree leaves, through which the
+differentiable MLL takes its gradients.
 """
 
 from __future__ import annotations
@@ -17,6 +21,40 @@ import dataclasses
 import torch
 
 from .precision import require_highest
+
+
+def tensor_leaves(obj) -> list[torch.Tensor]:
+    """Every tensor a (nested) dataclass holds, depth first in field order:
+    for an operator, its data, its kernel's hyperparameters and its noise."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [
+            leaf
+            for f in dataclasses.fields(obj)
+            if f.init
+            for leaf in tensor_leaves(getattr(obj, f.name))
+        ]
+    return []
+
+
+def replace_tensor_leaves(obj, leaves):
+    """``obj`` with its :func:`tensor_leaves` replaced, in order, by
+    ``leaves`` (an iterable of as many tensors)."""
+    it = iter(leaves)
+
+    def rebuild(o):
+        if isinstance(o, torch.Tensor):
+            return next(it)
+        if dataclasses.is_dataclass(o) and not isinstance(o, type):
+            changes = {f.name: rebuild(getattr(o, f.name)) for f in dataclasses.fields(o) if f.init}
+            return dataclasses.replace(o, **changes)
+        return o
+
+    out = rebuild(obj)
+    if next(it, None) is not None:
+        raise ValueError("replace_tensor_leaves: more leaves than the object holds")
+    return out
 
 
 class LinearOperator:
@@ -62,8 +100,9 @@ class LinearOperator:
 
     # -- fused CG capability ----------------------------------------------
     def fused_cg_step_fn(self, sigma2=None):
-        """No operator of this slice runs a fused CG iteration (ROADMAP
-        Queue A step 9); the engine runs the unfused mBCG loop."""
+        """The operator's fused CG iteration (a ``CGStepFn`` of K + σ²I, see
+        :mod:`repro_torch.core.mbcg`), or None when it has none — the
+        engine then runs the unfused loop.  Default: None."""
         return None
 
     # -- precision policy --------------------------------------------------
@@ -190,3 +229,14 @@ class AddedDiagOperator(LinearOperator):
 
     def with_compute_dtype(self, compute_dtype):
         return AddedDiagOperator(self.base.with_compute_dtype(compute_dtype), self.sigma2)
+
+    def fused_cg_step_fn(self, sigma2=None):
+        """Fold this diagonal into the base kernel's σ² tile term (the fused
+        kernel adds it at global row == column, so the fused step IS K̂·D).
+        A batched σ² has no scalar tile term: None, the unfused loop."""
+        s2 = torch.as_tensor(self.sigma2)
+        if s2.dim():
+            return None
+        if sigma2 is not None:
+            s2 = s2 + sigma2
+        return self.base.fused_cg_step_fn(sigma2=s2)

@@ -1,5 +1,5 @@
 """GP models on top of the BBMM engine (counterpart of ``repro.gp``):
-the exact GP and its serving cache in this slice."""
+the exact GP, its training driver and its serving cache."""
 
 from .exact import ExactGP
 from .kernels import (
@@ -11,3 +11,4 @@ from .kernels import (
     sq_dist,
 )
 from .model import PROTOCOL_METHODS, GPModel, KrylovCachePredictor, missing_protocol_methods
+from .training import fit_gp

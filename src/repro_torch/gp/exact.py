@@ -1,17 +1,20 @@
 """Exact GP regression through the BBMM engine (counterpart of
 ``repro.gp.exact``).
 
-Serving — ``posterior_cache`` / ``predict_cached`` / ``predict`` — is
+Training — ``loss`` (−MLL) and ``fit`` (:func:`repro_torch.gp.training.fit_gp`)
+— and serving — ``posterior_cache`` / ``predict_cached`` / ``predict``,
 inherited from :class:`repro_torch.gp.model.KrylovCachePredictor`.  The
 hyperparameters are the reference's raw (softplus-inverse) values, so the
 reference's parameters carry over through
-:func:`repro_torch.convert.params_from_jax`.  Training and batched
-evaluation come with later slices and raise ``NotImplementedError`` naming
+:func:`repro_torch.convert.params_from_jax`.  Batched evaluation and cache
+updates come with later slices and raise ``NotImplementedError`` naming
 the ROADMAP step that brings them.
 
 ``mode="cuda"`` runs every blackbox K̂·M through the hand-written CUDA
-kernel; ``device`` defaults to CUDA and must be given as ``"cpu"`` to run
-the plain path without a GPU.
+kernel, its gradient through the gradient kernel, and — with
+``fuse_cg=True`` and ``precond_rank=0`` — every CG iteration as one fused
+kernel launch; ``device`` defaults to CUDA and must be given as ``"cpu"``
+to run the plain path without a GPU.
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ from functools import partial
 
 import torch
 
-from repro_torch.core import AddedDiagOperator, BBMMSettings
+from repro_torch.core import AddedDiagOperator, BBMMSettings, marginal_log_likelihood
 from repro_torch.device import resolve_device
 
 from .kernels import KernelOperator, MaternKernel, RBFKernel
 from .model import KrylovCachePredictor
+from .training import fit_gp
 
 
 def _softplus(x):
@@ -57,9 +61,16 @@ class ExactGP(KrylovCachePredictor):
     settings: BBMMSettings = dataclasses.field(default_factory=BBMMSettings)
     # None → CUDA (raises without a GPU); "cpu" runs the plain path
     device: torch.device | str | None = None
+    # fused-CG knob: True runs each mBCG iteration as ONE fused kernel launch
+    # where the operator has one (mode="cuda"; dense/blocked keep the
+    # unfused loop).  Requires precond_rank=0 (mbcg raises otherwise).  None
+    # follows ``settings.fuse_cg``; an explicit value wins.
+    fuse_cg: bool | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.fuse_cg is not None:
+            self.settings = dataclasses.replace(self.settings, fuse_cg=self.fuse_cg)
         if self.kernel_type not in KERNELS:
             raise ValueError(f"kernel_type must be one of {sorted(KERNELS)}")
 
@@ -98,13 +109,18 @@ class ExactGP(KrylovCachePredictor):
     def noise(self, params):
         return _softplus(params["raw_noise"])
 
-    # -- later slices ---------------------------------------------------------
+    # -- training -------------------------------------------------------------
     def loss(self, params, data, y, generator):
-        raise _not_ported("loss", "step 7 (differentiable MLL)")
+        """−MLL, differentiable in ``params`` (and y); ``generator`` draws
+        the probes."""
+        return -marginal_log_likelihood(
+            self.operator(params, data), self._tensor(y), generator, self.settings
+        )
 
-    def fit(self, X, y, **kwargs):
-        raise _not_ported("fit", "step 8 (fit_gp)")
+    def fit(self, X, y, *, steps=100, lr=0.1, generator=None, callback=None):
+        return fit_gp(self, X, y, steps=steps, lr=lr, generator=generator, callback=callback)
 
+    # -- later slices ---------------------------------------------------------
     def batched_operator(self, params_batch, X):
         raise _not_ported("batched_operator", "step 11 (batched engine)")
 

@@ -123,15 +123,15 @@ class KernelOperator(LinearOperator):
         elif self.mode == "blocked":
             out = self._blocked_matmul(M)
         else:
-            from repro_torch.kernels.kernel_matmul.ops import kernel_matmul
-
-            out = kernel_matmul(self.kernel, self.X, M)
+            out = self.prepare().matmul(M)
         return out[:, 0] if squeeze else out
 
     def prepare(self):
         """Hoist the lengthscale pre-scaling out of the CG loop (cuda mode):
         returns an operator whose per-iteration matmul consumes the already
-        scaled X.  Other modes are returned as they are."""
+        scaled X.  Other modes are returned as they are.  Under grad mode
+        the scaled X keeps its graph, so the matmul's gradient reaches the
+        lengthscale."""
         if self.mode != "cuda":
             return self
         from repro_torch.kernels.kernel_matmul.ops import (
@@ -145,6 +145,14 @@ class KernelOperator(LinearOperator):
             Xs=prescale_inputs(self.X, self.kernel.lengthscale),
             kernel_type=stationary_kernel_type(self.kernel),
         )
+
+    def fused_cg_step_fn(self, sigma2=None):
+        """Fused CG capability: cuda mode delegates to its prepared form (the
+        engine prepares before the loop anyway); dense and blocked have none
+        and keep the unfused loop."""
+        if self.mode != "cuda":
+            return None
+        return self.prepare().fused_cg_step_fn(sigma2=sigma2)
 
     def _blocked_matmul(self, M):
         n = self.X.shape[0]
@@ -164,7 +172,8 @@ class KernelOperator(LinearOperator):
 class PreparedKernelOperator(LinearOperator):
     """KernelOperator(mode='cuda') after ``prepare()``: X is already divided
     by the (possibly ARD) lengthscale, so the CG loop's per-iteration matmul
-    is one kernel launch and nothing else."""
+    is one kernel launch and nothing else.  The matmul is differentiable in
+    Xs and the outputscale (the gradient kernel is its backward)."""
 
     kernel: object  # original kernel (row/diagonal accessors, outputscale)
     X: torch.Tensor  # (n, d) original inputs (row/diagonal accessors)
@@ -195,6 +204,25 @@ class PreparedKernelOperator(LinearOperator):
             0.0,
             kernel_type=self.kernel_type,
         )
+
+    def fused_cg_step_fn(self, sigma2=None):
+        """One-launch CG iteration (B3): the state update, V = (K + σ²I)·D and
+        the dᵀV / rᵀr / rᵀV / vᵀV reductions (see
+        :func:`repro_torch.kernels.kernel_matmul.ops.fused_cg_step_prescaled`).
+        A batched σ² has no scalar tile term: None."""
+        from repro_torch.kernels.kernel_matmul.ops import fused_cg_step_prescaled
+
+        s2 = torch.zeros((), device=self.Xs.device) if sigma2 is None else torch.as_tensor(sigma2)
+        if s2.dim():
+            return None
+        Xs, outputscale, kernel_type = self.Xs, self.kernel.outputscale, self.kernel_type
+
+        def step(U, R, D, V, alpha, beta, gamma):
+            return fused_cg_step_prescaled(
+                Xs, U, R, D, V, alpha, beta, gamma, outputscale, s2, kernel_type=kernel_type
+            )
+
+        return step
 
     def row(self, i):
         return self.kernel(self.X[i][None, :], self.X)[0]

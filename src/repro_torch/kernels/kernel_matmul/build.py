@@ -1,11 +1,18 @@
-"""Build and load the CUDA kernel-matmul library.
+"""Build and load the CUDA kernel libraries of this package.
 
-The kernel is compiled from ``csrc/kernel_matmul.cu`` with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, and loaded with
-ctypes.  The build happens at first use, into ``_build/`` beside this file
-(gitignored), under a name that carries a hash of the source, so an edited
-source is rebuilt and a stale library is never loaded.  Nothing is
-downloaded; a failed build raises :class:`KernelBuildError`.
+Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library of its own with a plain C interface, loaded with ctypes:
+
+  * ``kernel_matmul.cu``      — B1/B2, the kernel-matrix matmul;
+  * ``fused_cg_step.cu``      — B3, one fused mBCG iteration;
+  * ``kernel_matmul_grad.cu`` — the matmul's gradient for its inputs.
+
+The build happens at first use, into ``_build/`` beside this file
+(gitignored), one ``nvcc`` process per source, all started together.  Each
+library's name carries one hash of every source and header under ``csrc/``
+and of the flags, so editing any of them rebuilds and a stale library is
+never loaded.  Nothing is downloaded; a failed build raises
+:class:`KernelBuildError`.
 """
 
 from __future__ import annotations
@@ -20,19 +27,28 @@ import tempfile
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).parent / "csrc" / "kernel_matmul.cu"
+CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
-#: ctypes signature of ``kernel_matmul_f32`` in the source: X1, X2, M, scal,
-#: out, then rows, cols, d, t, batch, row_offset, kernel_type, then the
-#: stream.  Pointers and the stream are c_void_p, never the 32-bit default.
-ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-
+#: The C entry point of each library and its ctypes signature.  Pointers
+#: and the stream are c_void_p, never the 32-bit default.
+ENTRY_POINTS = {
+    # X1, X2, M, scal, out; rows, cols, d, t, batch, row_offset,
+    # kernel_type; stream
+    "kernel_matmul": ("kernel_matmul_f32", [_P] * 5 + [_I] * 7 + [_P]),
+    # X1, X2, U, R, D, V, Rc, Dc, Vc, abg, scal, Uo, Ro, Do, Vo, partial,
+    # red; rows, cols, d, t, batch, row_offset, kernel_type; stream
+    "fused_cg_step": ("fused_cg_step_f32", [_P] * 17 + [_I] * 7 + [_P]),
+    # X1, X2, A, B, scal, G, partial, gsum; rows, cols, d, t, kernel_type;
+    # stream
+    "kernel_matmul_grad": ("kernel_matmul_grad_f32", [_P] * 8 + [_I] * 5 + [_P]),
+}
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused the kernel source."""
+    """nvcc is missing or refused a kernel source."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +58,8 @@ class BuildInfo:
     log: str  # nvcc's output (ptxas register / shared-memory report)
 
 
-_lib: ctypes.CDLL | None = None
-_info: BuildInfo | None = None
+_libs: dict[str, ctypes.CDLL] = {}
+_infos: dict[str, BuildInfo] = {}
 
 
 def _nvcc() -> str:
@@ -52,59 +68,84 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise KernelBuildError(
-        "nvcc not found on PATH or under $CUDA_HOME/bin; the CUDA kernel "
-        "matmul is built from source at first use and needs the CUDA toolkit"
+        "nvcc not found on PATH or under $CUDA_HOME/bin; the CUDA kernels "
+        "are built from source at first use and need the CUDA toolkit"
     )
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(ARCH_FLAGS).encode())
-    return BUILD_DIR / f"libkernel_matmul-{digest.hexdigest()[:12]}.so"
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        if src.suffix in (".cu", ".cuh"):
+            h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return h.hexdigest()[:12]
 
 
-def build() -> BuildInfo:
-    """Compile the library unless this source's build already exists."""
-    global _info
-    if _info is not None:
-        return _info
-    path = _library_path()
-    if path.exists():
-        _info = BuildInfo(path=path, seconds=0.0, log="")
-        return _info
+def _library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest()}.so"
+
+
+def build_all() -> dict[str, BuildInfo]:
+    """Compile every library whose build does not exist yet, one nvcc
+    process per source, all running at once."""
+    todo = {}
+    for name in ENTRY_POINTS:
+        if name in _infos:
+            continue
+        path = _library_path(name)
+        if path.exists():
+            _infos[name] = BuildInfo(path=path, seconds=0.0, log="")
+        else:
+            todo[name] = path
+    if not todo:
+        return dict(_infos)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(SOURCE),
-    ]
+    nvcc = _nvcc()
+    procs = {}
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    _info = BuildInfo(
-        path=path, seconds=time.perf_counter() - t0, log=proc.stdout + proc.stderr
-    )
-    return _info
+    for name, path in todo.items():
+        # compile to a private name, then rename: a concurrent loader never
+        # sees a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [
+            nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+            str(CSRC / f"{name}.cu"),
+        ]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, path)
+    errors = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        try:
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        _infos[name] = BuildInfo(path=path, seconds=time.perf_counter() - t0, log=log)
+    if errors:
+        raise KernelBuildError("\n".join(errors))
+    return dict(_infos)
 
 
-def load_library() -> ctypes.CDLL:
-    """The loaded library, built first if needed, with its C signature set
-    (:data:`ARGTYPES`)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build().path))
-        fn = lib.kernel_matmul_f32
-        fn.argtypes = ARGTYPES
+def build(name: str) -> BuildInfo:
+    """The build of one library (all of them are built together)."""
+    return build_all()[name]
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (a key of :data:`ENTRY_POINTS`), built
+    first if needed, with its C signature set."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build(name).path))
+        symbol, argtypes = ENTRY_POINTS[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]

@@ -37,6 +37,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"  // KernelType, stationary()
+
 namespace {
 
 constexpr int BN = 64;        // output rows per block
@@ -44,30 +46,6 @@ constexpr int BM = 64;        // X2 rows / M rows per column step
 constexpr int DK = 8;         // feature chunk staged per inner step
 constexpr int NT = 256;       // threads per block
 constexpr int KPAD = BM + 4;  // kernel-tile row stride: float4-aligned rows
-
-enum KernelType { RBF = 0, MATERN12 = 1, MATERN32 = 2, MATERN52 = 3 };
-
-// The kernel map is most of the kernel's instructions, so it uses the
-// hardware's approximate exp and reciprocal square root (a few ulp, far
-// inside the 2e-4 the kernel is held to) and multiplies by 1/3 instead of
-// dividing by 3 (an IEEE division is ~20 instructions).
-template <int KT>
-__device__ __forceinline__ float stationary(float d2, float outputscale) {
-  if (KT == RBF) {
-    return outputscale * __expf(-0.5f * d2);
-  }
-  const float r2 = fmaxf(d2, 1e-20f);
-  const float d = r2 * rsqrtf(r2);
-  if (KT == MATERN12) {
-    return outputscale * __expf(-d);
-  }
-  if (KT == MATERN32) {
-    const float a = 1.7320508075688772f * d;
-    return outputscale * (1.0f + a) * __expf(-a);
-  }
-  const float a = 2.23606797749979f * d;
-  return outputscale * (1.0f + a + a * a * (1.0f / 3.0f)) * __expf(-a);
-}
 
 template <int KT, int BT>
 __global__ void __launch_bounds__(NT) kernel_matmul_kernel(

@@ -1,14 +1,25 @@
-"""Fused kernel-matrix matmul: (K(X1, X2) + σ²I_global) @ M without forming K.
+"""The kernel-matrix kernels' wrappers, K never formed:
 
-Counterpart of ``repro.kernels.kernel_matmul.kernel_matmul.kernel_matmul_pallas``.
-On CUDA tensors :func:`kernel_matmul_cuda` launches the hand-written sm_90a
-kernel in ``csrc/kernel_matmul.cu`` (B1 for a 2-D M, the same kernel's
-batch grid axis, B2, for a 3-D M), bound with ctypes; on CPU tensors it runs
-the plain PyTorch version :func:`.ref.kernel_matmul_plain`.  There is no
-fallback between the two: a CUDA tensor launches the kernel or raises.
+  * :func:`kernel_matmul_cuda` — (K(X1, X2) + σ²I_global) @ M, the
+    counterpart of ``repro.kernels.kernel_matmul.kernel_matmul.kernel_matmul_pallas``
+    (``csrc/kernel_matmul.cu``: B1 for a 2-D M, the same kernel's batch
+    grid axis, B2, for a 3-D M);
+  * :func:`fused_cg_step_cuda` — one fused mBCG iteration, the counterpart
+    of ``fused_cg_step_pallas`` (``csrc/fused_cg_step.cu``, B3);
+  * :func:`kernel_matmul_grad_cuda` — B1's vector-Jacobian product for its
+    inputs and scalars (``csrc/kernel_matmul_grad.cu``, port-only: the
+    reference differentiates its matmul with ``jax.vjp``);
+  * :class:`KernelMatmulFn` — B1 as a ``torch.autograd.Function`` whose
+    backward is the gradient kernel.
 
-``launches`` / ``batched_launches`` count the kernel launches (2-D and
-3-D M), so a run can show that its main path went through the kernel.
+Each kernel is bound with ctypes.  On CUDA tensors a wrapper launches its
+kernel; on CPU tensors it runs the plain PyTorch version from :mod:`.ref`.
+There is no fallback between the two: a CUDA tensor launches the kernel or
+raises.
+
+The module-level counters (``launches``, ``batched_launches``,
+``fused_launches``, ``grad_launches``) count kernel launches, so a run can
+show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -16,7 +27,12 @@ from __future__ import annotations
 import torch
 
 from .build import load_library
-from .ref import KERNEL_TYPES, kernel_matmul_plain
+from .ref import (
+    KERNEL_TYPES,
+    fused_cg_step_plain,
+    kernel_matmul_grad_plain,
+    kernel_matmul_plain,
+)
 
 KERNEL_TYPE_CODES = {name: i for i, name in enumerate(KERNEL_TYPES)}
 
@@ -24,12 +40,21 @@ KERNEL_TYPE_CODES = {name: i for i, name in enumerate(KERNEL_TYPES)}
 launches = 0
 #: kernel launches with a 3-D M (B2) since the last reset
 batched_launches = 0
+#: fused CG step launches (B3) since the last reset
+fused_launches = 0
+#: gradient-kernel launches since the last reset
+grad_launches = 0
+
+#: the gradient kernel keeps a block's features in shared memory
+GRAD_MAX_D = 32
+#: rows per block of B3 and the gradient kernel (BN in their sources): one
+#: partial sum per block, folded in a fixed order
+ROW_BLOCK = 64
 
 
 def reset_launch_counts() -> None:
-    global launches, batched_launches
-    launches = 0
-    batched_launches = 0
+    global launches, batched_launches, fused_launches, grad_launches
+    launches = batched_launches = fused_launches = grad_launches = 0
 
 
 def _device_scalar(v, device) -> torch.Tensor:
@@ -40,21 +65,27 @@ def _device_scalar(v, device) -> torch.Tensor:
     return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
-def _check_cuda_args(X1, X2, M, kernel_type, row_offset):
-    devices = {x.device for x in (X1, X2, M)}
-    if len(devices) != 1 or not X1.is_cuda:
+def _check_tensors(fn: str, named):
+    """All of ``named`` ((name, tensor) pairs) on one CUDA device, f32 and
+    contiguous, or raise."""
+    devices = {x.device for _, x in named}
+    if len(devices) != 1 or named[0][1].device.type != "cuda":
         raise ValueError(
-            f"kernel_matmul: X1, X2 and M must all lie on one CUDA device or "
-            f"all on the CPU, got {sorted(map(str, devices))}"
+            f"{fn}: all tensors must lie on one CUDA device or all on the "
+            f"CPU, got {sorted(map(str, devices))}"
         )
-    for name, x in (("X1", X1), ("X2", X2), ("M", M)):
+    for name, x in named:
         if x.dtype != torch.float32:
-            raise TypeError(f"kernel_matmul: {name} must be float32, got {x.dtype}")
+            raise TypeError(f"{fn}: {name} must be float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(
-                f"kernel_matmul: {name} must be contiguous (the kernel reads "
-                f"row-major storage); pass {name}.contiguous()"
+                f"{fn}: {name} must be contiguous (the kernel reads row-major "
+                f"storage); pass {name}.contiguous()"
             )
+
+
+def _check_cuda_args(X1, X2, M, kernel_type, row_offset):
+    _check_tensors("kernel_matmul", [("X1", X1), ("X2", X2), ("M", M)])
     if X1.dim() != 2 or X2.dim() != 2 or X1.shape[1] != X2.shape[1]:
         raise ValueError(
             f"kernel_matmul: X1 (rows, d) and X2 (cols, d) expected, got "
@@ -109,7 +140,7 @@ def kernel_matmul_cuda(
     scal = torch.stack(
         [_device_scalar(outputscale, M.device), _device_scalar(sigma2, M.device)]
     )
-    lib = load_library()
+    lib = load_library("kernel_matmul")
     with torch.cuda.device(M.device):
         stream = torch.cuda.current_stream(M.device).cuda_stream
         err = lib.kernel_matmul_f32(
@@ -127,3 +158,204 @@ def kernel_matmul_cuda(
     else:
         launches += 1
     return out
+
+
+def _check_fused_args(X1, X2, state, cols_state, scalars, kernel_type, row_offset):
+    named = [("Xs_rows", X1), ("Xs_cols", X2)]
+    named += list(zip(("U", "R", "D", "V"), state))
+    named += list(zip(("R_cols", "D_cols", "V_cols"), cols_state))
+    named += list(zip(("alpha", "beta", "gamma"), scalars))
+    _check_tensors("fused_cg_step", named)
+    if X1.dim() != 2 or X2.dim() != 2 or X1.shape[1] != X2.shape[1]:
+        raise ValueError(
+            f"fused_cg_step: Xs_rows (rows, d) and Xs_cols (cols, d) expected, "
+            f"got {tuple(X1.shape)} and {tuple(X2.shape)}"
+        )
+    if any(s.dim() != 2 or s.shape != scalars[0].shape for s in scalars):
+        raise ValueError("fused_cg_step: alpha, beta and gamma must all be (b, t)")
+    b, t = scalars[0].shape
+    for names, xs, n in (("URDV", state, X1.shape[0]),
+                         (("R_cols", "D_cols", "V_cols"), cols_state, X2.shape[0])):
+        for name, x in zip(names, xs):
+            if tuple(x.shape) != (b, n, t):
+                raise ValueError(
+                    f"fused_cg_step: {name} must be (b, n, t) = {(b, n, t)}, "
+                    f"got {tuple(x.shape)}"
+                )
+    if kernel_type not in KERNEL_TYPE_CODES:
+        raise ValueError(f"fused_cg_step: unknown kernel_type {kernel_type!r}")
+    if not 0 <= int(row_offset) < 2**31 - X1.shape[0]:
+        raise ValueError(f"fused_cg_step: row_offset {row_offset} out of int32 range")
+    if max(X1.shape[0], X2.shape[0], t) >= 2**31 or b > 65535:
+        raise ValueError("fused_cg_step: dimensions must fit in int32, batch in 65535")
+
+
+def fused_cg_step_cuda(
+    Xs_rows, Xs_cols, U, R, D, V, R_cols, D_cols, V_cols, alpha, beta, gamma,
+    outputscale, sigma2, row_offset: int = 0, *, kernel_type: str = "rbf",
+):
+    """One fused CG iteration (B3): (U′, R′, D′, V′, red).
+
+    U, R, D, V are the (b, rows, t) state of this call's rows, R_cols,
+    D_cols, V_cols the (b, cols, t) column state the product reads (the
+    same tensors on a single device), α, β, γ the (b, t) pending step
+    scalars; Xs_rows / Xs_cols are pre-divided by the lengthscale.  Returns
+    new tensors — U′ = U + α∘D, R′ = R − α∘V, D′ = γ∘R′ + β∘D,
+    V′ = (K + σ²·[row_offset+i = j])·D′ — and red (b, 4, t) =
+    [D′ᵀV′; R′ᵀR′; R′ᵀV′; V′ᵀV′] over this call's rows.  The inputs are
+    never written: the caller's next call takes the outputs (ping-pong).
+    All f32 and contiguous; the scalars may be floats or 0-d tensors."""
+    tensors = (Xs_rows, Xs_cols, U, R, D, V, R_cols, D_cols, V_cols, alpha, beta, gamma)
+    if all(x.device.type == "cpu" for x in tensors):
+        return fused_cg_step_plain(
+            *tensors, outputscale, sigma2, row_offset, kernel_type=kernel_type
+        )
+    _check_fused_args(
+        Xs_rows, Xs_cols, (U, R, D, V), (R_cols, D_cols, V_cols), (alpha, beta, gamma),
+        kernel_type, row_offset,
+    )
+    global fused_launches
+    dev = U.device
+    b, rows, t = U.shape
+    cols, d = Xs_cols.shape
+    Uo, Ro, Do, Vo = (torch.empty_like(U) for _ in range(4))
+    red = torch.empty((b, 4, t), dtype=torch.float32, device=dev)
+    if rows == 0 or t == 0 or b == 0:
+        return Uo, Ro, Do, Vo, red.zero_()
+    row_blocks = -(-rows // ROW_BLOCK)
+    partial = torch.empty((row_blocks, b, 4, t), dtype=torch.float32, device=dev)
+    abg = torch.stack([alpha, beta, gamma])
+    scal = torch.stack([_device_scalar(outputscale, dev), _device_scalar(sigma2, dev)])
+    lib = load_library("fused_cg_step")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_cg_step_f32(
+            Xs_rows.data_ptr(), Xs_cols.data_ptr(), U.data_ptr(), R.data_ptr(),
+            D.data_ptr(), V.data_ptr(), R_cols.data_ptr(), D_cols.data_ptr(),
+            V_cols.data_ptr(), abg.data_ptr(), scal.data_ptr(), Uo.data_ptr(),
+            Ro.data_ptr(), Do.data_ptr(), Vo.data_ptr(), partial.data_ptr(),
+            red.data_ptr(), rows, cols, d, t, b, int(row_offset),
+            KERNEL_TYPE_CODES[kernel_type], stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused_cg_step_f32 launch failed with cudaError {err} "
+            f"(rows={rows}, cols={cols}, d={d}, t={t}, batch={b})"
+        )
+    fused_launches += 1
+    return Uo, Ro, Do, Vo, red
+
+
+def _grad_launch(X1, X2, A, B, scal, kernel_type):
+    """One gradient-kernel launch: G (rows, d) and Σᵢⱼ⟨Aᵢ, Bⱼ⟩f(rᵢⱼ²)."""
+    global grad_launches
+    rows, d = X1.shape
+    cols, t = B.shape
+    G = torch.empty((rows, d), dtype=torch.float32, device=X1.device)
+    gsum = torch.empty((1,), dtype=torch.float32, device=X1.device)
+    partial = torch.empty((-(-rows // ROW_BLOCK),), dtype=torch.float32, device=X1.device)
+    lib = load_library("kernel_matmul_grad")
+    with torch.cuda.device(X1.device):
+        stream = torch.cuda.current_stream(X1.device).cuda_stream
+        err = lib.kernel_matmul_grad_f32(
+            X1.data_ptr(), X2.data_ptr(), A.data_ptr(), B.data_ptr(), scal.data_ptr(),
+            G.data_ptr(), partial.data_ptr(), gsum.data_ptr(), rows, cols, d, t,
+            KERNEL_TYPE_CODES[kernel_type], stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"kernel_matmul_grad_f32 launch failed with cudaError {err} "
+            f"(rows={rows}, cols={cols}, d={d}, t={t})"
+        )
+    grad_launches += 1
+    return G, gsum[0]
+
+
+def _sigma2_grad(M, C, row_offset: int = 0) -> torch.Tensor:
+    """∂⟨C, σ²·[row_offset+i = j]·M⟩/∂σ² = Σᵢ ⟨Cᵢ, M_{row_offset+i}⟩: the
+    O(n·t) trace term of the gradient, in torch."""
+    off = int(row_offset)
+    m = max(0, min(C.shape[0], M.shape[0] - off))
+    return torch.sum(C[:m] * M[off : off + m])
+
+
+def kernel_matmul_grad_cuda(
+    X1, X2, M, C, outputscale, sigma2, row_offset: int = 0, *,
+    kernel_type: str = "rbf", need_cols: bool = True,
+):
+    """B1's vector-Jacobian product for a cotangent C (rows, t) of
+    out = (K(X1, X2) + σ²·[row_offset+i = j])·M, M (cols, t):
+    (∂/∂X1, ∂/∂X2, ∂/∂outputscale, ∂/∂σ²).
+
+    On CUDA: one gradient-kernel launch for X1 and the outputscale, a
+    second with the roles of (X1, C) and (X2, M) swapped for X2 (skipped,
+    and ∂/∂X2 returned as None, when ``need_cols`` is False), and the σ²
+    trace term in torch.  X1, X2 are pre-divided by the lengthscale."""
+    if all(x.device.type == "cpu" for x in (X1, X2, M, C)):
+        gX1, gX2, gs, gs2 = kernel_matmul_grad_plain(
+            X1, X2, M, C, outputscale, sigma2, row_offset, kernel_type=kernel_type
+        )
+        return gX1, (gX2 if need_cols else None), gs, gs2
+    _check_tensors("kernel_matmul_grad", [("X1", X1), ("X2", X2), ("M", M), ("C", C)])
+    if (X1.dim(), X2.dim(), M.dim(), C.dim()) != (2, 2, 2, 2) or X1.shape[1] != X2.shape[1] \
+            or M.shape[0] != X2.shape[0] or C.shape != (X1.shape[0], M.shape[1]):
+        raise ValueError(
+            f"kernel_matmul_grad: X1 (rows, d), X2 (cols, d), M (cols, t), "
+            f"C (rows, t) expected, got {tuple(X1.shape)}, {tuple(X2.shape)}, "
+            f"{tuple(M.shape)}, {tuple(C.shape)}"
+        )
+    if X1.shape[1] > GRAD_MAX_D:
+        raise ValueError(
+            f"kernel_matmul_grad: d = {X1.shape[1]} > {GRAD_MAX_D}, the most "
+            "features the gradient kernel takes"
+        )
+    if kernel_type not in KERNEL_TYPE_CODES:
+        raise ValueError(f"kernel_matmul_grad: unknown kernel_type {kernel_type!r}")
+    if max(X1.shape[0], X2.shape[0], M.shape[1]) >= 2**31:
+        raise ValueError("kernel_matmul_grad: dimensions must fit in int32")
+    dev = X1.device
+    if X1.shape[0] == 0 or X2.shape[0] == 0 or M.shape[1] == 0:
+        zero = torch.zeros((), device=dev)
+        return (torch.zeros_like(X1), torch.zeros_like(X2) if need_cols else None,
+                zero, _sigma2_grad(M, C, row_offset))
+    scal = _device_scalar(outputscale, dev).reshape(1)
+    gX1, gs = _grad_launch(X1, X2, C, M, scal, kernel_type)
+    gX2 = _grad_launch(X2, X1, M, C, scal, kernel_type)[0] if need_cols else None
+    return gX1, gX2, gs, _sigma2_grad(M, C, row_offset)
+
+
+class KernelMatmulFn(torch.autograd.Function):
+    """(K(X1, X2) + σ²·[row_offset+i = j])·M for a 2-D M, differentiable in
+    X1, X2, M, the outputscale and σ².
+
+    Forward: one B1 launch (:func:`kernel_matmul_cuda`).  Backward: the
+    gradient kernel for X1 / X2 / the outputscale and the σ² trace term
+    (:func:`kernel_matmul_grad_cuda`), and — only where M needs a gradient —
+    B1 with X1 and X2 swapped plus σ² on the shifted rows.  On CPU tensors
+    both run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, X1, X2, M, outputscale, sigma2, row_offset, kernel_type):
+        ctx.save_for_backward(X1, X2, M, outputscale, sigma2)
+        ctx.row_offset, ctx.kernel_type = int(row_offset), kernel_type
+        return kernel_matmul_cuda(
+            X1, X2, M, outputscale, sigma2, row_offset, kernel_type=kernel_type
+        )
+
+    @staticmethod
+    def backward(ctx, C):
+        X1, X2, M, s, s2 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        off, kt = ctx.row_offset, ctx.kernel_type
+        C = C.contiguous()
+        gX1 = gX2 = gM = gs = gs2 = None
+        if need[0] or need[1] or need[3] or need[4]:
+            gX1, gX2, gs, gs2 = kernel_matmul_grad_cuda(
+                X1, X2, M, C, s, s2, off, kernel_type=kt, need_cols=need[1]
+            )
+            gs, gs2 = gs.reshape(s.shape), gs2.reshape(s2.shape)
+        if need[2]:
+            gM = kernel_matmul_cuda(X2, X1, C, s, 0.0, kernel_type=kt)
+            m = max(0, min(C.shape[0], M.shape[0] - off))
+            gM[off : off + m] += s2 * C[:m]
+        return gX1, gX2, gM, gs, gs2, None, None

@@ -1,12 +1,19 @@
-"""Plain PyTorch versions of the fused kernel matmul.
+"""Plain PyTorch versions of this package's CUDA kernels.
 
-``kernel_matmul_plain`` is the exact function the CUDA kernel computes —
-prescaled row/column inputs, a global ``row_offset`` for the σ² diagonal,
-a 2-D or batched 3-D right-hand side — with K materialized.  The wrapper in
-:mod:`.kernel_matmul` runs it for CPU tensors, and ``chip_smoke.py`` holds
-the kernel against it on the card.  ``kernel_matmul_ref`` mirrors the
-reference oracle ``repro.kernels.kernel_matmul.ref.kernel_matmul_ref``
-(unscaled X and a lengthscale, square K).
+Each is the exact function its kernel computes, with K materialized:
+
+  * ``kernel_matmul_plain`` — B1/B2: prescaled row/column inputs, a global
+    ``row_offset`` for the σ² diagonal, a 2-D or batched 3-D right-hand side;
+  * ``fused_cg_step_plain`` — B3: one fused CG iteration (the state
+    prologue, K̂·D′ and the four reductions) over ``kernel_matmul_plain``;
+  * ``kernel_matmul_grad_plain`` — the gradient kernel: the VJP of
+    ``kernel_matmul_plain`` for its inputs, by ``torch.autograd``.
+
+The wrappers in :mod:`.kernel_matmul` run them for CPU tensors, and
+``chip_smoke.py`` holds each kernel against its plain version on the card.
+``kernel_matmul_ref`` mirrors the reference oracle
+``repro.kernels.kernel_matmul.ref.kernel_matmul_ref`` (unscaled X and a
+lengthscale, square K).
 """
 
 from __future__ import annotations
@@ -37,6 +44,22 @@ def apply_stationary(kernel_type: str, d2: torch.Tensor, outputscale) -> torch.T
     else:
         raise ValueError(kernel_type)
     return poly.mul_(a.neg_().exp_()).mul_(outputscale)
+
+
+def _stationary(kernel_type: str, d2: torch.Tensor, outputscale) -> torch.Tensor:
+    """:func:`apply_stationary` out of place, so autograd can go through it."""
+    if kernel_type == "rbf":
+        return outputscale * torch.exp(-0.5 * d2)
+    a = torch.sqrt(torch.clamp(d2, min=1e-20))
+    if kernel_type == "matern12":
+        return outputscale * torch.exp(-a)
+    if kernel_type == "matern32":
+        a = math.sqrt(3.0) * a
+        return outputscale * (1.0 + a) * torch.exp(-a)
+    if kernel_type == "matern52":
+        a = math.sqrt(5.0) * a
+        return outputscale * (1.0 + a + a * a / 3.0) * torch.exp(-a)
+    raise ValueError(kernel_type)
 
 
 def _sq_dist(X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
@@ -89,3 +112,80 @@ def kernel_matmul_ref(X, M, lengthscale, outputscale, sigma2, *, kernel_type="rb
     return kernel_matmul_plain(
         Xs, Xs, M, outputscale, sigma2, kernel_type=kernel_type
     )
+
+
+def _advance(R, D, V, alpha, beta, gamma):
+    """R′ = R − α∘V and D′ = γ∘R′ + β∘D, per column (α, β, γ: (…, t))."""
+    a, b, g = (s[..., None, :] for s in (alpha, beta, gamma))
+    R = R - a * V
+    return R, g * R + b * D
+
+
+def cg_reductions(R, D, V) -> torch.Tensor:
+    """(…, 4, t): [dᵀV; rᵀr; rᵀV; vᵀV] over the rows, per column."""
+    return torch.stack(
+        [(D * V).sum(-2), (R * R).sum(-2), (R * V).sum(-2), (V * V).sum(-2)], dim=-2
+    )
+
+
+def fused_cg_step_plain(
+    Xs_rows, Xs_cols, U, R, D, V, R_cols, D_cols, V_cols, alpha, beta, gamma,
+    outputscale, sigma2, row_offset: int = 0, *, kernel_type: str = "rbf",
+):
+    """One fused CG iteration (B3) with K materialized.
+
+    The state U, R, D, V is (b, rows, t) — this call's rows — and R_cols,
+    D_cols, V_cols the (b, cols, t) column state the product reads (the same
+    tensors on a single device); α, β, γ are (b, t).  Applies the pending
+    update to both, computes V′ = (K(Xs_rows, Xs_cols) + σ²·[row_offset+i =
+    j])·D′ from the column side, and returns (U′, R′, D′, V′, red) with
+    red (b, 4, t) = [D′ᵀV′; R′ᵀR′; R′ᵀV′; V′ᵀV′] over this call's rows."""
+    U = U + alpha[..., None, :] * D
+    R, D = _advance(R, D, V, alpha, beta, gamma)
+    _, D_cols = _advance(R_cols, D_cols, V_cols, alpha, beta, gamma)
+    V = kernel_matmul_plain(
+        Xs_rows, Xs_cols, D_cols, outputscale, sigma2, row_offset, kernel_type=kernel_type
+    )
+    return U, R, D, V, cg_reductions(R, D, V)
+
+
+def _as_leaf(v, like: torch.Tensor) -> torch.Tensor:
+    v = v.detach() if isinstance(v, torch.Tensor) else torch.tensor(float(v))
+    return v.to(device=like.device, dtype=torch.float32).reshape(()).requires_grad_()
+
+
+def kernel_matmul_grad_plain(
+    X1, X2, M, C, outputscale, sigma2, row_offset: int = 0, *,
+    kernel_type: str = "rbf", chunk_rows: int = 4096,
+):
+    """The VJP of ``kernel_matmul_plain`` for a cotangent C (rows, t) of its
+    output, by ``torch.autograd``: (∂/∂X1, ∂/∂X2, ∂/∂outputscale, ∂/∂σ²) of
+    ⟨C, (K(X1, X2) + σ²·[row_offset+i = j])·M⟩ for a 2-D M (cols, t).
+
+    The rows go through in slices of ``chunk_rows`` (the VJP is linear in
+    them), so K is materialized a slice at a time and the full size fits
+    on the card."""
+    X2g = X2.detach().float().requires_grad_()
+    s, s2 = _as_leaf(outputscale, X2), _as_leaf(sigma2, X2)
+    M, C = M.detach().float(), C.detach().float()
+    rows, cols = X1.shape[0], X2.shape[0]
+    gX1 = []
+    gX2 = torch.zeros_like(X2g)
+    gs = torch.zeros((), device=X2.device)
+    gs2 = torch.zeros((), device=X2.device)
+    for i in range(0, rows, chunk_rows):
+        X1g = X1[i : i + chunk_rows].detach().float().requires_grad_()
+        # σ² at global row row_offset + i + r = column j: the shifted rows of M
+        off = int(row_offset) + i
+        diag = torch.zeros((X1g.shape[0], M.shape[1]), device=M.device)
+        m = max(0, min(X1g.shape[0], cols - off))
+        diag[:m] = M[off : off + m]
+        with torch.enable_grad():  # also inside an autograd Function's backward
+            out = _stationary(kernel_type, _sq_dist(X1g, X2g), s) @ M + s2 * diag
+            g = torch.autograd.grad(out, (X1g, X2g, s, s2), C[i : i + chunk_rows])
+        gX1.append(g[0])
+        gX2 += g[1]
+        gs += g[2]
+        gs2 += g[3]
+    gX1 = torch.cat(gX1) if gX1 else torch.zeros_like(X1, dtype=torch.float32)
+    return gX1, gX2, gs, gs2

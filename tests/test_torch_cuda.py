@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+B1/B2 (the kernel matmul), B3 (the fused CG step) and the gradient kernel,
+and the training path through them.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: a
 hand-written kernel has no CPU mode.  The file imports no JAX, so it runs on
@@ -12,9 +14,15 @@ import pytest
 import torch
 
 from repro_torch.kernels.kernel_matmul import kernel_matmul as km
-from repro_torch.kernels.kernel_matmul.ref import KERNEL_TYPES, kernel_matmul_plain
+from repro_torch.kernels.kernel_matmul.ref import (
+    KERNEL_TYPES,
+    fused_cg_step_plain,
+    kernel_matmul_grad_plain,
+    kernel_matmul_plain,
+)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
+RED_TOL = dict(rtol=2e-4, atol=2e-3)  # the reductions, as tests/test_fused_cg.py:86
 
 
 @pytest.fixture
@@ -72,3 +80,97 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         km.kernel_matmul_cuda(Xs, Xs, M.double(), 1.0, 0.0)
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
         km.kernel_matmul_cuda(Xs, Xs.cpu(), M, 1.0, 0.0)
+
+
+def _state(seed, b, n, t, dev):
+    g = torch.Generator().manual_seed(seed)
+    state = [torch.randn((b, n, t), generator=g).to(dev) for _ in range(4)]
+    alpha = torch.randn((b, t), generator=g).to(dev)
+    beta = 0.5 * torch.randn((b, t), generator=g).to(dev)
+    return state, [alpha, beta, torch.ones_like(alpha)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+@pytest.mark.parametrize("t,b", [(1, 1), (9, 3), (33, 1)])
+def test_fused_step_matches_plain(cuda_device, kernel_type, t, b):
+    n = 1001
+    Xs, _ = _inputs(t + b, n, 8, (1,), cuda_device)
+    state, scalars = _state(t, b, n, t, cuda_device)
+    scalars[0][:, 0] = scalars[1][:, 0] = scalars[2][:, 0] = 0.0  # a frozen column
+    before = km.fused_launches
+    out = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.1, 0.1,
+                                kernel_type=kernel_type)
+    torch.cuda.synchronize()
+    assert km.fused_launches == before + 1
+    ref = fused_cg_step_plain(Xs, Xs, *state, *state[1:], *scalars, 1.1, 0.1,
+                              kernel_type=kernel_type)
+    for a, r in zip(out[:4], ref[:4]):
+        torch.testing.assert_close(a, r, **TOL)
+    torch.testing.assert_close(out[4], ref[4], **RED_TOL)
+    assert torch.equal(out[0][..., 0], state[0][..., 0])
+    assert torch.equal(out[1][..., 0], state[1][..., 0])
+    # the outputs are new tensors: the inputs were not written
+    assert all(a.data_ptr() != s.data_ptr() for a, s in zip(out[:4], state))
+
+
+@pytest.mark.cuda
+def test_fused_step_shards_reassemble(cuda_device):
+    n, t = 3001, 9
+    Xs, _ = _inputs(3, n, 5, (1,), cuda_device)
+    state, scalars = _state(4, 2, n, t, cuda_device)
+    full = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.0, 0.3,
+                                 kernel_type="matern32")
+    parts = [
+        km.fused_cg_step_cuda(Xs[i : i + 1000].contiguous(), Xs,
+                              *[s[:, i : i + 1000].contiguous() for s in state],
+                              *state[1:], *scalars, 1.0, 0.3, i, kernel_type="matern32")
+        for i in range(0, n, 1000)
+    ]
+    for k in range(4):
+        torch.testing.assert_close(torch.cat([p[k] for p in parts], dim=1), full[k],
+                                   rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(sum(p[4] for p in parts), full[4], **RED_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+@pytest.mark.parametrize("t", [1, 9, 33])
+def test_grad_kernel_matches_plain(cuda_device, kernel_type, t):
+    rows, cols = 1001, 1537
+    X1, C = _inputs(t, rows, 8, (rows, t), cuda_device)
+    X2, M = _inputs(t + 1, cols, 8, (cols, t), cuda_device)
+    X2[9] = X1[4]  # coincident points: Matérn-½'s f′ is unbounded there
+    before = km.grad_launches
+    out = km.kernel_matmul_grad_cuda(X1, X2, M, C, 1.1, 0.1, 3, kernel_type=kernel_type)
+    torch.cuda.synchronize()
+    assert km.grad_launches == before + 2
+    ref = kernel_matmul_grad_plain(X1, X2, M, C, 1.1, 0.1, 3, kernel_type=kernel_type)
+    for a, r in zip(out, ref):
+        assert bool(torch.isfinite(a).all())
+        err = float((a - r).abs().max())
+        assert err <= 2e-4 * float(r.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_fused_training_launches(cuda_device):
+    """A fused fit: every forward CG iteration one B3 launch and no B1; the
+    backward two gradient-kernel launches (and B1 once, the VJP's primal)."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings
+
+    g = torch.Generator().manual_seed(0)
+    X = (2 * torch.rand((2000, 8), generator=g) - 1).to(cuda_device)
+    y = torch.sin(3 * X[:, 0])
+    gp = ExactGP(kernel_type="matern52", mode="cuda", fuse_cg=True,
+                 settings=BBMMSettings(num_probes=4, max_cg_iters=10, precond_rank=0))
+    counts = []
+
+    def on_step(i, loss):
+        counts.append((km.fused_launches, km.launches, km.grad_launches))
+        km.reset_launch_counts()
+
+    km.reset_launch_counts()
+    _, history = gp.fit(X, y, steps=2, callback=on_step)
+    assert all(np.isfinite(history))
+    assert counts == [(10, 1, 2), (10, 1, 2)]

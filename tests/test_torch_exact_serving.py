@@ -197,7 +197,6 @@ def test_health_policy_warn_raise_and_reports():
         (dict(on_failure="degrade"), "step 13"),
         (dict(dense_direct_max_n=500), "step 13"),
         (dict(precision="mixed"), "step 10"),
-        (dict(fuse_cg=True), "step 9"),
     ],
 )
 def test_unported_settings_raise(settings, step):
@@ -215,8 +214,6 @@ def test_unported_model_methods_raise():
     assert isinstance(gp, GPModel) and missing_protocol_methods(gp) == []
     params = gp.init_params(X)
     for call, step in (
-        (lambda: gp.fit(X, y), "step 8"),
-        (lambda: gp.loss(params, X, y, None), "step 7"),
         (lambda: gp.batched_loss(params, X, y, None), "step 11"),
         (lambda: gp.batched_operator(params, X), "step 11"),
         (lambda: gp.update_cache(params, X, y, None, X, y), "step 14"),

@@ -214,14 +214,16 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
         km.kernel_matmul_cuda(X, X, M, 1.0, 0.0)
 
 
-def test_ctypes_signature_matches_the_c_entry_point():
-    """The binding's argtypes follow the source's extern "C" signature, one
+@pytest.mark.parametrize("name", sorted(build.ENTRY_POINTS))
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    """Each library's argtypes follow its source's extern "C" signature, one
     for one, with every pointer (and the stream) as c_void_p."""
     import ctypes
     import re
 
-    src = build.SOURCE.read_text()
-    params = re.search(r'extern "C" int kernel_matmul_f32\(([^)]*)\)', src).group(1)
+    symbol, argtypes = build.ENTRY_POINTS[name]
+    src = (build.CSRC / f"{name}.cu").read_text()
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src).group(1)
     expected = []
     for param in params.split(","):
         if "*" in param:
@@ -230,7 +232,7 @@ def test_ctypes_signature_matches_the_c_entry_point():
             expected.append(ctypes.c_int)
         else:
             expected.append(ctypes.c_float)
-    assert build.ARGTYPES == expected
+    assert argtypes == expected
 
 
 def test_build_without_nvcc_is_an_error(monkeypatch, tmp_path):

@@ -154,7 +154,7 @@ def test_unported_mbcg_paths_raise():
     A, _ = _spd(5, 8, 2.0)
     B = torch.ones(8, 2)
     At = torch.from_numpy(A)
-    with pytest.raises(NotImplementedError, match="step 9"):
-        mbcg(lambda M: At @ M, B, fused_step=lambda *a: None)
+    with pytest.raises(ValueError, match="identity preconditioner"):
+        mbcg(lambda M: At @ M, B, fused_step=lambda *a: None, precond_solve=lambda R: R)
     with pytest.raises(NotImplementedError, match="step 10"):
         mbcg(lambda M: At @ M, B, refresh_every=2)
