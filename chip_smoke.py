@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: builds its CUDA kernels, holds each
 against its plain PyTorch version on the card, and drives the exact-GP
-serving and training slices at full size through the kernels.
+serving and training slices and zamba2-7b serving at full size through the
+kernels.
 
     python3 chip_smoke.py [--seed 0] [--n 40000]
 
 Phases (each prints one JSON object per line; any failure exits non-zero
 and the final line is then not printed):
 
-  1. build      nvcc of every ``src/repro_torch/kernels/kernel_matmul/csrc``
-                source, one process per source, all at once
+  1. build      nvcc of every ``src/repro_torch/kernels/*/csrc`` source, one
+                process per source, all at once
   2. kernel     B1 (2-D M) and B2 (3-D M) against ``kernel_matmul_plain``
                 for rbf / matern12/32/52 at odd n, ARD, t ∈ {1, 9, 234, 256};
                 row_offset slices of the n=40,000 product; b=4 batches;
@@ -23,10 +24,18 @@ and the final line is then not printed):
                 the four kernel types, scalar and ARD ℓ (through the chain
                 to ℓ), rows ≠ columns, coincident points, one case at
                 n=40,000; tolerance 2e-4 relative
-  3. timing     the kernels at the slice's shapes beside the plain version,
+     flash_kernel  B4 against ``gqa_attention_plain``: causal and not, GQA
+                8/2 heads, dh ∈ {32, 64, 112, 224}, ragged lengths, the
+                slice's (4, 32, 512, 224); f32 rtol/atol 2e-4, bf16 3e-2
+     ssd_kernel    B5 against ``ssd_scan_chunked_ref`` and the step
+                recurrence: chunk ∈ {32, 64, 128}, the reference's shape
+                sweep, the slice's (4, 112, 512, 64, 64) in bf16, l = 4,096;
+                f32 2e-3, bf16 5e-2
+  3. timing     the kernels at the slices' shapes beside the plain version,
                 a library yardstick (torch.cdist → kernel map → torch.matmul,
-                autograd through it for the gradient) and the card's bound,
-                CUDA events around synchronised launches
+                autograd through it for the gradient; B4:
+                scaled_dot_product_attention; B5: none) and the card's
+                bound, CUDA events around synchronised launches
   4. serve      ExactGP(matern52, mode="cuda") on n=40,000, d=8 synthetic
                 kin40k-shaped data: one posterior_cache build, eight
                 1,024-point predict_cached requests, one 256-point predict;
@@ -50,6 +59,25 @@ and the final line is then not printed):
                 version (MLL rtol 1e-4, every gradient rtol 1e-3) and the
                 fused solves to the unfused B1 solves (rtol 1e-3 / atol
                 1e-4); one unfused step at precond_rank=5
+  8. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
+                prompt, at 13 layers and at all 81: the forward with B4/B5
+                and every B4/B5 call in it no further from the f64 witness
+                (the plain path in f64) than 4 × the f32 plain forward and
+                calls; at 13 layers also the forward vs its plain version
+                (rtol/atol 1e-3) and vs decode stepped over the prompt at
+                every position (2e-2)
+  9. lm_serve   zamba2-7b at full size (81 layers, bf16, weights from the
+                seed on the card): one make_prefill_step over 4 × 512-token
+                prompts (81 B5 and 13 B4 launches, counted), then the serve
+                loop (decode stepped over the prompts, 32 greedy tokens,
+                cache 1,024); prefill ms, decode ms per token, tokens/s,
+                peak memory; at every one of the 81 + 13 calls on the full
+                model's own inputs, B5 / B4 within 5e-2 of the plain
+                version's largest output; the full-depth kernel-vs-plain
+                logits within 2 × the plain path's own distance under a
+                one-ulp change of its embedding (at random weights the
+                bf16 model amplifies rounding to O(1)); a profile of one
+                prefill and one decode step
 
 The last line is ``{"ok": true, "device": {...}}``.  Run from a checkout of
 the repository; needs one CUDA device.
@@ -74,8 +102,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, dense
+# bf16 on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 KERNEL_TYPES = ("rbf", "matern12", "matern32", "matern52")
 REL_TOL = 2e-4
@@ -92,6 +122,8 @@ CSRC = "src/repro_torch/kernels/kernel_matmul/csrc/"
 KERNEL_SOURCE = CSRC + "kernel_matmul.cu"
 FUSED_SOURCE = CSRC + "fused_cg_step.cu"
 GRAD_SOURCE = CSRC + "kernel_matmul_grad.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 
 
 class CheckFailed(AssertionError):
@@ -1026,6 +1058,519 @@ def phase_train_prefix(km, gp, settings, Xd, yd):
           f"prefix solves: fused B3 vs unfused B1 {solves}")
 
 
+# --------------------------------------------------------------------------
+# the LM serving slice: B4, B5 and zamba2-7b
+# --------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),  # tests/test_flash_ssd_pallas.py:27
+             torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}  # :47
+SSD_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3),  # tests/test_flash_ssd_pallas.py:73
+           torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}  # :85
+LM_PARITY_TOL = dict(rtol=1e-3, atol=1e-3)
+DECODE_TOL = dict(rtol=2e-2, atol=2e-2)  # tests/test_models_smoke.py:143-148
+LM_REL_BOUND = 5e-2  # the reference's bf16 SSD tolerance, per kernel call on the model's inputs
+ATTN_SLICE = (4, 32, 512, 224)  # batch, heads, positions, head dim of the shared block
+SSD_SLICE = (4, 112, 512, 64, 64, 128)  # batch, heads, positions, head dim, state, chunk
+LM_BATCH, LM_PROMPT, LM_GEN, LM_CACHE = 4, 512, 32, 1024
+PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT = 13, 2, 256
+FULL_LAYERS = 81
+# per B4 / B5 call: |kernel − f64| ≤ this × |plain − f64|; B4's in-thread f32
+# sums measured up to 2.05 × cuBLAS's blocked ones (PERF.md §6, PR 13)
+WITNESS_FACTOR = 4.0
+ROUNDING_FACTOR = 2.0  # bf16 logits: |kernel − plain| ≤ this × the one-ulp distance
+
+
+def _normal(rng, shape, dev, dtype=torch.float32):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+
+
+def _product_ms(ops_bf16, ops_mixed, ops_f32):
+    """Least time for matrix products on an H100 at the rate for their
+    operand types: bf16 × bf16 on the tensor cores (989 TFLOP/s), a bf16
+    operand times an f32 one as two bf16 products (the f32 operand split
+    into a bf16 high and low half, which keeps its precision: 989 / 2),
+    f32 × f32 outside the tensor cores (67 TFLOP/s; TF32 is off)."""
+    return (ops_bf16 / PEAK_BF16_FLOPS + ops_mixed / (PEAK_BF16_FLOPS / 2)
+            + ops_f32 / PEAK_F32_FLOPS) * 1e3
+
+
+def flash_bound(b, h, sq, skv, dh, causal, dtype):
+    """Least time for B4 on an H100: per head 2·sq·skv·dh operations for
+    q·kᵀ (both operands in the input dtype) and as many for P·v (P is f32),
+    halved under the causal mask, against q, k, v read once and o written
+    once."""
+    per_product = 2 * sq * skv * dh * b * h * (0.5 if causal else 1.0)
+    if dtype == torch.bfloat16:
+        t_ops = _product_ms(per_product, per_product, 0)
+    else:
+        t_ops = _product_ms(0, 0, 2 * per_product)
+    nbytes = dtype.itemsize * b * h * dh * (2 * sq + 2 * skv)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssd_bound(b, h, l, dh, ds, chunk, dtype):
+    """Least time for B5 on an H100, per chunk: C·Bᵀ once per batch
+    element (2c²·ds, both operands in the input dtype; the same for every
+    head), and per head the masked f32 decay matrix times x (2c²·dh),
+    C·h_prevᵀ and the state update (2c·dh·ds each, one f32 operand),
+    against x, B, C, dt, A read once and y written once."""
+    chunks = l // chunk
+    cb = 2 * chunk * chunk * ds * chunks * b
+    per_head = (2 * chunk * chunk * dh + 4 * chunk * dh * ds) * chunks * b * h
+    if dtype == torch.bfloat16:
+        t_ops = _product_ms(cb, per_head, 0)
+    else:
+        t_ops = _product_ms(0, 0, cb + per_head)
+    nbytes = dtype.itemsize * (2 * b * h * l * dh + 2 * b * l * ds) + 4 * (b * h * l + h)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _check_close(name, out, ref, tol, cases, errs, key):
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(out.float(), ref.float())
+    errs[key] = max(errs[key], abs_err)
+    cases.append({"case": name, "max_abs_err": abs_err, "rel_err": rel})
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite kernel output")
+    check(_within(out.float(), ref.float(), tol), f"{name}: outside {tol} (max |Δ| {abs_err:.3e})")
+
+
+def phase_flash_kernel(rng, errs):
+    """B4 against ``gqa_attention_plain``: causal and not, GQA, the head
+    dims the port builds for, ragged lengths, the slice's shape, f32 and
+    bf16 (2e-4 / 3e-2)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, h, s, dh = ATTN_SLICE
+    shapes = [  # (b, hq, hkv, sq, skv, dh, causal, dtype)
+        (2, 4, 4, 128, 128, 64, True, f32), (2, 4, 4, 128, 128, 64, False, f32),
+        (2, 4, 4, 256, 384, 32, False, f32), (1, 8, 2, 128, 128, 32, True, f32),
+        *[(1, 4, 4, 128, 128, d, True, f32) for d in (32, 64, 112, 224)],
+        (1, 4, 2, 200, 200, 112, True, f32), (2, 4, 4, 200, 333, 64, False, f32),
+        (b, h, h, s, s, dh, True, f32),
+        (1, 2, 2, 128, 128, 64, True, bf16), (2, 8, 2, 200, 200, 224, True, bf16),
+        (b, h, h, s, s, dh, True, bf16),
+    ]
+    cases = []
+    for bb, hq, hkv, sq, skv, d, causal, dtype in shapes:
+        q = _normal(rng, (bb, sq, hq, d), dev, dtype).transpose(1, 2)  # the model's views
+        k = _normal(rng, (bb, skv, hkv, d), dev, dtype).transpose(1, 2)
+        v = _normal(rng, (bb, skv, hkv, d), dev, dtype).transpose(1, 2)
+        out = fa.flash_attention_cuda(q, k, v, causal=causal)
+        ref = gqa_attention_plain(q, k, v, causal=causal)
+        check(out.dtype == dtype and out.shape == ref.shape, f"B4 output {out.dtype} {tuple(out.shape)}")
+        _check_close(f"B4 b={bb} hq={hq} hkv={hkv} sq={sq} skv={skv} dh={d} causal={causal} "
+                     f"{str(dtype)[6:]}", out, ref, FLASH_TOL[dtype], cases, errs, "B4")
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_kernel", "cases": cases, "tolerance": {"float32": FLASH_TOL[f32],
+                                                                "bfloat16": FLASH_TOL[bf16]}})
+
+
+def _ssd_case(rng, b, h, l, dh, ds, dev, dtype):
+    """The reference test's recipe (tests/test_flash_ssd_pallas.py:59)."""
+    x = _normal(rng, (b, h, l, dh), dev, dtype)
+    dt = torch.nn.functional.softplus(_normal(rng, (b, h, l), dev) - 1.0)
+    A = -torch.nn.functional.softplus(_normal(rng, (h,), dev))
+    return x, dt, A, _normal(rng, (b, l, ds), dev, dtype), _normal(rng, (b, l, ds), dev, dtype)
+
+
+def phase_ssd_kernel(rng, errs):
+    """B5 against ``ssd_scan_chunked_ref`` and the step recurrence: chunks
+    32/64/128, the reference's shape sweep, the slice's shape in bf16 and
+    one 4,096-step case (32 chunks carry the state); 2e-3 / 5e-2."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [  # (b, h, l, dh, ds, chunk, dtype)
+        *[(2, 3, 256, 16, 8, c, f32) for c in (32, 64, 128)],
+        (1, 1, 64, 8, 4, 64, f32), (2, 4, 192, 32, 16, 64, f32), (1, 2, 128, 64, 64, 64, f32),
+        (2, 3, 128, 16, 8, 64, bf16), (*SSD_SLICE, bf16),
+        (1, 4, 4096, 64, 64, 128, f32),
+    ]
+    cases = []
+    for b, h, l, dh, ds, chunk, dtype in shapes:
+        x, dt, A, B, C = _ssd_case(rng, b, h, l, dh, ds, dev, dtype)
+        out = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+        check(out.dtype == dtype and out.shape == x.shape, f"B5 output {out.dtype} {tuple(out.shape)}")
+        name = f"B5 b={b} h={h} l={l} dh={dh} ds={ds} chunk={chunk} {str(dtype)[6:]}"
+        _check_close(name + " vs chunked", out, ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk),
+                     SSD_TOL[dtype], cases, errs, "B5")
+        _check_close(name + " vs recurrence", out, ssd_scan_ref(x, dt, A, B, C),
+                     SSD_TOL[dtype], cases, errs, "B5_recurrence")
+        del x, dt, A, B, C, out
+    torch.cuda.empty_cache()
+    emit({"phase": "ssd_kernel", "cases": cases, "tolerance": {"float32": SSD_TOL[f32],
+                                                              "bfloat16": SSD_TOL[bf16]}})
+
+
+def phase_lm_timing(rng):
+    """B4 and B5 at the serving slice's shapes and layouts (bf16 views of
+    the model's projections) beside the plain versions, the library
+    yardstick (B4: scaled_dot_product_attention; B5 has no single PyTorch
+    call) and the bound."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref
+
+    dev = torch.device("cuda")
+    rows = {}
+    b, h, s, dh = ATTN_SLICE
+    qkv = _normal(rng, (b, s, 3, h, dh), dev, torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bound_ms, bound_by = flash_bound(b, h, s, s, dh, True, torch.bfloat16)
+    rows["B4"] = {"shape": {"b": b, "heads": h, "sq": s, "skv": s, "dh": dh, "causal": True,
+                            "dtype": "bfloat16"},
+                  "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), reps=20),
+                  "plain_ms": time_ms(lambda: gqa_attention_plain(q, k, v, causal=True), reps=5),
+                  "library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=True), reps=20),
+                  "library": "torch.nn.functional.scaled_dot_product_attention (yardstick only)",
+                  "bound_ms": bound_ms, "bound_by": bound_by}
+    del qkv, q, k, v
+
+    b, h, l, dh, ds, chunk = SSD_SLICE
+    di = h * dh
+    xBC = _normal(rng, (b, l, di + 2 * ds), dev, torch.bfloat16)  # the conv output's layout
+    x = xBC[..., :di].reshape(b, l, h, dh).transpose(1, 2)
+    Bm, Cm = xBC[..., di : di + ds], xBC[..., di + ds :]
+    dt = torch.nn.functional.softplus(_normal(rng, (b, l, h), dev) - 1.0).transpose(1, 2)
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, h, device=dev)))
+    bound_ms, bound_by = ssd_bound(b, h, l, dh, ds, chunk, torch.bfloat16)
+    rows["B5"] = {"shape": {"b": b, "heads": h, "l": l, "dh": dh, "ds": ds, "chunk": chunk,
+                            "dtype": "bfloat16"},
+                  "ms": time_ms(lambda: ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk), reps=20),
+                  "plain_ms": time_ms(lambda: ssd_scan_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk),
+                                      reps=5),
+                  "library_ms": None, "library": "none: no single PyTorch call computes the scan",
+                  "bound_ms": bound_ms, "bound_by": bound_by}
+    del xBC, x, Bm, Cm, dt
+    torch.cuda.empty_cache()
+    for key, row in rows.items():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        emit({"phase": "timing", "kernel": key, **row})
+    return rows
+
+
+def _lm_counts():
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+
+    return {"B4": fa.launches, "B5": ssd.launches}
+
+
+def _reset_lm_counts():
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+
+    fa.reset_launch_counts()
+    ssd.reset_launch_counts()
+
+
+@contextlib.contextmanager
+def shadowed_kernels(witness=False):
+    """While open, every B4 / B5 call the model makes on the kernel path
+    (through ``attention.flash_attention`` / ``ssm.ssd_scan``, the names
+    the model calls) also runs the kernel's plain version on the same
+    inputs, and with ``witness`` the plain version in f64 (B5: the step
+    recurrence).  Yields {kernel: [per call: "rel", max |kernel − plain| /
+    max |plain|; with the witness "kernel_f64" and "plain_f64", the max
+    |Δ| of each from f64]}."""
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
+    from repro_torch.models import attention, ssm
+
+    calls = {"B4": [], "B5": []}
+    flash, scan = attention.flash_attention, ssm.ssd_scan
+
+    def record(key, out, plain, exact_fn, args):
+        rec = {"rel": rel_err(out.float(), plain.float())[1]}
+        if witness:
+            exact = exact_fn(*(t.double() for t in args))
+            rec["kernel_f64"], rec["plain_f64"] = _err(out, exact), _err(plain, exact)
+        calls[key].append(rec)
+
+    def flash_shadow(q, k, v, *, causal=True):
+        out = flash(q, k, v, causal=causal)
+        record("B4", out, gqa_attention_plain(q, k, v, causal=causal),
+               lambda *t: gqa_attention_plain(*t, causal=causal), (q, k, v))
+        return out
+
+    def scan_shadow(x, dt, A, B, C, *, chunk=128, use_kernel=True):
+        out = scan(x, dt, A, B, C, chunk=chunk, use_kernel=use_kernel)
+        if use_kernel:
+            record("B5", out, ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk),
+                   ssd_scan_ref, (x, dt, A, B, C))
+        return out
+
+    attention.flash_attention, ssm.ssd_scan = flash_shadow, scan_shadow
+    try:
+        yield calls
+    finally:
+        attention.flash_attention, ssm.ssd_scan = flash, scan
+
+
+def _to_f64(params):
+    """Every leaf of the parameter tree replaced in place by its f64 copy,
+    the largest first, so that the f32 and f64 trees never coexist."""
+    slots = []
+
+    def walk(tree):
+        for key, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                slots.append((tree, key))
+
+    walk(params)
+    for tree, key in sorted(slots, key=lambda s: -s[0][s[1]].numel()):
+        tree[key] = tree[key].double()
+    return params
+
+
+def phase_lm_parity(seed, layers, *, tol, decode):
+    """zamba2-7b at full width with depth cut to ``layers``, in f32, batch
+    2, a 256-token prompt: the forward with B4/B5 against the same forward
+    with their plain versions (within ``tol`` where given) and both against
+    the f64 witness, the plain forward on the same parameters in f64: the
+    kernel forward's logits, and each of its B4 / B5 calls beside the
+    call's plain version in f64, no further from f64 than WITNESS_FACTOR ×
+    the f32 plain ones; with ``decode``, the forward against the logits of
+    decode stepped over the prompt at every position (2e-2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, hybrid
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("zamba2-7b"), num_layers=layers, dtype="float32")
+    P, G, tail = hybrid._group_shape(cfg)
+    bundle = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = bundle.init(gen)
+    tok = torch.randint(0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT), generator=gen, device=dev)
+    result = {"phase": "lm_parity", "layers": cfg.num_layers, "groups": [G, P, tail],
+              "dtype": "float32", "batch": PARITY_BATCH, "prompt": PARITY_PROMPT}
+    with torch.inference_mode():
+        _reset_lm_counts()
+        with shadowed_kernels(witness=True) as calls:
+            kern = hybrid.forward(params, cfg, tok)
+        torch.cuda.synchronize()
+        counts = _lm_counts()
+        plain = hybrid.forward(params, cfg, tok, use_kernels=False)
+        torch.cuda.synchronize()
+        check(_lm_counts() == counts, f"the plain forward launched a kernel: {_lm_counts()}")
+        check(counts == {"B4": G, "B5": cfg.num_layers},
+              f"forward launches {counts} != B4 {G}, B5 {cfg.num_layers}")
+        if decode:
+            cache = bundle.init_cache(params, PARITY_BATCH, PARITY_PROMPT)
+            steps = []
+            for t in range(PARITY_PROMPT):
+                lg, cache = bundle.decode(params, tok[:, t], cache,
+                                          torch.full((PARITY_BATCH,), t, device=dev))
+                steps.append(lg)
+            dec = torch.stack(steps, dim=1)
+            d_abs, d_rel = rel_err(dec, kern)
+            result["decode_vs_forward"] = {"max_abs_err": d_abs, "rel_err": d_rel, "tol": DECODE_TOL}
+            del cache, steps
+        exact = hybrid.forward(_to_f64(params), cfg, tok, use_kernels=False)
+        check(exact.dtype == torch.float64, f"the witness forward ran in {exact.dtype}")
+    k_abs, k_rel = rel_err(kern, plain)
+    kern_f64, plain_f64 = _err(kern, exact), _err(plain, exact)
+    witness = {key: {**{f: max(c[f] for c in recs) for f in ("rel", "kernel_f64", "plain_f64")},
+                     "kernel_over_plain_f64": max(c["kernel_f64"] / c["plain_f64"] for c in recs)}
+               for key, recs in calls.items()}
+    result.update({"launches": counts, "max_abs_logit": float(plain.abs().max()),
+                   "kernel_vs_plain": {"max_abs_err": k_abs, "rel_err": k_rel, "tol": tol},
+                   "logits_from_f64": {"kernel": kern_f64, "plain": plain_f64},
+                   "per_call_max": witness, "witness_factor": WITNESS_FACTOR})
+    emit(result)
+    check(bool(torch.isfinite(kern).all()), "non-finite logits")
+    if tol is not None:
+        check(_within(kern, plain, tol), f"forward kernel vs plain: max |Δ| {k_abs:.3e}")
+    check(kern_f64 <= WITNESS_FACTOR * plain_f64,
+          f"logits: the kernel forward {kern_f64:.3e} from f64, the plain one {plain_f64:.3e}")
+    check(len(calls["B5"]) == cfg.num_layers and len(calls["B4"]) == G,
+          f"witnessed {len(calls['B5'])} B5 and {len(calls['B4'])} B4 calls")
+    for key, recs in calls.items():
+        for i, c in enumerate(recs):
+            check(c["kernel_f64"] <= WITNESS_FACTOR * c["plain_f64"],
+                  f"{key} call {i}: {c['kernel_f64']:.3e} from f64, the plain version "
+                  f"{c['plain_f64']:.3e}")
+    if decode:
+        check(bool(torch.isfinite(dec).all()), "non-finite decode logits")
+        check(_within(dec, kern, DECODE_TOL), f"decode vs forward: max |Δ| {d_abs:.3e}")
+        del dec
+    del params, kern, plain, exact
+    torch.cuda.empty_cache()
+
+
+def profile_lm(fn, top=8):
+    """Device time of one call of ``fn`` by kernel (torch.profiler): the
+    largest ``top`` entries, the rest summed, the wall time and the
+    device's busy and idle shares of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda kv: -kv[1],
+    )
+    busy = sum(ms for _, ms, _ in kernels)
+    return {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+            "kernel_launches": sum(n for _, _, n in kernels),
+            "top": [{"kernel": name[:70], "ms": ms, "calls": n} for name, ms, n in kernels[:top]],
+            "other_ms": sum(ms for _, ms, _ in kernels[top:])}
+
+
+def phase_lm_serve(seed):
+    """zamba2-7b at full size (81 layers, bf16, weights from the seed on the
+    card): one make_prefill_step call over 4 × 512-token prompts (the main
+    path, counted: 81 B5 and 13 B4 launches), then the reference's serve
+    loop (decode stepped over each prompt, 32 greedy tokens), timed; one
+    more kernel forward with every B4 / B5 call held to its plain version
+    on the model's own inputs (5e-2 of the plain output's largest entry);
+    its logits against the plain forward's, within ROUNDING_FACTOR × the
+    plain path's own distance under a one-ulp scaling of its embedding (at
+    random weights the 81-layer bf16 model amplifies rounding: PERF.md
+    §6); a profile of one prefill and one decode step."""
+    from repro_torch.launch.serve import build_server, make_prompts, serve_loop
+    from repro_torch.models import hybrid, make_prefill_step
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, bundle, params = build_server("zamba2-7b", "full", seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in _leaves(params))
+    param_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    P, G, tail = hybrid._group_shape(cfg)
+    prompts = make_prompts(cfg, LM_BATCH, LM_PROMPT, seed=seed, device=dev)
+    batch = {"tokens": prompts}
+    prefill_step = make_prefill_step(bundle, LM_CACHE)
+
+    with torch.inference_mode():
+        # the main path, counted from 0
+        _reset_lm_counts()
+        (next_tok, cache), prefill_ms, prefill_dev_ms = timed(lambda: prefill_step(params, batch))
+        counts = _lm_counts()
+        warm = [timed(lambda: prefill_step(params, batch))[1:] for _ in range(3)]
+        check(counts == {"B4": G, "B5": cfg.num_layers},
+              f"prefill launches {counts} != B4 {G}, B5 {cfg.num_layers}")
+        check(next_tok.shape == (LM_BATCH,) and bool(((next_tok >= 0) & (next_tok < cfg.vocab_size)).all()),
+              f"prefill tokens {next_tok.tolist()}")
+        check(not any(bool(x.any()) for x in _leaves(cache)), "the prefill's cache is not empty")
+        del cache
+
+        # the serve loop: decode stepped over each prompt, then greedy steps
+        step_ms = {"prefill": [], "decode": []}
+        finite = [True]
+        clock = [0.0]
+
+        def on_step(phase, t, out):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_ms[phase].append((now - clock[0]) * 1e3)
+            if phase == "prefill":
+                finite[0] &= bool(torch.isfinite(out).all())
+            clock[0] = time.perf_counter()
+
+        _reset_lm_counts()
+        torch.cuda.synchronize()
+        clock[0] = t_loop = time.perf_counter()
+        generated = serve_loop(bundle, params, prompts, LM_GEN, LM_CACHE, on_step=on_step)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t_loop
+        loop_counts = _lm_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(finite[0], "non-finite logits in the decode-stepped prefill")
+        check(generated.shape == (LM_BATCH, LM_GEN)
+              and bool(((generated >= 0) & (generated < cfg.vocab_size)).all()),
+              "generated tokens out of range")
+        check(loop_counts == {"B4": 0, "B5": 0}, f"decode launched a kernel: {loop_counts}")
+
+        # every B4 / B5 call of a full-depth kernel forward held to its plain
+        # version on the model's own inputs; the logits beside the plain
+        # path's, and beside the plain path's under its embedding scaled by
+        # 1 + 2⁻⁸ (one bf16 ulp): how far rounding alone carries them
+        with shadowed_kernels() as in_situ:
+            fk = hybrid.forward(params, cfg, prompts).float()
+        fp = hybrid.forward(params, cfg, prompts, use_kernels=False).float()
+        table = params["embed"]["table"]
+        nudged = {**params, "embed": {"table": (table.float() * (1 + 2.0**-8)).to(table.dtype)}}
+        fn = hybrid.forward(nudged, cfg, prompts, use_kernels=False).float()
+        check(bool(torch.isfinite(fk).all()), "non-finite prefill logits")
+        agreement, self_sensitivity = rel_err(fk, fp), rel_err(fn, fp)
+        del nudged, fk, fp, fn
+
+        _reset_lm_counts()
+        prof_prefill = profile_lm(lambda: prefill_step(params, batch))
+        cache = bundle.init_cache(params, LM_BATCH, LM_CACHE)
+        pos = torch.full((LM_BATCH,), LM_PROMPT - 1, device=dev)
+        bundle.decode(params, prompts[:, -1], cache, pos)
+        prof_decode = profile_lm(lambda: bundle.decode(params, prompts[:, -1], cache, pos))
+        del cache
+
+    decode = step_ms["decode"]
+    warm_ms = [w[0] for w in warm]
+    result = {
+        "phase": "lm_serve", "arch": "zamba2-7b", "layers": cfg.num_layers, "groups": [G, P, tail],
+        "dtype": cfg.dtype, "params": n_params, "param_bytes": param_bytes,
+        "init_s": init_s, "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+        "cache_len": LM_CACHE, "launches": counts,
+        "prefill_ms": prefill_ms, "prefill_device_ms": prefill_dev_ms, "prefill_warm_ms": warm_ms,
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / (min(warm_ms) / 1e3),
+        "stepped_prefill_ms_per_step": sum(step_ms["prefill"]) / len(step_ms["prefill"]),
+        "decode_ms_per_token": sum(decode) / len(decode),
+        "decode_ms_first_last": [decode[0], decode[-1]],
+        "decode_tokens_per_s": LM_BATCH * len(decode) / (sum(decode) / 1e3),
+        "serve_loop_s": loop_s, "peak_device_bytes": peak,
+        "generated_sample": generated[0, :16].tolist(),
+        "kernel_vs_plain_logits": agreement,
+        "plain_vs_plain_one_ulp_embedding": self_sensitivity,
+        "allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+        "in_situ_kernel_vs_plain": {k: {"calls": len(v), "max_rel": max(c["rel"] for c in v),
+                                        "bound": LM_REL_BOUND} for k, v in in_situ.items()},
+        "profile": {"prefill": prof_prefill, "decode_step": prof_decode},
+    }
+    emit(result)
+    check(len(in_situ["B5"]) == cfg.num_layers and len(in_situ["B4"]) == G,
+          f"in situ: {len(in_situ['B5'])} B5 and {len(in_situ['B4'])} B4 calls")
+    for key, recs in in_situ.items():
+        worst = max(c["rel"] for c in recs)
+        check(worst <= LM_REL_BOUND,
+              f"in situ {key} vs plain: max |Δ| / max |plain| {worst:.3e} > {LM_REL_BOUND}")
+    check(agreement[1] <= ROUNDING_FACTOR * self_sensitivity[1],
+          f"full-depth logits: kernel vs plain {agreement[1]:.3e} of the largest logit, more "
+          f"than {ROUNDING_FACTOR} × the one-ulp distance {self_sensitivity[1]:.3e}")
+    del params
+    torch.cuda.empty_cache()
+    return result
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1041,7 +1586,7 @@ def main() -> int:
         return 3
     sys.path.insert(0, str(SRC))
 
-    from repro_torch.kernels.kernel_matmul import build
+    from repro_torch.kernels import build
     from repro_torch.kernels.kernel_matmul import kernel_matmul as km
     from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_plain
 
@@ -1054,7 +1599,11 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0), "seed": args.seed})
 
     rng = np.random.default_rng(args.seed)
-    errs = {"B1": 0.0, "B2": 0.0, "B3": 0.0, "grad": 0.0}
+    errs = {"B1": 0.0, "B2": 0.0, "B3": 0.0, "grad": 0.0, "B4": 0.0, "B5": 0.0,
+            "B5_recurrence": 0.0}
+    # the LM phases draw from a generator of their own, so that they leave
+    # the GP phases' data as it was
+    rng_lm = np.random.default_rng([args.seed, 13])
     t_gram = 9 * 26  # (num_probes + 1) · (max_cg_iters + 1) basis columns
     t_start = time.perf_counter()
     try:
@@ -1062,13 +1611,19 @@ def main() -> int:
         phase_kernel(km, kernel_matmul_plain, rng, errs)
         phase_fused_kernel(km, rng, errs)
         phase_grad_kernel(km, rng, errs)
+        phase_flash_kernel(rng_lm, errs)
+        phase_ssd_kernel(rng_lm, errs)
         timing = phase_timing(km, kernel_matmul_plain, rng, args.n, t_gram)
+        timing.update(phase_lm_timing(rng_lm))
         # the serving and training data have their own generator, so adding
         # a case to an earlier phase does not change the problem the slices
         # solve
         launches, batched, build_ms, req_ms = phase_serve(
             km, np.random.default_rng(args.seed), args.n)
         train, history, steps = phase_train(km, args.seed, args.n)
+        phase_lm_parity(args.seed, PARITY_LAYERS, tol=LM_PARITY_TOL, decode=True)
+        phase_lm_parity(args.seed, FULL_LAYERS, tol=None, decode=False)
+        lm = phase_lm_serve(args.seed)
     except Exception:  # every phase failure ends the run non-zero
         traceback.print_exc()
         return 1
@@ -1082,6 +1637,12 @@ def main() -> int:
                        "step_ms": [st["ms"] for st in steps],
                        "b3_ms_per_launch_n_t9": timing["B3"]["ms"],
                        "grad_ms_per_vjp_n_t9": timing["grad"]["ms"]},
+          "lm_serving": {"arch": "zamba2-7b", "prefill_ms": lm["prefill_ms"],
+                         "prefill_warm_ms": lm["prefill_warm_ms"],
+                         "decode_ms_per_token": lm["decode_ms_per_token"],
+                         "decode_tokens_per_s": lm["decode_tokens_per_s"],
+                         "peak_device_bytes": lm["peak_device_bytes"],
+                         "b4_ms": timing["B4"]["ms"], "b5_ms": timing["B5"]["ms"]},
           "seconds": time.perf_counter() - t_start})
     kernels = []
     for name, key, source, replaces, count in (
@@ -1093,6 +1654,10 @@ def main() -> int:
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:487", train["B3"]),
         ("kernel_matmul_grad (port-only VJP, 2 launches per call)", "grad", GRAD_SOURCE,
          "src/repro/core/inference.py:641 (jax.vjp, no TPU kernel)", train["grad"]),
+        ("flash_attention (B4)", "B4", FLASH_SOURCE,
+         "src/repro/kernels/flash_attention/flash_attention.py:83", lm["launches"]["B4"]),
+        ("ssd_scan (B5)", "B5", SSD_SOURCE,
+         "src/repro/kernels/ssd_scan/ssd_scan.py:91", lm["launches"]["B5"]),
     ):
         row = timing[key]
         kernels.append({

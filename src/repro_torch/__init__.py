@@ -1,12 +1,15 @@
-"""repro_torch — the BBMM exact-GP system in PyTorch, for NVIDIA Hopper.
+"""repro_torch — the BBMM exact-GP system in PyTorch, for NVIDIA Hopper,
+and the LM substrate's zamba2 serving path.
 
 The port of the JAX/Pallas package ``repro`` (which stays the reference):
 the same module layout and names, written in PyTorch's idiom, with every
 Pallas kernel on its path replaced by a hand-written CUDA kernel.  This
 package imports neither ``jax`` nor anything of ``repro``.
 
-Entry points run on CUDA unless the caller passes ``device="cpu"``, and
-raise :class:`repro_torch.device.NoCudaDeviceError` when no GPU is present.
+Entry points (``ExactGP``, ``params_from_jax``, ``lm_params_from_jax``,
+``launch.serve.build_server``) run on CUDA unless the caller passes
+``device="cpu"``, and raise :class:`repro_torch.device.NoCudaDeviceError`
+when no GPU is present.
 
 Importing the package sets ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False: the "highest" precision
@@ -17,8 +20,8 @@ from .core.precision import disable_tf32
 
 disable_tf32()
 
-from .convert import params_from_jax  # noqa: E402
+from .convert import lm_params_from_jax, params_from_jax  # noqa: E402
 from .device import NoCudaDeviceError, resolve_device  # noqa: E402
 from .gp import ExactGP  # noqa: E402
 
-__all__ = ["ExactGP", "NoCudaDeviceError", "params_from_jax", "resolve_device"]
+__all__ = ["ExactGP", "NoCudaDeviceError", "lm_params_from_jax", "params_from_jax", "resolve_device"]

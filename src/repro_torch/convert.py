@@ -1,9 +1,12 @@
-"""Carry the reference's ExactGP parameters over to the port.
+"""Carry the reference's parameters over to the port.
 
-Both packages parameterize ``ExactGP`` by the same raw (softplus-inverse)
-values — ``raw_lengthscale`` (scalar or ARD (d,)), ``raw_outputscale`` and
-``raw_noise`` — so the conversion is a checked copy into f32 tensors on the
-port's device, after which both packages compute the same kernel.
+* ``params_from_jax``: ExactGP.  Both packages parameterize ``ExactGP`` by
+  the same raw (softplus-inverse) values — ``raw_lengthscale`` (scalar or
+  ARD (d,)), ``raw_outputscale`` and ``raw_noise`` — so the conversion is a
+  checked copy into f32 tensors on the port's device, after which both
+  packages compute the same kernel.
+* ``lm_params_from_jax``: an LM's parameter pytree (nested dicts), carried
+  over leaf by leaf with its shapes and dtypes (bf16 stays bf16).
 """
 
 from __future__ import annotations
@@ -37,3 +40,39 @@ def params_from_jax(params: dict, device=None) -> dict[str, torch.Tensor]:
             raise ValueError(f"raw_lengthscale must be scalar or (d,), got {value.shape}")
         out[name] = torch.as_tensor(value, device=device)
     return out
+
+
+_LM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _lm_leaf(path: str, value, device) -> torch.Tensor:
+    arr = np.asarray(value)
+    name = arr.dtype.name
+    if name not in _LM_DTYPES:
+        raise TypeError(f"{path}: parameters are float32 or bfloat16, got {name}")
+    if name == "bfloat16":  # numpy has no bf16 of its own: move the bits
+        t = torch.from_numpy(np.array(arr.view(np.uint16))).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))  # a copy: never alias the caller
+    t = t.to(device)
+    if tuple(t.shape) != arr.shape or t.dtype != _LM_DTYPES[name]:
+        raise ValueError(f"{path}: converted to {t.dtype} {tuple(t.shape)}, "
+                         f"expected {name} {arr.shape}")
+    return t
+
+
+def lm_params_from_jax(params: dict, device=None):
+    """The port's LM parameters from the reference's pytree: the same nested
+    dicts, each leaf (a numpy or jax array, float32 or bfloat16) a tensor of
+    the same shape and dtype on ``device`` (CUDA by default, as every entry
+    point of the port)."""
+    device = resolve_device(device)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        return _lm_leaf(path, node, device)
+
+    if not isinstance(params, dict):
+        raise TypeError(f"expected the reference's param dict, got {type(params).__name__}")
+    return walk(params, "")

@@ -1,7 +1,8 @@
 """Device resolution for the port's entry points.
 
-Every entry point (``ExactGP``, ``params_from_jax``) runs on CUDA unless the
-caller asks for the CPU.  A missing GPU is an error, never a quiet fall back
+Every entry point (``ExactGP``, ``params_from_jax``, ``lm_params_from_jax``,
+the LM serve driver's ``build_server``) runs on CUDA unless the caller asks
+for the CPU.  A missing GPU is an error, never a quiet fall back
 to the CPU: a serving process that silently ran its kernel matmuls on the
 host would be orders of magnitude slower and still look healthy.
 """

@@ -1,18 +1,21 @@
 """Build and load the CUDA kernel libraries of this package.
 
-Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library of its own with a plain C interface, loaded with ctypes:
+Every ``<kernel>/csrc/*.cu`` under this directory is compiled with ``nvcc``
+for ``sm_90a`` into a shared library of its own with a plain C interface,
+loaded with ctypes:
 
-  * ``kernel_matmul.cu``      — B1/B2, the kernel-matrix matmul;
-  * ``fused_cg_step.cu``      — B3, one fused mBCG iteration;
-  * ``kernel_matmul_grad.cu`` — the matmul's gradient for its inputs.
+  * ``kernel_matmul/csrc/kernel_matmul.cu``      — B1/B2, the kernel-matrix matmul;
+  * ``kernel_matmul/csrc/fused_cg_step.cu``      — B3, one fused mBCG iteration;
+  * ``kernel_matmul/csrc/kernel_matmul_grad.cu`` — the matmul's gradient;
+  * ``flash_attention/csrc/flash_attention.cu``  — B4, flash attention;
+  * ``ssd_scan/csrc/ssd_scan.cu``                — B5, the Mamba-2 SSD scan.
 
 The build happens at first use, into ``_build/`` beside this file
 (gitignored), one ``nvcc`` process per source, all started together.  Each
-library's name carries one hash of every source and header under ``csrc/``
-and of the flags, so editing any of them rebuilds and a stale library is
-never loaded.  Nothing is downloaded; a failed build raises
-:class:`KernelBuildError`.
+library's name carries one hash of every source and header under the
+``csrc/`` directories and of the flags, so editing any of them rebuilds and
+a stale library is never loaded.  Nothing is downloaded; a failed build
+raises :class:`KernelBuildError`.
 """
 
 from __future__ import annotations
@@ -27,11 +30,11 @@ import tempfile
 import time
 from pathlib import Path
 
-CSRC = Path(__file__).parent / "csrc"
-BUILD_DIR = Path(__file__).parent / "_build"
+KERNELS_DIR = Path(__file__).parent
+BUILD_DIR = KERNELS_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: The C entry point of each library and its ctypes signature.  Pointers
 #: and the stream are c_void_p, never the 32-bit default.
@@ -45,7 +48,14 @@ ENTRY_POINTS = {
     # X1, X2, A, B, scal, G, partial, gsum; rows, cols, d, t, kernel_type;
     # stream
     "kernel_matmul_grad": ("kernel_matmul_grad_f32", [_P] * 8 + [_I] * 5 + [_P]),
+    # q, k, v, o, strides (host int64[12]); dtype, b, hq, hkv, sq, skv, dh;
+    # scale; causal; stream
+    "flash_attention": ("flash_attention_fwd", [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+    # x, dt, A, B, C, y, strides (host int64[13]); dtype, b, h, l, dh, ds,
+    # chunk; stream
+    "ssd_scan": ("ssd_scan_fwd", [_P] * 7 + [_I] * 7 + [_P]),
 }
+
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a kernel source."""
@@ -73,11 +83,25 @@ def _nvcc() -> str:
     )
 
 
+def _csrc_files() -> list[Path]:
+    return sorted(
+        p for p in KERNELS_DIR.glob("*/csrc/*") if p.suffix in (".cu", ".cuh")
+    )
+
+
+def source(name: str) -> Path:
+    """The ``.cu`` file of library ``name`` (a key of :data:`ENTRY_POINTS`)."""
+    found = [p for p in _csrc_files() if p.name == f"{name}.cu"]
+    if len(found) != 1:
+        raise KernelBuildError(f"expected one source {name}.cu under */csrc/, found {found}")
+    return found[0]
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
-    for src in sorted(CSRC.iterdir()):
-        if src.suffix in (".cu", ".cuh"):
-            h.update(src.name.encode() + b"\0" + src.read_bytes())
+    for src in _csrc_files():
+        rel = src.relative_to(KERNELS_DIR).as_posix()
+        h.update(rel.encode() + b"\0" + src.read_bytes())
     return h.hexdigest()[:12]
 
 
@@ -85,9 +109,20 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest()}.so"
 
 
+def _check_sources() -> None:
+    """Every ``csrc/*.cu`` has an entry point and every entry point a source."""
+    sources = {p.stem for p in _csrc_files() if p.suffix == ".cu"}
+    if sources != set(ENTRY_POINTS):
+        raise KernelBuildError(
+            f"kernel sources {sorted(sources)} and entry points "
+            f"{sorted(ENTRY_POINTS)} differ"
+        )
+
+
 def build_all() -> dict[str, BuildInfo]:
     """Compile every library whose build does not exist yet, one nvcc
     process per source, all running at once."""
+    _check_sources()
     todo = {}
     for name in ENTRY_POINTS:
         if name in _infos:
@@ -110,8 +145,7 @@ def build_all() -> dict[str, BuildInfo]:
         os.close(fd)
         cmd = [
             nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-            str(CSRC / f"{name}.cu"),
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(source(name)),
         ]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import load_library
+from ..build import load_library
 from .ref import (
     KERNEL_TYPES,
     fused_cg_step_plain,

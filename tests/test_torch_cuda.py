@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-B1/B2 (the kernel matmul), B3 (the fused CG step) and the gradient kernel,
-and the training path through them.
+B1/B2 (the kernel matmul), B3 (the fused CG step), the gradient kernel,
+B4 (flash attention) and B5 (the SSD scan), the training path through the
+first three and the zamba2 forward through the last two.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: a
 hand-written kernel has no CPU mode.  The file imports no JAX, so it runs on
@@ -174,3 +175,78 @@ def test_fused_training_launches(cuda_device):
     _, history = gp.fit(X, y, steps=2, callback=on_step)
     assert all(np.isfinite(history))
     assert counts == [(10, 1, 2), (10, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,skv,dh,causal",
+    [(2, 4, 4, 128, 128, 64, True), (2, 4, 4, 256, 384, 32, False), (1, 8, 2, 128, 128, 32, True),
+     (1, 2, 2, 200, 200, 112, True), (1, 2, 2, 77, 300, 224, False), (2, 4, 4, 130, 130, 224, True)],
+)
+def test_flash_attention_matches_plain(cuda_device, dtype, b, hq, hkv, sq, skv, dh, causal):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+
+    g = torch.Generator().manual_seed(sq + skv + dh)
+    q = torch.randn((b, hq, sq, dh), generator=g).to(cuda_device, dtype)
+    k = torch.randn((b, hkv, skv, dh), generator=g).to(cuda_device, dtype)
+    v = torch.randn((b, hkv, skv, dh), generator=g).to(cuda_device, dtype)
+    before = fa.launches
+    out = fa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and out.dtype == dtype
+    ref = gqa_attention_plain(q, k, v, causal=causal)
+    tol = TOL if dtype == torch.float32 else dict(rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+@pytest.mark.parametrize("b,h,l,dh,ds", [(2, 3, 256, 16, 8), (1, 2, 128, 64, 64), (2, 4, 384, 64, 64)])
+def test_ssd_scan_matches_plain(cuda_device, dtype, chunk, b, h, l, dh, ds):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
+
+    g = torch.Generator().manual_seed(l + chunk + dh)
+    x = torch.randn((b, h, l, dh), generator=g).to(cuda_device, dtype)
+    dt = F.softplus(torch.randn((b, h, l), generator=g) - 1.0).to(cuda_device)
+    A = (-F.softplus(torch.randn((h,), generator=g))).to(cuda_device)
+    B = torch.randn((b, l, ds), generator=g).to(cuda_device, dtype)
+    C = torch.randn((b, l, ds), generator=g).to(cuda_device, dtype)
+    before = ssd.launches
+    out = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1 and out.dtype == dtype
+    tol = dict(rtol=2e-3, atol=2e-3) if dtype == torch.float32 else dict(rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(out.float(), ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk).float(), **tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ssd_scan_ref(x, dt, A, B, C), **tol)
+
+
+@pytest.mark.cuda
+def test_hybrid_forward_runs_the_kernels(cuda_device):
+    """The reduced zamba2 forward on the card: B5 once per Mamba-2 block, B4
+    once per shared-attention invocation, and the same logits as the plain
+    paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.models import hybrid
+
+    cfg = get_config("zamba2-7b").reduced()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = hybrid.init(cfg, gen)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device=cuda_device)
+    fa.reset_launch_counts()
+    ssd.reset_launch_counts()
+    out = hybrid.forward(params, cfg, tok)
+    torch.cuda.synchronize()
+    assert (ssd.launches, fa.launches) == (7, 2)
+    plain = hybrid.forward(params, cfg, tok, use_kernels=False)
+    assert (ssd.launches, fa.launches) == (7, 2)
+    torch.testing.assert_close(out, plain, rtol=1e-3, atol=1e-3)

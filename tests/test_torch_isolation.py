@@ -71,3 +71,22 @@ def test_entry_points_default_to_cuda():
         params_from_jax(raw)
     assert ExactGP(device="cpu").device == torch.device("cpu")
     assert params_from_jax(raw, device="cpu")["raw_noise"].device == torch.device("cpu")
+
+
+def test_lm_entry_points_default_to_cuda():
+    """The LM serving entry points (``lm_params_from_jax``, the serve CLI's
+    model build) run on CUDA unless told otherwise, and raise without a
+    GPU."""
+    from repro_torch import lm_params_from_jax
+    from repro_torch.launch.serve import build_server
+
+    tree = {"embed": {"table": np.zeros((4, 2), np.float32)}}
+    if torch.cuda.is_available():
+        assert lm_params_from_jax(tree)["embed"]["table"].is_cuda
+        return
+    with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
+        lm_params_from_jax(tree)
+    with pytest.raises(NoCudaDeviceError):
+        build_server("zamba2-7b", "cpu-small")
+    out = lm_params_from_jax(tree, device="cpu")
+    assert out["embed"]["table"].device == torch.device("cpu")

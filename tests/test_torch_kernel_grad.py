@@ -30,7 +30,7 @@ import torch
 from repro.kernels.kernel_matmul.ref import kernel_matmul_ref as ref_kernel_matmul_ref
 from repro_torch.core import AddedDiagOperator
 from repro_torch.gp import KernelOperator, MaternKernel, RBFKernel
-from repro_torch.kernels.kernel_matmul import build
+from repro_torch.kernels import build
 from repro_torch.kernels.kernel_matmul import kernel_matmul as km
 from repro_torch.kernels.kernel_matmul.ops import fused_kernel_matmul
 from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_grad_plain
@@ -173,7 +173,7 @@ def test_ctypes_signatures_match_the_new_entry_points(name):
     extern "C" signatures, one for one, with every pointer (and the stream)
     as c_void_p (B1's: tests/test_torch_kernel_matmul.py)."""
     symbol, argtypes = build.ENTRY_POINTS[name]
-    src = (build.CSRC / f"{name}.cu").read_text()
+    src = build.source(name).read_text()
     params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src).group(1)
     expected = []
     for param in params.split(","):
@@ -185,12 +185,15 @@ def test_ctypes_signatures_match_the_new_entry_points(name):
 def test_library_names_hash_every_source_and_header(monkeypatch, tmp_path):
     """Editing any source or the shared header renames every library, so a
     stale build is never loaded."""
-    for src in build.CSRC.iterdir():
-        (tmp_path / src.name).write_bytes(src.read_bytes())
-    monkeypatch.setattr(build, "CSRC", tmp_path)
+    for src in build._csrc_files():
+        dst = tmp_path / src.relative_to(build.KERNELS_DIR)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "KERNELS_DIR", tmp_path)
     before = {name: build._library_path(name) for name in build.ENTRY_POINTS}
     assert len({p.name.split("-")[1] for p in before.values()}) == 1
-    (tmp_path / "common.cuh").write_text((tmp_path / "common.cuh").read_text() + "\n// edit\n")
+    header = tmp_path / "kernel_matmul" / "csrc" / "common.cuh"
+    header.write_text(header.read_text() + "\n// edit\n")
     after = {name: build._library_path(name) for name in build.ENTRY_POINTS}
     assert all(before[k] != after[k] for k in before)
 

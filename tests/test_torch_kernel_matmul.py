@@ -22,7 +22,7 @@ from repro.kernels.kernel_matmul.ops import (
     prescale_inputs as ref_prescale_inputs,
 )
 from repro.kernels.kernel_matmul.ref import kernel_matmul_ref as ref_kernel_matmul_ref
-from repro_torch.kernels.kernel_matmul import build
+from repro_torch.kernels import build
 from repro_torch.kernels.kernel_matmul import kernel_matmul as km
 from repro_torch.kernels.kernel_matmul.ops import (
     fused_kernel_matmul,
@@ -222,7 +222,7 @@ def test_ctypes_signature_matches_the_c_entry_point(name):
     import re
 
     symbol, argtypes = build.ENTRY_POINTS[name]
-    src = (build.CSRC / f"{name}.cu").read_text()
+    src = build.source(name).read_text()
     params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src).group(1)
     expected = []
     for param in params.split(","):
