@@ -10,9 +10,13 @@ Phases (each prints one JSON object per line; any failure exits non-zero
 and the final line is then not printed):
 
   1. build      nvcc of every ``src/repro_torch/kernels/*/csrc`` source, one
-                process per source, all at once
+                process per source, all at once; for the tensor-core kernels
+                (B1/B2, bf16 B4) each function's registers, shared memory
+                and spills (ptxas) and its HMMA / HGMMA count in the SASS
+                (cuobjdump), which must not be 0
   2. kernel     B1 (2-D M) and B2 (3-D M) against ``kernel_matmul_plain``
-                for rbf / matern12/32/52 at odd n, ARD, t ∈ {1, 9, 234, 256};
+                for rbf / matern12/32/52 at odd n, ARD, t ∈ {1, 9, 17, 234,
+                256, 512};
                 row_offset slices of the n=40,000 product; b=4 batches;
                 tolerance 2e-4 relative (max |Δ| / max |plain|)
      fused_kernel  B3 against ``fused_cg_step_plain``: odd n, t ∈ {1, 9, 33},
@@ -26,12 +30,15 @@ and the final line is then not printed):
                 n=40,000; tolerance 2e-4 relative
      flash_kernel  B4 against ``gqa_attention_plain``: causal and not, GQA
                 8/2 heads, dh ∈ {32, 64, 112, 224}, ragged lengths, the
-                slice's (4, 32, 512, 224); f32 rtol/atol 2e-4, bf16 3e-2
+                slice's (4, 32, 512, 224), bf16 on both routes (tensor
+                cores; dh = 40 on the CUDA cores); f32 rtol/atol 2e-4, bf16
+                3e-2
      ssd_kernel    B5 against ``ssd_scan_chunked_ref`` and the step
                 recurrence: chunk ∈ {32, 64, 128}, the reference's shape
                 sweep, the slice's (4, 112, 512, 64, 64) in bf16, l = 4,096;
                 f32 2e-3, bf16 5e-2
   3. timing     the kernels at the slices' shapes beside the plain version,
+                (B1's bound prices its product as three TF32 products),
                 a library yardstick (torch.cdist → kernel map → torch.matmul,
                 autograd through it for the gradient; B4:
                 scaled_dot_product_attention; B5: none) and the card's
@@ -90,6 +97,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -103,9 +113,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, dense
-# bf16 on the tensor cores, HBM3
+# bf16 and TF32 on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 KERNEL_TYPES = ("rbf", "matern12", "matern32", "matern52")
 REL_TOL = 2e-4
@@ -178,15 +189,20 @@ def timed(fn):
 
 
 def kernel_bound(rows: int, cols: int, d: int, t: int, batch: int = 1):
-    """Least time for (K + σ²I)·M on an H100: the kernel tile (2d FMA flops
-    and one exp per entry, needed once whatever the batch) plus 2t flops per
-    entry per batch element, against each input read and output written
-    once.  Returns (bound_ms, bound_by)."""
-    ops = rows * cols * (2 * d + 1) + 2 * rows * cols * t * batch
+    """Least time for (K + σ²I)·M on an H100: the kernel tile (2d + 1 f32
+    flops per entry on the CUDA cores, 67 TFLOP/s, needed once whatever the
+    batch; plus one exp per entry on the SFU, counted in ``exps`` and not
+    priced) and the product, 2t flops per entry per batch element, at f32
+    accuracy on the tensor cores: three TF32 products (the 3xTF32 split) at
+    495 TFLOP/s.  Each input read and output written once.  Returns
+    (bound_ms, bound_by, exps)."""
+    tile_ops = rows * cols * (2 * d + 1)
+    product_ops = 3 * 2 * rows * cols * t * batch
     nbytes = 4 * (rows * d + cols * d + batch * (cols * t + rows * t))
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_ops = (tile_ops / PEAK_F32_FLOPS + product_ops / PEAK_TF32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return (max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
+            rows * cols)
 
 
 def fused_bound(n: int, d: int, t: int, batch: int = 1):
@@ -222,21 +238,100 @@ def grad_bound(n: int, d: int, t: int):
 # --------------------------------------------------------------------------
 
 
+#: the kernels redesigned for the tensor cores, by library: the name their
+#: functions carry and the SASS instruction each must contain
+TENSOR_CORE_KERNELS = {"kernel_matmul": ("kernel_matmul_kernel", "HMMA"),
+                       "flash_attention": ("flash_fwd_tc_kernel", "HGMMA")}
+
+
+def _cuda_tool(name):
+    cand = shutil.which(name) or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name)
+    return cand if Path(cand).exists() else None
+
+
+def _demangle(names):
+    """{mangled: readable name without namespaces or arguments}."""
+    names = sorted(names)
+    tool = shutil.which("c++filt")
+    plain = names
+    if tool and names:
+        plain = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    return {m: re.sub(r"\(anonymous namespace\)::|_NV_ANON_NAMESPACE::", "", p)
+            .split("(")[0].removeprefix("void ") for m, p in zip(names, plain)}
+
+
+def ptxas_report(log):
+    """Per function of ``nvcc -Xptxas -v`` output: registers, shared memory
+    and the stack frame and spills."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_counts(path):
+    """Per function of the library's SASS (``cuobjdump -sass``): the number
+    of HGMMA (wgmma) and HMMA (mma.sync) instructions; None without
+    cuobjdump."""
+    tool = _cuda_tool("cuobjdump")
+    if tool is None:
+        return None
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : ([\w$]+)", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {"HGMMA": 0, "HMMA": 0})
+        elif cur is not None:
+            for op in cur:
+                cur[op] += len(re.findall(rf"\b{op}\b", ln))
+    return out
+
+
 def phase_build(build):
+    """nvcc of every kernel source; for the tensor-core kernels each
+    function's registers, shared memory and spills (ptxas) and its count of
+    tensor-core instructions in the SASS, which must not be 0."""
     t0 = time.perf_counter()
     infos = build.build_all()
     for name in infos:
         build.load_library(name)
-    emit({
-        "phase": "build",
-        "seconds": round(time.perf_counter() - t0, 3),
-        "libraries": {
-            name: {"file": info.path.name, "nvcc_seconds": round(info.seconds, 3),
-                   "ptxas": sorted({ln.strip() for ln in info.log.splitlines()
-                                    if "registers" in ln or "spill" in ln})}
-            for name, info in infos.items()
-        },
-    })
+    seconds = time.perf_counter() - t0
+    libraries = {}
+    for name, info in infos.items():
+        lib = {"file": info.path.name, "nvcc_seconds": round(info.seconds, 3),
+               "ptxas": sorted({ln.strip() for ln in info.log.splitlines()
+                                if "registers" in ln or "spill" in ln})}
+        if name in TENSOR_CORE_KERNELS:
+            tag, op = TENSOR_CORE_KERNELS[name]
+            ptx = ptxas_report(info.log)
+            sass = sass_counts(info.path)
+            kernels = {m: {**ptx.get(m, {}), **((sass or {}).get(m, {}))}
+                       for m in set(ptx) | set(sass or {}) if tag in m}
+            check(bool(kernels), f"{name}: no {tag} function in the build")
+            readable = _demangle(kernels)
+            lib["ptxas"] = {readable[m]: k for m, k in kernels.items()}
+            lib["sass_tool"] = "cuobjdump -sass" if sass is not None else "not found"
+            if sass is not None:
+                for m, k in kernels.items():
+                    check(k.get(op, 0) > 0, f"{readable[m]}: no {op} in its SASS")
+        libraries[name] = lib
+    emit({"phase": "build", "seconds": round(seconds, 3), "libraries": libraries})
 
 
 def rel_err(out, ref) -> tuple[float, float]:
@@ -261,7 +356,7 @@ def phase_kernel(km, plain, rng, errs):
         X = rng.standard_normal((n, d)).astype("float32")
         ell = rng.uniform(0.4, 1.5, d).astype("float32")
         Xs = torch.from_numpy(X / ell).to(dev)
-        for t in (1, 9, 234, 256):
+        for t in (1, 9, 17, 234, 256, 512):
             M = torch.from_numpy(rng.standard_normal((n, t)).astype("float32")).to(dev)
             for kt in KERNEL_TYPES:
                 out = km.kernel_matmul_cuda(Xs, Xs, M, 1.1, 0.1, kernel_type=kt)
@@ -491,11 +586,11 @@ def phase_timing(km, plain, rng, n, t_gram):
         ms = time_ms(kern, reps=10)
         plain_ms = time_ms(pl, reps=3)
         library_ms = time_ms(lib, reps=3)
-        bound_ms, bound_by = kernel_bound(n, n, d, t, batch or 1)
+        bound_ms, bound_by, exps = kernel_bound(n, n, d, t, batch or 1)
         rows[label] = {
             "n": n, "d": d, "t": t, "batch": batch or 1, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "exps": exps,
             "bound_share": bound_ms / ms,
         }
         emit({"phase": "timing", "kernel": label, **rows[label]})
@@ -1153,6 +1248,7 @@ def phase_flash_kernel(rng, errs):
         (1, 4, 2, 200, 200, 112, True, f32), (2, 4, 4, 200, 333, 64, False, f32),
         (b, h, h, s, s, dh, True, f32),
         (1, 2, 2, 128, 128, 64, True, bf16), (2, 8, 2, 200, 200, 224, True, bf16),
+        (1, 4, 2, 130, 70, 40, True, bf16), (1, 4, 4, 65, 511, 128, False, bf16),
         (b, h, h, s, s, dh, True, bf16),
     ]
     cases = []
@@ -1274,6 +1370,18 @@ def _reset_lm_counts():
     ssd.reset_launch_counts()
 
 
+def b4_route(q, k, v):
+    """The path B4's entry point takes for these inputs (the dispatch of
+    ``flash_attention.cu``): bf16 with a head dim that is a multiple of 16,
+    kv rows, and 16-byte aligned bases and strides go to the tensor cores."""
+    dh, skv = q.shape[-1], k.shape[2]
+    aligned = all(x.data_ptr() % 16 == 0 and all(
+        n == 1 or (st > 0 and st * x.element_size() % 16 == 0)
+        for n, st in zip(x.shape[:3], x.stride()[:3])) for x in (q, k, v))
+    ok = q.dtype == torch.bfloat16 and dh % 16 == 0 and skv > 0 and aligned
+    return "tensor cores" if ok else "cuda cores"
+
+
 @contextlib.contextmanager
 def shadowed_kernels(witness=False):
     """While open, every B4 / B5 call the model makes on the kernel path
@@ -1301,6 +1409,7 @@ def shadowed_kernels(witness=False):
         out = flash(q, k, v, causal=causal)
         record("B4", out, gqa_attention_plain(q, k, v, causal=causal),
                lambda *t: gqa_attention_plain(*t, causal=causal), (q, k, v))
+        calls["B4"][-1]["route"] = b4_route(q, k, v)
         return out
 
     def scan_shadow(x, dt, A, B, C, *, chunk=128, use_kernel=True):
@@ -1546,11 +1655,14 @@ def phase_lm_serve(seed):
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
         "in_situ_kernel_vs_plain": {k: {"calls": len(v), "max_rel": max(c["rel"] for c in v),
                                         "bound": LM_REL_BOUND} for k, v in in_situ.items()},
+        "b4_routes": sorted({c["route"] for c in in_situ["B4"]}),
         "profile": {"prefill": prof_prefill, "decode_step": prof_decode},
     }
     emit(result)
     check(len(in_situ["B5"]) == cfg.num_layers and len(in_situ["B4"]) == G,
           f"in situ: {len(in_situ['B5'])} B5 and {len(in_situ['B4'])} B4 calls")
+    check(result["b4_routes"] == ["tensor cores"],
+          f"the bf16 prefill's B4 calls took {result['b4_routes']}")
     for key, recs in in_situ.items():
         worst = max(c["rel"] for c in recs)
         check(worst <= LM_REL_BOUND,

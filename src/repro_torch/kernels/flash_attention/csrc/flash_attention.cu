@@ -4,48 +4,70 @@
 //
 // for q (b, hq, sq, dh) and k, v (b, hkv, skv, dh), hq a multiple of hkv
 // (GQA: q head h reads kv head h / (hq / hkv)), f32 or bf16 storage, f32
-// math, output in q's type.  The score matrix is never written to device
-// memory.
+// softmax and accumulation, output in q's type.  The score matrix is never
+// written to device memory.
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention/flash_attention.py:83, body
 // _flash_kernel :26; its GQA wrapper ops.py:14 repeats the kv heads, here
-// the kernel indexes them).  Same arithmetic: q cast to f32 and scaled
-// before its dot, an online softmax with f32 running max m, normaliser l
-// and accumulator, masked scores at -1e30, p = 0 and the rescale factor 0
-// where they meet a masked value, and l = 0 (a fully masked row) giving
-// an output of 0.  Unlike the TPU kernel, ragged sq / skv are masked in
-// the kernel (no multiple-of-128 requirement), and causal kv tiles that
-// lie wholly above the diagonal are skipped.
+// the kernel indexes them).  Same softmax: an online softmax with f32
+// running max m, normaliser l and accumulator, masked scores at -1e30,
+// p = 0 and the rescale factor 0 where they meet a masked value, and l = 0
+// (a fully masked row) giving an output of 0.  Unlike the TPU kernel,
+// ragged sq / skv are masked in the kernel (no multiple-of-128
+// requirement), and causal kv tiles that lie wholly above the diagonal are
+// skipped; blocks take the heaviest causal q tiles first.
 //
-// Work: per head 4 sq skv dh flops (halved under the causal mask) against
-// (2 sq + 2 skv) dh elements of traffic; at the serving slice (b = 4,
-// 32 heads, sq = skv = 512, dh = 224, bf16) 15 GFLOP for 117 MB.  At the
-// card's rates for these types (q k^T on the bf16 tensor cores, P v as
-// two bf16 products to keep P's f32 precision) the bytes bound it.  This
-// first version does all of it in f32 on the CUDA cores (f32 math, as
-// the reference; no tensor cores yet).  The design keeps the scores on
-// chip:
+// What bounds it on an H100.  Per head it does 4 sq skv dh flops (halved
+// under the causal mask) against (2 sq + 2 skv) dh elements of traffic; at
+// the serving slice (b = 4, 32 heads, sq = skv = 512, dh = 224, bf16)
+// 15 GFLOP for 117 MB.  On the bf16 tensor cores (q k^T at 989 TFLOP/s,
+// P v as two bf16 products to keep P's f32 precision) the bytes bound it,
+// 0.035 ms; on the CUDA cores in f32 the operations do, 0.22 ms.  So the
+// bf16 path runs both products on the tensor cores:
 //
-//   * one block of 256 threads owns 64 query rows of one (batch, head),
-//     its scaled Q tile in shared memory and its 64 x dh f32 accumulator
-//     in registers (8 rows x dh/32 columns a thread);
-//   * it walks 64-row K / V tiles in order: S = Q K^T from shared memory
-//     (a 4 x 4 register tile a thread, float4 reads along dh with row
-//     strides padded so that eight rows land on distinct banks), the
-//     online softmax by 16-lane shuffles, P to shared memory, then
-//     O = alpha O + P V;
-//   * tiles are staged from device memory with 16-byte loads, up to 8 in
-//     flight a thread, when rows are 16-byte aligned (the model's views
-//     are); one element a lane otherwise;
-//   * dh = 224 needs ~188 KB of dynamic shared memory (one block an SM);
-//   * blocks take the heaviest causal q tiles first.
+//   * one block of two warpgroups (256 threads) owns 128 query rows of one
+//     (batch, head), 64 rows a warpgroup; its Q tile stays in shared
+//     memory and both warpgroups read every K / V tile, so one's softmax
+//     overlaps the other's products; a warpgroup whose rows lie wholly
+//     above a causal tile skips it;
+//   * K / V tiles of 64 rows are loaded by TMA (one thread issues a 5-D
+//     tensor-map copy per tile; rows past skv arrive as zeros) into a
+//     two-stage ring with an mbarrier a stage, so tile i + 1 loads while
+//     tile i is multiplied;
+//   * shared memory holds each tile in the no-swizzle core-matrix layout
+//     [dh / 8][rows][8 elements]: every 8 x 16-byte core matrix is 128
+//     contiguous bytes, which wgmma reads without bank conflicts for any
+//     dh that is a multiple of 16 (224 = 14 x 16), so dh needs no padding
+//     and no swizzle;
+//   * S = Q K^T is wgmma m64n64k16 bf16 x bf16 -> f32 with both operands
+//     from shared memory (dh / 16 k-steps); the scale is applied to S in
+//     f32 after the product (the reference pre-scales q in f32: the two
+//     differ by f32 rounding);
+//   * the online softmax runs on the accumulator fragments in registers,
+//     each row reduced across the 4 lanes that hold it; P never goes to
+//     shared memory;
+//   * O += P V: P is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi),
+//     each fed from registers as wgmma's A operand (the S fragment is
+//     already A's layout) against V from shared memory read transposed
+//     (MN-major), m64n32k16 per 32 output columns (plus one m64n16k16 for
+//     a 16-column tail); the 64 x dh f32 accumulator lives in registers
+//     (up to 128 a thread); at dh = 224 the Q tile and the K / V ring take
+//     169 KB of shared memory, one block an SM.
+//
+// The f32 path, and bf16 whose head dim is not a multiple of 16 or whose
+// rows are not 16-byte aligned (TMA needs both), keep the CUDA-core kernel
+// of the port's first version: one block of 256 threads per 64 query
+// rows, f32 tiles staged into ~188 KB of shared memory, both products as
+// scalar f32 FMAs.  The dtype and the strides choose the path.
 //
 // The launch goes on the caller's stream and the entry point returns
 // cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap and the cuTensorMapEncodeTiled prototype
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 #include <cstdint>
 
@@ -360,6 +382,442 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const
   return launch<T, 256>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, vec, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core path: TMA, mbarriers and wgmma
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int WQ = 64;   // query rows per warpgroup (one wgmma M)
+constexpr int BQ = 128;  // query rows per block: two warpgroups
+constexpr int BK = 64;   // kv rows per tile (S's wgmma N)
+constexpr int NT = 256;  // two warpgroups
+constexpr int CORE = 128;  // bytes of one 8 x 16-byte core matrix
+
+// The three tensor maps go to the kernel as one __grid_constant__ struct.
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(1) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase of this parity completes.  A phase that
+// never completes (a wrong byte count) traps after ~10 s instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  do {
+    if (clock64() - start > (1LL << 34)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One tile of a (8, rows, dh / 8, heads, batch) tensor map: box
+// (8, box rows, dh / 8, 1, 1), which lands as [dh / 8][box rows][8] in
+// shared memory.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int row, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(0), "r"(head), "r"(batch),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, no swizzle (layout type 0): start
+// address, leading-dimension and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of a wgmma accumulator across
+// the asynchronous instructions that own it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64, f32) = (acc ? d : 0) + A (64 x 16) B (16 x 64), both bf16 from
+// shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 32, f32) += A (64 x 16, bf16 in registers) B (16 x 32, bf16 from
+// shared memory, MN-major: transposed).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same for 16 output columns: the first 8 registers of an n32 tile.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x - float(bf16(x)), the part of x that bf16 drops
+__device__ __forceinline__ float bf16_rest(float x) {
+  return x - __bfloat162float(__float2bfloat16(x));
+}
+
+__host__ __device__ inline size_t tile_bytes(int rows, int dh) {
+  return static_cast<size_t>(rows) * dh * 2;
+}
+
+// Q, two K and two V stages, plus 1 KB to align the base to 1,024 bytes.
+inline size_t smem_bytes(int dh) { return tile_bytes(BQ, dh) + 4 * tile_bytes(BK, dh) + 1024; }
+
+// Accumulator fragment of wgmma m64nN (f32): register 4i + e of thread
+// (warp w, lane l) holds row 16 w + l / 4 + 8 (e / 2) and column
+// 8 i + 2 (l % 4) + e % 2 of its 64 x N tile.
+template <int DHMAX>
+__global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
+    const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ o, long long ob,
+    long long oh, long long os, int hq, int group, int sq, int skv, int dh, float scale,
+    int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3];  // Q, K/V stage 0, K/V stage 1
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const size_t tq = tile_bytes(BQ, dh), tb = tile_bytes(BK, dh);
+  // Q, then K and V of stage 0, then of stage 1 (by offset: an array of
+  // pointers indexed by the stage would live in local memory)
+  unsigned char* sQ = base;
+  auto sK = [&](int st) { return base + tq + 2 * st * tb; };
+  auto sV = [&](int st) { return base + tq + (2 * st + 1) * tb; };
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4;  // warpgroup: query rows q0 + 64 wg ..
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const int b = bh / hq, h = bh % hq, hk = h / group;
+  const int q_last = min(q0 + BQ, sq) - 1;  // the block's last row: its kv tiles
+  const int wq0 = q0 + WQ * wg;             // this warpgroup's first row
+  const int wq_last = min(wq0 + WQ, sq) - 1;
+  const int kv_end = causal ? min(skv, q_last + 1) : skv;
+  const int tiles = (kv_end + BK - 1) / BK;
+  const uint32_t kv_bytes = static_cast<uint32_t>(2 * tb);
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], static_cast<uint32_t>(tq));
+    tma_load(sQ, &maps.q, &bars[0], q0, h, b);
+    for (int s = 0; s < 2 && s < tiles; ++s) {
+      mbar_expect_tx(&bars[1 + s], kv_bytes);
+      tma_load(sK(s), &maps.k, &bars[1 + s], s * BK, hk, b);
+      tma_load(sV(s), &maps.v, &bars[1 + s], s * BK, hk, b);
+    }
+  }
+
+  constexpr int NC = DHMAX / 32;  // 32-column tiles of the accumulator
+  const int full = dh / 32;       // of which this dh fills
+  const bool tail = (dh % 32) != 0;  // plus one 16-column tile
+  float acc[NC][16];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[c][e] = 0.0f;
+  }
+  // two rows a thread: wq0 + r0 and wq0 + r0 + 8, r0 = 16 (warp % 4) + lane / 4
+  const int r0 = 16 * (warp % 4) + lane / 4;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.0f, 0.0f};  // this thread's columns' share
+
+  // this warpgroup's 64 rows of the Q tile: rows are 16 bytes apart within
+  // a column of core matrices, which are BQ * 16 bytes apart
+  const uint32_t q_addr = smem_addr(sQ) + WQ * 16 * wg;
+  mbar_wait(&bars[0], 0);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int st = it & 1;
+    const int k0 = it * BK;
+    mbar_wait(&bars[1 + st], (it >> 1) & 1);
+    const uint32_t k_addr = smem_addr(sK(st));
+    const uint32_t v_addr = smem_addr(sV(st));
+    // a warpgroup whose rows all lie past sq, or (causal) above this whole
+    // tile, has nothing to add: it only keeps the block's barriers
+    if (wq0 < sq && !(causal && k0 > wq_last)) {
+
+      // ---- S = Q K^T: K-major operands, LBO = next 8 features (a 64-row
+      // column of core matrices, 1,024 bytes), SBO = next 8 rows (128) ----
+      float s[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = 0.0f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < DHMAX / 16; ++j) {
+        if (j < dh / 16) {
+          const uint32_t off = j * 2 * BK * 16;
+          wgmma_ss_n64(s, desc(q_addr + 2 * j * BQ * 16, BQ * 16, CORE),
+                       desc(k_addr + off, BK * 16, CORE), j > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+
+      // ---- mask, scale and the online softmax in registers ----
+      float alpha[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = wq0 + r0 + 8 * hr;
+        float mx = NEG_INF;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + 8 * i + 2 * (lane % 4) + e;
+            const bool ok = col < skv && (!causal || row >= col);
+            float& v = s[4 * i + 2 * hr + e];
+            v = ok ? v * scale : NEG_INF;
+            mx = fmaxf(mx, v);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[hr], mx);
+        float sum = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = s[4 * i + 2 * hr + e];
+            v = v <= 0.5f * NEG_INF ? 0.0f : __expf(v - m_new);
+            sum += v;
+          }
+        }
+        alpha[hr] = m_run[hr] <= 0.5f * NEG_INF ? 0.0f : __expf(m_run[hr] - m_new);
+        m_run[hr] = m_new;
+        l_run[hr] = l_run[hr] * alpha[hr] + sum;
+      }
+
+      // ---- P hi / lo as wgmma A fragments: k-step j covers S columns
+      // 16 j .. 16 j + 15, S's n8 tiles 2 j and 2 j + 1 ----
+      uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          // r: (row r0, cols 2c..) (r0 + 8, 2c..) (r0, 2c + 8..) (r0 + 8, 2c + 8..)
+          const int i = 2 * j + r / 2;
+          const int e = 2 * (r % 2);
+          const float x = s[4 * i + e], y = s[4 * i + e + 1];
+          p_hi[j][r] = pack_bf16(x, y);
+          p_lo[j][r] = pack_bf16(bf16_rest(x), bf16_rest(y));
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[c][e] *= alpha[(e / 2) % 2];
+      }
+
+      // ---- O += P_lo V + P_hi V: V MN-major, LBO = next 8 kv rows (128
+      // bytes), SBO = next 8 features (1,024) ----
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const uint64_t dv = desc(v_addr + j * 2 * CORE + c * 4 * BK * 16, CORE, BK * 16);
+          if (c < full) {
+            wgmma_rs_n32(acc[c], p_lo[j], dv);
+            wgmma_rs_n32(acc[c], p_hi[j], dv);
+          } else if (c == full && tail) {
+            wgmma_rs_n16(acc[c], p_lo[j], dv);
+            wgmma_rs_n16(acc[c], p_hi[j], dv);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+    }
+
+    __syncthreads();  // every warp is done with this stage's K and V
+    if (tid == 0 && it + 2 < tiles) {
+      mbar_expect_tx(&bars[1 + st], kv_bytes);
+      tma_load(sK(st), &maps.k, &bars[1 + st], k0 + 2 * BK, hk, b);
+      tma_load(sV(st), &maps.v, &bars[1 + st], k0 + 2 * BK, hk, b);
+    }
+  }
+
+  // ---- o = acc / l (l = 0: a fully masked row gives 0) ----
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = l_run[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = l == 0.0f ? 0.0f : 1.0f / l;
+    const int row = wq0 + r0 + 8 * hr;
+    if (row >= sq) continue;
+    __nv_bfloat16* orow = o + b * ob + h * oh + static_cast<long long>(row) * os;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 32 * c + 8 * i + 2 * (lane % 4);
+        if (col < dh) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+              acc[c][4 * i + 2 * hr] * inv, acc[c][4 * i + 2 * hr + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled of the CUDA driver API, looked up once in
+// libcuda.so.1, which the process has already loaded (no link-time
+// dependency on libcuda).
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// (8, rows, dh / 8, heads, batch) view of a bf16 tensor with element strides
+// (batch, head, row); box (8, box_rows, dh / 8, 1, 1).
+bool encode(CUtensorMap* map, const void* ptr, int batch, int heads, int rows, int dh,
+            long long sb, long long sh, long long sr, int box_rows) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[5] = {8, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(dh / 8),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(sr) * 2, 16,
+                                 static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[5] = {8, static_cast<cuuint32_t>(box_rows),
+                             static_cast<cuuint32_t>(dh / 8), 1, 1};
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// TMA takes 16-byte aligned bases and byte strides (a size-1 dimension's
+// stride is never used and may be anything) and no empty dimension, and the
+// k-steps need dh a multiple of 16.
+bool takes(const void* q, const void* k, const void* v, const Strides& st, int b, int hq,
+           int hkv, int sq, int skv, int dh) {
+  bool ok = dh % 16 == 0 && skv > 0;
+  for (const void* p : {q, k, v}) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const long long strides[] = {st.qb, st.qh, st.qs, st.kb, st.kh, st.ks, st.vb, st.vh, st.vs};
+  const int sizes[] = {b, hq, sq, b, hkv, skv, b, hkv, skv};
+  for (int i = 0; i < 9; ++i) {
+    ok = ok && (sizes[i] == 1 || ((strides[i] * 2) % 16 == 0 && strides[i] > 0));
+  }
+  return ok && (st.os * 2) % 4 == 0;
+}
+
+template <int DHMAX>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Strides& st,
+                   int b, int hq, int hkv, int sq, int skv, int dh, float scale, int causal,
+                   cudaStream_t stream) {
+  Maps maps;
+  // a size-1 dimension's stride is never stepped: give TMA a legal one
+  auto fix = [](long long s, int n) { return n == 1 ? 16LL : s; };
+  if (!encode(&maps.q, q, b, hq, sq, dh, fix(st.qb, b), fix(st.qh, hq), fix(st.qs, sq), BQ) ||
+      !encode(&maps.k, k, b, hkv, skv, dh, fix(st.kb, b), fix(st.kh, hkv), fix(st.ks, skv), BK) ||
+      !encode(&maps.v, v, b, hkv, skv, dh, fix(st.vb, b), fix(st.vh, hkv), fix(st.vs, skv), BK)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kern = flash_fwd_tc_kernel<DHMAX>;
+  const size_t smem = smem_bytes(dh);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * hq, (sq + BQ - 1) / BQ);
+  kern<<<grid, NT, smem, stream>>>(maps, static_cast<__nv_bfloat16*>(o), st.ob, st.oh, st.os,
+                                   hq, hq / hkv, sq, skv, dh, scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const Strides& st,
+                     int b, int hq, int hkv, int sq, int skv, int dh, float scale, int causal,
+                     cudaStream_t stream) {
+  if (dh <= 64) return launch<64>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, stream);
+  if (dh <= 128) return launch<128>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, stream);
+  return launch<256>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // strides: 12 element strides (batch, head, sequence) of q, k, v and o, in
@@ -372,8 +830,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                    strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 0 ? dispatch<float>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, s)
-                 : dispatch<__nv_bfloat16>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, s);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = dispatch<float>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, s);
+  } else if (tc::takes(q, k, v, st, b, hq, hkv, sq, skv, dh)) {
+    err = tc::dispatch(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, s);
+  } else {
+    err = dispatch<__nv_bfloat16>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, s);
+  }
   return static_cast<int>(err);
 }

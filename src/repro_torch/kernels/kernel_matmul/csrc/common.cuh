@@ -10,27 +10,43 @@ namespace {
 
 enum KernelType { RBF = 0, MATERN12 = 1, MATERN32 = 2, MATERN52 = 3 };
 
+// The SFU's exp (as __expf: ex2 of x log2 e) and reciprocal square root,
+// flushing subnormals to 0.  For normal arguments and results they equal
+// __expf / rsqrtf; they skip the subnormal fix-ups that the default
+// (no -ftz) compilation wraps around every call.
+__device__ __forceinline__ float exp_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Squared distance -> kernel value, with the Matern family's sqrt floor of
 // 1e-20 (the reference's _apply_stationary).  The map is most of a tile's
 // instructions, so it uses the hardware's approximate exp and reciprocal
-// square root (a few ulp, far inside the 2e-4 the kernels are held to) and
-// multiplies by 1/3 instead of dividing by 3.
+// square root (a few ulp, far inside the 2e-4 the kernels are held to;
+// kernel values below 1.2e-38 flush to 0) and multiplies by 1/3 instead of
+// dividing by 3.
 template <int KT>
 __device__ __forceinline__ float stationary(float d2, float outputscale) {
   if (KT == RBF) {
-    return outputscale * __expf(-0.5f * d2);
+    return outputscale * exp_ftz(-0.5f * d2);
   }
   const float r2 = fmaxf(d2, 1e-20f);
-  const float d = r2 * rsqrtf(r2);
+  const float d = r2 * rsqrt_ftz(r2);
   if (KT == MATERN12) {
-    return outputscale * __expf(-d);
+    return outputscale * exp_ftz(-d);
   }
   if (KT == MATERN32) {
     const float a = 1.7320508075688772f * d;
-    return outputscale * (1.0f + a) * __expf(-a);
+    return outputscale * (1.0f + a) * exp_ftz(-a);
   }
   const float a = 2.23606797749979f * d;
-  return outputscale * (1.0f + a + a * a * (1.0f / 3.0f)) * __expf(-a);
+  return outputscale * (1.0f + a + a * a * (1.0f / 3.0f)) * exp_ftz(-a);
 }
 
 // The unit-outputscale kernel value f(r^2) and 2 f'(r^2), so that

@@ -9,203 +9,458 @@
 // Replaces the TPU kernel kernel_matmul_pallas
 // (src/repro/kernels/kernel_matmul/kernel_matmul.py:298), bodies
 // _kernel_matmul_kernel (:166, 2-D M) and _kernel_matmul_batched_kernel
-// (:199, 3-D M, here the blockIdx.z axis).  Same arithmetic as its
+// (:199, 3-D M, here the blockIdx.z axis).  There a grid step forms a
+// kernel tile in VMEM and feeds it to the MXU.  Same arithmetic as its
 // _apply_stationary / _masked_kernel_tile helpers: d2 = |x|^2 + |x'|^2 -
 // 2<x, x'> clamped at 0, a sqrt floor of 1e-20 for the Matern family, the
 // sigma2 diagonal at global row == global column, and kernel-tile columns
-// and M rows >= cols zeroed by a select before they reach the accumulator.
+// and M rows >= cols zeroed before they reach the accumulator.
 //
-// What bounds it on an H100: operations.  Per call it does
-// 2 * rows * cols * (d + t) f32 FMA flops plus one exp per kernel entry,
-// against (rows + cols) * d + cols * t + rows * t floats of traffic; at
-// n = 40,000, d = 8, t = 9 that is ~5e10 flops and 1.6e9 exps for 5.4 MB.
-// The design keeps everything O(n^2) on chip:
+// What bounds it on an H100: operations.  Per call it forms rows * cols
+// kernel entries (2d + 1 f32 flops and one exp each, on the CUDA cores and
+// the SFU) and multiplies them into M (2 * rows * cols * t * batch flops).
+// At n = 40,000, d = 8 the tile is 2.7e10 flops and 1.6e9 exps; the
+// product is 2.9e10 flops at t = 9 and 8.2e11 at t = 256.  The product
+// belongs on the tensor cores, at f32 accuracy: each factor is split into
+// two TF32 halves, a = a_hi + a_lo, and a b ~ a_lo b_hi + a_hi b_lo +
+// a_hi b_hi (3xTF32; a_lo b_lo is below f32 rounding).  The kernel entries
+// split by rounding (a_hi = cvt.rna.tf32(a), a_lo = cvt.rna.tf32(a -
+// a_hi)), M by truncation (one AND each: M is split at every fragment
+// load; both leave less than 2^-21 of the factor).  One-pass TF32 keeps
+// about three decimal digits, far outside the 2e-4 the kernel is held to.
+// The design:
 //
-//   * each block owns BN output rows x BT output columns, with its
-//     accumulator in registers;
-//   * it loops over column blocks of BM rows of X2 / M, staging the X2
-//     feature chunks and the M tile in shared memory, forming the BN x BM
-//     kernel tile in shared memory (f32 FMA, no tensor cores: the "highest"
-//     precision policy is IEEE f32), and accumulating tile x M;
-//   * nothing is carried between blocks: no atomics, no output revisiting.
+//   * one block of 8 warps owns 64 output rows and up to 256 output
+//     columns; warps 0-3 and 4-7 take the first and the second 32 columns
+//     of every 64-column step, each warp 16 rows, so every kernel entry,
+//     exp included, is computed once for every column of M (64 x 256 f32
+//     accumulators per warp set, 128 registers a thread); the two halves
+//     meet once, through shared memory, at the end.  Only t > 256 adds a
+//     grid axis of 256-column blocks; t <= 16 runs 16 columns (two n8
+//     tiles), three blocks an SM;
+//   * the product is mma.sync m16n8k8 tf32, three per k-step and n8 tile,
+//     4 tiles' chains interleaved; each thread computes its kernel entries
+//     directly in the A fragment's layout (rows g and g + 8 of its warp's
+//     16, columns c and c + 4 of the k-step), so the tile never goes to
+//     shared memory.  wgmma m64nNk8 tf32 (A from registers, M split into
+//     K-major core matrices in shared memory) was built and measured
+//     slower at every width: its 128 + 128 accumulator registers (see the
+//     next point) left one block of 8 warps an SM and 128 columns a block,
+//     so the tile was formed twice at t = 256 (PERF.md section 6);
+//   * the tensor cores add into their f32 accumulator by truncation, not
+//     by rounding, and one chain over 40,000 columns drifted far outside
+//     the tolerance.  So each step's 12 mma of a tile go into a zeroed
+//     fragment that is then added to the accumulator in IEEE f32;
+//   * the distance stays on the CUDA cores in f32: |x|^2, |x'|^2 and
+//     <x, x'> are the same sequential fmaf chain over the features, so
+//     coincident points give d2 = 0 exactly (Matern-1/2 at its diagonal);
+//     the 8 lanes that share a column share its norm by shuffles;
+//   * the X2 / M tiles of 64 columns stream through a ring of 2-4 stages
+//     with cp.async (16-byte copies of X2 rows when d = 8 and of M rows
+//     when t is a multiple of 4, 8-byte when it is even; rows past cols
+//     zero-filled), so the next tiles load while this one is multiplied;
+//   * nothing is carried between blocks: no atomics, and each output is
+//     written once by one thread.
 //
-// A grid axis over t-blocks of 16, 32 or 64 columns takes wide right-hand
-// sides (the posterior cache's Gram product passes t ~ 234, an uncached
-// predict t = 256 in every CG iteration); each t-block recomputes its
-// kernel tile, a redundancy that costs something only at those widths.  The launch goes on the caller's stream and the entry point
-// returns cudaGetLastError().
+// The launch goes on the caller's stream and the entry point returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "common.cuh"  // KernelType, stationary()
 
 namespace {
 
-constexpr int BN = 64;        // output rows per block
-constexpr int BM = 64;        // X2 rows / M rows per column step
-constexpr int DK = 8;         // feature chunk staged per inner step
-constexpr int NT = 256;       // threads per block
-constexpr int KPAD = BM + 4;  // kernel-tile row stride: float4-aligned rows
+constexpr int BN = 64;   // output rows per block: 4 row groups of 16
+constexpr int BM = 64;   // X2 rows / M rows per column step: 8 k-steps of 8
+constexpr int NT = 256;  // 8 warps: row group w % 4, k-half w / 4
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may use
 
-template <int KT, int BT>
-__global__ void __launch_bounds__(NT) kernel_matmul_kernel(
-    const float* __restrict__ X1, const float* __restrict__ X2,
-    const float* __restrict__ M, const float* __restrict__ scal,
-    float* __restrict__ out, int rows, int cols, int d, int t, int row_offset) {
-  __shared__ float sX1[BN][DK + 1];
-  __shared__ float sX2[BM][DK + 1];
-  __shared__ float sN1[BN];
-  __shared__ float sN2[BM];
-  __shared__ __align__(16) float sK[BN][KPAD];
-  __shared__ float sM[BM][BT];
+// Row stride (floats) of an M tile of TB columns: TB + 8 puts the 4 k-rows
+// x 8 columns of a B fragment load on 32 distinct banks.
+__host__ __device__ constexpr int m_stride(int tb) { return tb + 8; }
+
+// Stages of the X2 / M ring: deeper for narrow tiles, whose steps are short.
+__host__ __device__ constexpr int stages(int tb) { return tb <= 64 ? 4 : tb == 128 ? 3 : 2; }
+
+// Row stride (floats) of the X tiles: 8 on the d <= 8 path, else d rounded
+// up to 4 for float4 reads.
+__host__ __device__ inline int x_stride(int d, bool d8) { return d8 ? 8 : (d + 3) & ~3; }
+
+// Floats of one ring stage: an X2 tile and an M tile.
+__host__ __device__ inline int stage_floats(int tb, int dp) { return BM * (dp + m_stride(tb)); }
+
+inline size_t smem_bytes(int tb, int d, bool d8) {
+  const int dp = x_stride(d, d8);
+  // the X1 tile and its norms, then the ring
+  return sizeof(float) * (BN * (dp + 1) + static_cast<size_t>(stages(tb)) * stage_floats(tb, dp));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4-, 8- or 16-byte asynchronous copy; src_bytes = 0 zero-fills the
+// destination.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  if (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  } else if (BYTES == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero, as cvt.rna.tf32.f32 (three instructions in SASS)...
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// ... and truncated toward zero (one instruction), for M's split, which
+// runs at every fragment load: hi = trunc(m) and lo = trunc(m - hi) leave
+// less than 2^-21 |m|.
+__device__ __forceinline__ float tf32_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+// c += a (16 x 8, row) b (8 x 8, col), TF32 operands, f32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], float b0,
+                                         float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+// <a, b> over dp features (dp a multiple of 4, zero past d) as one fmaf
+// chain from 0 in feature order: the norms use it too, so a row against
+// itself gives |x|^2 bit for bit.  D8: dp is 8, unrolled.
+template <bool D8>
+__device__ __forceinline__ float dot(const float* a, const float* b, int dp) {
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < (D8 ? 8 : dp); k += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + k);
+    const float4 y = *reinterpret_cast<const float4*>(b + k);
+    s = fmaf(x.x, y.x, s);
+    s = fmaf(x.y, y.y, s);
+    s = fmaf(x.z, y.z, s);
+    s = fmaf(x.w, y.w, s);
+  }
+  return s;
+}
+
+// A thread's walk over the flat index e = tid, tid + NT, ... of a BM x w
+// tile as (row, column), stepped without a division in the loop.
+struct Walk {
+  int r0, q0, dr, dq, w;
+  __device__ explicit Walk(int width)
+      : r0(threadIdx.x / width), q0(threadIdx.x % width), dr(NT / width), dq(NT % width),
+        w(width) {}
+  template <typename F>
+  __device__ __forceinline__ void operator()(F&& f) const {
+    int r = r0, q = q0;
+    while (r < BM) {
+      f(r, q);
+      r += dr;
+      q += dq;
+      if (q >= w) {
+        q -= w;
+        ++r;
+      }
+    }
+  }
+};
+
+// Stage column tile j0 (64 rows of X2, and of M's columns t0 .. t0 + tc)
+// into sX2 / sM with cp.async: X2 rows as two 16-byte copies (xvec: d = 8
+// and X2 16-byte aligned) or by element, M rows in copies of mw floats (4
+// when t is a multiple of 4, 2 when it is even, else 1).  Rows >= cols are
+// zero-filled, M columns past tc are not written (they reach only output
+// columns that are never stored).
+template <int TB>
+__device__ __forceinline__ void stage_tile(float* sX2, float* sM, const float* X2,
+                                           const float* M, int j0, int t0, int cols, int d,
+                                           int dp, int t, bool xvec, int mw, const Walk& wx,
+                                           const Walk& wm) {
+  wx([&](int r, int q) {
+    const bool ok = j0 + r < cols;
+    const float* src = X2 + static_cast<long long>(ok ? j0 + r : 0) * d;
+    if (xvec) {
+      cp_async<16>(sX2 + r * dp + 4 * q, src + 4 * q, ok ? 16 : 0);
+    } else {
+      cp_async<4>(sX2 + r * dp + q, src + q, ok ? 4 : 0);
+    }
+  });
+  wm([&](int r, int q) {
+    const bool ok = j0 + r < cols;
+    const float* src = M + static_cast<long long>(ok ? j0 + r : 0) * t + t0;
+    float* dst = sM + r * m_stride(TB);
+    if (mw == 4) {
+      cp_async<16>(dst + 4 * q, src + 4 * q, ok ? 16 : 0);
+    } else if (mw == 2) {
+      cp_async<8>(dst + 2 * q, src + 2 * q, ok ? 8 : 0);
+    } else {
+      cp_async<4>(dst + q, src + q, ok ? 4 : 0);
+    }
+  });
+}
+
+// The kernel entries of one step for this thread, split into TF32 halves:
+// for each of its warps' 4 k-steps kq, rows (ra, ra + 8) x columns (ca,
+// ca + 4), ca = 32 kh + 8 kq + c, in the m16n8k8 A-fragment order.  Lane
+// (g, c) takes the norm of column 32 kh + 4 g + c and the 8 lanes of a c
+// share them by shuffles (the same fmaf chain as the inner products).
+template <int KT, bool D8>
+__device__ __forceinline__ void entries(uint32_t (&ah)[4][4], uint32_t (&al)[4][4],
+                                        const float* x2, const float* x1a, const float* x1b,
+                                        float n1a, float n1b, int dp, int kh, int g, int c,
+                                        int gra, int j0, int cols, float outputscale,
+                                        float sigma2) {
+  const float* mine = x2 + (32 * kh + 4 * g + c) * dp;
+  const float n2_mine = dot<D8>(mine, mine, dp);
+#pragma unroll
+  for (int kq = 0; kq < 4; ++kq) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lc = 32 * kh + 8 * kq + 4 * h + c;
+      const float n2 = __shfl_sync(0xffffffffu, n2_mine, 4 * (2 * kq + h) + c);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float inner = dot<D8>(r ? x1b : x1a, x2 + lc * dp, dp);
+        const float d2 = fmaxf((r ? n1b : n1a) + n2 - 2.0f * inner, 0.0f);
+        float v = stationary<KT>(d2, outputscale);
+        if (gra + 8 * r == j0 + lc) v += sigma2;
+        v = j0 + lc < cols ? v : 0.0f;
+        const float hi = tf32(v);
+        ah[kq][2 * h + r] = __float_as_uint(hi);
+        al[kq][2 * h + r] = __float_as_uint(tf32(v - hi));
+      }
+    }
+  }
+}
+
+// At 16 columns three blocks fit an SM's registers without spills.
+template <int KT, int TB, bool D8>
+__global__ void __launch_bounds__(NT, TB == 16 ? 3 : 1) kernel_matmul_kernel(
+    const float* __restrict__ X1, const float* __restrict__ X2, const float* __restrict__ M,
+    const float* __restrict__ scal, float* __restrict__ out, int rows, int cols, int d, int t,
+    int row_offset, int flags) {
+  constexpr int NCH = TB / 8;           // n8 tiles of the accumulator
+  constexpr int G = NCH < 4 ? NCH : 4;  // n8 tiles whose mma chains interleave
+  constexpr int LD = m_stride(TB);
+  constexpr int S = stages(TB);
+  extern __shared__ __align__(16) float smem[];
+  const int dp = x_stride(d, D8);
+  const int sf = stage_floats(TB, dp);
+  float* sX1 = smem;            // BN x dp
+  float* sN1 = sX1 + BN * dp;   // BN
+  float* ring = sN1 + BN;       // S stages of [X2 tile BM x dp | M tile BM x LD]
 
   const float outputscale = scal[0];
   const float sigma2 = scal[1];
   const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int kh = warp / 4;  // this warp's k-half of every step: columns 32 kh .. 32 kh + 31
+  const int ra = 16 * (warp % 4) + g;  // its A-fragment rows: ra and ra + 8
   const int i0 = blockIdx.x * BN;
-  const int t0 = blockIdx.y * BT;
+  const int t0 = blockIdx.y * TB;
   const long long b = blockIdx.z;
   M += b * static_cast<long long>(cols) * t;
   out += b * static_cast<long long>(rows) * t;
+  const int tc = min(TB, t - t0);  // columns of M this block reads
+  const int nch = (tc + 7) / 8;    // n8 tiles holding them
+  const int steps = (cols + BM - 1) / BM;
+  const bool xvec = flags & 1;
+  const int mw = flags & 2 ? 4 : flags & 4 ? 2 : 1;  // floats per copy of M
+  const Walk wx(xvec ? 2 : d), wm(tc / mw);
 
-  // kernel-tile mapping: a 16 x 16 thread grid, 4 x 4 entries per thread
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  // product mapping: column pc of the t-block, rows pr + RG * r
-  constexpr int RG = NT / BT;
-  constexpr int RPT = BN / RG;
-  const int pc = tid % BT;
-  const int pr = tid / BT;
-
-  float acc[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.0f;
-
-  for (int j0 = 0; j0 < cols; j0 += BM) {
-    // ---- inner products and norms over feature chunks -------------------
-    float inner[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) inner[r][c] = 0.0f;
-    float norm = 0.0f;  // tid < BN: |X1 row|^2; BN <= tid < BN + BM: X2 row
-
-    for (int k0 = 0; k0 < d; k0 += DK) {
-      __syncthreads();  // the previous readers of sX1 / sX2 are done
-      for (int e = tid; e < BN * DK; e += NT) {
-        const int r = e / DK, k = e % DK;
-        const int gi = i0 + r, gk = k0 + k;
-        sX1[r][k] = (gi < rows && gk < d)
-                        ? X1[static_cast<long long>(gi) * d + gk] : 0.0f;
-      }
-      for (int e = tid; e < BM * DK; e += NT) {
-        const int r = e / DK, k = e % DK;
-        const int gj = j0 + r, gk = k0 + k;
-        sX2[r][k] = (gj < cols && gk < d)
-                        ? X2[static_cast<long long>(gj) * d + gk] : 0.0f;
-      }
-      __syncthreads();
-      if (tid < BN) {
-#pragma unroll
-        for (int k = 0; k < DK; ++k) norm = fmaf(sX1[tid][k], sX1[tid][k], norm);
-      } else if (tid < BN + BM) {
-#pragma unroll
-        for (int k = 0; k < DK; ++k)
-          norm = fmaf(sX2[tid - BN][k], sX2[tid - BN][k], norm);
-      }
-#pragma unroll
-      for (int k = 0; k < DK; ++k) {
-        float a[4], bb[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = sX1[ty + 16 * r][k];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bb[c] = sX2[tx + 16 * c][k];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) inner[r][c] = fmaf(a[r], bb[c], inner[r][c]);
-      }
+  // the X tiles' feature padding stays zero: cp.async writes only k < d
+  for (int e = tid; e < BN * dp; e += NT) sX1[e] = 0.0f;
+  for (int st = 0; st < S; ++st) {
+    for (int e = tid; e < BM * dp; e += NT) ring[st * sf + e] = 0.0f;
+  }
+  __syncthreads();
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < steps) {
+      stage_tile<TB>(ring + st * sf, ring + st * sf + BM * dp, X2, M, st * BM, t0, cols, d, dp,
+                     t, xvec, mw, wx, wm);
     }
-    if (tid < BN) {
-      sN1[tid] = norm;
-    } else if (tid < BN + BM) {
-      sN2[tid - BN] = norm;
-    }
+    cp_async_commit();
+  }
+  for (int e = tid; e < BN * d; e += NT) {
+    const int r = e / d, k = e - r * d;
+    sX1[r * dp + k] = i0 + r < rows ? X1[static_cast<long long>(i0 + r) * d + k] : 0.0f;
+  }
+  __syncthreads();
+  if (tid < BN) sN1[tid] = dot<false>(sX1 + tid * dp, sX1 + tid * dp, dp);
+  __syncthreads();
+  const float* x1a = sX1 + ra * dp;
+  const float* x1b = x1a + 8 * dp;
+  const float n1[2] = {sN1[ra], sN1[ra + 8]};
 
-    // ---- the M tile: rows >= cols and columns >= t read as 0 -------------
-    for (int e = tid; e < BM * BT; e += NT) {
-      const int r = e / BT, c = e % BT;
-      const int gj = j0 + r, gc = t0 + c;
-      sM[r][c] = (gj < cols && gc < t)
-                     ? M[static_cast<long long>(gj) * t + gc] : 0.0f;
-    }
-    __syncthreads();  // norms and the M tile are visible
-
-    // ---- the kernel tile, sigma2 diagonal and column mask ----------------
+  const int gra = row_offset + i0 + ra;  // global row of ra (the sigma2 diagonal)
+  float acc[NCH][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int li = ty + 16 * r;
+  for (int n = 0; n < NCH; ++n) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int lj = tx + 16 * c;
-        const int gj = j0 + lj;
-        const float d2 = fmaxf(sN1[li] + sN2[lj] - 2.0f * inner[r][c], 0.0f);
-        float kv = stationary<KT>(d2, outputscale);
-        if (row_offset + i0 + li == gj) kv += sigma2;
-        sK[li][lj] = (gj < cols) ? kv : 0.0f;
-      }
-    }
-    __syncthreads();
-
-    // ---- tile x M, f32 FMA into the register accumulator ----------------
-#pragma unroll 4
-    for (int j = 0; j < BM; j += 4) {
-      const float m0 = sM[j][pc], m1 = sM[j + 1][pc];
-      const float m2 = sM[j + 2][pc], m3 = sM[j + 3][pc];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float4 k4 = *reinterpret_cast<const float4*>(&sK[pr + RG * r][j]);
-        float s = acc[r];
-        s = fmaf(k4.x, m0, s);
-        s = fmaf(k4.y, m1, s);
-        s = fmaf(k4.z, m2, s);
-        s = fmaf(k4.w, m3, s);
-        acc[r] = s;
-      }
-    }
-    __syncthreads();  // sK / sM / sN are rewritten by the next column step
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
   }
 
-  const int gc = t0 + pc;
+  for (int s = 0; s < steps; ++s) {
+    const int j0 = s * BM;
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile s is staged; step s - 1 is done with its stage
+    {
+      const int next = s + S - 1;
+      if (next < steps) {
+        float* st = ring + (next % S) * sf;
+        stage_tile<TB>(st, st + BM * dp, X2, M, next * BM, t0, cols, d, dp, t, xvec, mw, wx,
+                       wm);
+      }
+      cp_async_commit();
+    }
+    const float* x2 = ring + (s % S) * sf;
+    const float* sM = x2 + BM * dp;
+
+    // kernel entries and their TF32 halves
+    uint32_t a_hi[4][4], a_lo[4][4];
+    entries<KT, D8>(a_hi, a_lo, x2, x1a, x1b, n1[0], n1[1], dp, kh, g, c, gra, j0, cols,
+                    outputscale, sigma2);
+
+    // the product, G n8 tiles at a time so that their mma chains
+    // interleave; M's TF32 halves are taken as its fragments are loaded.
+    // The tensor cores add into their f32 accumulator by truncation, so
+    // each tile's 12 mma of this step go into a zeroed fragment that is
+    // then added to acc in IEEE f32.
+    const float* mb = sM + (32 * kh + c) * LD + g;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int gi = i0 + pr + RG * r;
-    if (gi < rows && gc < t) out[static_cast<long long>(gi) * t + gc] = acc[r];
+    for (int n0 = 0; n0 < NCH; n0 += G) {
+      if (n0 < nch) {
+        float part[G][4];
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[gi][e] = 0.0f;
+        }
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          float h0[G], h1[G], l0[G], l1[G];
+#pragma unroll
+          for (int gi = 0; gi < G; ++gi) {
+            const float m0 = mb[8 * kq * LD + 8 * (n0 + gi)];
+            const float m1 = mb[(8 * kq + 4) * LD + 8 * (n0 + gi)];
+            h0[gi] = tf32_trunc(m0);
+            h1[gi] = tf32_trunc(m1);
+            l0[gi] = tf32_trunc(m0 - h0[gi]);
+            l1[gi] = tf32_trunc(m1 - h1[gi]);
+          }
+#pragma unroll
+          for (int gi = 0; gi < G; ++gi) {
+            if (n0 + gi < nch) mma_tf32(part[gi], a_lo[kq], h0[gi], h1[gi]);
+          }
+#pragma unroll
+          for (int gi = 0; gi < G; ++gi) {
+            if (n0 + gi < nch) mma_tf32(part[gi], a_hi[kq], l0[gi], l1[gi]);
+          }
+#pragma unroll
+          for (int gi = 0; gi < G; ++gi) {
+            if (n0 + gi < nch) mma_tf32(part[gi], a_hi[kq], h0[gi], h1[gi]);
+          }
+        }
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n0 + gi][e] += part[gi][e];
+        }
+      }
+    }
+  }
+
+  // the two k-halves meet: the second half's warps leave their sums in
+  // shared memory, the first half's add them (in that fixed order) and
+  // store.  acc[n][e] is row ra + 8 (e / 2), column 8 n + 2 c + e % 2.
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = ring;  // BN x TB
+  if (kh == 1) {
+#pragma unroll
+    for (int n = 0; n < NCH; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (n < nch) red[(ra + 8 * (e / 2)) * TB + 8 * n + 2 * c + e % 2] = acc[n][e];
+      }
+    }
+  }
+  __syncthreads();
+  if (kh == 0) {
+#pragma unroll
+    for (int n = 0; n < NCH; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int li = ra + 8 * (e / 2);
+        const int lc = 8 * n + 2 * c + e % 2;
+        if (n < nch && i0 + li < rows && t0 + lc < t) {
+          out[static_cast<long long>(i0 + li) * t + t0 + lc] = acc[n][e] + red[li * TB + lc];
+        }
+      }
+    }
   }
 }
 
-template <int BT>
-void launch_bt(int kernel_type, dim3 grid, cudaStream_t stream,
-               const float* X1, const float* X2, const float* M,
-               const float* scal, float* out, int rows, int cols, int d, int t,
-               int row_offset) {
+template <int TB, bool D8>
+cudaError_t launch_tb(int kernel_type, int d, dim3 grid, cudaStream_t stream, const float* X1,
+                      const float* X2, const float* M, const float* scal, float* out, int rows,
+                      int cols, int t, int row_offset, int flags) {
+  auto kern = kernel_matmul_kernel<MATERN52, TB, D8>;
   switch (kernel_type) {
-    case RBF:
-      kernel_matmul_kernel<RBF, BT><<<grid, NT, 0, stream>>>(
-          X1, X2, M, scal, out, rows, cols, d, t, row_offset);
-      break;
-    case MATERN12:
-      kernel_matmul_kernel<MATERN12, BT><<<grid, NT, 0, stream>>>(
-          X1, X2, M, scal, out, rows, cols, d, t, row_offset);
-      break;
-    case MATERN32:
-      kernel_matmul_kernel<MATERN32, BT><<<grid, NT, 0, stream>>>(
-          X1, X2, M, scal, out, rows, cols, d, t, row_offset);
-      break;
-    default:
-      kernel_matmul_kernel<MATERN52, BT><<<grid, NT, 0, stream>>>(
-          X1, X2, M, scal, out, rows, cols, d, t, row_offset);
-      break;
+    case RBF: kern = kernel_matmul_kernel<RBF, TB, D8>; break;
+    case MATERN12: kern = kernel_matmul_kernel<MATERN12, TB, D8>; break;
+    case MATERN32: kern = kernel_matmul_kernel<MATERN32, TB, D8>; break;
+    default: break;
+  }
+  const size_t smem = smem_bytes(TB, d, D8);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kern<<<grid, NT, smem, stream>>>(X1, X2, M, scal, out, rows, cols, d, t, row_offset, flags);
+  return cudaGetLastError();
+}
+
+template <bool D8>
+cudaError_t launch(int tb, int kernel_type, int d, dim3 grid, cudaStream_t stream,
+                   const float* X1, const float* X2, const float* M, const float* scal,
+                   float* out, int rows, int cols, int t, int row_offset, int flags) {
+  switch (tb) {
+    case 16: return launch_tb<16, D8>(kernel_type, d, grid, stream, X1, X2, M, scal, out, rows, cols, t, row_offset, flags);
+    case 32: return launch_tb<32, D8>(kernel_type, d, grid, stream, X1, X2, M, scal, out, rows, cols, t, row_offset, flags);
+    case 64: return launch_tb<64, D8>(kernel_type, d, grid, stream, X1, X2, M, scal, out, rows, cols, t, row_offset, flags);
+    case 128: return launch_tb<128, D8>(kernel_type, d, grid, stream, X1, X2, M, scal, out, rows, cols, t, row_offset, flags);
+    default: return launch_tb<256, D8>(kernel_type, d, grid, stream, X1, X2, M, scal, out, rows, cols, t, row_offset, flags);
   }
 }
 
@@ -216,7 +471,7 @@ void launch_bt(int kernel_type, dim3 grid, cudaStream_t stream,
 // (batch, rows, t); scal holds [outputscale, sigma2] on the device, so the
 // caller never syncs to read a scalar.  Returns cudaGetLastError() after
 // the launch (0 = ok), or cudaErrorInvalidValue for arguments the kernel
-// does not take.
+// does not take (d past what shared memory holds, ~160).
 extern "C" int kernel_matmul_f32(const float* X1, const float* X2,
                                  const float* M, const float* scal,
                                  float* out, int rows, int cols, int d,
@@ -226,22 +481,23 @@ extern "C" int kernel_matmul_f32(const float* X1, const float* X2,
       batch > 65535 || kernel_type < RBF || kernel_type > MATERN52) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool d8 = d <= 8;
+  // the narrowest column block that holds t (at most 256), halved while
+  // its shared memory does not fit (large d)
+  int tb = 16;
+  while (tb < t && tb < 256) tb *= 2;
+  while (tb > 16 && smem_bytes(tb, d, d8) > SMEM_MAX) tb /= 2;
+  if (smem_bytes(tb, d, d8) > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((rows + BN - 1) / BN, (t + tb - 1) / tb, batch);
+  // wide staging copies: X2 rows by 16 bytes when d = 8; M rows by 16 bytes
+  // when t is a multiple of 4, by 8 when it is even
+  const uintptr_t m_align = reinterpret_cast<uintptr_t>(M);
+  const int flags = (d == 8 && reinterpret_cast<uintptr_t>(X2) % 16 == 0 ? 1 : 0) |
+                    (t % 4 == 0 && m_align % 16 == 0 ? 2 : 0) |
+                    (t % 2 == 0 && m_align % 8 == 0 ? 4 : 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int row_blocks = (rows + BN - 1) / BN;
-  if (t <= 16) {
-    dim3 grid(row_blocks, (t + 15) / 16, batch);
-    launch_bt<16>(kernel_type, grid, s, X1, X2, M, scal, out, rows, cols, d,
-                  t, row_offset);
-  } else if (t <= 32) {
-    dim3 grid(row_blocks, (t + 31) / 32, batch);
-    launch_bt<32>(kernel_type, grid, s, X1, X2, M, scal, out, rows, cols, d,
-                  t, row_offset);
-  } else {
-    // wide right-hand sides (the cache's Gram product, predict's solves):
-    // 64 columns per block, so the kernel tile is recomputed t/64 times
-    dim3 grid(row_blocks, (t + 63) / 64, batch);
-    launch_bt<64>(kernel_type, grid, s, X1, X2, M, scal, out, rows, cols, d,
-                  t, row_offset);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      d8 ? launch<true>(tb, kernel_type, d, grid, s, X1, X2, M, scal, out, rows, cols, t, row_offset, flags)
+         : launch<false>(tb, kernel_type, d, grid, s, X1, X2, M, scal, out, rows, cols, t, row_offset, flags);
+  return static_cast<int>(err);
 }

@@ -73,6 +73,59 @@ def test_row_offset_slices_and_batch(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, 4])
+@pytest.mark.parametrize("t", [1, 8, 9, 16, 17, 234, 256, 257, 512])
+def test_kernel_column_blocks_match_plain(cuda_device, t, batch):
+    """Every column-block width of the tensor-core kernel (16 to 256, and a
+    second 256-column block past 256), 2-D and batched M, at 2e-4."""
+    n = 777
+    shape = (n, t) if batch is None else (batch, n, t)
+    Xs, M = _inputs(t, n, 8, shape, cuda_device)
+    out = km.kernel_matmul_cuda(Xs, Xs, M, 1.1, 0.1, kernel_type="matern52")
+    torch.cuda.synchronize()
+    plain = kernel_matmul_plain(Xs, Xs, M, 1.1, 0.1, kernel_type="matern52")
+    torch.testing.assert_close(out, plain, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [9, 256])
+def test_kernel_row_offset_slices_reassemble(cuda_device, t):
+    n = 2500
+    Xs, M = _inputs(7 + t, n, 8, (n, t), cuda_device)
+    full = km.kernel_matmul_cuda(Xs, Xs, M, 1.0, 0.2, kernel_type="rbf")
+    parts = [
+        km.kernel_matmul_cuda(Xs[i : i + 700].contiguous(), Xs, M, 1.0, 0.2, i, kernel_type="rbf")
+        for i in range(0, n, 700)
+    ]
+    torch.testing.assert_close(torch.cat(parts), full, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(full, kernel_matmul_plain(Xs, Xs, M, 1.0, 0.2, kernel_type="rbf"), **TOL)
+
+
+@pytest.mark.cuda
+def test_matern12_duplicated_rows_give_the_plain_diagonal(cuda_device):
+    """Coincident points must give d2 = 0 exactly: Matérn-½ would move by
+    ~sqrt(d2) (3e-4 for a d2 of 1e-7 left by cancellation) otherwise.  A
+    one-hot M reads the diagonal out; what is left is f32 rounding of the
+    3xTF32 split (rtol 1e-6)."""
+    rng = np.random.default_rng(12)
+    X = rng.standard_normal((300, 8)).astype(np.float32) * 3.0
+    X = np.concatenate([X, X[:100]])  # rows 300.. repeat rows 0..99
+    Xs = torch.from_numpy(X).to(cuda_device)
+    n = len(X)
+    M = torch.zeros((n, 16), device=cuda_device)
+    ar = torch.arange(16, device=cuda_device)
+    cols = 6 * ar
+    M[cols, ar] = 1.0
+    out = km.kernel_matmul_cuda(Xs, Xs, M, 1.1, 0.1, kernel_type="matern12")
+    plain = kernel_matmul_plain(Xs, Xs, M, 1.1, 0.1, kernel_type="matern12")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[cols, ar], plain[cols, ar], rtol=1e-6, atol=0.0)
+    dup = cols + 300  # the copies of those rows: K(x, x) without the sigma2
+    torch.testing.assert_close(out[dup, ar], plain[dup, ar], rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(out, plain, **TOL)
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     Xs, M = _inputs(2, 64, 3, (64, 4), cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -199,6 +252,63 @@ def test_flash_attention_matches_plain(cuda_device, dtype, b, hq, hkv, sq, skv, 
     ref = gqa_attention_plain(q, k, v, causal=causal)
     tol = TOL if dtype == torch.float32 else dict(rtol=3e-2, atol=3e-2)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [32, 64, 96, 112, 128, 224, 256])
+def test_flash_attention_bf16_head_dims(cuda_device, dh, causal):
+    """The bf16 tensor-core path at every head dim it takes (multiples of
+    16 up to 256), GQA 8 / 2, in the model's strided (b, s, h, dh) views."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+
+    g = torch.Generator().manual_seed(dh + causal)
+    q = torch.randn((2, 200, 8, dh), generator=g).to(cuda_device, torch.bfloat16).transpose(1, 2)
+    k = torch.randn((2, 200, 2, dh), generator=g).to(cuda_device, torch.bfloat16).transpose(1, 2)
+    v = torch.randn((2, 200, 2, dh), generator=g).to(cuda_device, torch.bfloat16).transpose(1, 2)
+    out = fa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = gqa_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv", [(1, 63), (63, 65), (65, 1), (511, 63), (65, 511), (1, 1)])
+def test_flash_attention_bf16_ragged(cuda_device, sq, skv, causal):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+
+    g = torch.Generator().manual_seed(sq * 1000 + skv)
+    q = torch.randn((2, 4, sq, 224), generator=g).to(cuda_device, torch.bfloat16)
+    k = torch.randn((2, 2, skv, 224), generator=g).to(cuda_device, torch.bfloat16)
+    v = torch.randn((2, 2, skv, 224), generator=g).to(cuda_device, torch.bfloat16)
+    out = fa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = gqa_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_unaligned_strides(cuda_device, dtype):
+    """Rows that are not 16-byte aligned (a 1-element offset into a wider
+    buffer) and a head dim that is not a multiple of 16 take the CUDA-core
+    path: same results, same tolerances."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+
+    g = torch.Generator().manual_seed(5)
+    for dh, width in ((64, 67), (40, 40)):
+        buf = torch.randn((3, 2, 130, 4, width), generator=g).to(cuda_device, dtype)
+        q, k, v = (buf[i, :, :, :, 1 : 1 + dh].transpose(1, 2) if width > dh
+                   else buf[i].transpose(1, 2) for i in range(3))
+        out = fa.flash_attention_cuda(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ref = gqa_attention_plain(q, k, v, causal=True)
+        tol = TOL if dtype == torch.float32 else dict(rtol=3e-2, atol=3e-2)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
 @pytest.mark.cuda

@@ -149,3 +149,20 @@ def test_heads_must_group():
     k = torch.zeros((1, 2, 8, 16))
     with pytest.raises(ValueError, match="group"):
         flash_attention(q, k, k)
+
+
+def test_bf16_split_of_p_keeps_pv_in_f32():
+    """The bf16 kernel's P·V, emulated on the CPU: P (f32 softmax weights)
+    split into P_hi = bf16(P) and P_lo = bf16(P − P_hi), each times bf16 V
+    with f32 sums, stays within 1e-5 (of the largest output) of the f32
+    product; P_hi alone (P rounded to bf16) does not."""
+    rng = np.random.default_rng(14)
+    s = 3.0 * torch.from_numpy(rng.standard_normal((64, 512)).astype(np.float32))
+    p = torch.softmax(s, dim=-1)
+    v = torch.from_numpy(rng.standard_normal((512, 224)).astype(np.float32)).bfloat16().float()
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+    f32 = p @ v
+    scale = f32.abs().max()
+    assert (p_hi @ v + p_lo @ v - f32).abs().max() <= 1e-5 * scale
+    assert (p_hi @ v - f32).abs().max() > 1e-5 * scale

@@ -240,3 +240,46 @@ def test_build_without_nvcc_is_an_error(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(build.KernelBuildError, match="nvcc not found"):
         build._nvcc()
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 → TF32 as ``cvt.rna.tf32.f32`` does: the mantissa rounded to
+    nearest (ties away from zero) at 10 bits, the low 13 bits cleared."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """f32 → TF32 by truncation (the low 13 bits cleared), as the kernel
+    splits M."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("t", [9, 256])
+@pytest.mark.parametrize("n", [300, 1000])
+def test_3xtf32_split_product_keeps_f32_accuracy(n, t):
+    """The product of the CUDA kernel, emulated on the CPU: K̂ split into
+    TF32 halves by rounding, M by truncation, as the kernel does, and K̂·M ≈
+    K̂_lo·M_hi + K̂_hi·M_lo + K̂_hi·M_hi (each TF32 × TF32 product is exact;
+    the sums here are in f64, so no BLAS rounding enters).  It stays within
+    2e-4 of the reference's oracle and of an f64 evaluation (and within 1e-5
+    of the latter: f32 accuracy); one-pass TF32 (K̂_hi·M_hi) does not, which
+    is why the kernel splits.  Errors are shares of the output's largest
+    entry."""
+    X, M, ell = _inputs(n + t, n, 8, t)
+    Xs, Mt = torch.from_numpy(X / ell), torch.from_numpy(M)
+    K = kernel_matmul_plain(Xs, Xs, torch.eye(n), 1.1, 0.1, kernel_type="matern52")  # K̂
+    Kh, Mh = _tf32(K), _tf32_trunc(Mt)
+    Kl, Ml = _tf32(K - Kh), _tf32_trunc(Mt - Mh)
+    Kh, Kl, Mh, Ml = (x.double() for x in (Kh, Kl, Mh, Ml))
+    split = (Kl @ Mh + Kh @ Ml + Kh @ Mh).numpy()
+    one_pass = (Kh @ Mh).numpy()
+    ref = np.asarray(ref_kernel_matmul_ref(jnp.asarray(X), jnp.asarray(M), ell, 1.1, 0.1,
+                                           kernel_type="matern52"))
+    exact = _exact_f64(X, M, ell, 1.1, 0.1, "matern52")
+
+    def share(out, against):
+        return np.abs(out - against).max() / np.abs(against).max()
+
+    assert share(split, ref) <= 2e-4
+    assert share(split, exact) <= 1e-5
+    assert share(one_pass, exact) > 2e-4
