@@ -11,23 +11,30 @@ and the final line is then not printed):
 
   1. build      nvcc of every ``src/repro_torch/kernels/*/csrc`` source, one
                 process per source, all at once; for the tensor-core kernels
-                (B1/B2, bf16 B4) each function's registers, shared memory
-                and spills (ptxas) and its HMMA / HGMMA count in the SASS
-                (cuobjdump), which must not be 0
+                (B1/B2, B3, the gradient, bf16 B4) each function's
+                registers, shared memory and spills (ptxas; none allowed but
+                in B1) and its HMMA / HGMMA count in the SASS (cuobjdump),
+                which must not be 0
   2. kernel     B1 (2-D M) and B2 (3-D M) against ``kernel_matmul_plain``
                 for rbf / matern12/32/52 at odd n, ARD, t ∈ {1, 9, 17, 234,
                 256, 512};
                 row_offset slices of the n=40,000 product; b=4 batches;
                 tolerance 2e-4 relative (max |Δ| / max |plain|)
-     fused_kernel  B3 against ``fused_cg_step_plain``: odd n, t ∈ {1, 9, 33},
-                b ∈ {1, 3}, the four kernel types, frozen and all-zero
-                columns, the no-op prologue (γ = 0), row_offset shards that
-                reassemble the full step, one case at n=40,000; state rtol /
-                atol 2e-4, reductions rtol 2e-4 / atol 2e-3
+     fused_kernel  B3 against ``fused_cg_step_plain``: odd n, t ∈ {1, 9, 16,
+                17, 33, 64}, b ∈ {1, 3}, the four kernel types, frozen and
+                all-zero columns, the no-op prologue (γ = 0), row_offset
+                shards that reassemble the full step, a separate column
+                state (same bits); state rtol / atol 2e-4, reductions rtol
+                2e-4 / atol 2e-3.  One case at n=40,000 held at those
+                tolerances to a float64 evaluation (the f32 plain version is
+                3-4e-4 from it there) and no further from it than the plain
+                version; two runs bit-identical
      grad_kernel   the gradient kernel against ``kernel_matmul_grad_plain``:
                 the four kernel types, scalar and ARD ℓ (through the chain
-                to ℓ), rows ≠ columns, coincident points, one case at
-                n=40,000; tolerance 2e-4 relative
+                to ℓ), rows ≠ columns, coincident points; the one-launch
+                symmetric VJP against ``kernel_matmul_grad_sym_plain`` and
+                the two-launch path (duplicated and near-coincident rows);
+                both at n=40,000; tolerance 2e-4 relative
      flash_kernel  B4 against ``gqa_attention_plain``: causal and not, GQA
                 8/2 heads, dh ∈ {32, 64, 112, 224}, ragged lengths, the
                 slice's (4, 32, 512, 224), bf16 on both routes (tensor
@@ -58,8 +65,8 @@ and the final line is then not printed):
                 outputs; the cached variance must stay conservative
   7. train      ExactGP(matern52, mode="cuda", fuse_cg=True, precond_rank=0)
                 .fit on the same data, 5 Adam steps, each synchronised and
-                timed with its launches (B3 max_cg_iters per forward, the
-                gradient kernel in the backward); the anatomy of one step
+                timed with its launches (B3 max_cg_iters per forward, one
+                gradient-kernel launch in the backward); the anatomy of one step
                 (no B1 in the fused forward); peak device memory (K never
                 formed); a 5-iteration prefix of the first step held to
                 the unfused path with every kernel replaced by its plain
@@ -206,14 +213,17 @@ def kernel_bound(rows: int, cols: int, d: int, t: int, batch: int = 1):
 
 
 def fused_bound(n: int, d: int, t: int, batch: int = 1):
-    """Least time for one fused CG step (B3) on an H100: B1's operations
-    (the kernel tile once, 2t flops per entry per batch element) plus the
-    prologue and the four reductions (~14 flops per state element),
-    against X read once, the state U, R, D, V and α, β, γ read once and
-    U′, R′, D′, V′ and the reductions written once."""
-    ops = n * n * (2 * d + 1) + 2 * n * n * t * batch + 14 * n * t * batch
+    """Least time for one fused CG step (B3) on an H100, priced as B1:
+    the kernel tile (2d + 1 flops per entry, f32 at 67 TFLOP/s, once
+    whatever the batch) and the product K̂·D′ (2t flops per entry per batch
+    element, three TF32 products at 495 TFLOP/s), plus the prologue and the
+    four reductions (~14 f32 flops per state element), against X read once,
+    the state U, R, D, V and α, β, γ read once and U′, R′, D′, V′ and the
+    reductions written once."""
+    f32_ops = n * n * (2 * d + 1) + 14 * n * t * batch
+    tf32_ops = 3 * 2 * n * n * t * batch
     nbytes = 4 * (n * d + 8 * batch * n * t + 7 * batch * t)
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_ops = (f32_ops / PEAK_F32_FLOPS + tf32_ops / PEAK_TF32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -221,14 +231,16 @@ def fused_bound(n: int, d: int, t: int, batch: int = 1):
 def grad_bound(n: int, d: int, t: int):
     """Least time for B1's vector-Jacobian product for both inputs and the
     outputscale on an H100: per kernel entry the differences and the
-    distance from them (3d), the weight ⟨Cᵢ, Mⱼ⟩ (2t), f, f′ and the
-    coefficient as the kernel executes them for Matérn-5/2 (~20, one exp)
-    and one FMA per feature for each gradient sum, rows and columns, which
-    share the differences (2 × 2d), against X, M and C read once and both
-    gradients written once."""
-    ops = n * n * (7 * d + 2 * t + 20)
+    distance from them (3d) and f, f′ and the coefficient as the kernel
+    executes them for Matérn-5/2 (~20, one exp), f32 at 67 TFLOP/s; the
+    weight ⟨Cᵢ, Mⱼ⟩ (2t) and one FMA per feature for each gradient sum,
+    rows and columns, which share the differences (2 × 2d), as products at
+    f32 accuracy on the tensor cores: three TF32 products at 495 TFLOP/s.
+    Against X, M and C read once and both gradients written once."""
+    f32_ops = n * n * (3 * d + 20)
+    tf32_ops = 3 * n * n * (2 * t + 4 * d)
     nbytes = 4 * (n * d + 2 * n * t + 2 * n * d)
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_ops = (f32_ops / PEAK_F32_FLOPS + tf32_ops / PEAK_TF32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -239,9 +251,13 @@ def grad_bound(n: int, d: int, t: int):
 
 
 #: the kernels redesigned for the tensor cores, by library: the name their
-#: functions carry and the SASS instruction each must contain
-TENSOR_CORE_KERNELS = {"kernel_matmul": ("kernel_matmul_kernel", "HMMA"),
-                       "flash_attention": ("flash_fwd_tc_kernel", "HGMMA")}
+#: functions carry, the SASS instruction each must contain, and whether
+#: spills fail the build (B1's d > 8 instantiations at 16 columns spill 8
+#: bytes, off the main path)
+TENSOR_CORE_KERNELS = {"kernel_matmul": ("kernel_matmul_kernel", "HMMA", False),
+                       "fused_cg_step": ("fused_cg_product_kernel", "HMMA", True),
+                       "kernel_matmul_grad": ("kernel_matmul_grad_kernel", "HMMA", True),
+                       "flash_attention": ("flash_fwd_tc_kernel", "HGMMA", True)}
 
 
 def _cuda_tool(name):
@@ -305,20 +321,21 @@ def sass_counts(path):
 
 def phase_build(build):
     """nvcc of every kernel source; for the tensor-core kernels each
-    function's registers, shared memory and spills (ptxas) and its count of
-    tensor-core instructions in the SASS, which must not be 0."""
+    function's registers, shared memory and spills (ptxas; none allowed
+    where TENSOR_CORE_KERNELS says so) and its count of tensor-core
+    instructions in the SASS, which must not be 0."""
     t0 = time.perf_counter()
     infos = build.build_all()
     for name in infos:
         build.load_library(name)
     seconds = time.perf_counter() - t0
-    libraries = {}
+    libraries, failures = {}, []
     for name, info in infos.items():
         lib = {"file": info.path.name, "nvcc_seconds": round(info.seconds, 3),
                "ptxas": sorted({ln.strip() for ln in info.log.splitlines()
                                 if "registers" in ln or "spill" in ln})}
         if name in TENSOR_CORE_KERNELS:
-            tag, op = TENSOR_CORE_KERNELS[name]
+            tag, op, no_spills = TENSOR_CORE_KERNELS[name]
             ptx = ptxas_report(info.log)
             sass = sass_counts(info.path)
             kernels = {m: {**ptx.get(m, {}), **((sass or {}).get(m, {}))}
@@ -327,11 +344,14 @@ def phase_build(build):
             readable = _demangle(kernels)
             lib["ptxas"] = {readable[m]: k for m, k in kernels.items()}
             lib["sass_tool"] = "cuobjdump -sass" if sass is not None else "not found"
-            if sass is not None:
-                for m, k in kernels.items():
-                    check(k.get(op, 0) > 0, f"{readable[m]}: no {op} in its SASS")
+            for m, k in kernels.items():
+                if no_spills and (k.get("spill_stores", 0) or k.get("spill_loads", 0)):
+                    failures.append(f"{readable[m]}: spills {k}")
+                if sass is not None and k.get(op, 0) == 0:
+                    failures.append(f"{readable[m]}: no {op} in its SASS")
         libraries[name] = lib
     emit({"phase": "build", "seconds": round(seconds, 3), "libraries": libraries})
+    check(not failures, "; ".join(failures))
 
 
 def rel_err(out, ref) -> tuple[float, float]:
@@ -410,6 +430,26 @@ def _cg_inputs(rng, dev, b, n, t):
     return state, [alpha, beta, torch.ones_like(alpha)]
 
 
+def fused_step_f64(Xs, state, scalars, kernel_type, outputscale, sigma2, rows=2048):
+    """One CG step of K̂ = K(Xs, Xs) + σ²I (single device, b = 1) in float64
+    from the f32 inputs, K from differences a row slice at a time: the
+    exact step the kernel and the plain version both approximate."""
+    from repro_torch.kernels.kernel_matmul.ref import _sq_dist, apply_stationary
+
+    U, R, D, V = (x.double() for x in state)
+    a, b, g = (x.double()[..., None, :] for x in scalars)
+    U, R = U + a * D, R - a * V
+    D = g * R + b * D
+    X = Xs.double()
+    V = torch.empty_like(D)
+    for i in range(0, X.shape[0], rows):
+        K = apply_stationary(kernel_type, _sq_dist(X[i : i + rows], X), outputscale)
+        K.diagonal(i).add_(sigma2)
+        V[0, i : i + rows] = K @ D[0]
+    red = torch.stack([(D * V).sum(-2), (R * R).sum(-2), (R * V).sum(-2), (V * V).sum(-2)], dim=-2)
+    return U, R, D, V, red
+
+
 def phase_fused_kernel(km, rng, errs):
     """B3 against its plain version, case by case (the state at rtol /
     atol 2e-4, the reductions at rtol 2e-4 / atol 2e-3)."""
@@ -437,7 +477,7 @@ def phase_fused_kernel(km, rng, errs):
 
     for n in (1001, 4097):
         Xs = torch.from_numpy(rng.standard_normal((n, d)).astype("float32") / 0.7).to(dev)
-        for t in (1, 9, 33):
+        for t in (1, 9, 16, 17, 33, 64):
             for b in (1, 3):
                 state, scalars = _cg_inputs(rng, dev, b, n, t)
                 for kt in KERNEL_TYPES:
@@ -483,33 +523,69 @@ def phase_fused_kernel(km, rng, errs):
     whole.append(sum(p[4] for p in parts))
     compare("B3 shards reassembled vs the full step", whole, full)
 
-    # the slice's shape
+    # a column state in other buffers than the row state (the kernel forms
+    # the columns' D′ in scratch then) gives the same bits as the shared one
+    sep = [x.clone() for x in state[1:]]
+    out, _ = run(Xs, Xs, state, sep, scalars, "matern32")
+    check(all(torch.equal(a, b) for a, b in zip(out, full)),
+          "B3: a separate column state changed the step's bits")
+
+    # the slice's shape; a second run gives the same bits (no atomics).  At
+    # n = 40,000 the plain version's f32 product (torch.matmul summing
+    # 40,000 columns) lies 3-4e-4 from the exact V, past the state
+    # tolerance's atol: a kernel that sums in its order agrees with it, a
+    # more accurate one cannot.  So here the kernel is held, at the same
+    # tolerances, to a float64 evaluation of the step, and must be no
+    # further from it than the plain version is (PERF.md §6)
     n = 40_000
     X = rng.uniform(-1, 1, (n, d)).astype("float32")
     Xs = torch.from_numpy(X / 0.5).to(dev)
     state, scalars = _cg_inputs(rng, dev, 1, n, 9)
     out, ref = run(Xs, Xs, state, state[1:], scalars, "matern52", s=1.0)
-    compare("B3 matern52 n=40000 t=9", out, ref)
-    del out, ref
+    exact = fused_step_f64(Xs, state, scalars, "matern52", 1.0, 0.1)
+    name = "B3 matern52 n=40000 t=9"
+    torch.cuda.synchronize()
+    witness = {"kernel_vs_plain": [_err(a, b) for a, b in zip(out, ref)],
+               "kernel_vs_f64": [_err(a, b) for a, b in zip(out, exact)],
+               "plain_vs_f64": [_err(a, b) for a, b in zip(ref, exact)]}
+    errs["B3"] = max(errs["B3"], max(witness["kernel_vs_f64"][:4]))
+    cases.append({"case": name, "state_max_abs_err": max(witness["kernel_vs_f64"][:4]),
+                  "red_max_rel_err": float(((out[4] - exact[4]).abs() / exact[4].abs()).max())})
+    check(all(bool(torch.isfinite(a).all()) for a in out), f"{name}: non-finite B3 output")
+    for a, b, nm in zip(out, exact, ("U", "R", "D", "V", "red")):
+        tol = FUSED_RED_TOL if nm == "red" else FUSED_STATE_TOL
+        check(_within(a, b, tol), f"{name}: B3 {nm} outside {tol} of float64 (max |Δ| {_err(a, b):.3e})")
+    check(witness["kernel_vs_f64"][3] <= witness["plain_vs_f64"][3],
+          f"{name}: B3's V further from float64 than the plain version's {witness}")
+    again = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.0, 0.1,
+                                  kernel_type="matern52")
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          "B3: two runs on the same inputs differ")
+    del out, ref, again, exact
     torch.cuda.empty_cache()
     emit({"phase": "fused_kernel", "cases": len(cases), "state_tol": FUSED_STATE_TOL,
           "red_tol": FUSED_RED_TOL, "state_max_abs_err": errs["B3"],
+          "n40000_max_abs_err_U_R_D_V_red": witness,
           "red_max_rel_err": max(c["red_max_rel_err"] for c in cases)})
 
 
 def phase_grad_kernel(km, rng, errs):
-    """The gradient kernel against ``kernel_matmul_grad_plain``, output by
-    output (2e-4 relative: max |Δ| / max |plain|), and through X/ℓ to a
-    scalar or ARD ℓ."""
-    from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_grad_plain
+    """The gradient kernel against ``kernel_matmul_grad_plain`` (two
+    launches, rows ≠ columns) and ``kernel_matmul_grad_sym_plain`` (one
+    launch, one X), output by output (2e-4 relative: max |Δ| / max |plain|),
+    and through X/ℓ to a scalar or ARD ℓ."""
+    from repro_torch.kernels.kernel_matmul.ref import (
+        kernel_matmul_grad_plain,
+        kernel_matmul_grad_sym_plain,
+    )
 
     dev = torch.device("cuda")
     d = 8
     cases = []
 
-    def compare(name, out, ref):
+    def compare(name, out, ref, names=("X1", "X2", "outputscale", "sigma2", "lengthscale")):
         torch.cuda.synchronize()
-        for a, b, nm in zip(out, ref, ("X1", "X2", "outputscale", "sigma2", "lengthscale")):
+        for a, b, nm in zip(out, ref, names):
             abs_err, rel = rel_err(a, b)
             errs["grad"] = max(errs["grad"], abs_err)
             cases.append({"case": f"{name} d/d{nm}", "max_abs_err": abs_err, "rel_err": rel})
@@ -542,10 +618,48 @@ def phase_grad_kernel(km, rng, errs):
                     ours, ref = with_lengthscale(X1, X2, ell, M, C, kt, off)
                     compare(f"grad {kt} rows={rows} cols={cols} t={t} ard={ard}", ours, ref)
 
-    # the slice's shape: one tensor on both sides, as in training
+    # one X on both sides (training): the one-launch symmetric VJP against
+    # its plain twin and against the two-launch cross path, carried through
+    # X/ℓ to ℓ; duplicated and near-coincident rows for Matérn-½
+    SYM_NAMES = ("X", "outputscale", "sigma2", "lengthscale")
+
+    def sym(X, ell, M, C, kt):
+        ell = ell.clone().requires_grad_()
+        Xs = X / ell
+        outs = []
+        for fn in (km.kernel_matmul_grad_sym_cuda, kernel_matmul_grad_sym_plain):
+            before = km.grad_launches
+            g = fn(Xs.detach(), M, C, 1.1, 0.1, kernel_type=kt)
+            launched = km.grad_launches - before
+            (g_ell,) = torch.autograd.grad(Xs, ell, g[0], retain_graph=True)
+            outs.append((*g, g_ell, launched))
+        return outs
+
+    n = 1001
+    X = _randn(rng, (n, d), dev)
+    X[10] = X[3]
+    X[20] = X[3] * (1 + 1e-3)
+    ell = torch.from_numpy(rng.uniform(0.4, 1.5, d).astype("float32")).to(dev)
+    for t in (1, 9, 33):
+        M, C = _randn(rng, (n, t), dev), _randn(rng, (n, t), dev)
+        for kt in KERNEL_TYPES:
+            ours, ref = sym(X, ell, M, C, kt)
+            check(ours[-1] == 1 + (2 * t - 1) // km.GRAD_MAX_K and ref[-1] == 0,
+                  f"symmetric VJP t={t}: {ours[-1]} gradient launches")
+            compare(f"grad sym {kt} n={n} t={t}", ours[:-1], ref[:-1], SYM_NAMES)
+            two = km.kernel_matmul_grad_cuda(X / ell, X / ell, M, C, 1.1, 0.1, kernel_type=kt)
+            compare(f"grad sym vs two launches {kt} n={n} t={t}",
+                    ours[:3], (two[0] + two[1], two[2], two[3]), SYM_NAMES)
+
+    # the slice's shape: one tensor on both sides, as in training, through
+    # the symmetric VJP, and through the cross path
     n = 40_000
     Xs = torch.from_numpy((rng.uniform(-1, 1, (n, d)) / 0.5).astype("float32")).to(dev)
     M, C = _randn(rng, (n, 9), dev), _randn(rng, (n, 9), dev)
+    ours = km.kernel_matmul_grad_sym_cuda(Xs, M, C, 1.0, 0.1, kernel_type="matern52")
+    ref = kernel_matmul_grad_sym_plain(Xs, M, C, 1.0, 0.1, kernel_type="matern52")
+    compare(f"grad sym matern52 n={n} t=9", ours, ref, SYM_NAMES)
+    del ours, ref
     ours = km.kernel_matmul_grad_cuda(Xs, Xs, M, C, 1.0, 0.1, kernel_type="matern52")
     ref = kernel_matmul_grad_plain(Xs, Xs, M, C, 1.0, 0.1, kernel_type="matern52")
     compare(f"grad matern52 n={n} t=9", ours, ref)
@@ -645,20 +759,26 @@ def time_fused_step(km, rng, Xs, n, d, t=9):
 
 
 def time_grad(km, rng, Xs, n, d, t=9):
-    """The whole VJP (two gradient-kernel launches and the σ² term) and one
-    launch alone."""
-    from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_grad_plain
+    """The symmetric VJP of training (one gradient-kernel launch with k = 2t
+    and the σ² term) and its launch alone; the cross VJP (two launches with
+    k = t) and one of its launches."""
+    from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_grad_sym_plain
 
     M, C = _randn(rng, (n, t), Xs.device), _randn(rng, (n, t), Xs.device)
-    ms = time_ms(lambda: km.kernel_matmul_grad_cuda(Xs, Xs, M, C, 1.0, 0.1,
-                                                    kernel_type="matern52"), reps=10)
     scal = torch.ones(1, device=Xs.device)
-    launch_ms = time_ms(lambda: km._grad_launch(Xs, Xs, C, M, scal, "matern52"), reps=10)
-    plain_ms = time_ms(lambda: kernel_matmul_grad_plain(Xs, Xs, M, C, 1.0, 0.1,
-                                                        kernel_type="matern52"), reps=1)
+    A, B = torch.cat([C, M], dim=1), torch.cat([M, C], dim=1)
+    ms = time_ms(lambda: km.kernel_matmul_grad_sym_cuda(Xs, M, C, 1.0, 0.1,
+                                                        kernel_type="matern52"), reps=10)
+    launch_ms = time_ms(lambda: km._grad_launch(Xs, Xs, A, B, scal, "matern52"), reps=10)
+    cross_ms = time_ms(lambda: km.kernel_matmul_grad_cuda(Xs, Xs, M, C, 1.0, 0.1,
+                                                          kernel_type="matern52"), reps=10)
+    cross_launch_ms = time_ms(lambda: km._grad_launch(Xs, Xs, C, M, scal, "matern52"), reps=10)
+    plain_ms = time_ms(lambda: kernel_matmul_grad_sym_plain(Xs, M, C, 1.0, 0.1,
+                                                            kernel_type="matern52"), reps=1)
     library_ms = time_ms(lambda: grad_library_yardstick(Xs, M, C, 1.0), reps=1)
     bound_ms, bound_by = grad_bound(n, d, t)
     row = {"n": n, "d": d, "t": t, "batch": 1, "ms": ms, "ms_per_launch": launch_ms,
+           "cross_vjp_ms": cross_ms, "cross_ms_per_launch": cross_launch_ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bound_share": bound_ms / ms}
     emit({"phase": "timing", "kernel": "grad", **row})
@@ -972,22 +1092,23 @@ def phase_witness(km, gp, settings, data, cache, ours):
 
 @contextlib.contextmanager
 def plain_kernels(km):
-    """B1's wrapper and the gradient kernel's replaced by their plain
-    versions (K formed, autograd for the gradient), so the unfused path
-    runs without any kernel: nothing launches inside."""
+    """B1's wrapper and the gradient kernel's (both VJPs) replaced by their
+    plain versions (K formed, autograd for the gradient), so the unfused
+    path runs without any kernel: nothing launches inside."""
     from repro_torch.kernels.kernel_matmul import ref
 
-    saved = km.kernel_matmul_cuda, km.kernel_matmul_grad_cuda
+    saved = km.kernel_matmul_cuda, km.kernel_matmul_grad_cuda, km.kernel_matmul_grad_sym_cuda
 
     def grad_plain(*args, need_cols=True, **kw):
         return ref.kernel_matmul_grad_plain(*args, **kw)
 
     km.kernel_matmul_cuda = ref.kernel_matmul_plain
     km.kernel_matmul_grad_cuda = grad_plain
+    km.kernel_matmul_grad_sym_cuda = ref.kernel_matmul_grad_sym_plain
     try:
         yield
     finally:
-        km.kernel_matmul_cuda, km.kernel_matmul_grad_cuda = saved
+        km.kernel_matmul_cuda, km.kernel_matmul_grad_cuda, km.kernel_matmul_grad_sym_cuda = saved
 
 
 def _counts(km):
@@ -1031,14 +1152,15 @@ def phase_train(km, seed, n):
           "settings": {"num_probes": 8, "max_cg_iters": p, "precond_rank": 0, "fuse_cg": True},
           "lr": 0.1, "steps": steps, "loss_history": history,
           "step_ms_mean": sum(st["ms"] for st in steps) / len(steps),
+          "grad_launches_per_step": [st["grad"] for st in steps],
           "peak_device_bytes": peak, "dense_K_bytes": 4 * n * n,
           "params": {k: v.tolist() for k, v in params.items()}})
     check(len(history) == TRAIN_STEPS and all(math.isfinite(v) for v in history),
           f"non-finite loss history {history}")
     check(all(bool(torch.isfinite(v).all()) for v in params.values()), "non-finite parameters")
     for st in steps:
-        check(st["B3"] == p and st["grad"] == 2 and st["B1"] == 1,
-              f"step {st['step']}: launches {st} != B3 {p}, B1 1 (the VJP's primal), grad 2")
+        check(st["B3"] == p and st["grad"] == 1 and st["B1"] == 1,
+              f"step {st['step']}: launches {st} != B3 {p}, B1 1 (the VJP's primal), grad 1")
     check(peak < 4 * n * n / 4, f"peak device memory {peak} B: a quarter of K is 1.6 GB")
 
     # the anatomy of one step: B3 only in the forward, the VJP in the backward
@@ -1055,7 +1177,7 @@ def phase_train(km, seed, n):
     emit({"phase": "train_step_anatomy", "forward": forward, "backward": backward,
           "device_ms_by_kernel": profile_step(gp, Xd, yd)})
     check(forward == {"B3": p, "B1": 0, "grad": 0}, f"fused forward launches {forward}")
-    check(backward == {"B3": 0, "B1": 1, "grad": 2}, f"backward launches {backward}")
+    check(backward == {"B3": 0, "B1": 1, "grad": 1}, f"backward launches {backward}")
     main = dict(launches)
 
     phase_train_prefix(km, gp, settings, Xd, yd)
@@ -1069,7 +1191,7 @@ def phase_train(km, seed, n):
     emit({"phase": "train_unfused", "settings": {"num_probes": 8, "max_cg_iters": p,
                                                    "precond_rank": 5, "fuse_cg": False},
           "step_ms": ms5, "loss": hist5, "launches": unfused})
-    check(unfused == {"B3": 0, "B1": p + 1, "grad": 2}, f"unfused step launches {unfused}")
+    check(unfused == {"B3": 0, "B1": p + 1, "grad": 1}, f"unfused step launches {unfused}")
     check(all(math.isfinite(v) for v in hist5), "unfused step: non-finite loss")
     for k in main:
         main[k] += unfused[k]
@@ -1764,7 +1886,7 @@ def main() -> int:
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:199", batched),
         ("fused_cg_step (B3)", "B3", FUSED_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:487", train["B3"]),
-        ("kernel_matmul_grad (port-only VJP, 2 launches per call)", "grad", GRAD_SOURCE,
+        ("kernel_matmul_grad (port-only VJP, 1 launch per symmetric VJP)", "grad", GRAD_SOURCE,
          "src/repro/core/inference.py:641 (jax.vjp, no TPU kernel)", train["grad"]),
         ("flash_attention (B4)", "B4", FLASH_SOURCE,
          "src/repro/kernels/flash_attention/flash_attention.py:83", lm["launches"]["B4"]),

@@ -10,6 +10,10 @@ loaded with ctypes:
   * ``flash_attention/csrc/flash_attention.cu``  — B4, flash attention;
   * ``ssd_scan/csrc/ssd_scan.cu``                — B5, the Mamba-2 SSD scan.
 
+The first three include ``kernel_matmul/csrc/tf32_tile.cuh`` (B1's
+tensor-core tile loop and its helpers) and ``common.cuh``, so those
+headers are compiled into three libraries.
+
 The build happens at first use, into ``_build/`` beside this file
 (gitignored), one ``nvcc`` process per source, all started together.  Each
 library's name carries one hash of every source and header under the

@@ -8,9 +8,12 @@
     of ``fused_cg_step_pallas`` (``csrc/fused_cg_step.cu``, B3);
   * :func:`kernel_matmul_grad_cuda` — B1's vector-Jacobian product for its
     inputs and scalars (``csrc/kernel_matmul_grad.cu``, port-only: the
-    reference differentiates its matmul with ``jax.vjp``);
-  * :class:`KernelMatmulFn` — B1 as a ``torch.autograd.Function`` whose
-    backward is the gradient kernel.
+    reference differentiates its matmul with ``jax.vjp``), and
+    :func:`kernel_matmul_grad_sym_cuda` the same for X1 = X2 = X in one
+    launch;
+  * :class:`KernelMatmulFn` / :class:`SymKernelMatmulFn` — B1 as a
+    ``torch.autograd.Function`` whose backward is the gradient kernel (the
+    second for one X on both sides, as in training).
 
 Each kernel is bound with ctypes.  On CUDA tensors a wrapper launches its
 kernel; on CPU tensors it runs the plain PyTorch version from :mod:`.ref`.
@@ -31,6 +34,7 @@ from .ref import (
     KERNEL_TYPES,
     fused_cg_step_plain,
     kernel_matmul_grad_plain,
+    kernel_matmul_grad_sym_plain,
     kernel_matmul_plain,
 )
 
@@ -45,8 +49,10 @@ fused_launches = 0
 #: gradient-kernel launches since the last reset
 grad_launches = 0
 
-#: the gradient kernel keeps a block's features in shared memory
+#: the most features the gradient kernel takes
 GRAD_MAX_D = 32
+#: weight columns (the width of A and B) per gradient-kernel launch
+GRAD_MAX_K = 128
 #: rows per block of B3 and the gradient kernel (BN in their sources): one
 #: partial sum per block, folded in a fixed order
 ROW_BLOCK = 64
@@ -223,7 +229,14 @@ def fused_cg_step_cuda(
     if rows == 0 or t == 0 or b == 0:
         return Uo, Ro, Do, Vo, red.zero_()
     row_blocks = -(-rows // ROW_BLOCK)
-    partial = torch.empty((row_blocks, b, 4, t), dtype=torch.float32, device=dev)
+    # scratch: the row blocks' partial reductions, then the columns' D′
+    # unless the column state is the rows' own (the kernel reads Do then)
+    shared = rows == cols and all(
+        a.data_ptr() == c.data_ptr() for a, c in ((R, R_cols), (D, D_cols), (V, V_cols))
+    )
+    partial = torch.empty(
+        row_blocks * b * 4 * t + (0 if shared else b * cols * t), dtype=torch.float32, device=dev
+    )
     abg = torch.stack([alpha, beta, gamma])
     scal = torch.stack([_device_scalar(outputscale, dev), _device_scalar(sigma2, dev)])
     lib = load_library("fused_cg_step")
@@ -247,7 +260,9 @@ def fused_cg_step_cuda(
 
 
 def _grad_launch(X1, X2, A, B, scal, kernel_type):
-    """One gradient-kernel launch: G (rows, d) and Σᵢⱼ⟨Aᵢ, Bⱼ⟩f(rᵢⱼ²)."""
+    """One call of the gradient kernel's entry point: G (rows, d) and
+    Σᵢⱼ⟨Aᵢ, Bⱼ⟩f(rᵢⱼ²).  One launch for A, B up to GRAD_MAX_K columns wide,
+    one more for each further GRAD_MAX_K."""
     global grad_launches
     rows, d = X1.shape
     cols, t = B.shape
@@ -267,7 +282,7 @@ def _grad_launch(X1, X2, A, B, scal, kernel_type):
             f"kernel_matmul_grad_f32 launch failed with cudaError {err} "
             f"(rows={rows}, cols={cols}, d={d}, t={t})"
         )
-    grad_launches += 1
+    grad_launches += -(-t // GRAD_MAX_K)
     return G, gsum[0]
 
 
@@ -277,6 +292,26 @@ def _sigma2_grad(M, C, row_offset: int = 0) -> torch.Tensor:
     off = int(row_offset)
     m = max(0, min(C.shape[0], M.shape[0] - off))
     return torch.sum(C[:m] * M[off : off + m])
+
+
+def _check_grad_args(X1, X2, M, C, kernel_type):
+    _check_tensors("kernel_matmul_grad", [("X1", X1), ("X2", X2), ("M", M), ("C", C)])
+    if (X1.dim(), X2.dim(), M.dim(), C.dim()) != (2, 2, 2, 2) or X1.shape[1] != X2.shape[1] \
+            or M.shape[0] != X2.shape[0] or C.shape != (X1.shape[0], M.shape[1]):
+        raise ValueError(
+            f"kernel_matmul_grad: X1 (rows, d), X2 (cols, d), M (cols, t), "
+            f"C (rows, t) expected, got {tuple(X1.shape)}, {tuple(X2.shape)}, "
+            f"{tuple(M.shape)}, {tuple(C.shape)}"
+        )
+    if X1.shape[1] > GRAD_MAX_D:
+        raise ValueError(
+            f"kernel_matmul_grad: d = {X1.shape[1]} > {GRAD_MAX_D}, the most "
+            "features the gradient kernel takes"
+        )
+    if kernel_type not in KERNEL_TYPE_CODES:
+        raise ValueError(f"kernel_matmul_grad: unknown kernel_type {kernel_type!r}")
+    if max(X1.shape[0], X2.shape[0], 2 * M.shape[1]) >= 2**31:
+        raise ValueError("kernel_matmul_grad: dimensions must fit in int32")
 
 
 def kernel_matmul_grad_cuda(
@@ -296,23 +331,7 @@ def kernel_matmul_grad_cuda(
             X1, X2, M, C, outputscale, sigma2, row_offset, kernel_type=kernel_type
         )
         return gX1, (gX2 if need_cols else None), gs, gs2
-    _check_tensors("kernel_matmul_grad", [("X1", X1), ("X2", X2), ("M", M), ("C", C)])
-    if (X1.dim(), X2.dim(), M.dim(), C.dim()) != (2, 2, 2, 2) or X1.shape[1] != X2.shape[1] \
-            or M.shape[0] != X2.shape[0] or C.shape != (X1.shape[0], M.shape[1]):
-        raise ValueError(
-            f"kernel_matmul_grad: X1 (rows, d), X2 (cols, d), M (cols, t), "
-            f"C (rows, t) expected, got {tuple(X1.shape)}, {tuple(X2.shape)}, "
-            f"{tuple(M.shape)}, {tuple(C.shape)}"
-        )
-    if X1.shape[1] > GRAD_MAX_D:
-        raise ValueError(
-            f"kernel_matmul_grad: d = {X1.shape[1]} > {GRAD_MAX_D}, the most "
-            "features the gradient kernel takes"
-        )
-    if kernel_type not in KERNEL_TYPE_CODES:
-        raise ValueError(f"kernel_matmul_grad: unknown kernel_type {kernel_type!r}")
-    if max(X1.shape[0], X2.shape[0], M.shape[1]) >= 2**31:
-        raise ValueError("kernel_matmul_grad: dimensions must fit in int32")
+    _check_grad_args(X1, X2, M, C, kernel_type)
     dev = X1.device
     if X1.shape[0] == 0 or X2.shape[0] == 0 or M.shape[1] == 0:
         zero = torch.zeros((), device=dev)
@@ -322,6 +341,25 @@ def kernel_matmul_grad_cuda(
     gX1, gs = _grad_launch(X1, X2, C, M, scal, kernel_type)
     gX2 = _grad_launch(X2, X1, M, C, scal, kernel_type)[0] if need_cols else None
     return gX1, gX2, gs, _sigma2_grad(M, C, row_offset)
+
+
+def kernel_matmul_grad_sym_cuda(X, M, C, outputscale, sigma2, *, kernel_type: str = "rbf"):
+    """The vector-Jacobian product of (K(X, X) + σ²I)·M for a cotangent C
+    (n, t), with one X on both sides: (∂/∂X, ∂/∂outputscale, ∂/∂σ²).
+
+    On CUDA: ONE gradient-kernel launch with A = [C | M] and B = [M | C],
+    whose weight ⟨Cᵢ, Mⱼ⟩ + ⟨Mᵢ, Cⱼ⟩ gives both sides' terms of every pair at
+    once (its sum Σᵢⱼ wᵢⱼ fᵢⱼ is twice ∂/∂outputscale, f being symmetric),
+    and the σ² trace term in torch.  X is pre-divided by the lengthscale."""
+    if all(x.device.type == "cpu" for x in (X, M, C)):
+        return kernel_matmul_grad_sym_plain(X, M, C, outputscale, sigma2, kernel_type=kernel_type)
+    _check_grad_args(X, X, M, C, kernel_type)
+    if X.shape[0] == 0 or M.shape[1] == 0:
+        return torch.zeros_like(X), torch.zeros((), device=X.device), _sigma2_grad(M, C)
+    scal = _device_scalar(outputscale, X.device).reshape(1)
+    G, gsum = _grad_launch(X, X, torch.cat([C, M], dim=1), torch.cat([M, C], dim=1), scal,
+                           kernel_type)
+    return G, 0.5 * gsum, _sigma2_grad(M, C)
 
 
 class KernelMatmulFn(torch.autograd.Function):
@@ -359,3 +397,34 @@ class KernelMatmulFn(torch.autograd.Function):
             m = max(0, min(C.shape[0], M.shape[0] - off))
             gM[off : off + m] += s2 * C[:m]
         return gX1, gX2, gM, gs, gs2, None, None
+
+
+class SymKernelMatmulFn(torch.autograd.Function):
+    """(K(X, X) + σ²I)·M for a 2-D M and one X on both sides (training),
+    differentiable in X, M, the outputscale and σ².
+
+    Forward: one B1 launch.  Backward: one gradient-kernel launch for X and
+    the outputscale and the σ² trace term
+    (:func:`kernel_matmul_grad_sym_cuda`), and — only where M needs a
+    gradient — B1 on C (K̂ is symmetric).  On CPU tensors both run the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, X, M, outputscale, sigma2, kernel_type):
+        ctx.save_for_backward(X, M, outputscale, sigma2)
+        ctx.kernel_type = kernel_type
+        return kernel_matmul_cuda(X, X, M, outputscale, sigma2, kernel_type=kernel_type)
+
+    @staticmethod
+    def backward(ctx, C):
+        X, M, s, s2 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        kt = ctx.kernel_type
+        C = C.contiguous()
+        gX = gM = gs = gs2 = None
+        if need[0] or need[2] or need[3]:
+            gX, gs, gs2 = kernel_matmul_grad_sym_cuda(X, M, C, s, s2, kernel_type=kt)
+            gs, gs2 = gs.reshape(s.shape), gs2.reshape(s2.shape)
+        if need[1]:
+            gM = kernel_matmul_cuda(X, X, C, s, s2, kernel_type=kt)
+        return gX, gM, gs, gs2, None

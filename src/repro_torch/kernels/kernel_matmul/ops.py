@@ -10,9 +10,10 @@
     iteration (B3), the second the single-device
     :data:`repro_torch.core.mbcg.CGStepFn`.
 
-A 2-D product goes through :class:`.kernel_matmul.KernelMatmulFn`, so it is
-differentiable in X (hence the lengthscale), the outputscale and σ², with
-the gradient kernel as its backward.
+A 2-D product goes through :class:`.kernel_matmul.KernelMatmulFn` (or
+:class:`.kernel_matmul.SymKernelMatmulFn` when one X is on both sides), so
+it is differentiable in X (hence the lengthscale), the outputscale and σ²,
+with the gradient kernel as its backward.
 
 The reference's 128-lane feature padding and M lane padding are TPU layout
 artifacts and are dropped: zero feature columns do not change distances,
@@ -27,7 +28,13 @@ from __future__ import annotations
 
 import torch
 
-from .kernel_matmul import KernelMatmulFn, _device_scalar, fused_cg_step_cuda, kernel_matmul_cuda
+from .kernel_matmul import (
+    KernelMatmulFn,
+    SymKernelMatmulFn,
+    _device_scalar,
+    fused_cg_step_cuda,
+    kernel_matmul_cuda,
+)
 
 
 def prescale_inputs(X: torch.Tensor, lengthscale) -> torch.Tensor:
@@ -51,15 +58,23 @@ def fused_kernel_matmul_prescaled(
     M may be (cols,), (cols, t) or (b, cols, t); a vector comes back as a
     vector.  Non-contiguous M (a column slice of a solve block, say) is made
     contiguous here, never read with the wrong strides.  The 2-D product
-    is differentiable (:class:`KernelMatmulFn`); the batched one is not."""
+    is differentiable — :class:`SymKernelMatmulFn` (one gradient-kernel
+    launch per backward) when ``Xs_rows is Xs_cols`` and ``row_offset`` is
+    0, else :class:`KernelMatmulFn`; the batched one is not."""
     squeeze = M.dim() == 1
     if squeeze:
         M = M[:, None]
     M = M.to(torch.float32).contiguous()
+    symmetric = Xs_rows is Xs_cols and int(row_offset) == 0
     Xs_rows, Xs_cols = Xs_rows.contiguous(), Xs_cols.contiguous()
     if M.dim() == 3:
         out = kernel_matmul_cuda(
             Xs_rows, Xs_cols, M, outputscale, sigma2, row_offset, kernel_type=kernel_type
+        )
+    elif symmetric:
+        out = SymKernelMatmulFn.apply(
+            Xs_rows, M, _device_scalar(outputscale, M.device), _device_scalar(sigma2, M.device),
+            kernel_type,
         )
     else:
         out = KernelMatmulFn.apply(

@@ -6,8 +6,12 @@ Each is the exact function its kernel computes, with K materialized:
     ``row_offset`` for the σ² diagonal, a 2-D or batched 3-D right-hand side;
   * ``fused_cg_step_plain`` — B3: one fused CG iteration (the state
     prologue, K̂·D′ and the four reductions) over ``kernel_matmul_plain``;
+    ``fused_cg_advance_plain`` and ``fused_cg_product_plain`` are its two
+    halves as B3's launches split it (the advance pass, then the product
+    with its reductions);
   * ``kernel_matmul_grad_plain`` — the gradient kernel: the VJP of
-    ``kernel_matmul_plain`` for its inputs, by ``torch.autograd``.
+    ``kernel_matmul_plain`` for its inputs, by ``torch.autograd``;
+    ``kernel_matmul_grad_sym_plain`` the same for one X on both sides.
 
 The wrappers in :mod:`.kernel_matmul` run them for CPU tensors, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
@@ -149,6 +153,29 @@ def fused_cg_step_plain(
     return U, R, D, V, cg_reductions(R, D, V)
 
 
+def fused_cg_advance_plain(U, R, D, V, R_cols, D_cols, V_cols, alpha, beta, gamma):
+    """B3's advance pass: (U′, R′, D′) of the rows and D′ of the columns,
+    each from its own old state (the columns' is the rows' own on one
+    device)."""
+    U = U + alpha[..., None, :] * D
+    R, D = _advance(R, D, V, alpha, beta, gamma)
+    _, D_cols = _advance(R_cols, D_cols, V_cols, alpha, beta, gamma)
+    return U, R, D, D_cols
+
+
+def fused_cg_product_plain(
+    Xs_rows, Xs_cols, R, D, D_cols, outputscale, sigma2, row_offset: int = 0, *,
+    kernel_type: str = "rbf",
+):
+    """B3's product pass: V′ = (K + σ²·[row_offset+i = j])·D′_cols and the
+    reductions [D′ᵀV′; R′ᵀR′; R′ᵀV′; V′ᵀV′] over the rows, from the advance
+    pass's R′, D′ (rows) and D′_cols."""
+    V = kernel_matmul_plain(
+        Xs_rows, Xs_cols, D_cols, outputscale, sigma2, row_offset, kernel_type=kernel_type
+    )
+    return V, cg_reductions(R, D, V)
+
+
 def _as_leaf(v, like: torch.Tensor) -> torch.Tensor:
     v = v.detach() if isinstance(v, torch.Tensor) else torch.tensor(float(v))
     return v.to(device=like.device, dtype=torch.float32).reshape(()).requires_grad_()
@@ -189,3 +216,28 @@ def kernel_matmul_grad_plain(
         gs2 += g[3]
     gX1 = torch.cat(gX1) if gX1 else torch.zeros_like(X1, dtype=torch.float32)
     return gX1, gX2, gs, gs2
+
+
+def kernel_matmul_grad_sym_plain(
+    X, M, C, outputscale, sigma2, *, kernel_type: str = "rbf", chunk_rows: int = 4096,
+):
+    """The VJP of ``kernel_matmul_plain(X, X, M, …)`` for a cotangent C
+    (n, t), one X on both sides, by ``torch.autograd``: (∂/∂X, ∂/∂outputscale,
+    ∂/∂σ²) of ⟨C, (K(X, X) + σ²I)·M⟩.  One leaf feeds the rows and the
+    columns, so autograd sums both sides' terms; the rows go through in
+    slices of ``chunk_rows``."""
+    Xg = X.detach().float().requires_grad_()
+    s, s2 = _as_leaf(outputscale, X), _as_leaf(sigma2, X)
+    M, C = M.detach().float(), C.detach().float()
+    gX = torch.zeros_like(Xg)
+    gs = torch.zeros((), device=X.device)
+    gs2 = torch.zeros((), device=X.device)
+    for i in range(0, X.shape[0], chunk_rows):
+        with torch.enable_grad():  # also inside an autograd Function's backward
+            rows = Xg[i : i + chunk_rows]
+            out = _stationary(kernel_type, _sq_dist(rows, Xg), s) @ M + s2 * M[i : i + chunk_rows]
+            g = torch.autograd.grad(out, (Xg, s, s2), C[i : i + chunk_rows])
+        gX += g[0]
+        gs += g[1]
+        gs2 += g[2]
+    return gX, gs, gs2

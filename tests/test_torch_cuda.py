@@ -19,6 +19,7 @@ from repro_torch.kernels.kernel_matmul.ref import (
     KERNEL_TYPES,
     fused_cg_step_plain,
     kernel_matmul_grad_plain,
+    kernel_matmul_grad_sym_plain,
     kernel_matmul_plain,
 )
 
@@ -146,8 +147,11 @@ def _state(seed, b, n, t, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
-@pytest.mark.parametrize("t,b", [(1, 1), (9, 3), (33, 1)])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("t", [1, 8, 9, 16, 17, 33, 64])
 def test_fused_step_matches_plain(cuda_device, kernel_type, t, b):
+    """Every column-block width of B3's product (16, 32, 64), ragged and
+    full, batched, at an odd n."""
     n = 1001
     Xs, _ = _inputs(t + b, n, 8, (1,), cuda_device)
     state, scalars = _state(t, b, n, t, cuda_device)
@@ -188,6 +192,49 @@ def test_fused_step_shards_reassemble(cuda_device):
 
 
 @pytest.mark.cuda
+def test_fused_step_zero_columns_give_exactly_zero(cuda_device):
+    """Padded probe columns (all-zero state, α = β = γ = 0) give exactly 0
+    in every output and reduction, and a frozen column keeps U and R."""
+    n, t, b = 1537, 9, 2
+    Xs, _ = _inputs(5, n, 8, (1,), cuda_device)
+    state, scalars = _state(6, b, n, t, cuda_device)
+    for x in scalars:
+        x[:, 3:5] = 0.0
+    for x in state:
+        x[:, :, 4] = 0.0
+    out = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.0, 0.1,
+                                kernel_type="matern52")
+    torch.cuda.synchronize()
+    assert all(bool((x[..., 4] == 0).all()) for x in out)
+    assert torch.equal(out[0][..., 3], state[0][..., 3])
+    assert torch.equal(out[1][..., 3], state[1][..., 3])
+    ref = fused_cg_step_plain(Xs, Xs, *state, *state[1:], *scalars, 1.0, 0.1,
+                              kernel_type="matern52")
+    for a, r in zip(out[:4], ref[:4]):
+        torch.testing.assert_close(a, r, **TOL)
+    torch.testing.assert_close(out[4], ref[4], **RED_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("separate_columns", [False, True])
+def test_fused_step_is_bit_identical_across_runs(cuda_device, separate_columns):
+    """No atomics: two runs on the same inputs give the same bits, and a
+    column state held in other buffers (D′ of the columns formed in
+    scratch) gives the same bits as the rows' own."""
+    n, t = 4097, 9
+    Xs, _ = _inputs(8, n, 8, (1,), cuda_device)
+    state, scalars = _state(9, 3, n, t, cuda_device)
+    cols = [x.clone() for x in state[1:]] if separate_columns else state[1:]
+    runs = [km.fused_cg_step_cuda(Xs, Xs, *state, *cols, *scalars, 1.1, 0.2,
+                                  kernel_type="rbf") for _ in range(2)]
+    shared = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.1, 0.2,
+                                   kernel_type="rbf")
+    torch.cuda.synchronize()
+    for a, b, c in zip(*runs, shared):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
 @pytest.mark.parametrize("t", [1, 9, 33])
 def test_grad_kernel_matches_plain(cuda_device, kernel_type, t):
@@ -206,10 +253,69 @@ def test_grad_kernel_matches_plain(cuda_device, kernel_type, t):
         assert err <= 2e-4 * float(r.abs().max()), err
 
 
+def _rel_close(a, r):
+    assert bool(torch.isfinite(a).all())
+    err = float((a - r).abs().max())
+    assert err <= 2e-4 * float(r.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+@pytest.mark.parametrize("d", [1, 3, 8, 32])
+@pytest.mark.parametrize("t", [1, 9, 33])
+def test_grad_sym_matches_plain_and_two_launches(cuda_device, kernel_type, d, t):
+    """One X on both sides: the one-launch symmetric VJP against its plain
+    twin and against the two-launch path's ∂/∂X1 + ∂/∂X2, at 2e-4 of each
+    gradient's largest entry."""
+    n = 1001
+    X, C = _inputs(d + t, n, d, (n, t), cuda_device)
+    M = _inputs(d + t + 1, 1, 1, (n, t), cuda_device)[1]
+    X[17] = X[2]  # coincident points off the diagonal
+    before = km.grad_launches
+    out = km.kernel_matmul_grad_sym_cuda(X, M, C, 1.1, 0.1, kernel_type=kernel_type)
+    torch.cuda.synchronize()
+    assert km.grad_launches == before + 1
+    ref = kernel_matmul_grad_sym_plain(X, M, C, 1.1, 0.1, kernel_type=kernel_type)
+    two = km.kernel_matmul_grad_cuda(X, X, M, C, 1.1, 0.1, kernel_type=kernel_type)
+    for a, r in zip(out, ref):
+        _rel_close(a, r)
+    for a, r in zip(out, (two[0] + two[1], two[2], two[3])):
+        _rel_close(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_grad_matern12_near_coincident_rows_match_f64(cuda_device, symmetric):
+    """Matérn-½ with duplicated rows and rows 1e-3 apart (f′ ~ 1/r there):
+    finite, and held to a float64 evaluation whose distances come from
+    differences (exactly 0 at coincident points)."""
+    n, t = 777, 9
+    X, M = _inputs(31, n, 8, (n, t), cuda_device)
+    C = _inputs(32, 1, 1, (n, t), cuda_device)[1]
+    X[100] = X[7]
+    X[200] = X[7] * (1 + 1e-3)
+    X[300] = X[8] + 1e-3
+    if symmetric:
+        gX, gs, gs2 = km.kernel_matmul_grad_sym_cuda(X, M, C, 1.3, 0.2, kernel_type="matern12")
+    else:
+        g1, g2, gs, gs2 = km.kernel_matmul_grad_cuda(X, X, M, C, 1.3, 0.2,
+                                                     kernel_type="matern12")
+        gX = g1 + g2
+    torch.cuda.synchronize()
+    Xd = X.double().requires_grad_()
+    s = torch.tensor(1.3, dtype=torch.float64, device=cuda_device, requires_grad=True)
+    d2 = ((Xd[:, None, :] - Xd[None, :, :]) ** 2).sum(-1)
+    K = s * torch.exp(-torch.sqrt(torch.clamp(d2, min=1e-20)))
+    (K @ M.double()).backward(C.double())
+    for a, r in ((gX, Xd.grad), (gs, s.grad), (gs2, (C.double() * M.double()).sum())):
+        _rel_close(a.double(), r)
+
+
 @pytest.mark.cuda
 def test_fused_training_launches(cuda_device):
     """A fused fit: every forward CG iteration one B3 launch and no B1; the
-    backward two gradient-kernel launches (and B1 once, the VJP's primal)."""
+    backward one gradient-kernel launch (the symmetric VJP) and B1 once,
+    the VJP's primal."""
     from repro_torch import ExactGP
     from repro_torch.core import BBMMSettings
 
@@ -227,7 +333,7 @@ def test_fused_training_launches(cuda_device):
     km.reset_launch_counts()
     _, history = gp.fit(X, y, steps=2, callback=on_step)
     assert all(np.isfinite(history))
-    assert counts == [(10, 1, 2), (10, 1, 2)]
+    assert counts == [(10, 1, 1), (10, 1, 1)]
 
 
 @pytest.mark.cuda
