@@ -11,7 +11,7 @@ and the final line is then not printed):
 
   1. build      nvcc of every ``src/repro_torch/kernels/*/csrc`` source, one
                 process per source, all at once; for the tensor-core kernels
-                (B1/B2, B3, the gradient, bf16 B4) each function's
+                (B1/B2, B3, the gradient, bf16 B4, bf16 B5) each function's
                 registers, shared memory and spills (ptxas; none allowed but
                 in B1) and its HMMA / HGMMA count in the SASS (cuobjdump),
                 which must not be 0
@@ -41,15 +41,21 @@ and the final line is then not printed):
                 cores; dh = 40 on the CUDA cores); f32 rtol/atol 2e-4, bf16
                 3e-2
      ssd_kernel    B5 against ``ssd_scan_chunked_ref`` and the step
-                recurrence: chunk ∈ {32, 64, 128}, the reference's shape
-                sweep, the slice's (4, 112, 512, 64, 64) in bf16, l = 4,096;
-                f32 2e-3, bf16 5e-2
+                recurrence, every case on both routes (the default, which
+                takes aligned bf16 with dh, ds, chunk multiples of 16 to the
+                tensor cores, and the CUDA-core kernel forced): chunk ∈ {32,
+                64, 128}, the reference's shape sweep, the slice's (4, 112,
+                512, 64, 64) in bf16, l = 4,096 in f32 and bf16; f32 2e-3,
+                bf16 5e-2; the slice on the model's strided views no further
+                from the f64 recurrence than 2 × the plain version, and two
+                runs bit-identical, on each route
   3. timing     the kernels at the slices' shapes beside the plain version,
                 (B1's bound prices its product as three TF32 products),
                 a library yardstick (torch.cdist → kernel map → torch.matmul,
                 autograd through it for the gradient; B4:
                 scaled_dot_product_attention; B5: none) and the card's
-                bound, CUDA events around synchronised launches
+                bound, CUDA events around synchronised launches; B5 on both
+                routes in turns, the tensor cores faster or the phase fails
   4. serve      ExactGP(matern52, mode="cuda") on n=40,000, d=8 synthetic
                 kin40k-shaped data: one posterior_cache build, eight
                 1,024-point predict_cached requests, one 256-point predict;
@@ -87,7 +93,8 @@ and the final line is then not printed):
                 cache 1,024); prefill ms, decode ms per token, tokens/s,
                 peak memory; at every one of the 81 + 13 calls on the full
                 model's own inputs, B5 / B4 within 5e-2 of the plain
-                version's largest output; the full-depth kernel-vs-plain
+                version's largest output, and each on the tensor-core route
+                (``b4_route``, ``ssd_scan.b5_route``); the full-depth kernel-vs-plain
                 logits within 2 × the plain path's own distance under a
                 one-ulp change of its embedding (at random weights the
                 bf16 model amplifies rounding to O(1)); a profile of one
@@ -257,7 +264,8 @@ def grad_bound(n: int, d: int, t: int):
 TENSOR_CORE_KERNELS = {"kernel_matmul": ("kernel_matmul_kernel", "HMMA", False),
                        "fused_cg_step": ("fused_cg_product_kernel", "HMMA", True),
                        "kernel_matmul_grad": ("kernel_matmul_grad_kernel", "HMMA", True),
-                       "flash_attention": ("flash_fwd_tc_kernel", "HGMMA", True)}
+                       "flash_attention": ("flash_fwd_tc_kernel", "HGMMA", True),
+                       "ssd_scan": ("ssd_scan_tc_kernel", "HMMA", True)}
 
 
 def _cuda_tool(name):
@@ -1397,10 +1405,32 @@ def _ssd_case(rng, b, h, l, dh, ds, dev, dtype):
     return x, dt, A, _normal(rng, (b, l, ds), dev, dtype), _normal(rng, (b, l, ds), dev, dtype)
 
 
+def _ssd_model_views(rng, b, h, l, dh, ds, dev):
+    """B5's inputs as the Mamba-2 block hands them over: x, B and C slices
+    of one (b, l, h·dh + 2·ds) bf16 conv output (x viewed (b, h, l, dh)),
+    dt the (b, l, h) projection transposed, A = −(1 … 16)."""
+    di = h * dh
+    xBC = _normal(rng, (b, l, di + 2 * ds), dev, torch.bfloat16)
+    x = xBC[..., :di].reshape(b, l, h, dh).transpose(1, 2)
+    dt = torch.nn.functional.softplus(_normal(rng, (b, l, h), dev) - 1.0).transpose(1, 2)
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, h, device=dev)))
+    return x, dt, A, xBC[..., di : di + ds], xBC[..., di + ds :]
+
+
+B5_ROUTES = {"default": False, "cuda cores": True}  # ssd_scan_cuda's _cuda_cores
+F64_FACTOR = 2.0  # bf16 B5 at the slice: |kernel − f64| ≤ this × |plain − f64|
+
+
 def phase_ssd_kernel(rng, errs):
-    """B5 against ``ssd_scan_chunked_ref`` and the step recurrence: chunks
-    32/64/128, the reference's shape sweep, the slice's shape in bf16 and
-    one 4,096-step case (32 chunks carry the state); 2e-3 / 5e-2."""
+    """B5 against ``ssd_scan_chunked_ref`` and the step recurrence, each
+    case on both routes (the default — the tensor cores for aligned bf16
+    with dh, ds and the chunk multiples of 16, ``ssd_scan.b5_route`` — and
+    the CUDA-core kernel forced): chunks 32/64/128, the reference's shape
+    sweep, the slice's shape in bf16 (contiguous and on the model's strided
+    views) and one 4,096-step case (32 chunks carry the state); 2e-3 /
+    5e-2.  At the slice on the model's views each route lies no further
+    from the f64 recurrence than F64_FACTOR × the plain version, and two
+    runs of each give the same bits."""
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
 
@@ -1411,21 +1441,52 @@ def phase_ssd_kernel(rng, errs):
         (1, 1, 64, 8, 4, 64, f32), (2, 4, 192, 32, 16, 64, f32), (1, 2, 128, 64, 64, 64, f32),
         (2, 3, 128, 16, 8, 64, bf16), (*SSD_SLICE, bf16),
         (1, 4, 4096, 64, 64, 128, f32),
+        *[(2, 3, 256, 32, 16, c, bf16) for c in (32, 64, 128)], (1, 4, 4096, 64, 64, 128, bf16),
     ]
-    cases = []
+    cases, routes = [], []
     for b, h, l, dh, ds, chunk, dtype in shapes:
         x, dt, A, B, C = _ssd_case(rng, b, h, l, dh, ds, dev, dtype)
-        out = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
-        check(out.dtype == dtype and out.shape == x.shape, f"B5 output {out.dtype} {tuple(out.shape)}")
-        name = f"B5 b={b} h={h} l={l} dh={dh} ds={ds} chunk={chunk} {str(dtype)[6:]}"
-        _check_close(name + " vs chunked", out, ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk),
-                     SSD_TOL[dtype], cases, errs, "B5")
-        _check_close(name + " vs recurrence", out, ssd_scan_ref(x, dt, A, B, C),
-                     SSD_TOL[dtype], cases, errs, "B5_recurrence")
-        del x, dt, A, B, C, out
+        chunked = ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk)
+        recurrence = ssd_scan_ref(x, dt, A, B, C)
+        for route, forced in B5_ROUTES.items():
+            key = "B5" if route == "default" else "B5_cuda_cores"
+            out = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, _cuda_cores=forced)
+            check(out.dtype == dtype and out.shape == x.shape, f"B5 output {out.dtype} {tuple(out.shape)}")
+            took = "cuda cores" if forced else ssd.b5_route(x, dt, A, B, C, chunk)
+            name = f"B5 [{took}] b={b} h={h} l={l} dh={dh} ds={ds} chunk={chunk} {str(dtype)[6:]}"
+            routes.append(took)
+            _check_close(name + " vs chunked", out, chunked, SSD_TOL[dtype], cases, errs, key)
+            _check_close(name + " vs recurrence", out, recurrence, SSD_TOL[dtype], cases, errs,
+                         key + "_recurrence")
+            del out
+        del x, dt, A, B, C, chunked, recurrence
+    check("tensor cores" in routes, "no B5 case took the tensor cores")
+
+    # the slice on the model's strided views, against the f64 recurrence
+    args = _ssd_model_views(rng, *SSD_SLICE[:5], dev)
+    chunk = SSD_SLICE[5]
+    check(ssd.b5_route(*args, chunk) == "tensor cores",
+          f"the slice's views take {ssd.b5_route(*args, chunk)}")
+    exact = ssd_scan_ref(*(t.double() for t in args))
+    plain = ssd_scan_chunked_ref(*args, chunk=chunk)
+    plain_f64 = _err(plain, exact)
+    witness = {"plain_vs_f64": plain_f64, "factor": F64_FACTOR}
+    for route, forced in B5_ROUTES.items():
+        out = ssd.ssd_scan_cuda(*args, chunk=chunk, _cuda_cores=forced)
+        again = ssd.ssd_scan_cuda(*args, chunk=chunk, _cuda_cores=forced)
+        torch.cuda.synchronize()
+        _check_close(f"B5 [{route}] the slice on the model's views vs chunked", out, plain,
+                     SSD_TOL[bf16], cases, errs, "B5" if route == "default" else "B5_cuda_cores")
+        witness[route] = {"kernel_vs_f64": _err(out, exact), "bit_identical": torch.equal(out, again)}
+        check(witness[route]["bit_identical"], f"B5 [{route}]: two runs differ")
+        check(witness[route]["kernel_vs_f64"] <= F64_FACTOR * plain_f64,
+              f"B5 [{route}] at the slice: {witness[route]['kernel_vs_f64']:.3e} from f64, more "
+              f"than {F64_FACTOR} × the plain version's {plain_f64:.3e}")
+        del out, again
+    del args, exact, plain
     torch.cuda.empty_cache()
-    emit({"phase": "ssd_kernel", "cases": cases, "tolerance": {"float32": SSD_TOL[f32],
-                                                              "bfloat16": SSD_TOL[bf16]}})
+    emit({"phase": "ssd_kernel", "cases": cases, "slice_vs_f64": witness,
+          "tolerance": {"float32": SSD_TOL[f32], "bfloat16": SSD_TOL[bf16]}})
 
 
 def phase_lm_timing(rng):
@@ -1455,21 +1516,27 @@ def phase_lm_timing(rng):
     del qkv, q, k, v
 
     b, h, l, dh, ds, chunk = SSD_SLICE
-    di = h * dh
-    xBC = _normal(rng, (b, l, di + 2 * ds), dev, torch.bfloat16)  # the conv output's layout
-    x = xBC[..., :di].reshape(b, l, h, dh).transpose(1, 2)
-    Bm, Cm = xBC[..., di : di + ds], xBC[..., di + ds :]
-    dt = torch.nn.functional.softplus(_normal(rng, (b, l, h), dev) - 1.0).transpose(1, 2)
-    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, h, device=dev)))
+    x, dt, A, Bm, Cm = _ssd_model_views(rng, b, h, l, dh, ds, dev)
+    check(ssd.b5_route(x, dt, A, Bm, Cm, chunk) == "tensor cores", "the timed B5 slice's route")
     bound_ms, bound_by = ssd_bound(b, h, l, dh, ds, chunk, torch.bfloat16)
+
+    def scan(cuda_cores):
+        return lambda: ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk, _cuda_cores=cuda_cores)
+
+    # the two routes in turns: tensor cores, CUDA cores, CUDA cores, tensor cores
+    tc_ms, cc_ms = time_ms(scan(False), reps=50), time_ms(scan(True), reps=20)
+    cc_ms, tc_ms = (cc_ms + time_ms(scan(True), reps=20)) / 2, (tc_ms + time_ms(scan(False), reps=50)) / 2
     rows["B5"] = {"shape": {"b": b, "heads": h, "l": l, "dh": dh, "ds": ds, "chunk": chunk,
                             "dtype": "bfloat16"},
-                  "ms": time_ms(lambda: ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk), reps=20),
+                  "route": "tensor cores", "ms": tc_ms, "ms_cuda_cores": cc_ms,
                   "plain_ms": time_ms(lambda: ssd_scan_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk),
                                       reps=5),
                   "library_ms": None, "library": "none: no single PyTorch call computes the scan",
-                  "bound_ms": bound_ms, "bound_by": bound_by}
-    del xBC, x, Bm, Cm, dt
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "bound_share_cuda_cores": bound_ms / cc_ms}
+    check(tc_ms < cc_ms, f"B5: the tensor-core route ({tc_ms:.4f} ms) is not faster than the "
+          f"CUDA-core route ({cc_ms:.4f} ms)")
+    del x, Bm, Cm, dt
     torch.cuda.empty_cache()
     for key, row in rows.items():
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -1515,6 +1582,7 @@ def shadowed_kernels(witness=False):
     |Δ| of each from f64]}."""
     from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import b5_route
     from repro_torch.models import attention, ssm
 
     calls = {"B4": [], "B5": []}
@@ -1539,6 +1607,7 @@ def shadowed_kernels(witness=False):
         if use_kernel:
             record("B5", out, ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk),
                    ssd_scan_ref, (x, dt, A, B, C))
+            calls["B5"][-1]["route"] = b5_route(x, dt, A, B, C, chunk)
         return out
 
     attention.flash_attention, ssm.ssd_scan = flash_shadow, scan_shadow
@@ -1778,6 +1847,8 @@ def phase_lm_serve(seed):
         "in_situ_kernel_vs_plain": {k: {"calls": len(v), "max_rel": max(c["rel"] for c in v),
                                         "bound": LM_REL_BOUND} for k, v in in_situ.items()},
         "b4_routes": sorted({c["route"] for c in in_situ["B4"]}),
+        "b5_routes": {r: sum(c["route"] == r for c in in_situ["B5"])
+                      for r in sorted({c["route"] for c in in_situ["B5"]})},
         "profile": {"prefill": prof_prefill, "decode_step": prof_decode},
     }
     emit(result)
@@ -1785,6 +1856,8 @@ def phase_lm_serve(seed):
           f"in situ: {len(in_situ['B5'])} B5 and {len(in_situ['B4'])} B4 calls")
     check(result["b4_routes"] == ["tensor cores"],
           f"the bf16 prefill's B4 calls took {result['b4_routes']}")
+    check(result["b5_routes"] == {"tensor cores": cfg.num_layers},
+          f"the bf16 prefill's B5 calls took {result['b5_routes']}")
     for key, recs in in_situ.items():
         worst = max(c["rel"] for c in recs)
         check(worst <= LM_REL_BOUND,
@@ -1834,7 +1907,7 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     errs = {"B1": 0.0, "B2": 0.0, "B3": 0.0, "grad": 0.0, "B4": 0.0, "B5": 0.0,
-            "B5_recurrence": 0.0}
+            "B5_recurrence": 0.0, "B5_cuda_cores": 0.0, "B5_cuda_cores_recurrence": 0.0}
     # the LM phases draw from a generator of their own, so that they leave
     # the GP phases' data as it was
     rng_lm = np.random.default_rng([args.seed, 13])
@@ -1876,7 +1949,8 @@ def main() -> int:
                          "decode_ms_per_token": lm["decode_ms_per_token"],
                          "decode_tokens_per_s": lm["decode_tokens_per_s"],
                          "peak_device_bytes": lm["peak_device_bytes"],
-                         "b4_ms": timing["B4"]["ms"], "b5_ms": timing["B5"]["ms"]},
+                         "b4_ms": timing["B4"]["ms"], "b5_ms": timing["B5"]["ms"],
+                         "b5_ms_cuda_cores": timing["B5"]["ms_cuda_cores"]},
           "seconds": time.perf_counter() - t_start})
     kernels = []
     for name, key, source, replaces, count in (
@@ -1890,7 +1964,7 @@ def main() -> int:
          "src/repro/core/inference.py:641 (jax.vjp, no TPU kernel)", train["grad"]),
         ("flash_attention (B4)", "B4", FLASH_SOURCE,
          "src/repro/kernels/flash_attention/flash_attention.py:83", lm["launches"]["B4"]),
-        ("ssd_scan (B5)", "B5", SSD_SOURCE,
+        ("ssd_scan (B5, bf16 on the tensor-core route)", "B5", SSD_SOURCE,
          "src/repro/kernels/ssd_scan/ssd_scan.py:91", lm["launches"]["B5"]),
     ):
         row = timing[key]

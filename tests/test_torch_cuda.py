@@ -417,30 +417,161 @@ def test_flash_attention_unaligned_strides(cuda_device, dtype):
         torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
+def _ssd_inputs(seed, b, h, l, dh, ds, dev, dtype):
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, h, l, dh), generator=g).to(dev, dtype)
+    dt = F.softplus(torch.randn((b, h, l), generator=g) - 1.0).to(dev)
+    A = (-F.softplus(torch.randn((h,), generator=g))).to(dev)
+    B = torch.randn((b, l, ds), generator=g).to(dev, dtype)
+    C = torch.randn((b, l, ds), generator=g).to(dev, dtype)
+    return x, dt, A, B, C
+
+
+def _ssd_model_views(seed, b, h, l, dh, ds, dev):
+    """x, B and C as the Mamba-2 block hands them over: slices of one
+    (b, l, h·dh + 2·ds) bf16 conv output, x viewed (b, h, l, dh); dt the
+    (b, l, h) projection transposed."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(seed)
+    di = h * dh
+    xBC = torch.randn((b, l, di + 2 * ds), generator=g).to(dev, torch.bfloat16)
+    x = xBC[..., :di].reshape(b, l, h, dh).transpose(1, 2)
+    dt = F.softplus(torch.randn((b, l, h), generator=g) - 1.0).to(dev).transpose(1, 2)
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    return x, dt, A, xBC[..., di : di + ds], xBC[..., di + ds :]
+
+
+SSD_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3), torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["default", "cuda cores"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("chunk", [32, 64, 128])
 @pytest.mark.parametrize("b,h,l,dh,ds", [(2, 3, 256, 16, 8), (1, 2, 128, 64, 64), (2, 4, 384, 64, 64)])
-def test_ssd_scan_matches_plain(cuda_device, dtype, chunk, b, h, l, dh, ds):
-    import torch.nn.functional as F
-
+def test_ssd_scan_matches_plain(cuda_device, dtype, chunk, b, h, l, dh, ds, route):
+    """Both routes (the default, which sends aligned bf16 with dh, ds
+    multiples of 16 to the tensor cores, and the CUDA-core kernel forced)
+    against the plain chunked version and the recurrence."""
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
 
-    g = torch.Generator().manual_seed(l + chunk + dh)
-    x = torch.randn((b, h, l, dh), generator=g).to(cuda_device, dtype)
-    dt = F.softplus(torch.randn((b, h, l), generator=g) - 1.0).to(cuda_device)
-    A = (-F.softplus(torch.randn((h,), generator=g))).to(cuda_device)
-    B = torch.randn((b, l, ds), generator=g).to(cuda_device, dtype)
-    C = torch.randn((b, l, ds), generator=g).to(cuda_device, dtype)
+    x, dt, A, B, C = _ssd_inputs(l + chunk + dh, b, h, l, dh, ds, cuda_device, dtype)
     before = ssd.launches
-    out = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+    out = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, _cuda_cores=route == "cuda cores")
     torch.cuda.synchronize()
     assert ssd.launches == before + 1 and out.dtype == dtype
-    tol = dict(rtol=2e-3, atol=2e-3) if dtype == torch.float32 else dict(rtol=5e-2, atol=5e-2)
+    tol = SSD_TOL[dtype]
     torch.testing.assert_close(out.float(), ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk).float(), **tol)
     if dtype == torch.float32:
         torch.testing.assert_close(out, ssd_scan_ref(x, dt, A, B, C), **tol)
+    else:
+        torch.testing.assert_close(out.float(), ssd_scan_ref(*(t.double() for t in (x, dt, A, B, C))).float(), **tol)
+
+
+def _f64_distances(out, x, dt, A, B, C, chunk):
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
+
+    exact = ssd_scan_ref(*(t.double() for t in (x, dt, A, B, C)))
+    plain = ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk)
+    return (float((out.double() - exact).abs().max()), float((plain.double() - exact).abs().max()),
+            plain)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_slice_on_the_model_views(cuda_device):
+    """The serving slice (b = 4, 112 heads, l = 512, dh = ds = 64, chunk
+    128) on the model's strided bf16 views takes the tensor cores, meets
+    5e-2 against the plain version and lies no further than 2 × the plain
+    version's distance from the f64 recurrence."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+
+    args = _ssd_model_views(11, 4, 112, 512, 64, 64, cuda_device)
+    assert ssd.b5_route(*args, 128) == "tensor cores"
+    out = ssd.ssd_scan_cuda(*args, chunk=128)
+    torch.cuda.synchronize()
+    ours, plain_err, plain = _f64_distances(out, *args, 128)
+    torch.testing.assert_close(out.float(), plain.float(), **SSD_TOL[torch.bfloat16])
+    assert ours <= 2 * plain_err, (ours, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["default", "cuda cores"])
+def test_ssd_scan_long_sequence_carries_the_state(cuda_device, route):
+    """l = 4,096: 32 chunks carry the state, in bf16 on both routes."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+
+    args = _ssd_inputs(12, 1, 4, 4096, 64, 64, cuda_device, torch.bfloat16)
+    assert ssd.b5_route(*args, 128) == "tensor cores"
+    out = ssd.ssd_scan_cuda(*args, chunk=128, _cuda_cores=route == "cuda cores")
+    torch.cuda.synchronize()
+    ours, plain_err, plain = _f64_distances(out, *args, 128)
+    torch.testing.assert_close(out.float(), plain.float(), **SSD_TOL[torch.bfloat16])
+    assert ours <= 2 * plain_err, (ours, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,ds", [(128, 64), (64, 128), (128, 128), (32, 16), (48, 80)])
+def test_ssd_scan_head_and_state_widths_on_the_tensor_cores(cuda_device, dh, ds):
+    """Every head and state width the tensor-core route takes (multiples
+    of 16 up to 128; both of its builds) against the plain version, the
+    recurrence and the CUDA-core kernel on the same bf16 inputs."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref
+
+    args = _ssd_inputs(15 + dh + ds, 2, 3, 256, dh, ds, cuda_device, torch.bfloat16)
+    assert ssd.b5_route(*args, 64) == "tensor cores"
+    out = ssd.ssd_scan_cuda(*args, chunk=64)
+    cuda_cores = ssd.ssd_scan_cuda(*args, chunk=64, _cuda_cores=True)
+    torch.cuda.synchronize()
+    ours, plain_err, plain = _f64_distances(out, *args, 64)
+    torch.testing.assert_close(out.float(), plain.float(), **SSD_TOL[torch.bfloat16])
+    torch.testing.assert_close(out.float(), cuda_cores.float(), **SSD_TOL[torch.bfloat16])
+    assert ours <= 2 * plain_err, (ours, plain_err)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_unaligned_view_takes_the_cuda_cores(cuda_device):
+    """x, B and C one element into a wider buffer (rows not 16-byte
+    aligned): the route is the CUDA-core kernel — the same bits as that
+    kernel forced — while the aligned copy takes the tensor cores (other
+    bits); both meet the tolerance."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref
+
+    x, dt, A, B, C = _ssd_inputs(13, 2, 3, 256, 64, 64, cuda_device, torch.bfloat16)
+    wide = torch.zeros((2, 3, 256, 65), device=cuda_device, dtype=torch.bfloat16)
+    wide[..., 1:] = x
+    xu = wide[..., 1:]
+    BC = torch.zeros((2, 256, 129), device=cuda_device, dtype=torch.bfloat16)
+    BC[..., 1:65], BC[..., 65:] = B, C
+    Bu, Cu = BC[..., 1:65], BC[..., 65:]
+    assert ssd.b5_route(xu, dt, A, Bu, Cu, 64) == "cuda cores"
+    assert ssd.b5_route(x, dt, A, B, C, 64) == "tensor cores"
+    out = ssd.ssd_scan_cuda(xu, dt, A, Bu, Cu, chunk=64)
+    forced = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=64, _cuda_cores=True)
+    tc = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(out, forced)
+    assert not torch.equal(tc, forced)
+    plain = ssd_scan_chunked_ref(x, dt, A, B, C, chunk=64).float()
+    for y in (out, tc):
+        torch.testing.assert_close(y.float(), plain, **SSD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["default", "cuda cores"])
+def test_ssd_scan_is_bit_identical_across_runs(cuda_device, route):
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+
+    args = _ssd_model_views(14, 2, 16, 512, 64, 64, cuda_device)
+    first = ssd.ssd_scan_cuda(*args, chunk=128, _cuda_cores=route == "cuda cores")
+    second = ssd.ssd_scan_cuda(*args, chunk=128, _cuda_cores=route == "cuda cores")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
