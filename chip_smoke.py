@@ -11,7 +11,8 @@ and the final line is then not printed):
 
   1. build      nvcc of every ``src/repro_torch/kernels/*/csrc`` source, one
                 process per source, all at once; for the tensor-core kernels
-                (B1/B2, B3, the gradient, bf16 B4, bf16 B5) each function's
+                (B1/B2, B3, the gradient, bf16 B1/B2 and B3, bf16 B4, bf16
+                B5) each function's
                 registers, shared memory and spills (ptxas; none allowed but
                 in B1) and its HMMA / HGMMA count in the SASS (cuobjdump),
                 which must not be 0
@@ -35,6 +36,19 @@ and the final line is then not printed):
                 symmetric VJP against ``kernel_matmul_grad_sym_plain`` and
                 the two-launch path (duplicated and near-coincident rows);
                 both at n=40,000; tolerance 2e-4 relative
+     kernel_bf16   bf16 B1/B2 (precision="mixed") against
+                ``kernel_matmul_plain(..., compute_dtype="bfloat16")``: the
+                sweep of ``kernel`` (four kernel types, odd n, ARD, t ∈ {1, 9,
+                17, 234, 256}, b = 4, row_offset slices of n = 40,000
+                reassembled bit for bit), X/ℓ rounded to bf16; 2e-3 relative
+                and 2e-2 of the f32 product
+     fused_kernel_bf16  bf16 B3 against its bf16 plain version, the sweep of
+                ``fused_kernel``: the f32 state at rtol / atol 2e-4, V′ and
+                the reductions 2e-3 relative; n = 40,000 held to a float64
+                product of the bf16-rounded factors and, on row slices, to
+                a float64 product of the kernel's own rounded entries (no
+                further from it than the plain version); two runs
+                bit-identical
      flash_kernel  B4 against ``gqa_attention_plain``: causal and not, GQA
                 8/2 heads, dh ∈ {32, 64, 112, 224}, ragged lengths, the
                 slice's (4, 32, 512, 224), bf16 on both routes (tensor
@@ -50,7 +64,9 @@ and the final line is then not printed):
                 from the f64 recurrence than 2 × the plain version, and two
                 runs bit-identical, on each route
   3. timing     the kernels at the slices' shapes beside the plain version,
-                (B1's bound prices its product as three TF32 products),
+                (B1's bound prices its product as three TF32 products; bf16
+                B1 at t = 9 / 234 / 256, B2 and B3 at t = 9 as one bf16
+                product, beside the f32 kernel's time),
                 a library yardstick (torch.cdist → kernel map → torch.matmul,
                 autograd through it for the gradient; B4:
                 scaled_dot_product_attention; B5: none) and the card's
@@ -60,6 +76,15 @@ and the final line is then not printed):
                 kin40k-shaped data: one posterior_cache build, eight
                 1,024-point predict_cached requests, one 256-point predict;
                 launch counts checked against the settings
+     serve_mixed   the same slice at precision="mixed": bf16 B1 once per CG
+                iteration, f32 B1 once per refresh (period 2) and for the
+                Gram product, counted by dtype; cold and warm times, peak
+                memory; the cached variance conservative against the exact
+                posterior; the means beside "highest" and the exact
+                posterior; cut to 5 iterations (where two correct paths
+                agree) against the same path with every kernel replaced by
+                its bf16 plain version (rtol 1e-2 / atol 1e-3) and against
+                "highest" (means within 2e-2)
   5. prefix     the same slice cut to 5 CG iterations on the kernel path
                 and on the plain (dense) path: the served means, the
                 predictive variance, inv_quad, logdet and the cached
@@ -79,6 +104,13 @@ and the final line is then not printed):
                 version (MLL rtol 1e-4, every gradient rtol 1e-3) and the
                 fused solves to the unfused B1 solves (rtol 1e-3 / atol
                 1e-4); one unfused step at precond_rank=5
+     train_mixed   the training slice at precision="mixed": bf16 B3 once per
+                CG iteration, f32 B1 once per refresh and for the backward's
+                primal, one f32 gradient launch, counted by dtype per step;
+                a profiled step; a 5-iteration prefix against the plain
+                versions (loss rtol 1e-2, gradients 1e-2) and against
+                "highest" (MLL within 1e-2 per data point); one unfused
+                mixed step
   8. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
                 prompt, at 13 layers and at all 81: the forward with B4/B5
                 and every B4/B5 call in it no further from the f64 witness
@@ -143,10 +175,32 @@ MLL_RTOL = 1e-4  # tests/test_fused_cg.py:309
 SOLVE_TOL = dict(rtol=1e-3, atol=1e-4)  # tests/test_fused_cg.py:311
 GRAD_RTOL = 1e-3  # per parameter, relative to its gradient (the reason: PERF.md §2)
 TRAIN_STEPS = 5
+# bf16 B1/B2/B3 against their bf16 plain versions, max |Δ| / max |plain|:
+# both round the same f32 kernel entries and right-hand side to bf16 and sum
+# in f32; they part only where an entry's f32 value straddles a bf16
+# rounding boundary (the kernel's SFU exp rounds other than torch's), which
+# moves that one term by 2^-8 of itself — 10x the f32 gate, half a bf16 ulp
+# of the output.  And within the reference's 2e-2 of the f32 product
+# (tests/test_precision.py:89).
+BF16_REL_TOL = 2e-3
+BF16_F32_REL = 2e-2
+# the mixed slices against highest over PREFIX_ITERS iterations (at 25 the
+# solves converge in neither precision, and two correct paths part), at the
+# reference's tolerances: served means 2e-2 relative
+# (tests/test_precision.py:126), MLL 1e-2 per data point (:137); and the
+# mixed kernel path against the same path with every kernel replaced by its
+# bf16 plain version over the prefix, 10x the f32 prefix tolerances (as
+# BF16_REL_TOL is 10x REL_TOL)
+MIXED_MEAN_REL = 2e-2
+MIXED_MLL_PER_POINT = 1e-2
+MIXED_PREFIX_TOL = dict(rtol=1e-2, atol=1e-3)
+MIXED_GRAD_RTOL = 1e-2
 CSRC = "src/repro_torch/kernels/kernel_matmul/csrc/"
 KERNEL_SOURCE = CSRC + "kernel_matmul.cu"
 FUSED_SOURCE = CSRC + "fused_cg_step.cu"
 GRAD_SOURCE = CSRC + "kernel_matmul_grad.cu"
+KERNEL_BF16_SOURCE = CSRC + "kernel_matmul_bf16.cu"
+FUSED_BF16_SOURCE = CSRC + "fused_cg_step_bf16.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 
@@ -202,35 +256,44 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(stop)
 
 
-def kernel_bound(rows: int, cols: int, d: int, t: int, batch: int = 1):
+def _padded(t: int) -> int:
+    return -(-t // 8) * 8
+
+
+def kernel_bound(rows: int, cols: int, d: int, t: int, batch: int = 1, bf16: bool = False):
     """Least time for (K + σ²I)·M on an H100: the kernel tile (2d + 1 f32
     flops per entry on the CUDA cores, 67 TFLOP/s, needed once whatever the
     batch; plus one exp per entry on the SFU, counted in ``exps`` and not
     priced) and the product, 2t flops per entry per batch element, at f32
     accuracy on the tensor cores: three TF32 products (the 3xTF32 split) at
-    495 TFLOP/s.  Each input read and output written once.  Returns
-    (bound_ms, bound_by, exps)."""
+    495 TFLOP/s; with bf16 operands (``bf16``) one bf16 product at 989
+    TFLOP/s.  Each input read and output written once, at the width the
+    kernel reads it (bf16: M as bf16 rows of ⌈t/8⌉·8).  Returns (bound_ms,
+    bound_by, exps)."""
     tile_ops = rows * cols * (2 * d + 1)
-    product_ops = 3 * 2 * rows * cols * t * batch
-    nbytes = 4 * (rows * d + cols * d + batch * (cols * t + rows * t))
-    t_ops = (tile_ops / PEAK_F32_FLOPS + product_ops / PEAK_TF32_FLOPS) * 1e3
+    product_ops = 2 * rows * cols * t * batch * (1 if bf16 else 3)
+    m_bytes = 2 * cols * _padded(t) if bf16 else 4 * cols * t
+    nbytes = 4 * (rows * d + cols * d + batch * rows * t) + batch * m_bytes
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS
+    t_ops = (tile_ops / PEAK_F32_FLOPS + product_ops / peak) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
             rows * cols)
 
 
-def fused_bound(n: int, d: int, t: int, batch: int = 1):
+def fused_bound(n: int, d: int, t: int, batch: int = 1, bf16: bool = False):
     """Least time for one fused CG step (B3) on an H100, priced as B1:
     the kernel tile (2d + 1 flops per entry, f32 at 67 TFLOP/s, once
     whatever the batch) and the product K̂·D′ (2t flops per entry per batch
-    element, three TF32 products at 495 TFLOP/s), plus the prologue and the
-    four reductions (~14 f32 flops per state element), against X read once,
-    the state U, R, D, V and α, β, γ read once and U′, R′, D′, V′ and the
-    reductions written once."""
+    element, three TF32 products at 495 TFLOP/s, or with ``bf16`` one bf16
+    product at 989), plus the prologue and the four reductions (~14 f32
+    flops per state element), against X read once, the state U, R, D, V and
+    α, β, γ read once and U′, R′, D′, V′ and the reductions written once."""
     f32_ops = n * n * (2 * d + 1) + 14 * n * t * batch
-    tf32_ops = 3 * 2 * n * n * t * batch
+    product_ops = 2 * n * n * t * batch * (1 if bf16 else 3)
     nbytes = 4 * (n * d + 8 * batch * n * t + 7 * batch * t)
-    t_ops = (f32_ops / PEAK_F32_FLOPS + tf32_ops / PEAK_TF32_FLOPS) * 1e3
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS
+    t_ops = (f32_ops / PEAK_F32_FLOPS + product_ops / peak) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -263,6 +326,8 @@ def grad_bound(n: int, d: int, t: int):
 #: bytes, off the main path)
 TENSOR_CORE_KERNELS = {"kernel_matmul": ("kernel_matmul_kernel", "HMMA", False),
                        "fused_cg_step": ("fused_cg_product_kernel", "HMMA", True),
+                       "kernel_matmul_bf16": ("kernel_matmul_bf16_kernel", "HMMA", True),
+                       "fused_cg_step_bf16": ("fused_cg_product_bf16_kernel", "HMMA", True),
                        "kernel_matmul_grad": ("kernel_matmul_grad_kernel", "HMMA", True),
                        "flash_attention": ("flash_fwd_tc_kernel", "HGMMA", True),
                        "ssd_scan": ("ssd_scan_tc_kernel", "HMMA", True)}
@@ -426,6 +491,79 @@ def phase_kernel(km, plain, rng, errs):
           "max_abs_err": {k: v for k, v in errs.items()}})
 
 
+def phase_kernel_bf16(km, plain, rng, errs):
+    """bf16 B1 (2-D M) and B2 (3-D M) against ``kernel_matmul_plain(...,
+    compute_dtype="bfloat16")``, the sweep of phase ``kernel``: the four
+    kernel types at odd n, ARD, t ∈ {1, 9, 17, 234, 256}, b = 4, row_offset
+    slices of the n = 40,000 product (reassembled bit for bit); each within
+    BF16_REL_TOL of its bf16 plain version and BF16_F32_REL of the f32
+    product, the inputs prescaled as the mixed policy stores them (X/ℓ
+    rounded to bf16)."""
+    from repro_torch.kernels.kernel_matmul.ops import prescale_inputs
+
+    dev = torch.device("cuda")
+    cases = []
+
+    def compare(name, out, ref, f32, key):
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(out, ref)
+        rel32 = rel_err(out, f32)[1] if f32 is not None else 0.0
+        errs[key] = max(errs[key], abs_err)
+        cases.append({"case": name, "max_abs_err": abs_err, "rel_err": rel, "rel_err_vs_f32": rel32})
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite kernel output")
+        check(rel <= BF16_REL_TOL, f"{name}: relative error {rel:.3e} > {BF16_REL_TOL}")
+        check(rel32 <= BF16_F32_REL, f"{name}: {rel32:.3e} from the f32 product > {BF16_F32_REL}")
+
+    d = 8
+    for n in (1001, 4097):
+        X = torch.from_numpy(rng.standard_normal((n, d)).astype("float32")).to(dev)
+        ell = torch.from_numpy(rng.uniform(0.4, 1.5, d).astype("float32")).to(dev)
+        Xs = prescale_inputs(X, ell, "bfloat16")
+        for t in (1, 9, 17, 234, 256):
+            M = torch.from_numpy(rng.standard_normal((n, t)).astype("float32")).to(dev)
+            for kt in KERNEL_TYPES:
+                out = km.kernel_matmul_cuda(Xs, Xs, M, 1.1, 0.1, kernel_type=kt, compute_dtype="bfloat16")
+                ref = plain(Xs, Xs, M, 1.1, 0.1, kernel_type=kt, compute_dtype="bfloat16")
+                f32 = plain(Xs, Xs, M, 1.1, 0.1, kernel_type=kt)
+                compare(f"B1 bf16 {kt} n={n} t={t}", out, ref, f32, "B1_bf16")
+
+    n = 40_000
+    X = torch.from_numpy(rng.uniform(-1, 1, (n, d)).astype("float32")).to(dev)
+    Xs = prescale_inputs(X, 0.5, "bfloat16")
+    for t in (9, 234):
+        M = torch.from_numpy(rng.standard_normal((n, t)).astype("float32")).to(dev)
+        full = km.kernel_matmul_cuda(Xs, Xs, M, 1.0, 0.1, kernel_type="matern52", compute_dtype="bfloat16")
+        for off, rows in ((0, 4096), (17_000, 4096), (36_000, 4000)):
+            X1 = Xs[off : off + rows].contiguous()
+            part = km.kernel_matmul_cuda(X1, Xs, M, 1.0, 0.1, off, kernel_type="matern52",
+                                         compute_dtype="bfloat16")
+            ref = plain(X1, Xs, M, 1.0, 0.1, off, kernel_type="matern52", compute_dtype="bfloat16")
+            f32 = plain(X1, Xs, M, 1.0, 0.1, off, kernel_type="matern52")
+            compare(f"B1 bf16 matern52 n={n} rows={off}:{off + rows} t={t}", part, ref, f32, "B1_bf16")
+            check(torch.equal(part, full[off : off + rows]),
+                  f"B1 bf16 rows={off}:{off + rows} t={t}: the slice differs from the full product")
+
+    for n, t in ((4097, 9), (1001, 234)):
+        X = torch.from_numpy(rng.standard_normal((n, d)).astype("float32")).to(dev)
+        Xs = prescale_inputs(X, 0.7, "bfloat16")
+        M = torch.from_numpy(rng.standard_normal((4, n, t)).astype("float32")).to(dev)
+        for kt in KERNEL_TYPES:
+            out = km.kernel_matmul_cuda(Xs, Xs, M, 0.9, 0.05, kernel_type=kt, compute_dtype="bfloat16")
+            ref = plain(Xs, Xs, M, 0.9, 0.05, kernel_type=kt, compute_dtype="bfloat16")
+            f32 = plain(Xs, Xs, M, 0.9, 0.05, kernel_type=kt)
+            compare(f"B2 bf16 {kt} b=4 n={n} t={t}", out, ref, f32, "B2_bf16")
+            for i in range(4):
+                one = km.kernel_matmul_cuda(Xs, Xs, M[i], 0.9, 0.05, kernel_type=kt,
+                                            compute_dtype="bfloat16")
+                check(torch.equal(out[i], one), f"B2 bf16 {kt} slice {i}: differs from bf16 B1")
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_bf16", "cases": len(cases), "tolerance_rel": BF16_REL_TOL,
+          "tolerance_rel_vs_f32": BF16_F32_REL,
+          "max_rel_err": max(c["rel_err"] for c in cases),
+          "max_rel_err_vs_f32": max(c["rel_err_vs_f32"] for c in cases),
+          "max_abs_err": {"B1_bf16": errs["B1_bf16"], "B2_bf16": errs["B2_bf16"]}})
+
+
 def _randn(rng, shape, dev, scale=1.0):
     return torch.from_numpy((scale * rng.standard_normal(shape)).astype("float32")).to(dev)
 
@@ -577,6 +715,206 @@ def phase_fused_kernel(km, rng, errs):
           "red_max_rel_err": max(c["red_max_rel_err"] for c in cases)})
 
 
+def fused_step_f64_bf16(Xs, state, scalars, kernel_type, outputscale, sigma2, D_kernel,
+                        rows=2048):
+    """One bf16 CG step (b = 1) in float64 from the bf16-rounded factors:
+    the kernel tile formed in f32 as the plain version forms it (σ² on the
+    diagonal) and rounded to bf16, and the kernel's own D′ rounded to bf16
+    (so that both sides multiply the same D′ bits), their product summed in
+    float64; U′, R′, D′ and the reductions as ``fused_step_f64``."""
+    from repro_torch.kernels.kernel_matmul.ref import _sq_dist, apply_stationary
+
+    U, R, D, V = (x.double() for x in state)
+    a, b, g = (x.double()[..., None, :] for x in scalars)
+    U, R = U + a * D, R - a * V
+    D = g * R + b * D
+    Db = D_kernel.to(torch.bfloat16).double()
+    V = torch.empty_like(D)
+    for i in range(0, Xs.shape[0], rows):
+        K = apply_stationary(kernel_type, _sq_dist(Xs[i : i + rows], Xs), outputscale)
+        K.diagonal(i).add_(sigma2)
+        V[0, i : i + rows] = K.to(torch.bfloat16).double() @ Db[0]
+    red = torch.stack([(D * V).sum(-2), (R * R).sum(-2), (R * V).sum(-2), (V * V).sum(-2)], dim=-2)
+    return U, R, D, V, red
+
+
+def kernel_entries_bf16(km, X1, X2, kernel_type, outputscale, sigma2, row_offset, chunk=16):
+    """The bf16 kernel's own rounded entries of (K + σ²I)[rows, :], in
+    float64: bf16 B1 with M the identity's columns, ``chunk`` at a time
+    (16: the column block B3 runs at t = 9, so the same instantiation of
+    the entry code); each output is one bf16 entry times 1, summed with
+    zeros, so it is that entry exactly."""
+    cols = X2.shape[0]
+    out = torch.empty((X1.shape[0], cols), dtype=torch.float64, device=X1.device)
+    eye = torch.eye(chunk, device=X1.device)
+    for j0 in range(0, cols, chunk):
+        w = min(chunk, cols - j0)
+        M = torch.zeros((cols, chunk), device=X1.device)
+        M[j0 : j0 + w] = eye[:w]
+        part = km.kernel_matmul_cuda(X1, X2, M, outputscale, sigma2, row_offset,
+                                     kernel_type=kernel_type, compute_dtype="bfloat16")
+        out[:, j0 : j0 + w] = part[:, :w].double()
+    return out
+
+
+def phase_fused_kernel_bf16(km, rng, errs):
+    """bf16 B3 against ``fused_cg_step_plain(..., compute_dtype="bfloat16")``,
+    the sweep of phase ``fused_kernel``: the f32 state U′, R′, D′ at
+    FUSED_STATE_TOL, V′ and each of the four reductions within BF16_REL_TOL
+    of its largest, V′ within BF16_F32_REL of the f32 step's.  At n = 40,000
+    it is held, at those tolerances (V′ within BF16_REL_TOL of its largest),
+    to a float64 evaluation of the bf16-rounded factors (the plain formula's
+    tile, the kernel's D′), and on row slices, at the state tolerance, to a
+    float64 product of the kernel's own rounded entries, no further from it
+    than the plain version; two runs bit-identical."""
+    from repro_torch.kernels.kernel_matmul.ops import prescale_inputs
+    from repro_torch.kernels.kernel_matmul.ref import fused_cg_step_plain
+
+    dev = torch.device("cuda")
+    d = 8
+    cases = []
+
+    def run(Xr, Xc, state, cols, scalars, kt, off=0, s=1.1, s2=0.1):
+        out = km.fused_cg_step_cuda(Xr, Xc, *state, *cols, *scalars, s, s2, off, kernel_type=kt,
+                                    compute_dtype="bfloat16")
+        ref = fused_cg_step_plain(Xr, Xc, *state, *cols, *scalars, s, s2, off, kernel_type=kt,
+                                  compute_dtype="bfloat16")
+        return out, ref
+
+    def compare(name, out, ref, f32_V=None):
+        torch.cuda.synchronize()
+        state_err = max(_err(a, b) for a, b in zip(out[:3], ref[:3]))
+        v_rel = rel_err(out[3], ref[3])[1]
+        red_rel = max(rel_err(out[4][:, k], ref[4][:, k])[1] for k in range(4))
+        errs["B3_bf16"] = max(errs["B3_bf16"], state_err, _err(out[3], ref[3]))
+        cases.append({"case": name, "state_max_abs_err": state_err, "V_rel_err": v_rel,
+                      "red_rel_err": red_rel})
+        check(all(bool(torch.isfinite(a).all()) for a in out), f"{name}: non-finite bf16 B3 output")
+        for a, b, nm in zip(out[:3], ref[:3], "URD"):
+            check(_within(a, b, FUSED_STATE_TOL), f"{name}: bf16 B3 {nm} outside {FUSED_STATE_TOL}")
+        check(v_rel <= BF16_REL_TOL and red_rel <= BF16_REL_TOL,
+              f"{name}: bf16 B3 V′ {v_rel:.3e} / reductions {red_rel:.3e} > {BF16_REL_TOL}")
+        if f32_V is not None:
+            rel32 = rel_err(out[3], f32_V)[1]
+            check(rel32 <= BF16_F32_REL, f"{name}: V′ {rel32:.3e} from the f32 step")
+
+    for n in (1001, 4097):
+        X = torch.from_numpy(rng.standard_normal((n, d)).astype("float32")).to(dev)
+        Xs = prescale_inputs(X, 0.7, "bfloat16")
+        for t in (1, 9, 16, 17, 33, 64):
+            for b in (1, 3):
+                state, scalars = _cg_inputs(rng, dev, b, n, t)
+                for kt in KERNEL_TYPES:
+                    out, ref = run(Xs, Xs, state, state[1:], scalars, kt)
+                    f32 = fused_cg_step_plain(Xs, Xs, *state, *state[1:], *scalars, 1.1, 0.1,
+                                              kernel_type=kt)
+                    compare(f"B3 bf16 {kt} n={n} t={t} b={b}", out, ref, f32[3])
+
+    # column 0 frozen (α = β = γ = 0), column 1 an all-zero padded column
+    n, t, b = 1001, 9, 2
+    Xs = prescale_inputs(torch.from_numpy(rng.standard_normal((n, d)).astype("float32")).to(dev),
+                         1.0, "bfloat16")
+    state, scalars = _cg_inputs(rng, dev, b, n, t)
+    for x in scalars:
+        x[:, :2] = 0.0
+    for x in state:
+        x[:, :, 1] = 0.0
+    out, ref = run(Xs, Xs, state, state[1:], scalars, "matern52")
+    compare("B3 bf16 frozen and zero columns", out, ref)
+    check(torch.equal(out[0][..., 0], state[0][..., 0]) and torch.equal(out[1][..., 0], state[1][..., 0]),
+          "bf16 B3: a frozen column's U or R changed")
+    check(all(bool((x[..., 1] == 0).all()) for x in out),
+          "bf16 B3: an all-zero column with α = β = γ = 0 gave a non-zero output or reduction")
+
+    # the no-op prologue (α = 0, β = 1, γ = 0) the refresh loop re-enters with
+    state, scalars = _cg_inputs(rng, dev, 1, n, t)
+    scalars = [torch.zeros_like(scalars[0]), torch.ones_like(scalars[0]), torch.zeros_like(scalars[0])]
+    out, ref = run(Xs, Xs, state, state[1:], scalars, "rbf")
+    compare("B3 bf16 no-op prologue", out, ref)
+    check(all(torch.equal(a, b) for a, b in zip(out[:3], state[:3])),
+          "bf16 B3: the no-op prologue (α=0, β=1, γ=0) changed U, R or D")
+
+    # row_offset shards reassemble the full step bit for bit; a separate
+    # column state gives the same bits as the shared one
+    n = 4097
+    Xs = prescale_inputs(torch.from_numpy(rng.standard_normal((n, d)).astype("float32")).to(dev),
+                         0.7, "bfloat16")
+    state, scalars = _cg_inputs(rng, dev, 3, n, t)
+    full = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.1, 0.1,
+                                 kernel_type="matern32", compute_dtype="bfloat16")
+    parts = []
+    for lo, hi in ((0, 1366), (1366, 2732), (2732, n)):
+        rows = [x[:, lo:hi].contiguous() for x in state]
+        out, ref = run(Xs[lo:hi].contiguous(), Xs, rows, state[1:], scalars, "matern32", lo)
+        compare(f"B3 bf16 shard rows={lo}:{hi}", out, ref)
+        parts.append(out)
+    check(all(torch.equal(torch.cat([p[k] for p in parts], dim=1), full[k]) for k in range(4)),
+          "bf16 B3: the row shards do not reassemble the full step")
+    sep = [x.clone() for x in state[1:]]
+    out, _ = run(Xs, Xs, state, sep, scalars, "matern32")
+    check(all(torch.equal(a, b) for a, b in zip(out, full)),
+          "bf16 B3: a separate column state changed the step's bits")
+
+    # the slice's shape, against float64 of the bf16-rounded factors
+    n = 40_000
+    X = torch.from_numpy(rng.uniform(-1, 1, (n, d)).astype("float32")).to(dev)
+    Xs = prescale_inputs(X, 0.5, "bfloat16")
+    state, scalars = _cg_inputs(rng, dev, 1, n, 9)
+    out, ref = run(Xs, Xs, state, state[1:], scalars, "matern52", s=1.0)
+    exact = fused_step_f64_bf16(Xs, state, scalars, "matern52", 1.0, 0.1, out[2])
+    name = "B3 bf16 matern52 n=40000 t=9"
+    torch.cuda.synchronize()
+    witness = {"kernel_vs_plain": [_err(a, b) for a, b in zip(out, ref)],
+               "kernel_vs_f64": [_err(a, b) for a, b in zip(out, exact)],
+               "plain_vs_f64": [_err(a, b) for a, b in zip(ref, exact)],
+               "V_rms_kernel_vs_f64": _rms(out[3], exact[3]),
+               "V_rms_plain_vs_f64": _rms(ref[3], exact[3])}
+    errs["B3_bf16"] = max(errs["B3_bf16"], max(witness["kernel_vs_f64"][:4]))
+    cases.append({"case": name, "state_max_abs_err": max(witness["kernel_vs_f64"][:4])})
+    check(all(bool(torch.isfinite(a).all()) for a in out), f"{name}: non-finite bf16 B3 output")
+    for a, b, nm in zip(out, exact, ("U", "R", "D", "V", "red")):
+        if nm == "V":
+            # an entry whose f32 value the kernel and the plain formula round
+            # to neighbouring bf16 values moves its term by 2^-8: V′ is held
+            # as the products are, relative to its largest
+            rel = rel_err(a, b)[1]
+            check(rel <= BF16_REL_TOL, f"{name}: V′ {rel:.3e} from float64 > {BF16_REL_TOL}")
+            continue
+        tol = FUSED_RED_TOL if nm == "red" else FUSED_STATE_TOL
+        check(_within(a, b, tol), f"{name}: {nm} outside {tol} of float64 (max |Δ| {_err(a, b):.3e})")
+    # The kernel forms its entries as the f32 kernel does (the distance by
+    # the norm expansion, exact at coincident points; the SFU's exp), the
+    # plain version by differences and torch's exp; the two round ~1e-3 of
+    # the entries to neighbouring bf16 values, so the float64 product above
+    # (of the plain formula's rounded tile) is as far from the kernel as
+    # those flips make it.  The kernel's own product is held on row slices
+    # to a float64 product of ITS rounded entries (bf16 B1 against the
+    # identity): there at the state tolerance, and no further from it than
+    # the plain version
+    own = {}
+    for lo in (0, 19_000, 38_000):
+        rows = slice(lo, lo + 2000)
+        Kb = kernel_entries_bf16(km, Xs[rows].contiguous(), Xs, "matern52", 1.0, 0.1, lo)
+        v64 = Kb @ out[2][0].to(torch.bfloat16).double()
+        own[lo] = {"kernel": _err(out[3][0, rows], v64), "plain": _err(ref[3][0, rows], v64)}
+        check(_within(out[3][0, rows], v64, FUSED_STATE_TOL),
+              f"{name}: V′ rows {lo}: outside {FUSED_STATE_TOL} of float64 of its own entries")
+        check(own[lo]["kernel"] <= own[lo]["plain"],
+              f"{name}: V′ rows {lo}: further from float64 of its entries than the plain version {own[lo]}")
+        del Kb, v64
+    witness["V_rows_vs_f64_of_own_entries"] = own
+    again = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.0, 0.1,
+                                  kernel_type="matern52", compute_dtype="bfloat16")
+    check(all(torch.equal(a, b) for a, b in zip(out, again)), "bf16 B3: two runs differ")
+    del out, ref, again, exact
+    torch.cuda.empty_cache()
+    emit({"phase": "fused_kernel_bf16", "cases": len(cases), "state_tol": FUSED_STATE_TOL,
+          "V_and_red_tol_rel": BF16_REL_TOL, "state_max_abs_err": errs["B3_bf16"],
+          "n40000_max_abs_err_U_R_D_V_red": witness,
+          "max_V_rel_err": max(c.get("V_rel_err", 0.0) for c in cases),
+          "max_red_rel_err": max(c.get("red_rel_err", 0.0) for c in cases)})
+
+
 def phase_grad_kernel(km, rng, errs):
     """The gradient kernel against ``kernel_matmul_grad_plain`` (two
     launches, rows ≠ columns) and ``kernel_matmul_grad_sym_plain`` (one
@@ -678,12 +1016,16 @@ def phase_grad_kernel(km, rng, errs):
           "max_abs_err": errs["grad"]})
 
 
-def library_yardstick(Xs, M, outputscale, sigma2):
+def library_yardstick(Xs, M, outputscale, sigma2, bf16=False):
     """torch.cdist → Matérn-5/2 map → torch.matmul: the library composition
-    a user would write for (K + σ²I)·M.  Timed here only."""
+    a user would write for (K + σ²I)·M; with ``bf16`` the matmul is one bf16
+    torch.matmul of the rounded tile and M (its output bf16: a yardstick of
+    time, not an oracle).  Timed here only."""
     a = math.sqrt(5.0) * torch.cdist(Xs, Xs)
     K = outputscale * (1.0 + a + a * a / 3.0) * torch.exp(-a)
     K.diagonal().add_(sigma2)
+    if bf16:
+        K, M = K.to(torch.bfloat16), M.to(torch.bfloat16)
     if M.dim() == 3:  # fold the batch into columns rather than copy K b times
         b, n, t = M.shape
         return (K @ M.permute(1, 0, 2).reshape(n, b * t)).reshape(n, b, t)
@@ -720,18 +1062,47 @@ def phase_timing(km, plain, rng, n, t_gram):
         torch.cuda.empty_cache()
     rows["B3"] = time_fused_step(km, rng, Xs, n, d)
     rows["grad"] = time_grad(km, rng, Xs, n, d)
+    # bf16 B1/B2 and B3 (precision="mixed"): X/ℓ rounded to bf16 as the
+    # mixed policy stores it, beside the f32 kernel's time from above
+    Xb = Xs.to(torch.bfloat16).float()
+    for label, f32_label, t, batch in (("B1_bf16", "B1", 9, None),
+                                       ("B1_bf16_gram", "B1_gram", t_gram, None),
+                                       ("B1_bf16_predict", "B1_predict", 256, None),
+                                       ("B2_bf16", "B2", 9, 4)):
+        shape = (n, t) if batch is None else (batch, n, t)
+        M = torch.from_numpy(rng.standard_normal(shape).astype("float32")).to(dev)
+        kern = lambda: km.kernel_matmul_cuda(Xb, Xb, M, 1.0, 0.0, kernel_type="matern52",  # noqa: E731
+                                             compute_dtype="bfloat16")
+        pl = lambda: plain(Xb, Xb, M, 1.0, 0.0, kernel_type="matern52",  # noqa: E731
+                           compute_dtype="bfloat16")
+        lib = lambda: library_yardstick(Xb, M, 1.0, 0.0, bf16=True)  # noqa: E731
+        ms = time_ms(kern, reps=10)
+        plain_ms = time_ms(pl, reps=1)
+        library_ms = time_ms(lib, reps=3)
+        bound_ms, bound_by, exps = kernel_bound(n, n, d, t, batch or 1, bf16=True)
+        rows[label] = {
+            "n": n, "d": d, "t": t, "batch": batch or 1, "ms": ms, "f32_kernel_ms": rows[f32_label]["ms"],
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "exps": exps,
+            "bound_share": bound_ms / ms,
+        }
+        emit({"phase": "timing", "kernel": label, **rows[label]})
+        del M
+        torch.cuda.empty_cache()
+    rows["B3_bf16"] = time_fused_step(km, rng, Xb, n, d, bf16=True)
+    rows["B3_bf16"]["f32_kernel_ms"] = rows["B3"]["ms"]
     return rows
 
 
-def fused_library_yardstick(Xs, state, scalars, outputscale, sigma2):
+def fused_library_yardstick(Xs, state, scalars, outputscale, sigma2, bf16=False):
     """The fused step composed of library calls: the torch state update,
-    torch.cdist → Matérn-5/2 map → torch.matmul for K̂·D′, the torch
-    reductions.  Timed here only."""
+    torch.cdist → Matérn-5/2 map → torch.matmul for K̂·D′ (a bf16 one with
+    ``bf16``), the torch reductions.  Timed here only."""
     U, R, D, V = state
     a, b, g = (x[..., None, :] for x in scalars)
     U, R = U + a * D, R - a * V
     D = g * R + b * D
-    V = library_yardstick(Xs, D[0], outputscale, sigma2)[None]
+    V = library_yardstick(Xs, D[0], outputscale, sigma2, bf16=bf16)[None].float()
     return U, R, D, V, torch.stack([(D * V).sum(-2), (R * R).sum(-2), (R * V).sum(-2),
                                     (V * V).sum(-2)], dim=-2)
 
@@ -749,19 +1120,23 @@ def grad_library_yardstick(Xs, M, C, outputscale, rows=8192):
     return X1.grad, s.grad
 
 
-def time_fused_step(km, rng, Xs, n, d, t=9):
+def time_fused_step(km, rng, Xs, n, d, t=9, bf16=False):
     from repro_torch.kernels.kernel_matmul.ref import fused_cg_step_plain
 
     state, scalars = _cg_inputs(rng, Xs.device, 1, n, t)
     args = (Xs, Xs, *state, *state[1:], *scalars, 1.0, 0.1)
-    ms = time_ms(lambda: km.fused_cg_step_cuda(*args, kernel_type="matern52"), reps=10)
-    plain_ms = time_ms(lambda: fused_cg_step_plain(*args, kernel_type="matern52"), reps=3)
-    library_ms = time_ms(lambda: fused_library_yardstick(Xs, state, scalars, 1.0, 0.1), reps=3)
-    bound_ms, bound_by = fused_bound(n, d, t)
+    cd = "bfloat16" if bf16 else "float32"
+    ms = time_ms(lambda: km.fused_cg_step_cuda(*args, kernel_type="matern52", compute_dtype=cd),
+                 reps=10)
+    plain_ms = time_ms(lambda: fused_cg_step_plain(*args, kernel_type="matern52", compute_dtype=cd),
+                       reps=1 if bf16 else 3)
+    library_ms = time_ms(lambda: fused_library_yardstick(Xs, state, scalars, 1.0, 0.1, bf16=bf16),
+                         reps=3)
+    bound_ms, bound_by = fused_bound(n, d, t, bf16=bf16)
     row = {"n": n, "d": d, "t": t, "batch": 1, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_share": bound_ms / ms}
-    emit({"phase": "timing", "kernel": "B3", **row})
+    emit({"phase": "timing", "kernel": "B3_bf16" if bf16 else "B3", **row})
     torch.cuda.empty_cache()
     return row
 
@@ -804,6 +1179,10 @@ def make_data(rng, n, d):
 
 def _err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def _rms(a, b) -> float:
+    return float((a.double() - b.double()).square().mean().sqrt())
 
 
 def _within(a, b, tol) -> bool:
@@ -990,8 +1369,11 @@ def phase_serve(km, rng, n):
 
     data = (params, Xd, yd, qd, Pd)
     phase_prefix(km, settings, data)
-    phase_witness(km, gp, settings, data, cache, cached + [(pmean, pvar)])
-    return main_launches, main_batched, build_ms, req_ms
+    exact = phase_witness(km, gp, settings, data, cache, cached + [(pmean, pvar)])
+    highest = {"cached_means": [o[0] for o in cached], "predict_mean": pmean,
+               "exact": exact,
+               "build_warm_ms": warm_build_ms, "predict_ms": predict_ms}
+    return main_launches, main_batched, build_ms, req_ms, data, highest
 
 
 def phase_prefix(km, settings, data):
@@ -1096,27 +1478,33 @@ def phase_witness(km, gp, settings, data, cache, ours):
           "max_abs_err": stats, "alpha_cuda_vs_f64_rel_by_iters": onset,
           "cached_var_max_undershoot": under})
     check(under <= 1e-3, f"cached variance undershoots the exact one by {under:.3e}")
+    return exact
 
 
 @contextlib.contextmanager
 def plain_kernels(km):
-    """B1's wrapper and the gradient kernel's (both VJPs) replaced by their
-    plain versions (K formed, autograd for the gradient), so the unfused
+    """Every kernel wrapper of the GP path replaced by its plain version (K
+    formed, autograd for the gradient): B1's and the gradient kernel's (both
+    VJPs) in the kernel module, and B1's and B3's as ``ops`` binds them (the
+    bf16 product and the fused step), each in the dtype asked for — so the
     path runs without any kernel: nothing launches inside."""
-    from repro_torch.kernels.kernel_matmul import ref
+    from repro_torch.kernels.kernel_matmul import ops, ref
 
     saved = km.kernel_matmul_cuda, km.kernel_matmul_grad_cuda, km.kernel_matmul_grad_sym_cuda
+    saved_ops = ops.kernel_matmul_cuda, ops.fused_cg_step_cuda
 
     def grad_plain(*args, need_cols=True, **kw):
         return ref.kernel_matmul_grad_plain(*args, **kw)
 
-    km.kernel_matmul_cuda = ref.kernel_matmul_plain
+    km.kernel_matmul_cuda = ops.kernel_matmul_cuda = ref.kernel_matmul_plain
+    ops.fused_cg_step_cuda = ref.fused_cg_step_plain
     km.kernel_matmul_grad_cuda = grad_plain
     km.kernel_matmul_grad_sym_cuda = ref.kernel_matmul_grad_sym_plain
     try:
         yield
     finally:
         km.kernel_matmul_cuda, km.kernel_matmul_grad_cuda, km.kernel_matmul_grad_sym_cuda = saved
+        ops.kernel_matmul_cuda, ops.fused_cg_step_cuda = saved_ops
 
 
 def _counts(km):
@@ -1281,6 +1669,259 @@ def phase_train_prefix(km, gp, settings, Xd, yd):
         check(g["rel_err"] <= GRAD_RTOL, f"prefix gradient {k}: relative error {g['rel_err']:.3e}")
     check(_within(sf.solve_y, su.solve_y, SOLVE_TOL) and _within(sf.probe_solves, su.probe_solves, SOLVE_TOL),
           f"prefix solves: fused B3 vs unfused B1 {solves}")
+
+
+def _dtype_counts(km):
+    """Launches since the last reset by kernel and dtype."""
+    return {"B1_bf16": km.bf16_launches, "B1": km.launches, "B2_bf16": km.bf16_batched_launches,
+            "B2": km.batched_launches, "B3_bf16": km.bf16_fused_launches, "B3": km.fused_launches,
+            "grad": km.grad_launches}
+
+
+def _rel_norm(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def phase_serve_mixed(km, data, highest):
+    """The serving slice at precision="mixed": ExactGP(matern52, mode="cuda",
+    precision="mixed") on the serving data — one cache build (timed cold and
+    warm), the eight cached requests, the 256-point predict, peak memory and
+    the launches by dtype: bf16 B1 once per CG iteration, f32 B1 once per
+    refresh (the static period 2: ⌊p/2⌋ in the loop and one final) and for
+    the cache's Gram product; nothing else.  The served means against
+    "highest" (phase serve) within MIXED_MEAN_REL; then the slice cut to
+    PREFIX_ITERS iterations against itself with every kernel replaced by its
+    bf16 plain version, at MIXED_PREFIX_TOL."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings, health
+
+    params, Xd, yd, qd, Pd = data
+    settings = BBMMSettings(num_probes=8, max_cg_iters=25, precond_rank=5)
+    p = settings.max_cg_iters
+    refreshes = p // settings.cg_refresh_every
+    gp = ExactGP(kernel_type="matern52", mode="cuda", settings=settings, precision="mixed")
+    counts = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.reset_launch_counts()
+    with health.collect() as build_reports:
+        cache, build_ms, build_dev_ms = timed(lambda: gp.posterior_cache(params, Xd, yd))
+    counts["build"] = _dtype_counts(km)
+    km.reset_launch_counts()
+    cached, req_ms = [], []
+    for q in qd:
+        out, host_ms, _ = timed(lambda: gp.predict_cached(params, Xd, cache, q))
+        cached.append(out)
+        req_ms.append(host_ms)
+    counts["requests"] = _dtype_counts(km)
+    km.reset_launch_counts()
+    with health.collect() as predict_reports:
+        (pmean, pvar), predict_ms, predict_dev_ms = timed(lambda: gp.predict(params, Xd, yd, Pd))
+    counts["predict"] = _dtype_counts(km)
+    peak = torch.cuda.max_memory_allocated()
+    warm_build_ms = [timed(lambda: gp.posterior_cache(params, Xd, yd))[1] for _ in range(3)]
+    warm_predict_ms = timed(lambda: gp.predict(params, Xd, yd, Pd))[1]
+
+    zero = {k: 0 for k in counts["build"]}
+    want = {"build": {**zero, "B1_bf16": p, "B1": refreshes + 2},
+            "requests": zero,
+            "predict": {**zero, "B1_bf16": 2 * p, "B1": 2 * (refreshes + 1)}}
+    reports = build_reports + predict_reports
+    # at 25 iterations CG on this problem (κ ≈ 3,900) has not converged in
+    # either precision: two correct f32 paths part by about their distance
+    # from the answer (phase serve_witness).  So the full-depth means are
+    # reported against "highest" and against the exact posterior, and held
+    # to "highest" at MIXED_MEAN_REL over the prefix (phase_serve_mixed_prefix)
+    exact = highest["exact"]
+    served = [o[0] for o in cached] + [pmean]
+    means = {"cached_vs_highest": max(_rel_norm(o[0], h) for o, h in zip(cached, highest["cached_means"])),
+             "predict_vs_highest": _rel_norm(pmean, highest["predict_mean"]),
+             "mixed_vs_exact": max(_rel_norm(m, e[0]) for m, e in zip(served, exact)),
+             "highest_vs_exact": max(_rel_norm(m, e[0]) for m, e in
+                                     zip(highest["cached_means"] + [highest["predict_mean"]], exact))}
+    under = max(float((e[1] - o[1]).max()) for o, e in zip(cached, exact[:8]))
+    emit({"phase": "serve_mixed", "path": "cuda", "precision": "mixed", "n": Xd.shape[0],
+          "settings": {"num_probes": 8, "max_cg_iters": p, "precond_rank": 5,
+                       "cg_refresh_every": settings.cg_refresh_every},
+          "build_ms": build_ms, "build_device_ms": build_dev_ms, "build_warm_ms": warm_build_ms,
+          "highest_build_warm_ms": highest["build_warm_ms"],
+          "request_ms": req_ms, "predict_256_ms": predict_ms, "predict_256_device_ms": predict_dev_ms,
+          "predict_256_warm_ms": warm_predict_ms, "highest_predict_256_ms": highest["predict_ms"],
+          "peak_device_bytes": peak, "launches": counts,
+          "health": [{"context": r.context, "status": r.status, "residual_norm": r.residual_norm,
+                      "num_refreshes": r.num_refreshes, "num_curvature_skips": r.num_curvature_skips,
+                      "num_rescues": r.num_rescues} for r in reports],
+          "mean_rel": means, "cached_var_max_undershoot": under})
+    for phase, got in counts.items():
+        check(got == want[phase], f"mixed {phase} launches {got} != {want[phase]}")
+    check(all(r.num_refreshes == refreshes for r in reports),
+          f"refreshes {[r.num_refreshes for r in reports]} != ⌊{p}/2⌋ = {refreshes}")
+    for mean, var in cached + [(pmean, pvar)]:
+        check(bool(torch.isfinite(mean).all() & torch.isfinite(var).all() & (var > 0).all()),
+              "mixed serving: non-finite output or non-positive variance")
+    check(under <= 1e-3, f"mixed cached variance undershoots the exact one by {under:.3e}")
+    phase_serve_mixed_prefix(km, data)
+    launches = {k: sum(c[k] for c in counts.values()) for k in zero}
+    return launches, {"build_ms": build_ms, "build_warm_ms": warm_build_ms,
+                      "predict_ms": predict_ms, "predict_warm_ms": warm_predict_ms}
+
+
+def phase_serve_mixed_prefix(km, data):
+    """The mixed serving slice cut to PREFIX_ITERS CG iterations, where two
+    correct paths still agree: on the kernel path against the same path with
+    every kernel replaced by its bf16 (and, for the refreshes, f32) plain
+    version — served means, predictive variance, inv_quad and logdet within
+    MIXED_PREFIX_TOL — and against "highest", the served means within
+    MIXED_MEAN_REL."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings
+
+    params, Xd, yd, qd, Pd = data
+    s = BBMMSettings(num_probes=8, max_cg_iters=PREFIX_ITERS, precond_rank=5)
+    gp = ExactGP(kernel_type="matern52", mode="cuda", settings=s, precision="mixed")
+    km.reset_launch_counts()
+    ours = serve_once(gp, params, Xd, yd, qd[:2], Pd)
+    kernel_launches = _dtype_counts(km)
+    high = serve_once(dataclasses.replace(gp, precision="highest"), params, Xd, yd, qd[:2], Pd)
+    vs_highest = {"cached_mean": max(_rel_norm(a[0], b[0]) for a, b in zip(ours[1], high[1])),
+                  "predict_mean": _rel_norm(ours[2][0], high[2][0])}
+    with plain_kernels(km):
+        km.reset_launch_counts()
+        plain = serve_once(gp, params, Xd, yd, qd[:2], Pd)
+        plain_launches = _dtype_counts(km)
+    pairs = {"cached_mean": ([o[0] for o in ours[1]], [o[0] for o in plain[1]]),
+             "predict_mean": ([ours[2][0]], [plain[2][0]]),
+             "predict_var": ([ours[2][1]], [plain[2][1]]),
+             "inv_quad": ([ours[0].inv_quad], [plain[0].inv_quad]),
+             "logdet": ([ours[0].logdet], [plain[0].logdet])}
+    stats = {k: max(_err(a, b) for a, b in zip(*v)) for k, v in pairs.items()}
+    emit({"phase": "serve_mixed_prefix", "max_cg_iters": PREFIX_ITERS, "tol": MIXED_PREFIX_TOL,
+          "kernel_vs_plain_max_abs": stats, "kernel_launches": kernel_launches,
+          "plain_launches": plain_launches, "mean_rel_vs_highest": vs_highest,
+          "mean_tol_vs_highest": MIXED_MEAN_REL})
+    check(sum(plain_launches.values()) == 0, "the plain mixed path launched a kernel")
+    check(max(vs_highest.values()) <= MIXED_MEAN_REL, f"mixed prefix means vs highest {vs_highest}")
+    check(kernel_launches["B1_bf16"] > 0, "the mixed kernel path launched no bf16 B1")
+    for k, (a, b) in pairs.items():
+        check(all(_within(x, y, MIXED_PREFIX_TOL) for x, y in zip(a, b)),
+              f"mixed prefix {k}: kernel vs plain {stats[k]:.3e} outside {MIXED_PREFIX_TOL}")
+
+
+def phase_train_mixed(km, seed, n, highest_history):
+    """The training slice at precision="mixed": ExactGP(matern52,
+    mode="cuda", fuse_cg=True, precond_rank=0, precision="mixed").fit for
+    TRAIN_STEPS steps, each synchronised, timed and counted: bf16 B3 once
+    per CG iteration, f32 B1 once per refresh (⌊p/2⌋ + one final) and once
+    for the backward's primal, one gradient launch (f32: the backward runs
+    through the f32 operator); the MLL against "highest" (phase train, same
+    parameters and probes) reported (at 25 iterations neither precision's
+    solve has converged here); peak memory; a profiled step; a PREFIX_ITERS
+    prefix against the same path with every kernel replaced by its plain
+    version and against "highest" (MIXED_MLL_PER_POINT per data point); one
+    unfused mixed step at precond_rank=5."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings
+
+    d = 8
+    X, y = make_data(np.random.default_rng(seed), n, d)
+    Xd, yd = torch.from_numpy(X).cuda(), torch.from_numpy(y).cuda()
+    settings = BBMMSettings(num_probes=8, max_cg_iters=25, precond_rank=0)
+    p = settings.max_cg_iters
+    refreshes = p // settings.cg_refresh_every
+    gp = ExactGP(kernel_type="matern52", mode="cuda", fuse_cg=True, settings=settings,
+                 precision="mixed")
+    steps = []
+    clock = [0.0]
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append({"step": i, "loss": loss, "ms": (now - clock[0]) * 1e3, **_dtype_counts(km)})
+        km.reset_launch_counts()
+        clock[0] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.reset_launch_counts()
+    clock[0] = time.perf_counter()
+    params, history = gp.fit(Xd, yd, steps=TRAIN_STEPS, callback=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    mll_gap = abs(history[0] - highest_history[0]) / n
+    profile = profile_step(gp, Xd, yd)
+    emit({"phase": "train_mixed", "path": "cuda fused", "precision": "mixed", "n": n,
+          "settings": {"num_probes": 8, "max_cg_iters": p, "precond_rank": 0, "fuse_cg": True,
+                       "cg_refresh_every": settings.cg_refresh_every},
+          "steps": steps, "loss_history": history, "highest_loss_history": highest_history,
+          "step_ms_mean_warm": sum(st["ms"] for st in steps[1:]) / (len(steps) - 1),
+          "mll_per_point_vs_highest": mll_gap,
+          "peak_device_bytes": peak, "device_ms_by_kernel": profile})
+    check(len(history) == TRAIN_STEPS and all(math.isfinite(v) for v in history),
+          f"mixed training: non-finite loss history {history}")
+    zero = {k: 0 for k in _dtype_counts(km)}
+    want = {**zero, "B3_bf16": p, "B1": refreshes + 2, "grad": 1}
+    for st in steps:
+        got = {k: st[k] for k in zero}
+        check(got == want, f"mixed step {st['step']}: launches {got} != {want}")
+    launches = {k: sum(st[k] for st in steps) for k in zero}
+
+    phase_train_mixed_prefix(km, gp, Xd, yd)
+
+    s5 = dataclasses.replace(settings, precond_rank=5)
+    gp5 = ExactGP(kernel_type="matern52", mode="cuda", settings=s5, precision="mixed")
+    km.reset_launch_counts()
+    (_, hist5), ms5, _ = timed(lambda: gp5.fit(Xd, yd, steps=1))
+    unfused = _dtype_counts(km)
+    emit({"phase": "train_mixed_unfused", "step_ms": ms5, "loss": hist5, "launches": unfused})
+    check(unfused == {**zero, "B1_bf16": p, "B1": refreshes + 2, "grad": 1},
+          f"mixed unfused step launches {unfused}")
+    check(all(math.isfinite(v) for v in hist5), "mixed unfused step: non-finite loss")
+    for k in launches:
+        launches[k] += unfused[k]
+    return launches, steps
+
+
+def phase_train_mixed_prefix(km, gp, Xd, yd):
+    """The first mixed step cut to PREFIX_ITERS CG iterations, the same
+    probes on every path: the fused kernel path against the same path with
+    every kernel replaced by its plain version (bf16 for the loop, f32 for
+    the refreshes and the backward) — the loss within MIXED_PREFIX_TOL's
+    rtol, each parameter's gradient within MIXED_GRAD_RTOL of its size —
+    and against the same step at "highest", the MLL within
+    MIXED_MLL_PER_POINT per data point."""
+    s = dataclasses.replace(gp.settings, max_cg_iters=PREFIX_ITERS)
+    model = dataclasses.replace(gp, settings=s)
+    p0 = model.init_params(Xd)
+
+    def loss_and_grads():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        p = {k: v.clone().requires_grad_() for k, v in p0.items()}
+        loss = model.loss(p, Xd, yd, g)
+        loss.backward()
+        return float(loss), {k: v.grad for k, v in p.items()}
+
+    km.reset_launch_counts()
+    lk, gk = loss_and_grads()
+    kernel_launches = _dtype_counts(km)
+    with plain_kernels(km):
+        km.reset_launch_counts()
+        lp, gpl = loss_and_grads()
+        plain_launches = _dtype_counts(km)
+    model = dataclasses.replace(model, precision="highest")
+    lh, _ = loss_and_grads()
+    mll_gap = abs(lk - lh) / Xd.shape[0]
+    grads = {k: float((gk[k] - gpl[k]).abs().max() / gpl[k].abs().max()) for k in gk}
+    emit({"phase": "train_mixed_prefix", "max_cg_iters": PREFIX_ITERS,
+          "loss": {"kernel": lk, "plain": lp}, "loss_rel_err": abs(lk - lp) / abs(lp),
+          "grad_rel_err": grads, "loss_rtol": MIXED_PREFIX_TOL["rtol"], "grad_rtol": MIXED_GRAD_RTOL,
+          "kernel_launches": kernel_launches, "plain_launches": plain_launches,
+          "loss_highest": lh, "mll_per_point_vs_highest": mll_gap, "mll_tol": MIXED_MLL_PER_POINT})
+    check(mll_gap <= MIXED_MLL_PER_POINT, f"mixed prefix MLL {mll_gap:.3e} per point from highest")
+    check(sum(plain_launches.values()) == 0, "the plain mixed training path launched a kernel")
+    check(kernel_launches["B3_bf16"] == PREFIX_ITERS, f"mixed prefix launches {kernel_launches}")
+    check(abs(lk - lp) <= MIXED_PREFIX_TOL["rtol"] * abs(lp), f"mixed prefix MLL {lk} vs plain {lp}")
+    for k, r in grads.items():
+        check(r <= MIXED_GRAD_RTOL, f"mixed prefix gradient {k}: relative error {r:.3e}")
 
 
 # --------------------------------------------------------------------------
@@ -1907,7 +2548,10 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     errs = {"B1": 0.0, "B2": 0.0, "B3": 0.0, "grad": 0.0, "B4": 0.0, "B5": 0.0,
-            "B5_recurrence": 0.0, "B5_cuda_cores": 0.0, "B5_cuda_cores_recurrence": 0.0}
+            "B5_recurrence": 0.0, "B5_cuda_cores": 0.0, "B5_cuda_cores_recurrence": 0.0,
+            "B1_bf16": 0.0, "B2_bf16": 0.0, "B3_bf16": 0.0}
+    # the bf16 kernel phases draw from a generator of their own too
+    rng_bf16 = np.random.default_rng([args.seed, 17])
     # the LM phases draw from a generator of their own, so that they leave
     # the GP phases' data as it was
     rng_lm = np.random.default_rng([args.seed, 13])
@@ -1918,6 +2562,8 @@ def main() -> int:
         phase_kernel(km, kernel_matmul_plain, rng, errs)
         phase_fused_kernel(km, rng, errs)
         phase_grad_kernel(km, rng, errs)
+        phase_kernel_bf16(km, kernel_matmul_plain, rng_bf16, errs)
+        phase_fused_kernel_bf16(km, rng_bf16, errs)
         phase_flash_kernel(rng_lm, errs)
         phase_ssd_kernel(rng_lm, errs)
         timing = phase_timing(km, kernel_matmul_plain, rng, args.n, t_gram)
@@ -1925,9 +2571,13 @@ def main() -> int:
         # the serving and training data have their own generator, so adding
         # a case to an earlier phase does not change the problem the slices
         # solve
-        launches, batched, build_ms, req_ms = phase_serve(
+        launches, batched, build_ms, req_ms, serve_data, highest = phase_serve(
             km, np.random.default_rng(args.seed), args.n)
+        serve_mixed, mixed_serving = phase_serve_mixed(km, serve_data, highest)
+        del serve_data
+        torch.cuda.empty_cache()
         train, history, steps = phase_train(km, args.seed, args.n)
+        train_mixed, mixed_steps = phase_train_mixed(km, args.seed, args.n, history)
         phase_lm_parity(args.seed, PARITY_LAYERS, tol=LM_PARITY_TOL, decode=True)
         phase_lm_parity(args.seed, FULL_LAYERS, tol=None, decode=False)
         lm = phase_lm_serve(args.seed)
@@ -1944,6 +2594,11 @@ def main() -> int:
                        "step_ms": [st["ms"] for st in steps],
                        "b3_ms_per_launch_n_t9": timing["B3"]["ms"],
                        "grad_ms_per_vjp_n_t9": timing["grad"]["ms"]},
+          "mixed": {"serving": mixed_serving,
+                    "training_step_ms": [st["ms"] for st in mixed_steps],
+                    "b1_bf16_ms_t9": timing["B1_bf16"]["ms"],
+                    "b1_bf16_ms_t256": timing["B1_bf16_predict"]["ms"],
+                    "b3_bf16_ms_t9": timing["B3_bf16"]["ms"]},
           "lm_serving": {"arch": "zamba2-7b", "prefill_ms": lm["prefill_ms"],
                          "prefill_warm_ms": lm["prefill_warm_ms"],
                          "decode_ms_per_token": lm["decode_ms_per_token"],
@@ -1955,13 +2610,24 @@ def main() -> int:
     kernels = []
     for name, key, source, replaces, count in (
         ("kernel_matmul (B1)", "B1", KERNEL_SOURCE,
-         "src/repro/kernels/kernel_matmul/kernel_matmul.py:298", launches + train["B1"]),
+         "src/repro/kernels/kernel_matmul/kernel_matmul.py:298",
+         launches + train["B1"] + serve_mixed["B1"] + train_mixed["B1"]),
         ("kernel_matmul batched (B2)", "B2", KERNEL_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:199", batched),
         ("fused_cg_step (B3)", "B3", FUSED_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:487", train["B3"]),
         ("kernel_matmul_grad (port-only VJP, 1 launch per symmetric VJP)", "grad", GRAD_SOURCE,
-         "src/repro/core/inference.py:641 (jax.vjp, no TPU kernel)", train["grad"]),
+         "src/repro/core/inference.py:641 (jax.vjp, no TPU kernel)",
+         train["grad"] + train_mixed["grad"]),
+        ("kernel_matmul bf16 (B1, precision=mixed)", "B1_bf16", KERNEL_BF16_SOURCE,
+         "src/repro/kernels/kernel_matmul/kernel_matmul.py:298 (compute_dtype=bfloat16)",
+         serve_mixed["B1_bf16"] + train_mixed["B1_bf16"]),
+        ("kernel_matmul bf16 batched (B2, precision=mixed)", "B2_bf16", KERNEL_BF16_SOURCE,
+         "src/repro/kernels/kernel_matmul/kernel_matmul.py:199 (compute_dtype=bfloat16)",
+         serve_mixed["B2_bf16"] + train_mixed["B2_bf16"]),
+        ("fused_cg_step bf16 (B3, precision=mixed)", "B3_bf16", FUSED_BF16_SOURCE,
+         "src/repro/kernels/kernel_matmul/kernel_matmul.py:487 (compute_dtype=bfloat16)",
+         train_mixed["B3_bf16"]),
         ("flash_attention (B4)", "B4", FLASH_SOURCE,
          "src/repro/kernels/flash_attention/flash_attention.py:83", lm["launches"]["B4"]),
         ("ssd_scan (B5, bf16 on the tensor-core route)", "B5", SSD_SOURCE,

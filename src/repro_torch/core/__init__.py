@@ -33,7 +33,7 @@ from .linear_operator import (
 )
 from .mbcg import MBCGResult, mbcg, plain_cg_step, tridiag_matrices
 from .pivoted_cholesky import pivoted_cholesky, pivoted_cholesky_dense
-from .precision import normalize_compute_dtype, validate_precision
+from .precision import normalize_compute_dtype, precision_compute_dtype, validate_precision
 from .preconditioner import (
     IdentityPreconditioner,
     PivotedCholeskyPreconditioner,

@@ -6,8 +6,9 @@ small closed taxonomy:
 
     CONVERGED   residual at or under tolerance, nothing pathological
     MAX_ITERS   ran out of budget while still making progress
-    STALLED     curvature guard tripped (no producer in this slice)
-    RESCUED     non-finite rescue fired (no producer in this slice)
+    STALLED     the mixed-precision refresh loop's curvature guard tripped
+                (``MBCGResult.num_curvature_skips``)
+    RESCUED     its non-finite rescue fired (``MBCGResult.num_rescues``)
     NON_FINITE  the returned solution or residual itself is NaN/Inf
     DIVERGED    finite but the relative residual grew past the divergence gate
 

@@ -18,6 +18,13 @@ and the Lanczos tridiagonals for the SLQ log-determinant.
 Under ``BBMMSettings(fuse_cg=True)`` every mBCG iteration is one fused
 step of the operator (on the GPU one B3 launch), where the operator has
 one; only ``precond_rank=0`` composes with it.
+
+Under ``BBMMSettings(precision="mixed")`` the CG loop's matmul (or fused
+step) takes bf16 operands with f32 accumulation and mBCG refreshes the
+residual through the f32 matmul of the same operator every
+``cg_refresh_every`` iterations (:func:`_solver_matmuls`).  The
+preconditioner, the CG vector arithmetic, the MLL's backward and the
+posterior cache's Gram product stay f32.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from . import health
 from .health import SolveFailure, SolveHealthWarning, classify_mbcg
 from .linear_operator import LinearOperator, replace_tensor_leaves, tensor_leaves
 from .mbcg import mbcg
-from .precision import MIXED_NOT_PORTED, validate_precision
+from .precision import precision_compute_dtype, validate_precision
 from .preconditioner import IdentityPreconditioner, build_preconditioner
 from .slq import logdet_from_mbcg
 
@@ -52,10 +59,10 @@ class BBMMSettings:
     cg_tol: float = 1e-4  # per-column relative residual target
     precond_rank: int = 5  # k — pivoted-Cholesky rank (0 = off)
     precond_jitter: float = 1e-8
-    precision: str = "highest"  # "highest" | "mixed" (step 10)
-    cg_refresh_every: int = 2  # mixed: f32 residual-refresh period (step 10)
-    cg_refresh_adaptive: bool = False  # mixed (step 10)
-    cg_refresh_max_period: int = 16  # mixed (step 10)
+    precision: str = "highest"  # "highest" (all f32) | "mixed" (bf16 operands)
+    cg_refresh_every: int = 2  # mixed: f32 residual-refresh period (≥ 1)
+    cg_refresh_adaptive: bool = False  # mixed: stretch the period while the drift is small
+    cg_refresh_max_period: int = 16  # cap of the stretch (0 = uncapped; floored at the period)
     fuse_cg: bool = False  # one fused launch per CG iteration (step 9)
     on_failure: str = "warn"  # "raise" | "warn" | "degrade" (step 13)
     dense_fallback_max_n: int = 2048  # degradation ladder's dense rung (step 13)
@@ -82,15 +89,37 @@ def _fused_step_of(op: LinearOperator, settings: BBMMSettings):
 
 def _solver_matmuls(op: LinearOperator, settings: BBMMSettings):
     """The precision-policy split of one operator into the mBCG inputs:
-    (hot-loop matmul, fused CG step or None).  "highest" → one f32 matmul
-    of the prepared operator (X/ℓ hoisted), no refresh, and under
-    ``fuse_cg`` the prepared operator's fused step.  "mixed" is not ported
-    yet."""
+    (hot-loop matmul, refresh kwargs, fused CG step or None).  "highest" →
+    the f32 matmul of the prepared operator (X/ℓ hoisted), no refresh;
+    "mixed" → the bf16 matmul of the operator prepared AFTER the dtype
+    switch (X/ℓ stored bf16-rounded) for the loop, and the f32 matmul of
+    the same operator for the periodic residual refresh.  Under ``fuse_cg``
+    the fused step comes from the loop's operator, so mixed mode fuses bf16
+    launches while the refresh stays f32."""
     validate_precision(settings.precision)
-    if settings.precision == "mixed":
-        raise NotImplementedError(MIXED_NOT_PORTED)
     solver = op.prepare()
-    return solver.matmul, _fused_step_of(solver, settings)
+    if settings.precision == "mixed":
+        if settings.cg_refresh_every <= 0:
+            # the refresh is what keeps mixed mode honest: bf16 CG without it
+            # reports convergence the true residual never reached
+            raise ValueError(
+                "precision='mixed' requires cg_refresh_every >= 1, got "
+                f"{settings.cg_refresh_every}"
+            )
+        mixed = op.with_compute_dtype(precision_compute_dtype(settings.precision)).prepare()
+        # 0 means uncapped (mbcg: max_iters); a positive cap is floored at
+        # the base period, so adaptivity never shrinks it
+        cap = settings.cg_refresh_max_period
+        if cap > 0:
+            cap = max(cap, settings.cg_refresh_every)
+        refresh = {
+            "refresh_every": settings.cg_refresh_every,
+            "refresh_matmul": solver.matmul,
+            "refresh_adaptive": settings.cg_refresh_adaptive,
+            "refresh_max_period": cap,
+        }
+        return mixed.matmul, refresh, _fused_step_of(mixed, settings)
+    return solver.matmul, {}, _fused_step_of(solver, settings)
 
 
 def _precond_solve_arg(precond):
@@ -170,7 +199,7 @@ def _run_engine(
     Z = precond.sample_probes(generator, settings.num_probes, n).to(y.dtype)
     B = torch.cat([y[:, None], Z], dim=-1)
 
-    matmul, fused_step = _solver_matmuls(op, settings)
+    matmul, refresh_kwargs, fused_step = _solver_matmuls(op, settings)
     res = mbcg(
         matmul,
         B,
@@ -179,6 +208,7 @@ def _run_engine(
         tol=settings.cg_tol,
         return_basis=return_basis,
         fused_step=fused_step,
+        **refresh_kwargs,
     )
     probe_solves = res.solves[..., 1:]
 
@@ -277,7 +307,7 @@ def solve(op, B, settings: BBMMSettings = BBMMSettings(), *, precond=None):
         p = precond
         if p is None:
             p = build_preconditioner(op, s.precond_rank, jitter=s.precond_jitter)
-        matmul, fused_step = _solver_matmuls(op, s)
+        matmul, refresh_kwargs, fused_step = _solver_matmuls(op, s)
         res = mbcg(
             matmul,
             B,
@@ -285,6 +315,7 @@ def solve(op, B, settings: BBMMSettings = BBMMSettings(), *, precond=None):
             max_iters=s.max_cg_iters,
             tol=s.cg_tol,
             fused_step=fused_step,
+            **refresh_kwargs,
         )
         return res.solves, classify_mbcg(res, s.cg_tol, max_iters=s.max_cg_iters)
 

@@ -20,7 +20,16 @@ import dataclasses
 
 import torch
 
-from .precision import require_highest
+from .precision import is_reduced, normalize_compute_dtype
+
+
+def _mixed_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B with bf16 operands and f32 accumulation — the reduced-precision
+    contraction every mixed-policy operator shares: both operands rounded to
+    bf16, their widened values multiplied in f32 (TF32 is off, so the
+    products are exact and the sum is f32).  A matmul of the bf16 tensors
+    themselves would return bf16."""
+    return A.to(torch.bfloat16).float() @ B.to(torch.bfloat16).float()
 
 
 def tensor_leaves(obj) -> list[torch.Tensor]:
@@ -107,8 +116,15 @@ class LinearOperator:
 
     # -- precision policy --------------------------------------------------
     def with_compute_dtype(self, compute_dtype) -> "LinearOperator":
-        """Only "highest" (f32) is ported: validates, and refuses bf16."""
-        require_highest(compute_dtype)
+        """An equivalent operator whose matmul runs its heavy contractions
+        at ``compute_dtype`` ('float32' | 'bfloat16', or the 'highest' /
+        'mixed' aliases), always accumulating in f32.
+
+        Default: no-op (validated) — operators with no reduced-precision
+        formulation (a diagonal, say) stay f32 under the mixed policy, which
+        is correct, just not faster.  Wrappers recurse into their children;
+        σ² diagonals stay f32."""
+        normalize_compute_dtype(compute_dtype)
         return self
 
     def add_diagonal(self, sigma2) -> "AddedDiagOperator":
@@ -120,9 +136,13 @@ class LinearOperator:
 
 @dataclasses.dataclass(frozen=True)
 class DenseOperator(LinearOperator):
-    """Explicit symmetric matrix."""
+    """Explicit symmetric matrix.
+
+    ``compute_dtype="bfloat16"`` rounds both matmul operands to bf16 and
+    accumulates in f32 (:func:`_mixed_matmul`)."""
 
     matrix: torch.Tensor
+    compute_dtype: str = "float32"
 
     @property
     def shape(self):
@@ -137,7 +157,12 @@ class DenseOperator(LinearOperator):
         return self.matrix.device
 
     def matmul(self, M):
+        if is_reduced(self.compute_dtype):
+            return _mixed_matmul(self.matrix, M)
         return self.matrix @ M
+
+    def with_compute_dtype(self, compute_dtype):
+        return dataclasses.replace(self, compute_dtype=normalize_compute_dtype(compute_dtype))
 
     def diagonal(self):
         return torch.diagonal(self.matrix)

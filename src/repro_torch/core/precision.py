@@ -1,5 +1,10 @@
 """The BBMM precision policy (counterpart of ``repro.core.precision``).
 
+BBMM's cost is the repeated kernel matmul inside mBCG, so the one precision
+decision that matters is the dtype of the kernel tiles and the tile × RHS
+products.  Everything else — CG vector updates, inner products, the σ²
+diagonal, preconditioner solves, gradients — stays in float32.
+
 Two policies, named from the user-facing end down to the kernel:
 
   * ``precision="highest"`` → ``compute_dtype="float32"``: every stage f32.
@@ -8,11 +13,17 @@ Two policies, named from the user-facing end down to the kernel:
     ``torch.backends.cudnn.allow_tf32 = False`` (see
     :func:`disable_tf32`), so no plain matmul of the port rounds its
     operands to TF32's 10-bit mantissa behind the policy's back.
-  * ``precision="mixed"``   → ``compute_dtype="bfloat16"``: bf16 kernel
-    tiles with f32 accumulation.  Not ported yet — the bf16 kernel operands
-    and the f32 residual refresh in mBCG come with ROADMAP Queue A step 10;
-    until then every path that would run it raises ``NotImplementedError``
-    (:func:`require_highest`).
+  * ``precision="mixed"``   → ``compute_dtype="bfloat16"``: kernel tiles
+    and the tile × RHS product take bf16 operands with f32 accumulation
+    (on the GPU the bf16 kernels, ``mma.sync`` bf16 on the tensor cores).
+    CG keeps its tolerance through a periodic f32 residual refresh inside
+    mBCG (:mod:`repro_torch.core.mbcg`).
+
+``compute_dtype`` is the low-level knob threaded through the kernels,
+``prescale_inputs``, the ``KernelOperator`` family and
+``LinearOperator.with_compute_dtype``; ``precision`` is the end-to-end knob
+on ``BBMMSettings`` / ``ExactGP``.  Both accept either vocabulary —
+:func:`normalize_compute_dtype` maps between them.
 """
 
 from __future__ import annotations
@@ -24,12 +35,7 @@ PRECISIONS = ("highest", "mixed")
 # precision alias → canonical compute_dtype name
 _PRECISION_TO_COMPUTE = {"highest": "float32", "mixed": "bfloat16"}
 
-_COMPUTE_DTYPES = ("float32", "bfloat16")
-
-MIXED_NOT_PORTED = (
-    "precision='mixed' (bf16 kernel tiles + f32 residual refresh) is not "
-    "ported yet: ROADMAP Queue A step 10"
-)
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def disable_tf32() -> None:
@@ -49,9 +55,14 @@ def normalize_compute_dtype(compute_dtype) -> str:
     if name not in _COMPUTE_DTYPES:
         raise ValueError(
             f"unknown compute_dtype {compute_dtype!r}; expected one of "
-            f"{_COMPUTE_DTYPES} or precision {PRECISIONS}"
+            f"{sorted(_COMPUTE_DTYPES)} or precision {PRECISIONS}"
         )
     return name
+
+
+def as_torch_dtype(compute_dtype) -> torch.dtype:
+    """The torch dtype for a compute_dtype / precision name."""
+    return _COMPUTE_DTYPES[normalize_compute_dtype(compute_dtype)]
 
 
 def validate_precision(precision: str) -> str:
@@ -60,14 +71,13 @@ def validate_precision(precision: str) -> str:
     return precision
 
 
+def precision_compute_dtype(precision: str) -> str:
+    """End-to-end precision knob → compute_dtype name."""
+    return _PRECISION_TO_COMPUTE[validate_precision(precision)]
+
+
 def is_reduced(compute_dtype) -> bool:
-    """True when the policy selects bf16 operands."""
+    """True when the policy selects bf16 operands.  Operators test their
+    ``compute_dtype`` through this (never ``== "bfloat16"``), so the
+    'mixed' alias means the same on every construction path."""
     return normalize_compute_dtype(compute_dtype) == "bfloat16"
-
-
-def require_highest(compute_dtype) -> str:
-    """Validate a compute dtype and refuse the (not yet ported) bf16 one."""
-    name = normalize_compute_dtype(compute_dtype)
-    if is_reduced(name):
-        raise NotImplementedError(MIXED_NOT_PORTED)
-    return name

@@ -14,7 +14,9 @@ the ROADMAP step that brings them.
 kernel, its gradient through the gradient kernel, and — with
 ``fuse_cg=True`` and ``precond_rank=0`` — every CG iteration as one fused
 kernel launch; ``device`` defaults to CUDA and must be given as ``"cpu"``
-to run the plain path without a GPU.
+to run the plain path without a GPU.  ``precision="mixed"`` runs the CG
+loop's kernels with bf16 operands and f32 residual refreshes, the served
+mean with bf16 operands; the gradient stays f32.
 """
 
 from __future__ import annotations
@@ -61,6 +63,12 @@ class ExactGP(KrylovCachePredictor):
     settings: BBMMSettings = dataclasses.field(default_factory=BBMMSettings)
     # None → CUDA (raises without a GPU); "cpu" runs the plain path
     device: torch.device | str | None = None
+    # end-to-end precision knob: "highest" (all f32) or "mixed" (bf16 kernel
+    # operands, f32 accumulation, periodic f32 residual refresh in mBCG).
+    # None follows ``settings.precision``; an explicit value wins, so
+    # replace(gp, precision="highest") switches a mixed model back.
+    # ``settings.precision`` is what the engine reads either way.
+    precision: str | None = None
     # fused-CG knob: True runs each mBCG iteration as ONE fused kernel launch
     # where the operator has one (mode="cuda"; dense/blocked keep the
     # unfused loop).  Requires precond_rank=0 (mbcg raises otherwise).  None
@@ -69,6 +77,8 @@ class ExactGP(KrylovCachePredictor):
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.precision is not None:
+            self.settings = dataclasses.replace(self.settings, precision=self.precision)
         if self.fuse_cg is not None:
             self.settings = dataclasses.replace(self.settings, fuse_cg=self.fuse_cg)
         if self.kernel_type not in KERNELS:

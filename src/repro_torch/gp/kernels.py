@@ -13,6 +13,14 @@ materialization strategy:
                   CPU tensors the kernel's wrapper runs its plain version.
 
 All three are numerically interchangeable; the tests assert it.
+
+``compute_dtype`` ('float32' | 'bfloat16', or the 'highest' / 'mixed'
+aliases; :mod:`repro_torch.core.precision`) selects the operands of the
+heavy contraction: under bf16, ``dense`` and ``blocked`` multiply the f32
+kernel block and M as bf16 operands with f32 accumulation (X itself is not
+rounded), and ``cuda`` prepares with X/ℓ rounded to bf16 and launches the
+bf16 kernels — as the reference's ``dense``, ``blocked`` and ``pallas``
+modes do.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ import math
 
 import torch
 
-from repro_torch.core.linear_operator import LinearOperator
+from repro_torch.core.linear_operator import LinearOperator, _mixed_matmul
+from repro_torch.core.precision import is_reduced, normalize_compute_dtype
 
 MODES = ("dense", "blocked", "cuda")
 
@@ -91,6 +100,7 @@ class KernelOperator(LinearOperator):
     X: torch.Tensor  # (n, d)
     mode: str = "dense"  # dense | blocked | cuda
     block_size: int = 512
+    compute_dtype: str = "float32"  # the product's operands (module docstring)
 
     def __post_init__(self):
         if self.mode in _UNPORTED_MODES:
@@ -119,7 +129,7 @@ class KernelOperator(LinearOperator):
         if squeeze:
             M = M[:, None]
         if self.mode == "dense":
-            out = self.kernel(self.X, self.X) @ M
+            out = self._contract(self.kernel(self.X, self.X), M)
         elif self.mode == "blocked":
             out = self._blocked_matmul(M)
         else:
@@ -142,9 +152,17 @@ class KernelOperator(LinearOperator):
         return PreparedKernelOperator(
             kernel=self.kernel,
             X=self.X,
-            Xs=prescale_inputs(self.X, self.kernel.lengthscale),
+            Xs=prescale_inputs(self.X, self.kernel.lengthscale, self.compute_dtype),
             kernel_type=stationary_kernel_type(self.kernel),
+            compute_dtype=self.compute_dtype,
         )
+
+    def with_compute_dtype(self, compute_dtype):
+        return dataclasses.replace(self, compute_dtype=normalize_compute_dtype(compute_dtype))
+
+    def _contract(self, K, M):
+        """A kernel block times M under this operator's policy."""
+        return _mixed_matmul(K, M) if is_reduced(self.compute_dtype) else K @ M
 
     def fused_cg_step_fn(self, sigma2=None):
         """Fused CG capability: cuda mode delegates to its prepared form (the
@@ -158,7 +176,7 @@ class KernelOperator(LinearOperator):
         n = self.X.shape[0]
         b = min(self.block_size, n)
         return torch.cat(
-            [self.kernel(self.X[i : i + b], self.X) @ M for i in range(0, n, b)]
+            [self._contract(self.kernel(self.X[i : i + b], self.X), M) for i in range(0, n, b)]
         )
 
     def row(self, i):
@@ -172,13 +190,16 @@ class KernelOperator(LinearOperator):
 class PreparedKernelOperator(LinearOperator):
     """KernelOperator(mode='cuda') after ``prepare()``: X is already divided
     by the (possibly ARD) lengthscale, so the CG loop's per-iteration matmul
-    is one kernel launch and nothing else.  The matmul is differentiable in
-    Xs and the outputscale (the gradient kernel is its backward)."""
+    is one kernel launch and nothing else.  The f32 matmul is differentiable
+    in Xs and the outputscale (the gradient kernel is its backward); under
+    a bf16 ``compute_dtype`` it launches the bf16 kernel and carries no
+    gradient."""
 
     kernel: object  # original kernel (row/diagonal accessors, outputscale)
     X: torch.Tensor  # (n, d) original inputs (row/diagonal accessors)
-    Xs: torch.Tensor  # (n, d) pre-scaled, f32, contiguous
+    Xs: torch.Tensor  # (n, d) pre-scaled, f32 values (bf16-rounded under bf16), contiguous
     kernel_type: str = "rbf"
+    compute_dtype: str = "float32"
 
     @property
     def shape(self):
@@ -203,7 +224,13 @@ class PreparedKernelOperator(LinearOperator):
             self.kernel.outputscale,
             0.0,
             kernel_type=self.kernel_type,
+            compute_dtype=self.compute_dtype,
         )
+
+    def with_compute_dtype(self, compute_dtype):
+        # Xs keeps its stored values (bf16-rounded values cannot regain f32
+        # bits); the kernel takes operands at the requested compute_dtype
+        return dataclasses.replace(self, compute_dtype=normalize_compute_dtype(compute_dtype))
 
     def fused_cg_step_fn(self, sigma2=None):
         """One-launch CG iteration (B3): the state update, V = (K + σ²I)·D and
@@ -216,10 +243,12 @@ class PreparedKernelOperator(LinearOperator):
         if s2.dim():
             return None
         Xs, outputscale, kernel_type = self.Xs, self.kernel.outputscale, self.kernel_type
+        compute_dtype = self.compute_dtype
 
         def step(U, R, D, V, alpha, beta, gamma):
             return fused_cg_step_prescaled(
-                Xs, U, R, D, V, alpha, beta, gamma, outputscale, s2, kernel_type=kernel_type
+                Xs, U, R, D, V, alpha, beta, gamma, outputscale, s2, kernel_type=kernel_type,
+                compute_dtype=compute_dtype,
             )
 
         return step
@@ -233,11 +262,18 @@ class PreparedKernelOperator(LinearOperator):
 
 @dataclasses.dataclass(frozen=True)
 class CrossKernelOperator:
-    """k(X1, X2) rectangular block for predictions (not square — helper)."""
+    """k(X1, X2) rectangular block for predictions (not square — helper).
+
+    ``compute_dtype`` routes the test-vs-train contraction through the same
+    precision policy as the training operators (bf16 operands, f32
+    accumulation under "bfloat16" / "mixed"), so a model run at
+    ``precision="mixed"`` serves its means through the same reduced-precision
+    contraction."""
 
     kernel: object
     X1: torch.Tensor
     X2: torch.Tensor
+    compute_dtype: str = "float32"
 
     @property
     def shape(self):
@@ -247,12 +283,16 @@ class CrossKernelOperator:
         return self.kernel(self.X1, self.X2)
 
     def contract(self, K, M):
-        """K @ M for a precomputed cross block K (``to_dense()`` or its
-        transpose), so serving evaluates the kernel block once."""
-        return K @ M
+        """K @ M under this operator's precision policy, for a precomputed
+        cross block K (``to_dense()`` or its transpose), so serving
+        evaluates the kernel block once."""
+        return _mixed_matmul(K, M) if is_reduced(self.compute_dtype) else K @ M
 
     def matmul(self, M):
         return self.contract(self.kernel(self.X1, self.X2), M)
 
     def rmatmul(self, M):
         return self.contract(self.kernel(self.X2, self.X1), M)
+
+    def with_compute_dtype(self, compute_dtype):
+        return dataclasses.replace(self, compute_dtype=normalize_compute_dtype(compute_dtype))

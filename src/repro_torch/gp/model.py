@@ -22,7 +22,12 @@ from typing import Protocol, runtime_checkable
 
 import torch
 
-from repro_torch.core import BBMMSettings, build_posterior_cache, cached_inv_quad
+from repro_torch.core import (
+    BBMMSettings,
+    build_posterior_cache,
+    cached_inv_quad,
+    precision_compute_dtype,
+)
 from repro_torch.core import solve as bbmm_solve
 
 PROTOCOL_METHODS = (
@@ -92,14 +97,22 @@ class KrylovCachePredictor:
         )
 
     def _cross(self, params, data, Xstar):
+        """The test-vs-train block, carrying the model's precision policy:
+        its ``contract`` runs the served mean at the compute dtype of
+        training (bf16 operands under "mixed", a plain matmul under
+        "highest")."""
         from .kernels import CrossKernelOperator
 
-        return CrossKernelOperator(self.kernel(params), self._tensor(data), self._tensor(Xstar))
+        return CrossKernelOperator(
+            self.kernel(params), self._tensor(data), self._tensor(Xstar),
+            compute_dtype=precision_compute_dtype(self.settings.precision),
+        )
 
     def predict_cached(self, params, data, cache, Xstar, *, full_cov=False):
         """Serve mean + variance from a PosteriorCache — zero CG iterations.
 
-        Mean: k*ᵀα, O(n·s).  Variance: Rayleigh–Ritz k*ᵀK̂⁻¹k* from the
+        Mean: k*ᵀα, O(n·s), contracted under the model's precision policy.
+        Variance: Rayleigh–Ritz k*ᵀK̂⁻¹k* from the
         cached Krylov basis, O(n·m) — conservative (never below the exact
         posterior variance)."""
         Xstar = self._tensor(Xstar)

@@ -17,10 +17,13 @@ Robustness, as in the reference:
   * non-finite ``X``/``y`` are rejected up front;
   * every step's loss is checked on the host under the model's
     ``settings.on_failure``: ``raise`` fails the fit, ``warn`` records the
-    non-finite loss and skips the poisoned update; ``degrade`` would retry
-    the step at ``precision="highest"`` after a mixed-precision failure,
-    which needs mixed precision (ROADMAP Queue A step 10), so it raises
-    ``NotImplementedError``.
+    non-finite loss and skips the poisoned update; ``degrade`` retries a
+    non-finite step of a mixed-precision model once, from the pre-step
+    parameters, at ``precision="highest"`` (with a
+    :class:`~repro_torch.core.health.SolveHealthWarning`; the poisoned
+    update is discarded and the fit goes on at "highest"), and later
+    failures fall through to skip-and-warn.  The retry draws its probes
+    anew from the generator, as the reference's splits a new key.
 
 The reference's fallback for a Pallas autodiff gap of its pinned jax has no
 counterpart: the port's kernels carry their own backward.
@@ -28,6 +31,7 @@ counterpart: the port's kernels carry their own backward.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import warnings
 from typing import Callable
@@ -38,12 +42,6 @@ from repro_torch.core.health import SolveFailure, SolveHealthWarning
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
-
-DEGRADE_NOT_PORTED = (
-    "fit_gp: on_failure='degrade' retries a non-finite step at "
-    "precision='highest' after a mixed-precision failure; mixed precision "
-    "is not ported yet: ROADMAP Queue A step 10"
-)
 
 
 def _require_finite(name: str, x: torch.Tensor) -> None:
@@ -97,7 +95,9 @@ def fit_gp(
     policy = getattr(getattr(model, "settings", None), "on_failure", "warn")
 
     history = []
-    for i in range(steps):
+    precision_degraded = False
+    i = 0
+    while i < steps:
         opt.zero_grad(set_to_none=True)
         loss = model.loss(params, data, y, generator)
         loss_f = float(loss.detach())  # host sync: the forward is done here
@@ -107,8 +107,22 @@ def fit_gp(
                     f"fit_gp: non-finite loss ({loss_f}) at step {i} with "
                     "on_failure='raise'"
                 )
-            if policy == "degrade":
-                raise NotImplementedError(DEGRADE_NOT_PORTED)
+            if (
+                policy == "degrade"
+                and not precision_degraded
+                and getattr(model, "settings", None) is not None
+                and model.settings.precision != "highest"
+            ):
+                warnings.warn(
+                    f"fit_gp: non-finite loss at step {i}; retrying from the "
+                    "pre-step parameters at precision='highest' (the "
+                    "poisoned update was discarded)",
+                    SolveHealthWarning,
+                    stacklevel=2,
+                )
+                precision_degraded = True
+                model = _at_highest(model)
+                continue  # retry the SAME step; params / Adam state not advanced
             warnings.warn(
                 f"fit_gp: non-finite loss at step {i}; skipping the poisoned "
                 "update (parameters unchanged this step)",
@@ -118,10 +132,23 @@ def fit_gp(
             history.append(loss_f)  # honest history: the step DID go bad
             if callback is not None:
                 callback(i, loss_f)
+            i += 1
             continue
         loss.backward()
         opt.step()
         history.append(loss_f)
         if callback is not None:
             callback(i, loss_f)
+        i += 1
     return {k: v.detach() for k, v in params.items()}, history
+
+
+def _at_highest(model):
+    """The model switched to precision="highest": through its own knob where
+    it has one set (which wins over ``settings`` in ``__post_init__``), else
+    through its settings."""
+    if getattr(model, "precision", None) is not None:
+        return dataclasses.replace(model, precision="highest")
+    return dataclasses.replace(
+        model, settings=dataclasses.replace(model.settings, precision="highest")
+    )

@@ -7,12 +7,17 @@ loaded with ctypes:
   * ``kernel_matmul/csrc/kernel_matmul.cu``      — B1/B2, the kernel-matrix matmul;
   * ``kernel_matmul/csrc/fused_cg_step.cu``      — B3, one fused mBCG iteration;
   * ``kernel_matmul/csrc/kernel_matmul_grad.cu`` — the matmul's gradient;
+  * ``kernel_matmul/csrc/kernel_matmul_bf16.cu`` — B1/B2 with bf16 operands
+    (``precision="mixed"``);
+  * ``kernel_matmul/csrc/fused_cg_step_bf16.cu`` — B3 with bf16 operands;
   * ``flash_attention/csrc/flash_attention.cu``  — B4, flash attention;
   * ``ssd_scan/csrc/ssd_scan.cu``                — B5, the Mamba-2 SSD scan.
 
-The first three include ``kernel_matmul/csrc/tf32_tile.cuh`` (B1's
-tensor-core tile loop and its helpers) and ``common.cuh``, so those
-headers are compiled into three libraries.
+The kernel-matrix sources include ``kernel_matmul/csrc/tf32_tile.cuh``
+(B1's tensor-core tile loop and its helpers) and ``common.cuh``; B1's and
+B3's, in f32 and bf16, also ``epilogues.cuh`` (their stores), and the two
+bf16 ones ``bf16_tile.cuh`` (the bf16 tile loop), so those headers are
+compiled into several libraries.
 
 The build happens at first use, into ``_build/`` beside this file
 (gitignored), one ``nvcc`` process per source, all started together.  Each
@@ -52,6 +57,13 @@ ENTRY_POINTS = {
     # X1, X2, A, B, scal, G, partial, gsum; rows, cols, d, t, kernel_type;
     # stream
     "kernel_matmul_grad": ("kernel_matmul_grad_f32", [_P] * 8 + [_I] * 5 + [_P]),
+    # X1, X2, Mb (bf16), scal, out; rows, cols, d, t, tp, batch, row_offset,
+    # kernel_type; stream
+    "kernel_matmul_bf16": ("kernel_matmul_bf16", [_P] * 5 + [_I] * 8 + [_P]),
+    # X1, X2, U, R, D, V, Rc, Dc, Vc, abg, scal, Uo, Ro, Do, Vo, partial,
+    # Db (bf16), red; rows, cols, d, t, tp, batch, row_offset, kernel_type;
+    # stream
+    "fused_cg_step_bf16": ("fused_cg_step_bf16", [_P] * 18 + [_I] * 8 + [_P]),
     # q, k, v, o, strides (host int64[12]); dtype, b, hq, hkv, sq, skv, dh;
     # scale; causal; stream
     "flash_attention": ("flash_attention_fwd", [_P] * 5 + [_I] * 7 + [_F, _I, _P]),

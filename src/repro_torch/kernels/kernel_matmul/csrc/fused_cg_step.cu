@@ -41,6 +41,7 @@
 
 #include <cuda_runtime.h>
 
+#include "epilogues.cuh"  // the end: V' and the partial reductions
 #include "tf32_tile.cuh"  // B1's tile loop and its helpers
 
 namespace {
@@ -89,76 +90,12 @@ __global__ void __launch_bounds__(NT, TB == 16 ? (D8 ? 3 : 2) : 1) fused_cg_prod
     float* __restrict__ Vo, float* __restrict__ partial, int rows, int cols, int d, int t,
     int batch, int row_offset, int flags) {
   constexpr int NCH = TB / 8;  // n8 tiles of the accumulator
-  constexpr int RG = NT / TB;  // row groups of the reductions
   tile_kernel<KT, TB, D8>(
       X1, X2, M, scal, Vo, rows, cols, d, t, row_offset, flags,
       [&](float (&acc)[NCH][4], float* red, int kh, int ra, int c, int nch, int i0, int t0,
           long long b, float* Vb) {
-        // the ring holds the second k-half's sums (red), this block's V'
-        // and the reductions' row-group sums: 2 BN TB + 4 NT floats
-        float* sV = red + BN * TB;
-        float* sRed = sV + BN * TB;  // [4][RG][TB]
-        if (kh == 1) {
-#pragma unroll
-          for (int n = 0; n < NCH; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if (n < nch) red[(ra + 8 * (e / 2)) * TB + 8 * n + 2 * c + e % 2] = acc[n][e];
-            }
-          }
-        }
-        __syncthreads();
-        if (kh == 0) {
-#pragma unroll
-          for (int n = 0; n < NCH; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int li = ra + 8 * (e / 2);
-              const int lc = 8 * n + 2 * c + e % 2;
-              if (n < nch) {
-                const float v = acc[n][e] + red[li * TB + lc];
-                sV[li * TB + lc] = v;
-                if (i0 + li < rows && t0 + lc < t) {
-                  Vb[static_cast<long long>(i0 + li) * t + t0 + lc] = v;
-                }
-              }
-            }
-          }
-        }
-        __syncthreads();
-
-        // the reductions over this block's rows < rows: thread (rg, col)
-        // sums rows rg, rg + RG, ... in order, then the RG sums of a column
-        // in order
-        const int tid = threadIdx.x;
-        const int col = tid % TB, rg = tid / TB;
-        const int gc = t0 + col;
-        const long long row_base = b * rows * t;
-        float dv = 0.0f, rr = 0.0f, rv = 0.0f, vv = 0.0f;
-        if (gc < t) {
-          for (int li = rg; li < BN && i0 + li < rows; li += RG) {
-            const long long idx = row_base + static_cast<long long>(i0 + li) * t + gc;
-            const float rn = Ro[idx], dn = Do[idx], vn = sV[li * TB + col];
-            dv = fmaf(dn, vn, dv);
-            rr = fmaf(rn, rn, rr);
-            rv = fmaf(rn, vn, rv);
-            vv = fmaf(vn, vn, vv);
-          }
-        }
-        sRed[(0 * RG + rg) * TB + col] = dv;
-        sRed[(1 * RG + rg) * TB + col] = rr;
-        sRed[(2 * RG + rg) * TB + col] = rv;
-        sRed[(3 * RG + rg) * TB + col] = vv;
-        __syncthreads();
-        if (tid < 4 * TB) {
-          const int q = tid / TB, cc = tid % TB;
-          float s = 0.0f;
-#pragma unroll
-          for (int r = 0; r < RG; ++r) s += sRed[(q * RG + r) * TB + cc];  // fixed order
-          if (t0 + cc < t) {
-            partial[((static_cast<long long>(blockIdx.x) * batch + b) * 4 + q) * t + t0 + cc] = s;
-          }
-        }
+        store_cg_product<TB>(acc, red, kh, ra, c, nch, i0, t0, b, Vb, Ro, Do, partial, rows, t,
+                             batch);
       });
 }
 

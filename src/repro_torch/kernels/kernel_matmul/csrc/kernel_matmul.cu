@@ -62,13 +62,14 @@
 //   * nothing is carried between blocks: no atomics, and each output is
 //     written once by one thread.
 //
-// The tile loop and its helpers live in tf32_tile.cuh (tile_kernel, with
-// this kernel's stores as its epilogue), which B3 and the gradient kernel
-// share.  The launch goes on the caller's stream and the entry point
+// The tile loop and its helpers live in tf32_tile.cuh (tile_kernel), which
+// B3 and the gradient kernel share; this kernel's stores, its epilogue, in
+// epilogues.cuh, which the bf16 kernels share.  The launch goes on the caller's stream and the entry point
 // returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "epilogues.cuh"  // the end: the two k-halves meet, the stores
 #include "tf32_tile.cuh"  // the tile loop and its helpers
 
 namespace {
@@ -84,33 +85,7 @@ __global__ void __launch_bounds__(NT, TB == 16 ? 3 : 1) kernel_matmul_kernel(
       X1, X2, M, scal, out, rows, cols, d, t, row_offset, flags,
       [&](float (&acc)[NCH][4], float* red, int kh, int ra, int c, int nch, int i0, int t0,
           long long, float* out) {
-        // the two k-halves meet: the second half's warps leave their sums
-        // in shared memory (red, BN x TB), the first half's add them (in
-        // that fixed order) and store
-        if (kh == 1) {
-#pragma unroll
-          for (int n = 0; n < NCH; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if (n < nch) red[(ra + 8 * (e / 2)) * TB + 8 * n + 2 * c + e % 2] = acc[n][e];
-            }
-          }
-        }
-        __syncthreads();
-        if (kh == 0) {
-#pragma unroll
-          for (int n = 0; n < NCH; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int li = ra + 8 * (e / 2);
-              const int lc = 8 * n + 2 * c + e % 2;
-              if (n < nch && i0 + li < rows && t0 + lc < t) {
-                out[static_cast<long long>(i0 + li) * t + t0 + lc] =
-                    acc[n][e] + red[li * TB + lc];
-              }
-            }
-          }
-        }
+        store_product<TB>(acc, red, kh, ra, c, nch, i0, t0, out, rows, t);
       });
 }
 

@@ -15,19 +15,31 @@
     ``torch.autograd.Function`` whose backward is the gradient kernel (the
     second for one X on both sides, as in training).
 
+B1/B2 and B3 take ``compute_dtype``: "float32" (``precision="highest"``)
+launches the 3xTF32 kernels above, "bfloat16" (``precision="mixed"``) their
+bf16-operand counterparts (``csrc/kernel_matmul_bf16.cu``,
+``csrc/fused_cg_step_bf16.cu``): the kernel entries formed in f32 and
+rounded to bf16, the right-hand side rounded to bf16, the product summed
+in f32.  The gradient kernel is f32 only: the MLL's backward runs through
+the f32 operator, as the reference's VJP does.
+
 Each kernel is bound with ctypes.  On CUDA tensors a wrapper launches its
 kernel; on CPU tensors it runs the plain PyTorch version from :mod:`.ref`.
-There is no fallback between the two: a CUDA tensor launches the kernel or
-raises.
+There is no fallback between the two: a CUDA tensor launches the kernel
+of the requested dtype or raises.
 
-The module-level counters (``launches``, ``batched_launches``,
-``fused_launches``, ``grad_launches``) count kernel launches, so a run can
-show that its main path went through the kernels.
+The module-level counters count kernel launches per kernel and dtype
+(``launches``, ``batched_launches``, ``fused_launches``, ``grad_launches``
+for f32; ``bf16_launches``, ``bf16_batched_launches``,
+``bf16_fused_launches`` for bf16), so a run can show that its main path
+went through the kernels it asked for.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.precision import is_reduced
 
 from ..build import load_library
 from .ref import (
@@ -48,6 +60,10 @@ batched_launches = 0
 fused_launches = 0
 #: gradient-kernel launches since the last reset
 grad_launches = 0
+#: bf16-operand launches of B1, B2 and B3 since the last reset
+bf16_launches = 0
+bf16_batched_launches = 0
+bf16_fused_launches = 0
 
 #: the most features the gradient kernel takes
 GRAD_MAX_D = 32
@@ -60,7 +76,16 @@ ROW_BLOCK = 64
 
 def reset_launch_counts() -> None:
     global launches, batched_launches, fused_launches, grad_launches
+    global bf16_launches, bf16_batched_launches, bf16_fused_launches
     launches = batched_launches = fused_launches = grad_launches = 0
+    bf16_launches = bf16_batched_launches = bf16_fused_launches = 0
+
+
+def _padded_width(t: int) -> int:
+    """Columns of a bf16 right-hand side as the bf16 kernels read it: t
+    rounded up to a multiple of 8, so that every row stages by 16-byte
+    copies."""
+    return -(-t // 8) * 8
 
 
 def _device_scalar(v, device) -> torch.Tensor:
@@ -121,20 +146,25 @@ def kernel_matmul_cuda(
     row_offset: int = 0,
     *,
     kernel_type: str = "rbf",
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """(K(X1, X2) + σ²·[row_offset + i == j]) @ M → (rows, t) or (b, rows, t).
 
     X1 (rows, d) and X2 (cols, d) are pre-divided by the lengthscale; M is
     (cols, t) or (b, cols, t); all f32 and contiguous.  ``outputscale`` and
     ``sigma2`` are floats or 0-d tensors; ``row_offset`` is the global row
-    index of X1[0] (a host int).  The output is f32.
+    index of X1[0] (a host int).  The output is f32.  Under a bf16
+    ``compute_dtype`` the bf16 kernel runs on a bf16 copy of M, its rows
+    padded to a multiple of 8 columns (one cast here).
     """
+    reduced = is_reduced(compute_dtype)
     if all(x.device.type == "cpu" for x in (X1, X2, M)):
         return kernel_matmul_plain(
-            X1, X2, M, outputscale, sigma2, row_offset, kernel_type=kernel_type
+            X1, X2, M, outputscale, sigma2, row_offset, kernel_type=kernel_type,
+            compute_dtype=compute_dtype,
         )
     _check_cuda_args(X1, X2, M, kernel_type, row_offset)
-    global launches, batched_launches
+    global launches, batched_launches, bf16_launches, bf16_batched_launches
     batched = M.dim() == 3
     rows, d = X1.shape
     cols, t = M.shape[-2:]
@@ -146,20 +176,34 @@ def kernel_matmul_cuda(
     scal = torch.stack(
         [_device_scalar(outputscale, M.device), _device_scalar(sigma2, M.device)]
     )
-    lib = load_library("kernel_matmul")
     with torch.cuda.device(M.device):
         stream = torch.cuda.current_stream(M.device).cuda_stream
-        err = lib.kernel_matmul_f32(
-            X1.data_ptr(), X2.data_ptr(), M.data_ptr(), scal.data_ptr(),
-            out.data_ptr(), rows, cols, d, t, batch, int(row_offset),
-            KERNEL_TYPE_CODES[kernel_type], stream,
-        )
+        if reduced:
+            symbol = "kernel_matmul_bf16"
+            tp = _padded_width(t)
+            Mb = torch.nn.functional.pad(M.to(torch.bfloat16), (0, tp - t)).contiguous()
+            err = load_library(symbol).kernel_matmul_bf16(
+                X1.data_ptr(), X2.data_ptr(), Mb.data_ptr(), scal.data_ptr(),
+                out.data_ptr(), rows, cols, d, t, tp, batch, int(row_offset),
+                KERNEL_TYPE_CODES[kernel_type], stream,
+            )
+        else:
+            symbol = "kernel_matmul_f32"
+            err = load_library("kernel_matmul").kernel_matmul_f32(
+                X1.data_ptr(), X2.data_ptr(), M.data_ptr(), scal.data_ptr(),
+                out.data_ptr(), rows, cols, d, t, batch, int(row_offset),
+                KERNEL_TYPE_CODES[kernel_type], stream,
+            )
     if err != 0:
         raise RuntimeError(
-            f"kernel_matmul_f32 launch failed with cudaError {err} "
+            f"{symbol} launch failed with cudaError {err} "
             f"(rows={rows}, cols={cols}, d={d}, t={t}, batch={batch})"
         )
-    if batched:
+    if reduced and batched:
+        bf16_batched_launches += 1
+    elif reduced:
+        bf16_launches += 1
+    elif batched:
         batched_launches += 1
     else:
         launches += 1
@@ -199,6 +243,7 @@ def _check_fused_args(X1, X2, state, cols_state, scalars, kernel_type, row_offse
 def fused_cg_step_cuda(
     Xs_rows, Xs_cols, U, R, D, V, R_cols, D_cols, V_cols, alpha, beta, gamma,
     outputscale, sigma2, row_offset: int = 0, *, kernel_type: str = "rbf",
+    compute_dtype: str = "float32",
 ):
     """One fused CG iteration (B3): (U′, R′, D′, V′, red).
 
@@ -210,17 +255,21 @@ def fused_cg_step_cuda(
     V′ = (K + σ²·[row_offset+i = j])·D′ — and red (b, 4, t) =
     [D′ᵀV′; R′ᵀR′; R′ᵀV′; V′ᵀV′] over this call's rows.  The inputs are
     never written: the caller's next call takes the outputs (ping-pong).
-    All f32 and contiguous; the scalars may be floats or 0-d tensors."""
+    All f32 and contiguous; the scalars may be floats or 0-d tensors.  Under
+    a bf16 ``compute_dtype`` the product takes bf16 operands (the bf16 B3;
+    the state and the reductions stay f32)."""
+    reduced = is_reduced(compute_dtype)
     tensors = (Xs_rows, Xs_cols, U, R, D, V, R_cols, D_cols, V_cols, alpha, beta, gamma)
     if all(x.device.type == "cpu" for x in tensors):
         return fused_cg_step_plain(
-            *tensors, outputscale, sigma2, row_offset, kernel_type=kernel_type
+            *tensors, outputscale, sigma2, row_offset, kernel_type=kernel_type,
+            compute_dtype=compute_dtype,
         )
     _check_fused_args(
         Xs_rows, Xs_cols, (U, R, D, V), (R_cols, D_cols, V_cols), (alpha, beta, gamma),
         kernel_type, row_offset,
     )
-    global fused_launches
+    global fused_launches, bf16_fused_launches
     dev = U.device
     b, rows, t = U.shape
     cols, d = Xs_cols.shape
@@ -229,33 +278,47 @@ def fused_cg_step_cuda(
     if rows == 0 or t == 0 or b == 0:
         return Uo, Ro, Do, Vo, red.zero_()
     row_blocks = -(-rows // ROW_BLOCK)
-    # scratch: the row blocks' partial reductions, then the columns' D′
-    # unless the column state is the rows' own (the kernel reads Do then)
+    # scratch: the row blocks' partial reductions; in f32, then the columns'
+    # D′ unless the column state is the rows' own (the kernel reads Do
+    # then); in bf16, the columns' bf16 D′ in a buffer of its own
     shared = rows == cols and all(
         a.data_ptr() == c.data_ptr() for a, c in ((R, R_cols), (D, D_cols), (V, V_cols))
     )
     partial = torch.empty(
-        row_blocks * b * 4 * t + (0 if shared else b * cols * t), dtype=torch.float32, device=dev
+        row_blocks * b * 4 * t + (0 if shared or reduced else b * cols * t),
+        dtype=torch.float32, device=dev,
     )
     abg = torch.stack([alpha, beta, gamma])
     scal = torch.stack([_device_scalar(outputscale, dev), _device_scalar(sigma2, dev)])
-    lib = load_library("fused_cg_step")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_cg_step_f32(
-            Xs_rows.data_ptr(), Xs_cols.data_ptr(), U.data_ptr(), R.data_ptr(),
+    head = (Xs_rows.data_ptr(), Xs_cols.data_ptr(), U.data_ptr(), R.data_ptr(),
             D.data_ptr(), V.data_ptr(), R_cols.data_ptr(), D_cols.data_ptr(),
             V_cols.data_ptr(), abg.data_ptr(), scal.data_ptr(), Uo.data_ptr(),
-            Ro.data_ptr(), Do.data_ptr(), Vo.data_ptr(), partial.data_ptr(),
-            red.data_ptr(), rows, cols, d, t, b, int(row_offset),
-            KERNEL_TYPE_CODES[kernel_type], stream,
-        )
+            Ro.data_ptr(), Do.data_ptr(), Vo.data_ptr(), partial.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if reduced:
+            symbol = "fused_cg_step_bf16"
+            tp = _padded_width(t)
+            Db = torch.empty((b, cols, tp), dtype=torch.bfloat16, device=dev)
+            err = load_library(symbol).fused_cg_step_bf16(
+                *head, Db.data_ptr(), red.data_ptr(), rows, cols, d, t, tp, b,
+                int(row_offset), KERNEL_TYPE_CODES[kernel_type], stream,
+            )
+        else:
+            symbol = "fused_cg_step_f32"
+            err = load_library("fused_cg_step").fused_cg_step_f32(
+                *head, red.data_ptr(), rows, cols, d, t, b, int(row_offset),
+                KERNEL_TYPE_CODES[kernel_type], stream,
+            )
     if err != 0:
         raise RuntimeError(
-            f"fused_cg_step_f32 launch failed with cudaError {err} "
+            f"{symbol} launch failed with cudaError {err} "
             f"(rows={rows}, cols={cols}, d={d}, t={t}, batch={b})"
         )
-    fused_launches += 1
+    if reduced:
+        bf16_fused_launches += 1
+    else:
+        fused_launches += 1
     return Uo, Ro, Do, Vo, red
 
 

@@ -19,14 +19,23 @@ The reference's 128-lane feature padding and M lane padding are TPU layout
 artifacts and are dropped: zero feature columns do not change distances,
 and the CUDA kernels mask every ragged edge themselves.  Its ``interpret`` and
 ``bn``/``bm`` knobs are dropped too — the device of the tensors selects the
-kernel (CUDA) or the plain version (CPU), and the kernel's tiles are fixed
-— and so is ``compute_dtype``: only f32 ("highest") is ported; the bf16
-operands come with ROADMAP Queue A step 10.
+kernel (CUDA) or the plain version (CPU), and the kernel's tiles are fixed.
+
+Every entry point takes the reference's ``compute_dtype`` ('float32' |
+'bfloat16', or the 'highest' / 'mixed' precision aliases).  Under bf16 the
+prescaled X is rounded to bf16, as the reference stores it at
+``compute_dtype`` (the kernels read those values widened to f32: the same
+numbers, and the distance stays one f32 fmaf chain), and the product
+launches the bf16 kernels.  The bf16 product carries no gradient: the
+MLL's backward differentiates the f32 operator, as the reference's VJP
+does.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.precision import is_reduced
 
 from .kernel_matmul import (
     KernelMatmulFn,
@@ -37,10 +46,15 @@ from .kernel_matmul import (
 )
 
 
-def prescale_inputs(X: torch.Tensor, lengthscale) -> torch.Tensor:
+def prescale_inputs(X: torch.Tensor, lengthscale, compute_dtype="float32") -> torch.Tensor:
     """X/ℓ in f32, contiguous — everything about X the kernel needs that
-    does not change across CG iterations; call once per solve."""
-    return (X / lengthscale).to(torch.float32).contiguous()
+    does not change across CG iterations; call once per solve.  Under a
+    bf16 ``compute_dtype`` the quotient (taken in f32) is rounded to bf16
+    and kept as f32 values."""
+    Xs = (X / lengthscale).to(torch.float32)
+    if is_reduced(compute_dtype):
+        Xs = Xs.to(torch.bfloat16).to(torch.float32)
+    return Xs.contiguous()
 
 
 def fused_kernel_matmul_prescaled(
@@ -52,22 +66,30 @@ def fused_kernel_matmul_prescaled(
     row_offset: int = 0,
     *,
     kernel_type: str = "rbf",
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """(K(X1,X2)+σ²I) @ M for pre-scaled inputs. Returns f32 (…, rows, t).
 
     M may be (cols,), (cols, t) or (b, cols, t); a vector comes back as a
     vector.  Non-contiguous M (a column slice of a solve block, say) is made
-    contiguous here, never read with the wrong strides.  The 2-D product
-    is differentiable — :class:`SymKernelMatmulFn` (one gradient-kernel
-    launch per backward) when ``Xs_rows is Xs_cols`` and ``row_offset`` is
-    0, else :class:`KernelMatmulFn`; the batched one is not."""
+    contiguous here, never read with the wrong strides.  The 2-D f32
+    product is differentiable — :class:`SymKernelMatmulFn` (one
+    gradient-kernel launch per backward) when ``Xs_rows is Xs_cols`` and
+    ``row_offset`` is 0, else :class:`KernelMatmulFn`; the batched one and
+    the bf16 one are not."""
     squeeze = M.dim() == 1
     if squeeze:
         M = M[:, None]
     M = M.to(torch.float32).contiguous()
     symmetric = Xs_rows is Xs_cols and int(row_offset) == 0
     Xs_rows, Xs_cols = Xs_rows.contiguous(), Xs_cols.contiguous()
-    if M.dim() == 3:
+    if is_reduced(compute_dtype):
+        with torch.no_grad():
+            out = kernel_matmul_cuda(
+                Xs_rows, Xs_cols, M, outputscale, sigma2, row_offset,
+                kernel_type=kernel_type, compute_dtype=compute_dtype,
+            )
+    elif M.dim() == 3:
         out = kernel_matmul_cuda(
             Xs_rows, Xs_cols, M, outputscale, sigma2, row_offset, kernel_type=kernel_type
         )
@@ -84,11 +106,12 @@ def fused_kernel_matmul_prescaled(
     return out[..., 0] if squeeze else out
 
 
-def fused_kernel_matmul(X, M, lengthscale, outputscale, sigma2, *, kernel_type="rbf"):
+def fused_kernel_matmul(X, M, lengthscale, outputscale, sigma2, *, kernel_type="rbf",
+                        compute_dtype="float32"):
     """(K(X,X)+σ²I) @ M via the fused kernel (any n — no padding of M)."""
-    Xs = prescale_inputs(X, lengthscale)
+    Xs = prescale_inputs(X, lengthscale, compute_dtype)
     return fused_kernel_matmul_prescaled(
-        Xs, Xs, M, outputscale, sigma2, kernel_type=kernel_type
+        Xs, Xs, M, outputscale, sigma2, kernel_type=kernel_type, compute_dtype=compute_dtype
     )
 
 
@@ -111,6 +134,7 @@ def _flatten_state(x: torch.Tensor, n: int, t: int) -> torch.Tensor:
 def fused_cg_step(
     Xs_rows, Xs_cols, U, R, D, V, R_cols, D_cols, V_cols, alpha, beta, gamma,
     outputscale, sigma2, row_offset: int = 0, *, kernel_type: str = "rbf",
+    compute_dtype: str = "float32",
 ):
     """One fused CG iteration of K̂ = K(X, X) + σ²I over this call's rows
     (``row_offset`` places them in the full matrix): the reference's
@@ -136,7 +160,7 @@ def fused_cg_step(
     ]
     Un, Rn, Dn, Vn, red = fused_cg_step_cuda(
         Xs_rows.contiguous(), Xs_cols.contiguous(), *state, *col_state, *scalars,
-        outputscale, sigma2, row_offset, kernel_type=kernel_type,
+        outputscale, sigma2, row_offset, kernel_type=kernel_type, compute_dtype=compute_dtype,
     )
     Un, Rn, Dn, Vn = (x.reshape(*lead, rows, t) for x in (Un, Rn, Dn, Vn))
     red = red.reshape(*lead, 4, t)
@@ -144,12 +168,13 @@ def fused_cg_step(
 
 
 def fused_cg_step_prescaled(
-    Xs, U, R, D, V, alpha, beta, gamma, outputscale, sigma2, *, kernel_type="rbf"
+    Xs, U, R, D, V, alpha, beta, gamma, outputscale, sigma2, *, kernel_type="rbf",
+    compute_dtype="float32",
 ):
     """One fused CG iteration of K̂ = K(X, X) + σ²I for pre-scaled inputs on
     one device — the :data:`repro_torch.core.mbcg.CGStepFn` of the prepared
     kernel operator: the state is its own column side."""
     return fused_cg_step(
         Xs, Xs, U, R, D, V, R, D, V, alpha, beta, gamma, outputscale, sigma2,
-        kernel_type=kernel_type,
+        kernel_type=kernel_type, compute_dtype=compute_dtype,
     )

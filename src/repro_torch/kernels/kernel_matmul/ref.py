@@ -13,6 +13,12 @@ Each is the exact function its kernel computes, with K materialized:
     ``kernel_matmul_plain`` for its inputs, by ``torch.autograd``;
     ``kernel_matmul_grad_sym_plain`` the same for one X on both sides.
 
+Under ``compute_dtype="bfloat16"`` (``precision="mixed"``) the product is
+the bf16 kernels' function: K formed in f32 from the given inputs exactly
+as in f32, the tile (σ² diagonal included) rounded to bf16, the
+right-hand side rounded to bf16, and their product summed in f32.  The
+state, the prologue and the reductions of B3 stay f32.
+
 The wrappers in :mod:`.kernel_matmul` run them for CPU tensors, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
 ``kernel_matmul_ref`` mirrors the reference oracle
@@ -25,6 +31,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.core.precision import is_reduced
 
 KERNEL_TYPES = ("rbf", "matern12", "matern32", "matern52")
 
@@ -87,17 +95,26 @@ def kernel_matmul_plain(
     row_offset: int = 0,
     *,
     kernel_type: str = "rbf",
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """(K(X1, X2) + σ²·[row_offset + i == j]) @ M, K materialized, in f32.
 
     X1 (rows, d) and X2 (cols, d) are already divided by the lengthscale;
     M is (cols, t) or (b, cols, t) and the result (rows, t) or (b, rows, t).
+    Under a bf16 ``compute_dtype`` the tile and M are rounded to bf16 and
+    multiplied in f32 (the module docstring).
     """
     K = apply_stationary(kernel_type, _sq_dist(X1.float(), X2.float()), outputscale)
     # global row row_offset + i meets column j = i + row_offset: K's
     # row_offset-th diagonal
     K.diagonal(int(row_offset)).add_(sigma2)
-    return _matmul_rhs(K, M.float())
+    M = M.float()
+    if is_reduced(compute_dtype):
+        # rounded in place (one bf16 temporary), and multiplied widened: a
+        # matmul of bf16 tensors would return bf16
+        K.copy_(K.to(torch.bfloat16))
+        M = M.to(torch.bfloat16).float()
+    return _matmul_rhs(K, M)
 
 
 def _matmul_rhs(K: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
@@ -135,8 +152,10 @@ def cg_reductions(R, D, V) -> torch.Tensor:
 def fused_cg_step_plain(
     Xs_rows, Xs_cols, U, R, D, V, R_cols, D_cols, V_cols, alpha, beta, gamma,
     outputscale, sigma2, row_offset: int = 0, *, kernel_type: str = "rbf",
+    compute_dtype: str = "float32",
 ):
-    """One fused CG iteration (B3) with K materialized.
+    """One fused CG iteration (B3) with K materialized (the product under
+    ``compute_dtype``, the state in f32).
 
     The state U, R, D, V is (b, rows, t) — this call's rows — and R_cols,
     D_cols, V_cols the (b, cols, t) column state the product reads (the same
@@ -148,7 +167,8 @@ def fused_cg_step_plain(
     R, D = _advance(R, D, V, alpha, beta, gamma)
     _, D_cols = _advance(R_cols, D_cols, V_cols, alpha, beta, gamma)
     V = kernel_matmul_plain(
-        Xs_rows, Xs_cols, D_cols, outputscale, sigma2, row_offset, kernel_type=kernel_type
+        Xs_rows, Xs_cols, D_cols, outputscale, sigma2, row_offset, kernel_type=kernel_type,
+        compute_dtype=compute_dtype,
     )
     return U, R, D, V, cg_reductions(R, D, V)
 
@@ -165,13 +185,14 @@ def fused_cg_advance_plain(U, R, D, V, R_cols, D_cols, V_cols, alpha, beta, gamm
 
 def fused_cg_product_plain(
     Xs_rows, Xs_cols, R, D, D_cols, outputscale, sigma2, row_offset: int = 0, *,
-    kernel_type: str = "rbf",
+    kernel_type: str = "rbf", compute_dtype: str = "float32",
 ):
     """B3's product pass: V′ = (K + σ²·[row_offset+i = j])·D′_cols and the
     reductions [D′ᵀV′; R′ᵀR′; R′ᵀV′; V′ᵀV′] over the rows, from the advance
-    pass's R′, D′ (rows) and D′_cols."""
+    pass's R′, D′ (rows) and D′_cols; the product under ``compute_dtype``."""
     V = kernel_matmul_plain(
-        Xs_rows, Xs_cols, D_cols, outputscale, sigma2, row_offset, kernel_type=kernel_type
+        Xs_rows, Xs_cols, D_cols, outputscale, sigma2, row_offset, kernel_type=kernel_type,
+        compute_dtype=compute_dtype,
     )
     return V, cg_reductions(R, D, V)
 

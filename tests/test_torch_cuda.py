@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 B1/B2 (the kernel matmul), B3 (the fused CG step), the gradient kernel,
 B4 (flash attention) and B5 (the SSD scan), the training path through the
-first three and the zamba2 forward through the last two.
+first three and the zamba2 forward through the last two; B1/B2 and B3 also
+with bf16 operands (``precision="mixed"``) and the mixed GP paths' launches.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: a
 hand-written kernel has no CPU mode.  The file imports no JAX, so it runs on
@@ -334,6 +335,174 @@ def test_fused_training_launches(cuda_device):
     _, history = gp.fit(X, y, steps=2, callback=on_step)
     assert all(np.isfinite(history))
     assert counts == [(10, 1, 1), (10, 1, 1)]
+
+
+# bf16 B1/B2/B3 against their bf16 plain versions: both round the same f32
+# kernel entries and right-hand side to bf16 and sum in f32; they part only
+# where an entry's f32 value straddles a bf16 rounding boundary (the kernel's
+# exp and the plain version's round differently), which moves that one term
+# by 2^-8 of itself — so 2e-3 of the largest output, and 2e-2 of the f32
+# product (the reference's bf16 tolerance, tests/test_precision.py:89)
+BF16_REL = 2e-3
+F32_REL = 2e-2
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _bf16_counts():
+    return (km.bf16_launches, km.bf16_batched_launches, km.bf16_fused_launches,
+            km.launches, km.batched_launches, km.fused_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+@pytest.mark.parametrize("d", [1, 3, 8, 17])
+@pytest.mark.parametrize("t,batch", [(1, 0), (9, 0), (17, 0), (234, 0), (256, 0), (512, 0), (9, 4)])
+def test_bf16_kernel_matches_plain(cuda_device, kernel_type, d, t, batch):
+    """bf16 B1 (2-D M) and B2 (b = 4): every column block, odd n, ARD."""
+    n = 1001
+    shape = (batch, n, t) if batch else (n, t)
+    Xs, M = _inputs(n + t + d, n, d, shape, cuda_device)
+    Xs = Xs.to(torch.bfloat16).float()  # prescaled under the mixed policy
+    km.reset_launch_counts()
+    out = km.kernel_matmul_cuda(Xs, Xs, M, 1.1, 0.1, kernel_type=kernel_type,
+                                compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert _bf16_counts() == ((0, 1, 0, 0, 0, 0) if batch else (1, 0, 0, 0, 0, 0))
+    plain = kernel_matmul_plain(Xs, Xs, M, 1.1, 0.1, kernel_type=kernel_type,
+                                compute_dtype="bfloat16")
+    f32 = kernel_matmul_plain(Xs, Xs, M, 1.1, 0.1, kernel_type=kernel_type)
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, plain) <= BF16_REL
+    assert _rel(out, f32) <= F32_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [9, 256])
+def test_bf16_kernel_row_offset_slices_reassemble(cuda_device, t):
+    n = 4097
+    Xs, M = _inputs(11, n, 8, (n, t), cuda_device)
+    Xs = Xs.to(torch.bfloat16).float()
+    full = km.kernel_matmul_cuda(Xs, Xs, M, 1.0, 0.2, kernel_type="matern52", compute_dtype="mixed")
+    for off, rows in ((0, 1024), (1500, 1024), (3000, 1097)):
+        part = km.kernel_matmul_cuda(Xs[off : off + rows].contiguous(), Xs, M, 1.0, 0.2, off,
+                                     kernel_type="matern52", compute_dtype="mixed")
+        plain = kernel_matmul_plain(Xs[off : off + rows], Xs, M, 1.0, 0.2, off,
+                                    kernel_type="matern52", compute_dtype="mixed")
+        torch.testing.assert_close(part, full[off : off + rows], rtol=0, atol=0)
+        assert _rel(part, plain) <= BF16_REL
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_matern12_coincident_points_are_exact(cuda_device):
+    """The distance stays one f32 fmaf chain: duplicated rows give k(0) = 1
+    exactly, which bf16 holds exactly, as the plain version does."""
+    n = 777
+    Xs, _ = _inputs(12, n, 8, (1,), cuda_device)
+    Xs = Xs.to(torch.bfloat16).float()
+    Xs[100] = Xs[7]
+    E = torch.zeros((n, 16), device=cuda_device)
+    E[7, 0] = E[100, 1] = 1.0
+    out = km.kernel_matmul_cuda(Xs, Xs, E, 1.0, 0.0, kernel_type="matern12", compute_dtype="mixed")
+    assert float(out[100, 0]) == 1.0 and float(out[7, 1]) == 1.0 and float(out[7, 0]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("t", [1, 9, 16, 17, 33, 64])
+def test_bf16_fused_step_matches_plain(cuda_device, kernel_type, t, b):
+    """bf16 B3: the f32 state at the f32 step's tolerance, V′ and each of the
+    four reductions at 2e-3 of its largest; a frozen column keeps U and R."""
+    n = 1001
+    Xs, _ = _inputs(t + b + 1, n, 8, (1,), cuda_device)
+    Xs = Xs.to(torch.bfloat16).float()
+    state, scalars = _state(t + 1, b, n, t, cuda_device)
+    scalars[0][:, 0] = scalars[1][:, 0] = scalars[2][:, 0] = 0.0
+    km.reset_launch_counts()
+    out = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.1, 0.1,
+                                kernel_type=kernel_type, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert _bf16_counts() == (0, 0, 1, 0, 0, 0)
+    ref = fused_cg_step_plain(Xs, Xs, *state, *state[1:], *scalars, 1.1, 0.1,
+                              kernel_type=kernel_type, compute_dtype="bfloat16")
+    for a, r in zip(out[:3], ref[:3]):
+        torch.testing.assert_close(a, r, **TOL)
+    assert _rel(out[3], ref[3]) <= BF16_REL
+    for k in range(4):
+        assert _rel(out[4][:, k], ref[4][:, k]) <= BF16_REL, k
+    assert torch.equal(out[0][..., 0], state[0][..., 0])
+    assert torch.equal(out[1][..., 0], state[1][..., 0])
+    f32 = fused_cg_step_plain(Xs, Xs, *state, *state[1:], *scalars, 1.1, 0.1, kernel_type=kernel_type)
+    assert _rel(out[3], f32[3]) <= F32_REL
+
+
+@pytest.mark.cuda
+def test_bf16_fused_step_shards_columns_and_runs_agree(cuda_device):
+    """Row shards reassemble the full step bit for bit, a separate column
+    state (D′ rounded from the columns' own state) gives the same bits as
+    the shared one, and two runs give the same bits: no atomics."""
+    n, t = 3001, 9
+    Xs, _ = _inputs(13, n, 8, (1,), cuda_device)
+    Xs = Xs.to(torch.bfloat16).float()
+    state, scalars = _state(14, 2, n, t, cuda_device)
+    run = lambda cols: km.fused_cg_step_cuda(Xs, Xs, *state, *cols, *scalars, 1.0, 0.3,  # noqa: E731
+                                             kernel_type="matern32", compute_dtype="mixed")
+    full, again, sep = run(state[1:]), run(state[1:]), run([x.clone() for x in state[1:]])
+    parts = [
+        km.fused_cg_step_cuda(Xs[i : i + 1000].contiguous(), Xs,
+                              *[s[:, i : i + 1000].contiguous() for s in state],
+                              *state[1:], *scalars, 1.0, 0.3, i, kernel_type="matern32",
+                              compute_dtype="mixed")
+        for i in range(0, n, 1000)
+    ]
+    torch.cuda.synchronize()
+    for k in range(4):
+        assert torch.equal(torch.cat([p[k] for p in parts], dim=1), full[k])
+    torch.testing.assert_close(sum(p[4] for p in parts), full[4], **RED_TOL)
+    for a, b, c in zip(full, again, sep):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_mixed_training_and_serving_launches(cuda_device):
+    """precision="mixed" on the card: every loop iteration one bf16 launch
+    (B3 fused, B1 unfused), every refresh one f32 B1 launch (the static
+    period 2: ⌊p/2⌋ in the loop and one final), the backward one f32 B1 (the
+    VJP's primal) and one gradient launch; the cache build's Gram product
+    f32.  Nothing falls back to f32 in the loop."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings
+
+    g = torch.Generator().manual_seed(0)
+    X = (2 * torch.rand((2000, 8), generator=g) - 1).to(cuda_device)
+    y = torch.sin(3 * X[:, 0])
+    p = 10
+    refresh = p // 2 + 1
+    gp = ExactGP(kernel_type="matern52", mode="cuda", fuse_cg=True, precision="mixed",
+                 settings=BBMMSettings(num_probes=4, max_cg_iters=p, precond_rank=0))
+    counts = []
+
+    def on_step(i, loss):
+        counts.append((km.bf16_fused_launches, km.fused_launches, km.bf16_launches,
+                       km.launches, km.grad_launches))
+        km.reset_launch_counts()
+
+    km.reset_launch_counts()
+    params, history = gp.fit(X, y, steps=2, callback=on_step)
+    assert all(np.isfinite(history))
+    assert counts == [(p, 0, 0, refresh + 1, 1)] * 2
+    serve = ExactGP(kernel_type="matern52", mode="cuda", precision="mixed",
+                    settings=BBMMSettings(num_probes=4, max_cg_iters=p, precond_rank=5))
+    km.reset_launch_counts()
+    cache = serve.posterior_cache(params, X, y)
+    assert (km.bf16_launches, km.launches, km.fused_launches) == (p, refresh + 1, 0)
+    km.reset_launch_counts()
+    mean, var = serve.predict_cached(params, X, cache, X[:64])
+    assert (km.bf16_launches, km.launches) == (0, 0)
+    assert bool(torch.isfinite(mean).all() & (var > 0).all())
 
 
 @pytest.mark.cuda

@@ -196,7 +196,6 @@ def test_health_policy_warn_raise_and_reports():
     [
         (dict(on_failure="degrade"), "step 13"),
         (dict(dense_direct_max_n=500), "step 13"),
-        (dict(precision="mixed"), "step 10"),
     ],
 )
 def test_unported_settings_raise(settings, step):

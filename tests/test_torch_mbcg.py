@@ -151,10 +151,14 @@ def test_slq_logdet_matches_reference(precond_rank):
 
 
 def test_unported_mbcg_paths_raise():
+    """The fused loop with a preconditioner still raises; the f32 residual
+    refresh is ported and runs (its counters: tests/test_torch_precision.py)."""
     A, _ = _spd(5, 8, 2.0)
     B = torch.ones(8, 2)
     At = torch.from_numpy(A)
     with pytest.raises(ValueError, match="identity preconditioner"):
         mbcg(lambda M: At @ M, B, fused_step=lambda *a: None, precond_solve=lambda R: R)
-    with pytest.raises(NotImplementedError, match="step 10"):
-        mbcg(lambda M: At @ M, B, refresh_every=2)
+    res = mbcg(lambda M: At @ M, B, refresh_every=2, max_iters=6)
+    assert int(res.num_refreshes) == 3
+    assert int(res.num_rescues) == 0 and int(res.num_curvature_skips) == 0
+    torch.testing.assert_close(At @ res.solves, B, rtol=1e-4, atol=1e-4)

@@ -193,9 +193,12 @@ def test_unported_modes_and_precision_raise():
     with pytest.raises(ValueError, match="mode must be one of"):
         KernelOperator(kernel=k, X=torch.from_numpy(X), mode="pallas")
     op = KernelOperator(kernel=k, X=torch.from_numpy(X), mode="cuda")
-    with pytest.raises(NotImplementedError, match="step 10"):
-        op.with_compute_dtype("mixed")
-    assert op.with_compute_dtype("highest") is op
+    # the precision policy is ported: "mixed" selects bf16 operands, and an
+    # unknown dtype is refused
+    assert op.with_compute_dtype("mixed").compute_dtype == "bfloat16"
+    assert op.with_compute_dtype("highest").compute_dtype == "float32"
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
+        op.with_compute_dtype("float16")
 
 
 @pytest.mark.parametrize("kernel_type", ["rbf", "matern52"])

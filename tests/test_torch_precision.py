@@ -1,0 +1,701 @@
+"""precision="mixed" in the port against the reference's.
+
+The same numpy inputs go through both packages: the reference under
+``JAX_PLATFORMS=cpu`` (Pallas in interpret mode) and the port on the CPU,
+whose kernel wrappers run their plain versions.  Tolerances are the
+reference's own for the same quantity (tests/test_precision.py): a
+bf16-operand contraction within 2e-2 of f32 (:89), the mixed residual
+under 2·cg_tol on a benign problem (:104), cached means within 2e-2 (:126),
+the MLL per data point within 1e-2 (:137, :151).
+
+bf16 kernels against the reference's Pallas kernels: both round the same
+f32 values to bf16, and part only where one kernel entry's f32 value (the
+two packages form it in other orders) straddles a bf16 rounding boundary,
+which moves that one product term by 2⁻⁸ of itself; so the products are
+held at 2e-3 of the largest output (10× the f32 kernels' 2e-4, half a bf16
+ulp of the output), the f32 CG state at the fused step's 2e-4.
+
+The refresh loop is compared on a ``DenseOperator`` built from one numpy
+K, so that both packages round the same f32 values.  Its counters are held
+exactly equal wherever the two trajectories agree: the static schedule,
+the curvature guard, the non-finite rescue, and the adaptive schedule over
+its first refreshes.  bf16 CG amplifies the two packages' last-bit
+differences: over 60 iterations a one-ulp change of 5 % of K's entries
+moves the reference's OWN adaptive refresh count between 8 and 14, so there
+the port is held to the range the reference itself shows.  α and β are
+held over a 5-iteration prefix at rtol 1e-3.
+"""
+
+import dataclasses
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core.preconditioner as port_precond
+from repro.core import AddedDiagOperator as RefAddedDiag
+from repro.core import BBMMSettings as RefSettings
+from repro.core import DenseOperator as RefDense
+from repro.core import build_preconditioner as ref_build_preconditioner
+from repro.core.mbcg import mbcg as ref_mbcg
+from repro.core.mbcg import xla_cg_step
+from repro.gp import ExactGP as RefExactGP
+from repro.gp import KernelOperator as RefKernelOperator
+from repro.gp import RBFKernel as RefRBF
+from repro.kernels.kernel_matmul.kernel_matmul import fused_cg_step_pallas, kernel_matmul_pallas
+from repro_torch import ExactGP, params_from_jax
+from repro_torch.core import (
+    AddedDiagOperator,
+    BBMMSettings,
+    DenseOperator,
+    DiagOperator,
+    SolveHealthWarning,
+    classify_mbcg,
+    mbcg,
+    normalize_compute_dtype,
+    plain_cg_step,
+    precision_compute_dtype,
+)
+from repro_torch.core import health
+from repro_torch.core.linear_operator import _mixed_matmul
+from repro_torch.core.precision import as_torch_dtype, is_reduced
+from repro_torch.gp import CrossKernelOperator, KernelOperator, RBFKernel, fit_gp
+from repro_torch.kernels.kernel_matmul import kernel_matmul as km
+from repro_torch.kernels.kernel_matmul.ops import prescale_inputs
+from repro_torch.kernels.kernel_matmul.ref import fused_cg_step_plain, kernel_matmul_plain
+
+pytestmark = pytest.mark.mixed_precision
+
+KERNEL_TYPES = ("rbf", "matern12", "matern32", "matern52")
+BF16_REL = 2e-3  # bf16 products of the two packages, of the largest output
+F32_REL = 2e-2  # a bf16-operand contraction against f32 (tests/test_precision.py:89)
+STATE_TOL = dict(rtol=2e-4, atol=2e-4)  # the fused step's f32 state (tests/test_fused_cg.py:84)
+PREFIX = 5  # CG iterations over which α and β are compared
+COEF_RTOL = 1e-3
+MEAN_REL = 2e-2  # cached means (tests/test_precision.py:126)
+MLL_PER_POINT = 1e-2  # (tests/test_precision.py:137, :151)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _norm_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _problem(n=256, d=2, key=0):
+    """The reference tests' problem (tests/test_precision.py:_problem), as numpy."""
+    kx, ky = jax.random.split(jax.random.PRNGKey(key))
+    X = jax.random.uniform(kx, (n, d)) * 2 - 1
+    y = jnp.sin(3 * X[:, 0]) + 0.05 * jax.random.normal(ky, (n,))
+    return np.asarray(X), np.asarray(y)
+
+
+# --- policy plumbing ---------------------------------------------------------
+
+
+def test_normalize_and_aliases():
+    assert normalize_compute_dtype("mixed") == "bfloat16"
+    assert normalize_compute_dtype("highest") == "float32"
+    assert normalize_compute_dtype(torch.bfloat16) == "bfloat16"
+    assert precision_compute_dtype("mixed") == "bfloat16"
+    assert precision_compute_dtype("highest") == "float32"
+    assert as_torch_dtype("mixed") is torch.bfloat16 and as_torch_dtype("float32") is torch.float32
+    assert is_reduced("mixed") and not is_reduced("highest")
+    with pytest.raises(ValueError):
+        normalize_compute_dtype("float16")
+    with pytest.raises(ValueError):
+        precision_compute_dtype("bfloat16")  # a compute dtype, not a precision
+
+
+def test_with_compute_dtype_recursion():
+    """Wrappers recurse, σ² stays f32, operators without a reduced form pass
+    through unchanged (the reference's test_with_compute_dtype_recursion)."""
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((16, 16)).astype(np.float32)
+    K = torch.from_numpy(A @ A.T + np.eye(16, dtype=np.float32))
+    op = AddedDiagOperator(DenseOperator(K), torch.tensor(0.1))
+    mixed = op.with_compute_dtype("mixed")
+    assert isinstance(mixed, AddedDiagOperator) and mixed.base.compute_dtype == "bfloat16"
+    assert mixed.sigma2 is op.sigma2
+    assert op.base.compute_dtype == "float32"  # frozen: the original is unchanged
+    assert mixed.with_compute_dtype("highest").base.compute_dtype == "float32"
+    diag = DiagOperator(torch.ones(4))
+    assert diag.with_compute_dtype("mixed") is diag
+    with pytest.raises(ValueError):
+        op.with_compute_dtype("fp8")
+    X = torch.from_numpy(rng.uniform(-1, 1, (20, 2)).astype(np.float32))
+    kern = RBFKernel(lengthscale=torch.tensor(0.5), outputscale=torch.tensor(1.0))
+    for mode in ("dense", "blocked", "cuda"):
+        kop = AddedDiagOperator(KernelOperator(kernel=kern, X=X, mode=mode), torch.tensor(0.1))
+        prepared = kop.with_compute_dtype("mixed").prepare()
+        assert prepared.base.compute_dtype == "bfloat16", mode
+    cross = CrossKernelOperator(kern, X, X[:3]).with_compute_dtype("mixed")
+    assert cross.compute_dtype == "bfloat16"
+
+
+def test_mixed_matmul_matches_reference_and_rounds():
+    """The bf16-operand contraction: f32 output, rounded (not identical to
+    f32) but within 2e-2 of it, and the reference's within f32 summation
+    order (the products of bf16 values are exact in f32)."""
+    rng = np.random.default_rng(1)
+    A = rng.standard_normal((64, 64)).astype(np.float32)
+    K = (A @ A.T).astype(np.float32)
+    M = rng.standard_normal((64, 5)).astype(np.float32)
+    ours = DenseOperator(torch.from_numpy(K)).with_compute_dtype("mixed").matmul(torch.from_numpy(M))
+    ref = RefDense(jnp.asarray(K)).with_compute_dtype("mixed").matmul(jnp.asarray(M))
+    assert ours.dtype == torch.float32
+    f32 = K @ M
+    assert 0 < _norm_rel(ours, f32) < F32_REL
+    assert _rel(ours, ref) < 1e-5
+    torch.testing.assert_close(_mixed_matmul(torch.from_numpy(K), torch.from_numpy(M)), ours)
+
+
+@pytest.mark.parametrize("mode", ["dense", "blocked", "cuda"])
+def test_kernel_operator_modes_honour_compute_dtype(mode):
+    """Every mode takes the policy: bf16 output differs from f32 but stays
+    within 2e-2 of it; dense and blocked match the reference's same modes
+    (X not rounded), cuda its pallas mode (X/ℓ rounded to bf16)."""
+    X, _ = _problem(n=96)
+    rng = np.random.default_rng(10)
+    M = rng.standard_normal((96, 3)).astype(np.float32)
+    kern = RBFKernel(lengthscale=torch.tensor(0.5), outputscale=torch.tensor(1.0))
+    rkern = RefRBF(lengthscale=jnp.float32(0.5), outputscale=jnp.float32(1.0))
+    op = KernelOperator(kernel=kern, X=torch.from_numpy(X), mode=mode, block_size=32)
+    f32 = op.matmul(torch.from_numpy(M))
+    b16 = op.with_compute_dtype("mixed").matmul(torch.from_numpy(M))
+    assert not torch.equal(b16, f32)
+    assert _norm_rel(b16, f32) < F32_REL
+    ref_mode = "pallas" if mode == "cuda" else mode
+    ref = RefKernelOperator(kernel=rkern, X=jnp.asarray(X), mode=ref_mode, block_size=32,
+                            compute_dtype="mixed").matmul(jnp.asarray(M))
+    assert _rel(b16, ref) < BF16_REL
+    # the 'mixed' alias on direct construction means bf16 too
+    direct = KernelOperator(kernel=kern, X=torch.from_numpy(X), mode=mode, block_size=32,
+                            compute_dtype="mixed")
+    torch.testing.assert_close(direct.matmul(torch.from_numpy(M)), b16)
+
+
+def test_prescale_rounds_to_bf16_under_mixed():
+    X = np.random.default_rng(2).standard_normal((10, 3)).astype(np.float32)
+    ell = torch.tensor([0.3, 0.7, 1.1])
+    f32 = prescale_inputs(torch.from_numpy(X), ell)
+    b16 = prescale_inputs(torch.from_numpy(X), ell, "mixed")
+    assert b16.dtype == torch.float32 and b16.is_contiguous()
+    torch.testing.assert_close(b16, f32.to(torch.bfloat16).float(), rtol=0, atol=0)
+
+
+# --- the bf16 plain versions against the reference's Pallas kernels ----------
+
+
+def _bf16_inputs(seed, n, d=3):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    ell = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    Xs = prescale_inputs(torch.from_numpy(X), torch.from_numpy(ell), "bfloat16")
+    return rng, Xs
+
+
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+@pytest.mark.parametrize("shape", [(9,), (256,), (3, 9)], ids=["B1 t=9", "B1 t=256", "B2 b=3"])
+def test_bf16_kernel_matmul_matches_pallas(kernel_type, shape):
+    n = 200
+    rng, Xs = _bf16_inputs(3, n)
+    M = rng.standard_normal(shape[:-1] + (n, shape[-1])).astype(np.float32)
+    ours = kernel_matmul_plain(Xs, Xs, torch.from_numpy(M), 1.3, 0.1, kernel_type=kernel_type,
+                               compute_dtype="bfloat16")
+    Xj = jnp.asarray(Xs.numpy())
+    ref = kernel_matmul_pallas(Xj, Xj, jnp.asarray(M), jnp.float32(1.3), jnp.float32(0.1),
+                               kernel_type=kernel_type, interpret=True, compute_dtype="bfloat16")
+    f32 = kernel_matmul_plain(Xs, Xs, torch.from_numpy(M), 1.3, 0.1, kernel_type=kernel_type)
+    assert _rel(ours, ref) < BF16_REL
+    assert 0 < _rel(ours, f32) < F32_REL
+
+
+def test_bf16_kernel_matmul_row_offset_matches_pallas():
+    n = 200
+    rng, Xs = _bf16_inputs(4, n)
+    M = rng.standard_normal((n, 9)).astype(np.float32)
+    X1 = Xs[60:130].contiguous()
+    ours = kernel_matmul_plain(X1, Xs, torch.from_numpy(M), 1.0, 0.2, 60, kernel_type="matern52",
+                               compute_dtype="bfloat16")
+    ref = kernel_matmul_pallas(jnp.asarray(X1.numpy()), jnp.asarray(Xs.numpy()), jnp.asarray(M),
+                               jnp.float32(1.0), jnp.float32(0.2), 60, kernel_type="matern52",
+                               interpret=True, compute_dtype="bfloat16")
+    assert _rel(ours, ref) < BF16_REL
+
+
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+@pytest.mark.parametrize("b", [1, 2])
+def test_bf16_fused_cg_step_matches_pallas(kernel_type, b):
+    """B3's bf16 plain version: the f32 state at the fused step's 2e-4, the
+    bf16 product V′ and the four reductions at 2e-3 of their largest."""
+    n, t = 150, 9
+    rng, Xs = _bf16_inputs(5, n)
+    state = [rng.standard_normal((b, n, t)).astype(np.float32) for _ in range(4)]
+    scalars = [rng.standard_normal((b, t)).astype(np.float32),
+               (0.5 * rng.standard_normal((b, t))).astype(np.float32), np.ones((b, t), np.float32)]
+    T = torch.from_numpy
+    ours = fused_cg_step_plain(Xs, Xs, *map(T, state), *map(T, state[1:]), *map(T, scalars),
+                               1.3, 0.1, kernel_type=kernel_type, compute_dtype="bfloat16")
+    J = jnp.asarray
+    Xj = J(Xs.numpy())
+    ref = fused_cg_step_pallas(Xj, Xj, *map(J, state), *map(J, state[1:]), *map(J, scalars),
+                               jnp.float32(1.3), jnp.float32(0.1), kernel_type=kernel_type,
+                               interpret=True, compute_dtype="bfloat16")
+    for a, r, name in zip(ours[:3], ref[:3], "URD"):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), **STATE_TOL, err_msg=name)
+    assert _rel(ours[3], ref[3]) < BF16_REL
+    for k in range(4):
+        assert _rel(ours[4][:, k], np.asarray(ref[4])[:, k]) < BF16_REL, k
+    f32 = fused_cg_step_plain(Xs, Xs, *map(T, state), *map(T, state[1:]), *map(T, scalars),
+                              1.3, 0.1, kernel_type=kernel_type)
+    assert 0 < _rel(ours[3], f32[3]) < F32_REL
+
+
+def test_bf16_wrappers_run_the_plain_versions_on_the_cpu():
+    """On CPU tensors the bf16 wrappers run the bf16 plain versions and launch
+    nothing."""
+    rng, Xs = _bf16_inputs(6, 64)
+    M = torch.from_numpy(rng.standard_normal((64, 9)).astype(np.float32))
+    km.reset_launch_counts()
+    out = km.kernel_matmul_cuda(Xs, Xs, M, 1.0, 0.1, kernel_type="rbf", compute_dtype="bfloat16")
+    torch.testing.assert_close(out, kernel_matmul_plain(Xs, Xs, M, 1.0, 0.1, kernel_type="rbf",
+                                                        compute_dtype="bfloat16"), rtol=0, atol=0)
+    S = [M[None].clone() for _ in range(4)]
+    z = torch.zeros(1, 9)
+    step = km.fused_cg_step_cuda(Xs, Xs, *S, *S[1:], z, z, z + 1, 1.0, 0.1, compute_dtype="mixed")
+    plain = fused_cg_step_plain(Xs, Xs, *S, *S[1:], z, z, z + 1, 1.0, 0.1, compute_dtype="mixed")
+    for a, b in zip(step, plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (km.bf16_launches, km.bf16_fused_launches, km.launches, km.fused_launches) == (0, 0, 0, 0)
+
+
+# --- the refresh loop against the reference's ------------------------------
+
+
+def _dense_ops(K, noise):
+    """The same numpy K (and σ²) as the reference's and the port's operator."""
+    ref = RefAddedDiag(RefDense(jnp.asarray(K)), jnp.float32(noise))
+    ours = AddedDiagOperator(DenseOperator(torch.from_numpy(K)), torch.tensor(noise, dtype=torch.float32))
+    return ref, ours
+
+
+def _refresh_both(K, noise, y, *, fused=False, matmul_scale=None, **kw):
+    """mbcg with the bf16 loop matmul and the f32 refresh in both packages
+    (fused: the reference's ``xla_cg_step`` and the port's ``plain_cg_step``
+    of the same bf16 matmul)."""
+    ref, ours = _dense_ops(K, noise)
+    rb, ob = ref.with_compute_dtype("mixed").prepare(), ours.with_compute_dtype("mixed").prepare()
+    rmm, omm = rb.matmul, ob.matmul
+    if matmul_scale is not None:
+        rmm = _Scaled(rb.matmul, matmul_scale)
+        omm = _Scaled(ob.matmul, matmul_scale)
+    r = ref_mbcg(rmm, jnp.asarray(y)[:, None], refresh_matmul=ref.prepare().matmul,
+                 fused_step=xla_cg_step(rmm) if fused else None, **kw)
+    o = mbcg(omm, torch.from_numpy(y)[:, None], refresh_matmul=ours.prepare().matmul,
+             fused_step=plain_cg_step(omm) if fused else None, **kw)
+    return r, o
+
+
+class _Scaled:
+    """A loop matmul off by a constant factor (hashable, as the reference's
+    jit needs its static arguments to be)."""
+
+    def __init__(self, fn, scale):
+        self.fn, self.scale = fn, scale
+
+    def __call__(self, M):
+        return self.scale * self.fn(M)
+
+
+def _counters(res):
+    return [int(res.num_refreshes), int(res.num_curvature_skips), int(res.num_rescues)]
+
+
+def _assert_prefix(ours, ref):
+    for name in ("tridiag_alpha", "tridiag_beta"):
+        np.testing.assert_allclose(getattr(ours, name).numpy()[..., :PREFIX],
+                                   np.asarray(getattr(ref, name))[..., :PREFIX],
+                                   rtol=COEF_RTOL, atol=0, err_msg=name)
+
+
+def _rbf_dense(n, key, lengthscale2=0.25):
+    """The reference's adaptive-refresh problem (tests/test_precision.py:251)."""
+    X, _ = _problem(n=n, d=1, key=key)
+    return np.exp(-0.5 * np.sum((X[:, None] - X[None]) ** 2, -1) / lengthscale2).astype(np.float32)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_static_refresh_matches_reference(fused):
+    """The static period-2 schedule: the same counters, α and β over the
+    prefix, both honouring cg_tol (the residual is the TRUE one), and
+    solves that agree to the reference's solve tolerance."""
+    K = _rbf_dense(256, 0)
+    y = np.sin(3 * np.linspace(-1, 1, 256)).astype(np.float32)
+    ref, ours = _refresh_both(K, 0.1, y, fused=fused, max_iters=60, tol=1e-4, refresh_every=2)
+    assert _counters(ours) == _counters(ref) == [30, 0, 0]
+    _assert_prefix(ours, ref)
+    assert float(ours.residual_norm.max()) < 2e-4 and float(ref.residual_norm.max()) < 2e-4
+    np.testing.assert_allclose(ours.solves.numpy(), np.asarray(ref.solves), rtol=1e-3, atol=1e-3)
+    # the returned residual is the true one of the returned solve
+    op = _dense_ops(K, 0.1)[1]
+    true = torch.linalg.vector_norm(torch.from_numpy(y)[:, None] - op.matmul(ours.solves), dim=0)
+    np.testing.assert_allclose(true.numpy() / np.linalg.norm(y), ours.residual_norm.numpy(), rtol=1e-2)
+
+
+def test_static_schedule_counts_every_other_step():
+    """Period 2 over 20 iterations: a refresh at every other step (the
+    reference's test_static_schedule_unchanged_by_counter_rewrite)."""
+    K = _rbf_dense(128, 3)
+    y = np.cos(2 * np.linspace(-1, 1, 128)).astype(np.float32)
+    ref, ours = _refresh_both(K, 0.1, y, max_iters=20, tol=1e-4, refresh_every=2)
+    assert int(ours.num_refreshes) == int(ref.num_refreshes) == 10
+    _assert_prefix(ours, ref)
+
+
+@pytest.mark.parametrize("fused,iters,refreshes", [(False, 20, 3), (True, 12, 2)],
+                         ids=["unfused", "fused"])
+def test_adaptive_schedule_matches_reference_while_trajectories_agree(fused, iters, refreshes):
+    """The adaptive schedule doubles the period (2 → 4 → 8) while the drift
+    stays under 0.1: refreshes at steps 1, 5 and 13 in both packages, and
+    the same drift at each to ~1 %.  The horizon is where the two
+    trajectories still agree: the bf16 steps between refreshes part them
+    (the fused loop's pipelined recurrence sooner: by step 13 its drift is
+    0.12 in one package and 0.03 in the other, so there one snaps back and
+    the other stretches; at 60 iterations see
+    test_adaptive_refresh_on_the_reference_failing_input)."""
+    K = _rbf_dense(256, 0)
+    y = np.sin(3 * np.linspace(-1, 1, 256)).astype(np.float32)
+    ref, ours = _refresh_both(K, 0.1, y, fused=fused, max_iters=iters, tol=1e-4, refresh_every=2,
+                              refresh_adaptive=True, refresh_max_period=16)
+    assert _counters(ours) == _counters(ref) == [refreshes, 0, 0]
+    _assert_prefix(ours, ref)
+
+
+def _ulp_perturbed(K, seed):
+    """K with 5 % of its entries (symmetrically) moved up by one ulp."""
+    rng = np.random.default_rng(seed)
+    mask = np.triu(rng.random(K.shape) < 0.05, 1)
+    mask = mask | mask.T
+    return np.where(mask, np.nextafter(K, np.float32(2)), K).astype(np.float32)
+
+
+def test_adaptive_refresh_on_the_reference_failing_input():
+    """The reference's test_adaptive_fewer_refreshes_same_tolerance fails in
+    the reference: on its input the adaptive solve ends at 5.28e-4 with 8
+    refreshes, past the test's 2e-4 (ROADMAP Queue C item 1).  The port is
+    held to the reference's numbers there, computed here: fewer refreshes
+    than the static schedule, and a true residual no worse than the
+    reference's.  Its refresh count lies in the range the reference's own
+    count takes under one-ulp changes of K (8 to 14 at 60 iterations): the
+    count is a property of the rounding, not of the schedule."""
+    kx, _ = jax.random.split(jax.random.PRNGKey(0))
+    X = jax.random.uniform(kx, (256, 1)) * 2 - 1
+    K = np.asarray(jnp.exp(-0.5 * jnp.sum((X[:, None] - X[None]) ** 2, -1) / 0.25))
+    y = np.asarray(jnp.sin(3 * jnp.linspace(-1, 1, 256)))
+    kw = dict(max_iters=60, tol=1e-4, refresh_every=2)
+    ref_static, static = _refresh_both(K, 0.1, y, **kw)
+    ref, ours = _refresh_both(K, 0.1, y, refresh_adaptive=True, refresh_max_period=16, **kw)
+    assert int(ref.num_refreshes) < int(ref_static.num_refreshes)
+    assert int(ours.num_refreshes) < int(static.num_refreshes) == int(ref_static.num_refreshes)
+    assert float(ours.residual_norm.max()) <= float(ref.residual_norm.max())
+    counts = [int(ref.num_refreshes)]
+    for seed in range(3):
+        counts.append(int(_refresh_both(_ulp_perturbed(K, seed), 0.1, y, refresh_adaptive=True,
+                                        refresh_max_period=16, **kw)[0].num_refreshes))
+    assert min(counts) <= int(ours.num_refreshes) <= max(counts), (counts, int(ours.num_refreshes))
+    _assert_prefix(ours, ref)
+
+
+def _indefinite_under_bf16(seed=1, n=64):
+    """uuᵀ + 1e-3·I with y ⊥ u: positive definite in f32, but its bf16
+    rounding moves the entries by ~2⁻⁹|uᵢuⱼ|, which makes yᵀK̃y ≤ 0."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal(n)
+    y = rng.standard_normal(n)
+    y -= (y @ u) / (u @ u) * u
+    return (np.outer(u, u) + 1e-3 * np.eye(n)).astype(np.float32), y.astype(np.float32)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_curvature_guard_matches_reference(fused):
+    """An operator that rounds indefinite: every step's dᵀK̃d ≤ 0, the guard
+    skips it (α = 0), the solve stalls at u = 0 and is classified STALLED;
+    the counters equal the reference's."""
+    K, y = _indefinite_under_bf16()
+    ref, ours = _refresh_both(K, 0.0, y, fused=fused, max_iters=20, tol=1e-6, refresh_every=2)
+    assert _counters(ours) == _counters(ref) == [10, 20, 0]
+    assert bool(torch.all(ours.solves == 0)) and bool(torch.all(ours.tridiag_alpha == 0))
+    report = classify_mbcg(ours, 1e-6, max_iters=20)
+    assert report.status == health.STALLED and report.num_curvature_skips == 20
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_non_finite_rescue_matches_reference(fused):
+    """A loop matmul 1e-30 too small makes α ~1e30 and the iterate overflow:
+    every refresh sees a non-finite true residual and pulls the column back
+    to its best iterate; the returned solve stays finite (the best one,
+    u = 0), RESCUED, and the counters equal the reference's."""
+    K = _rbf_dense(256, 0)
+    y = np.sin(3 * np.linspace(-1, 1, 256)).astype(np.float32)
+    ref, ours = _refresh_both(K, 0.1, y, fused=fused, matmul_scale=1e-30, max_iters=60, tol=1e-4,
+                              refresh_every=2)
+    assert _counters(ours) == _counters(ref)
+    assert int(ours.num_rescues) == 30
+    assert bool(torch.isfinite(ours.solves).all())
+    assert classify_mbcg(ours, 1e-4, max_iters=60).status == health.RESCUED
+
+
+# --- ExactGP(mode="cuda", precision="mixed") end to end ----------------------
+
+
+def _inject_reference_probes(monkeypatch, ref_gp, ref_params, X, key):
+    """The port draws exactly the probes the reference's engine draws for
+    ``key`` (the reference's sample_probes on its own preconditioner)."""
+    op = ref_gp.operator(ref_params, jnp.asarray(X))
+    precond = ref_build_preconditioner(op, ref_gp.settings.precond_rank)
+    Z = np.array(precond.sample_probes(key, ref_gp.settings.num_probes, X.shape[0]))
+
+    def sample_probes(self, generator, num, n):
+        assert (num, n) == Z.shape[::-1]
+        return torch.from_numpy(Z)
+
+    monkeypatch.setattr(port_precond.PivotedCholeskyPreconditioner, "sample_probes", sample_probes)
+    monkeypatch.setattr(port_precond.IdentityPreconditioner, "sample_probes", sample_probes)
+
+
+def _params(ref_gp):
+    ref_params = ref_gp.init_params(2)
+    return ref_params, params_from_jax({k: np.asarray(v) for k, v in ref_params.items()}, device="cpu")
+
+
+@pytest.mark.parametrize("fuse_cg", [False, True], ids=["unfused", "fused"])
+def test_mixed_loss_matches_reference_and_highest(monkeypatch, fuse_cg):
+    """The mixed MLL of ExactGP(mode="cuda") against the reference's
+    ExactGP(mode="pallas", precision="mixed") on the same probes, and
+    against the port's own "highest": within 1e-2 per data point; its
+    gradient finite and near the f32 one (the backward runs through the f32
+    operator, as the reference's VJP does)."""
+    X, y = _problem(n=192)
+    rank = 0 if fuse_cg else 5
+    kw = dict(settings=RefSettings(precond_rank=rank), fuse_cg=fuse_cg)
+    ref_m = RefExactGP(mode="pallas", precision="mixed", **kw)
+    ref_params, params = _params(ref_m)
+    key = jax.random.PRNGKey(5)
+    ref_loss = float(ref_m.loss(ref_params, jnp.asarray(X), jnp.asarray(y), key))
+    _inject_reference_probes(monkeypatch, ref_m, ref_params, X, key)
+    settings = BBMMSettings(precond_rank=rank)
+    ours = {}
+    for precision in ("mixed", "highest"):
+        gp = ExactGP(mode="cuda", fuse_cg=fuse_cg, settings=settings, precision=precision,
+                     device="cpu")
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        loss = gp.loss(p, X, y, torch.Generator())
+        loss.backward()
+        ours[precision] = (float(loss), {k: v.grad for k, v in p.items()})
+    assert abs(ours["mixed"][0] - ref_loss) / len(y) < MLL_PER_POINT
+    assert abs(ours["mixed"][0] - ours["highest"][0]) / len(y) < MLL_PER_POINT
+    for k, g in ours["mixed"][1].items():
+        assert bool(torch.isfinite(g).all()), k
+        assert float((g - ours["highest"][1][k]).abs().max()) < 0.1 * float(ours["highest"][1][k].abs().max()) + 1e-3, k
+
+
+def test_mixed_serving_matches_reference_and_highest(monkeypatch):
+    """posterior_cache → predict_cached and predict at precision="mixed":
+    the served means within 2e-2 of the reference's mixed pallas path and of
+    the port's "highest" (the mean contracted with bf16 operands, as the
+    reference serves it); the variances finite and positive."""
+    X, y = _problem(n=400, d=1, key=7)
+    Xs = np.linspace(-1, 1, 64, dtype=np.float32)[:, None]
+    settings = dict(num_probes=10, max_cg_iters=40)
+    ref_m = RefExactGP(mode="pallas", precision="mixed", settings=RefSettings(**settings))
+    ref_params = ref_m.init_params(1)
+    params = params_from_jax({k: np.asarray(v) for k, v in ref_params.items()}, device="cpu")
+    Xj, yj, Xsj = jnp.asarray(X), jnp.asarray(y), jnp.asarray(Xs)
+    rcache = ref_m.posterior_cache(ref_params, Xj, yj)
+    rmean, _ = ref_m.predict_cached(ref_params, Xj, rcache, Xsj)
+    rpmean, _ = ref_m.predict(ref_params, Xj, yj, Xsj)
+    _inject_reference_probes(monkeypatch, ref_m, ref_params, X, jax.random.PRNGKey(0))
+    out = {}
+    for precision in ("mixed", "highest"):
+        gp = ExactGP(mode="cuda", settings=BBMMSettings(**settings), precision=precision, device="cpu")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", SolveHealthWarning)
+            cache = gp.posterior_cache(params, X, y)
+            out[precision] = (cache, gp.predict_cached(params, X, cache, Xs), gp.predict(params, X, y, Xs))
+    cache, (mean, var), (pmean, pvar) = out["mixed"]
+    assert _norm_rel(mean, rmean) < MEAN_REL and _norm_rel(pmean, rpmean) < MEAN_REL
+    assert _norm_rel(mean, out["highest"][1][0]) < MEAN_REL
+    assert _norm_rel(pmean, out["highest"][2][0]) < MEAN_REL
+    for v in (var, pvar):
+        assert bool(torch.isfinite(v).all() & (v > 0).all())
+    assert bool(torch.isfinite(cache.logdet)) and cache.basis is not None
+
+
+def test_mixed_engine_honours_cg_tol():
+    """The engine's mixed path honours cg_tol on a benign problem (the f32
+    refresh at work), in at most twice the f32 path's iterations (the
+    reference's test_exact_gp_mixed_converges_to_tol)."""
+    from repro_torch.core import engine_state
+
+    X, y = _problem()
+    kern = RBFKernel(lengthscale=torch.tensor(0.5), outputscale=torch.tensor(1.0))
+    op = AddedDiagOperator(KernelOperator(kernel=kern, X=torch.from_numpy(X), mode="dense"),
+                           torch.tensor(0.1))
+    s_mixed = BBMMSettings(num_probes=8, max_cg_iters=80, precision="mixed")
+    s_high = BBMMSettings(num_probes=8, max_cg_iters=80)
+    g = torch.Generator()
+    st_m = engine_state(op, torch.from_numpy(y), g.manual_seed(3), s_mixed)
+    st_h = engine_state(op, torch.from_numpy(y), g.manual_seed(3), s_high)
+    assert float(st_m.residual.max()) < 2 * s_mixed.cg_tol
+    assert int(st_m.cg_iters.max()) <= 2 * max(int(st_h.cg_iters.max()), 1)
+
+
+def test_precision_knob_folds_into_settings_both_ways():
+    """An explicit precision wins over settings in both directions, and the
+    None default follows the settings (the reference's
+    test_precision_knob_switches_back_and_follows_settings)."""
+    gp = ExactGP(device="cpu", precision="mixed")
+    assert gp.settings.precision == "mixed" and ExactGP(device="cpu").settings.precision == "highest"
+    back = dataclasses.replace(gp, precision="highest")
+    assert back.settings.precision == "highest"
+    up = ExactGP(device="cpu", settings=BBMMSettings(precision="mixed"), precision="highest")
+    assert up.settings.precision == "highest"
+    follows = ExactGP(device="cpu", settings=BBMMSettings(precision="mixed"))
+    assert follows.settings.precision == "mixed" and follows.precision is None
+
+
+def test_mixed_requires_refresh_and_a_valid_precision():
+    """cg_refresh_every ≤ 0 under mixed would drop the mechanism that keeps
+    mixed honest: refused, as is an unknown precision."""
+    X, y = _problem(n=64)
+    gp = ExactGP(mode="dense", settings=BBMMSettings(precision="mixed", cg_refresh_every=0),
+                 device="cpu")
+    with pytest.raises(ValueError, match="cg_refresh_every"):
+        gp.loss(gp.init_params(2), X, y, torch.Generator())
+    bad = ExactGP(mode="dense", settings=BBMMSettings(precision="fp8"), device="cpu")
+    with pytest.raises(ValueError, match="precision"):
+        bad.loss(bad.init_params(2), X, y, torch.Generator())
+
+
+def test_refresh_cap_is_floored_at_the_period_and_zero_uncaps():
+    from repro_torch.core.inference import _solver_matmuls
+
+    X, _ = _problem(n=32)
+    kern = RBFKernel(lengthscale=torch.tensor(0.5), outputscale=torch.tensor(1.0))
+    op = AddedDiagOperator(KernelOperator(kernel=kern, X=torch.from_numpy(X)), torch.tensor(0.1))
+    for cap, every, want in ((16, 2, 16), (1, 4, 4), (0, 2, 0)):
+        s = BBMMSettings(precision="mixed", cg_refresh_every=every, cg_refresh_max_period=cap)
+        _, kw, _ = _solver_matmuls(op, s)
+        assert kw["refresh_max_period"] == want and kw["refresh_every"] == every
+    assert _solver_matmuls(op, BBMMSettings())[1] == {}
+
+
+# --- fit_gp(on_failure="degrade") -----------------------------------------------
+
+
+N_FIT = 120
+FIT_SETTINGS = dict(num_probes=4, max_cg_iters=40, cg_tol=1e-3)
+NOISE0 = float(np.log(np.expm1(0.1)))
+
+
+def _fit_data():
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-1, 1, (N_FIT, 3)).astype(np.float32)
+    y = (np.sin(3 * X[:, 0]) * np.cos(2 * X[:, -1]) + 0.05 * rng.standard_normal(N_FIT)).astype(np.float32)
+    return X, y
+
+
+class _RefPoisoned(RefExactGP):
+    """The reference's ExactGP whose loss is non-finite at "mixed" once the
+    noise has moved (from the second step on)."""
+
+    def loss(self, params, data, y, key):
+        loss = super().loss(params, data, y, key)
+        bad = (self.settings.precision == "mixed") & (jnp.abs(params["raw_noise"] - NOISE0) > 0.05)
+        return jnp.where(bad, jnp.nan, 1.0) * loss
+
+
+class _PortPoisoned(ExactGP):
+    """The port's twin of :class:`_RefPoisoned`."""
+
+    def loss(self, params, data, y, generator):
+        loss = super().loss(params, data, y, generator)
+        moved = abs(float(params["raw_noise"]) - NOISE0) > 0.05
+        return loss * float("nan") if self.settings.precision == "mixed" and moved else loss
+
+
+def _rademacher_replay(monkeypatch, key, attempts, precond_rank, num):
+    """Replay the reference's per-attempt key splits (fit_gp splits a new key
+    for every attempt, the retry included) into the port's Rademacher draws."""
+    draws = []
+    for _ in range(attempts):
+        key, sub = jax.random.split(key)
+        k1, k2 = jax.random.split(sub)
+        draws += [np.array(jax.random.rademacher(k1, (precond_rank, num), dtype=jnp.float32)),
+                  np.array(jax.random.rademacher(k2, (N_FIT, num), dtype=jnp.float32))]
+
+    def rademacher(generator, shape, dtype, device):
+        g = draws.pop(0)
+        assert g.shape == tuple(shape), (g.shape, shape)
+        return torch.from_numpy(g).to(device=device, dtype=dtype)
+
+    monkeypatch.setattr(port_precond, "_rademacher", rademacher)
+    return draws
+
+
+def test_degrade_retries_a_mixed_step_at_highest_as_the_reference(monkeypatch):
+    """on_failure="degrade": the second step's mixed loss is non-finite, so
+    the step is retried once from the pre-step parameters at "highest" (the
+    poisoned update discarded, a SolveHealthWarning), and the fit goes on at
+    "highest".  The history and the parameters follow the reference's
+    fit_gp on the same schedule: the mixed step within 1e-2 per data point,
+    the "highest" steps at the MLL's rtol 1e-4, the parameters at 1e-3."""
+    X, y = _fit_data()
+    ref = _RefPoisoned(kernel_type="rbf", mode="dense", precision="mixed",
+                       settings=RefSettings(**FIT_SETTINGS, on_failure="degrade"))
+    with pytest.warns(Warning, match="precision='highest'"):
+        ref_params, ref_hist = ref.fit(jnp.asarray(X), jnp.asarray(y), steps=3)
+    queue = _rademacher_replay(monkeypatch, jax.random.PRNGKey(0), 4, 5, FIT_SETTINGS["num_probes"])
+    ours = _PortPoisoned(kernel_type="rbf", mode="cuda", precision="mixed", device="cpu",
+                         settings=BBMMSettings(**FIT_SETTINGS, on_failure="degrade"))
+    with pytest.warns(SolveHealthWarning, match="retrying from the pre-step parameters"):
+        params, hist = fit_gp(ours, X, y, steps=3)
+    assert not queue  # four attempts for three steps, as the reference's
+    assert len(hist) == len(ref_hist) == 3 and all(np.isfinite(hist))
+    assert abs(hist[0] - ref_hist[0]) / N_FIT < MLL_PER_POINT
+    np.testing.assert_allclose(hist[1:], ref_hist[1:], rtol=1e-4)
+    for name, v in params.items():
+        assert _rel(v.numpy(), np.asarray(ref_params[name])) <= 1e-3, name
+
+
+def test_degrade_retries_only_once(monkeypatch):
+    """A model whose loss is non-finite at every precision: the first failure
+    retries at "highest", later ones fall through to skip-and-warn."""
+
+    class AlwaysPoisoned(ExactGP):
+        calls = 0
+
+        def loss(self, params, data, y, generator):
+            type(self).calls += 1
+            loss = super().loss(params, data, y, generator)
+            return loss * float("nan") if type(self).calls >= 2 else loss
+
+    X, y = _fit_data()
+    gp = AlwaysPoisoned(kernel_type="rbf", device="cpu", precision="mixed",
+                        settings=BBMMSettings(**FIT_SETTINGS, on_failure="degrade"))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, hist = fit_gp(gp, X, y, steps=3)
+    messages = [str(w.message) for w in caught if issubclass(w.category, SolveHealthWarning)]
+    assert sum("retrying" in m for m in messages) == 1
+    assert sum("skipping the poisoned update" in m for m in messages) == 2
+    assert np.isfinite(hist[0]) and np.isnan(hist[1]) and np.isnan(hist[2])
+    assert AlwaysPoisoned.calls == 4  # step 0, step 1 at mixed and at highest, step 2
