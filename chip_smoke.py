@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: builds its CUDA kernels, holds each
 against its plain PyTorch version on the card, and drives the exact-GP
-serving and training slices and zamba2-7b serving at full size through the
-kernels.
+serving and training slices (single- and multi-output, multi-restart, and
+partitioned to a million rows) and zamba2-7b serving at full size through
+the kernels.
 
     python3 chip_smoke.py [--seed 0] [--n 40000]
 
@@ -111,14 +112,64 @@ and the final line is then not printed):
                 versions (loss rtol 1e-2, gradients 1e-2) and against
                 "highest" (MLL within 1e-2 per data point); one unfused
                 mixed step
-  8. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
+  8. batched_kernel  B2 at the multi-output shape (n = 40,000, b = 4, t = 9)
+                against four B1 launches (the same bits expected); B2's
+                gradient (its autograd Function: one gradient-kernel launch
+                over the batch folded into columns) against the plain
+                version's VJPs summed over the batch, 2e-4 relative; bf16 B2
+                against its bf16 plain version, 2e-3
+     multi_output  ExactGP(matern52, mode="cuda").loss on the serving X with
+                Y (4, n): (4,) from one engine call, unfused at
+                precond_rank=5 (B2), fused (B3, b = 4) and mixed (bf16 B2,
+                f32 B2 refreshes), launches counted, forward and backward
+                timed; over a 5-iteration prefix each against the loop of
+                4 single-output losses (rtol 1e-5, gradients rtol 2e-3 /
+                atol 1e-4), mixed against highest (1e-2 per point);
+                engine_state and solve with a batched right-hand side
+     multi_restart  ExactGP.batched_loss, 4 hyperparameter sets at n = 8,192
+                (4 dense K, no kernel), against a loop of loss: rtol 1e-5
+                at precond_rank=0 (25 iterations and the prefix) and at
+                precond_rank=5 (both factors pivot on k(x, x))
+  9. panel_parity  n = 200,000, the reference's million recipe (X ~ N(0, I₄),
+                RBF ℓ = 0.25, s = 1, σ² = 1), t = 9: the streamed K·M
+                against the full-range B1 (rtol / atol 1e-4; 0 expected)
+                and on 512 rows against float64 (2e-4); the panel-fused
+                step against the full-range B3 (state 2e-4, reductions
+                2e-3), one B3 launch per panel; the panel-streamed VJP
+                against the symmetric VJP (rtol 2e-3 / atol 1e-4); one bf16
+                panel-fused step against the bf16 B3 (2e-3); on the same
+                512 rows each panel stream against float64: the fused
+                step's V′ (2e-4) and U′, R′, D′ (2e-4), the VJP's rows
+                (2e-4), the bf16 step's V′ (2e-3) and D′
+     panel_sweep   the streamed K·M and the panel-fused step timed at panel
+                heights 8,192 … 101,376, the card's default and n
+     serve_partitioned  ExactGP(rbf, mode="cuda_partitioned") at n = 200,000:
+                the engine over a 5-iteration prefix against mode="cuda"
+                (MLL rtol 1e-4, solves rtol / atol 1e-4); the posterior
+                cache at precond_rank=5 (one launch per panel per
+                iteration), a 1,024-point predict_cached, times, status,
+                peak memory
+     train_partitioned  the same model with fuse_cg=True, precond_rank=0:
+                the prefix MLL and gradients against mode="cuda"; two Adam
+                steps from the recipe's hyperparameters (B3 per panel per
+                iteration, the backward's primal and gradient per panel);
+                one mixed panel-fused step
+     million    n = 10⁶: one streamed K̂·M (512 rows against float64), a
+                3-iteration panel-fused CG prefix (finite, the CG
+                objective falling, num_panels launches per iteration, each
+                iteration's V′ on 512 rows and U′, R′, D′ against float64),
+                the true-residual product (launches counted, rows against
+                float64) and the reported residual against it (rtol 1e-4 /
+                atol 1e-6), peak device memory under 2 GB beside the panel
+                and dense bytes
+ 10. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
                 prompt, at 13 layers and at all 81: the forward with B4/B5
                 and every B4/B5 call in it no further from the f64 witness
                 (the plain path in f64) than 4 × the f32 plain forward and
                 calls; at 13 layers also the forward vs its plain version
                 (rtol/atol 1e-3) and vs decode stepped over the prompt at
                 every position (2e-2)
-  9. lm_serve   zamba2-7b at full size (81 layers, bf16, weights from the
+ 11. lm_serve   zamba2-7b at full size (81 layers, bf16, weights from the
                 seed on the card): one make_prefill_step over 4 × 512-token
                 prompts (81 B5 and 13 B4 launches, counted), then the serve
                 loop (decode stepped over the prompts, 32 greedy tokens,
@@ -576,16 +627,22 @@ def _cg_inputs(rng, dev, b, n, t):
     return state, [alpha, beta, torch.ones_like(alpha)]
 
 
+def _advance_f64(state, scalars):
+    """U′, R′, D′ of one CG step in float64 from its f32 inputs (U, R, D, V)
+    and α, β, γ, elementwise: U′ = U + α∘D, R′ = R − α∘V, D′ = γ∘R′ + β∘D."""
+    U, R, D, V = (x.double() for x in state)
+    a, b, g = (x.double()[..., None, :] for x in scalars)
+    R = R - a * V
+    return U + a * D, R, g * R + b * D
+
+
 def fused_step_f64(Xs, state, scalars, kernel_type, outputscale, sigma2, rows=2048):
     """One CG step of K̂ = K(Xs, Xs) + σ²I (single device, b = 1) in float64
     from the f32 inputs, K from differences a row slice at a time: the
     exact step the kernel and the plain version both approximate."""
     from repro_torch.kernels.kernel_matmul.ref import _sq_dist, apply_stationary
 
-    U, R, D, V = (x.double() for x in state)
-    a, b, g = (x.double()[..., None, :] for x in scalars)
-    U, R = U + a * D, R - a * V
-    D = g * R + b * D
+    U, R, D = _advance_f64(state, scalars)
     X = Xs.double()
     V = torch.empty_like(D)
     for i in range(0, X.shape[0], rows):
@@ -724,10 +781,7 @@ def fused_step_f64_bf16(Xs, state, scalars, kernel_type, outputscale, sigma2, D_
     float64; U′, R′, D′ and the reductions as ``fused_step_f64``."""
     from repro_torch.kernels.kernel_matmul.ref import _sq_dist, apply_stationary
 
-    U, R, D, V = (x.double() for x in state)
-    a, b, g = (x.double()[..., None, :] for x in scalars)
-    U, R = U + a * D, R - a * V
-    D = g * R + b * D
+    U, R, D = _advance_f64(state, scalars)
     Db = D_kernel.to(torch.bfloat16).double()
     V = torch.empty_like(D)
     for i in range(0, Xs.shape[0], rows):
@@ -1485,26 +1539,33 @@ def phase_witness(km, gp, settings, data, cache, ours):
 def plain_kernels(km):
     """Every kernel wrapper of the GP path replaced by its plain version (K
     formed, autograd for the gradient): B1's and the gradient kernel's (both
-    VJPs) in the kernel module, and B1's and B3's as ``ops`` binds them (the
-    bf16 product and the fused step), each in the dtype asked for — so the
-    path runs without any kernel: nothing launches inside."""
+    VJPs) in the kernel module, and B1's, B3's and the panel VJP's gradient
+    call as ``ops`` binds them (the bf16 product, the fused step, the panel
+    streams), each in the dtype asked for — so the path runs without any
+    kernel: nothing launches inside."""
     from repro_torch.kernels.kernel_matmul import ops, ref
 
     saved = km.kernel_matmul_cuda, km.kernel_matmul_grad_cuda, km.kernel_matmul_grad_sym_cuda
-    saved_ops = ops.kernel_matmul_cuda, ops.fused_cg_step_cuda
+    saved_ops = ops.kernel_matmul_cuda, ops.fused_cg_step_cuda, ops.kernel_matmul_grad_rows_cuda
 
     def grad_plain(*args, need_cols=True, **kw):
         return ref.kernel_matmul_grad_plain(*args, **kw)
 
+    def grad_rows_plain(X1, X2, A, B, outputscale, *, kernel_type):
+        gX1, _, gs, _ = ref.kernel_matmul_grad_plain(X1, X2, B, A, outputscale, 0.0,
+                                                     kernel_type=kernel_type)
+        return gX1, gs
+
     km.kernel_matmul_cuda = ops.kernel_matmul_cuda = ref.kernel_matmul_plain
     ops.fused_cg_step_cuda = ref.fused_cg_step_plain
+    ops.kernel_matmul_grad_rows_cuda = grad_rows_plain
     km.kernel_matmul_grad_cuda = grad_plain
     km.kernel_matmul_grad_sym_cuda = ref.kernel_matmul_grad_sym_plain
     try:
         yield
     finally:
         km.kernel_matmul_cuda, km.kernel_matmul_grad_cuda, km.kernel_matmul_grad_sym_cuda = saved
-        ops.kernel_matmul_cuda, ops.fused_cg_step_cuda = saved_ops
+        ops.kernel_matmul_cuda, ops.fused_cg_step_cuda, ops.kernel_matmul_grad_rows_cuda = saved_ops
 
 
 def _counts(km):
@@ -1922,6 +1983,766 @@ def phase_train_mixed_prefix(km, gp, Xd, yd):
     check(abs(lk - lp) <= MIXED_PREFIX_TOL["rtol"] * abs(lp), f"mixed prefix MLL {lk} vs plain {lp}")
     for k, r in grads.items():
         check(r <= MIXED_GRAD_RTOL, f"mixed prefix gradient {k}: relative error {r:.3e}")
+
+
+# --------------------------------------------------------------------------
+# the batched engine (multi-output, multi-restart) and the partitioned path
+# --------------------------------------------------------------------------
+
+#: targets of the multi-output slice: y and three more of the same recipe
+OUTPUTS = 4
+#: the multi-restart slice: b hyperparameter sets, each a dense K of this n
+RESTART_N = 8_192
+#: the partitioned slice's n, and the million-row one's
+PARTITIONED_N = 200_000
+MILLION_N = 1_000_000
+#: the reference's own tolerances for the batched and partitioned engines
+#: (tests/test_batched_engine.py, tests/test_partitioned.py)
+BATCH_MLL_RTOL = 1e-5
+BATCH_GRAD_TOL = dict(rtol=2e-3, atol=1e-4)
+PANEL_TOL = dict(rtol=1e-4, atol=1e-4)
+PANEL_VJP_TOL = dict(rtol=2e-3, atol=1e-4)
+WITNESS_ROWS = 512
+#: the reported residual against the true one (tests/test_mbcg.py:185)
+RESIDUAL_TOL = dict(rtol=1e-4, atol=1e-6)
+#: the panel heights the sweep times at n = PARTITIONED_N (one wave of B1
+#: row blocks is 132 · 3 · 64 = 25,344 rows on an H100), and the cuda
+#: backend's default there (ops.cuda_panel_rows on the card's SM count)
+SWEEP_ROWS = (8_192, 16_384, 25_344, 32_768, 50_688, 65_536, 101_376, PARTITIONED_N)
+MILLION_PEAK_BYTES = 2e9
+
+
+def _million_data(seed, n):
+    """The reference's million recipe (benchmarks/million.py:56-68): X ~
+    N(0, I₄), y = sin(2x₀) + 0.1ε; RBF with ℓ = 0.25, s = 1, σ² = 1."""
+    rng = np.random.default_rng([seed, n])
+    X = rng.standard_normal((n, 4)).astype("float32")
+    y = (np.sin(2 * X[:, 0]) + 0.1 * rng.standard_normal(n)).astype("float32")
+    return torch.from_numpy(X).cuda(), torch.from_numpy(y).cuda()
+
+
+def _million_params():
+    from repro_torch import params_from_jax
+
+    return params_from_jax({"raw_lengthscale": np.float32(inv_softplus(0.25)),
+                            "raw_outputscale": np.float32(inv_softplus(1.0)),
+                            "raw_noise": np.float32(inv_softplus(1.0))}, device="cuda")
+
+
+def _rel_max(out, ref) -> float:
+    """max |Δ| over the largest |ref|."""
+    return float((out.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+def _grad_rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _rows_f64(Xs, M, rows, outputscale, sigma2, kernel_type, chunk=64, bf16=False):
+    """(K(X, X) + σ²I)[rows, :]·M in float64 from the f32 inputs, a chunk
+    of rows at a time (K from differences): the row witness.  With
+    ``bf16`` the bf16 kernels' factors: the entries formed in f32 as the
+    plain version forms them, σ² on the diagonal, rounded to bf16 (M is
+    the caller's, rounded as the kernel reads it), summed in float64."""
+    from repro_torch.kernels.kernel_matmul.ref import _sq_dist, apply_stationary
+
+    X, Md = (Xs if bf16 else Xs.double()), M.double()
+    out = []
+    for i in range(0, rows.numel(), chunk):
+        r = rows[i : i + chunk]
+        K = apply_stationary(kernel_type, _sq_dist(X[r], X), outputscale)
+        if bf16:
+            K[torch.arange(r.numel(), device=K.device), r] += sigma2
+            out.append(K.to(torch.bfloat16).double() @ Md)
+        else:
+            out.append(K @ Md + sigma2 * Md[r])
+    return torch.cat(out)
+
+
+def _vjp_rows_f64_rbf(Xs, M, C, rows, outputscale, chunk=64):
+    """Rows of ∂/∂Xs ⟨C, K(X, X)·M⟩ for the RBF kernel (one X on both sides)
+    in float64 from the f32 inputs, a chunk of rows at a time: row i is
+    Σⱼ wᵢⱼ·∂k(xᵢ, xⱼ)/∂xᵢ with wᵢⱼ = ⟨Cᵢ, Mⱼ⟩ + ⟨Mᵢ, Cⱼ⟩ and ∂k/∂xᵢ =
+    −k(xᵢ, xⱼ)(xᵢ − xⱼ): the row witness of the panel-streamed VJP."""
+    from repro_torch.kernels.kernel_matmul.ref import _sq_dist, apply_stationary
+
+    X, Md, Cd = Xs.double(), M.double(), C.double()
+    out = []
+    for i in range(0, rows.numel(), chunk):
+        r = rows[i : i + chunk]
+        P = apply_stationary("rbf", _sq_dist(X[r], X), outputscale)
+        P.mul_(Cd[r] @ Md.T + Md[r] @ Cd.T)
+        out.append(P @ X - P.sum(1, keepdim=True) * X[r])
+    return torch.cat(out)
+
+
+def phase_batched_kernel(km, plain, rng, n, errs):
+    """B2 at the multi-output slice's shape (n = 40,000, b = 4, t = 9):
+    against four B1 launches (the same bits expected); its gradient — the
+    batched product's autograd Function, one gradient-kernel launch over
+    the batch folded into columns — against the sum over the batch of the
+    plain version's symmetric VJPs, 2e-4 relative; bf16 B2 against its
+    bf16 plain version, BF16_REL_TOL of the largest output."""
+    from repro_torch.kernels.kernel_matmul.ops import fused_kernel_matmul_prescaled
+    from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_grad_sym_plain
+
+    dev = torch.device("cuda")
+    d, t = 8, 9
+    X = rng.uniform(-1, 1, (n, d)).astype("float32")
+    Xs = torch.from_numpy(X / 0.5).to(dev)
+    M = _randn(rng, (OUTPUTS, n, t), dev)
+    C = _randn(rng, (OUTPUTS, n, t), dev)
+    b2 = km.kernel_matmul_cuda(Xs, Xs, M, 1.0, 0.1, kernel_type="matern52")
+    b1 = torch.stack([km.kernel_matmul_cuda(Xs, Xs, M[i], 1.0, 0.1, kernel_type="matern52")
+                      for i in range(OUTPUTS)])
+    b2_vs_b1 = _err(b2, b1)
+    b2_rel = b2_vs_b1 / float(b1.abs().max())
+
+    Xg = Xs.clone().requires_grad_()
+    s = torch.tensor(1.0, device=dev, requires_grad=True)
+    s2 = torch.tensor(0.1, device=dev, requires_grad=True)
+    km.reset_launch_counts()
+    out = fused_kernel_matmul_prescaled(Xg, Xg, M, s, s2, kernel_type="matern52")
+    gX, gs, gs2 = torch.autograd.grad(out, (Xg, s, s2), C)
+    torch.cuda.synchronize()
+    launches = {"B2": km.batched_launches, "B1": km.launches, "grad": km.grad_launches}
+    want = [torch.zeros_like(Xs), 0.0, 0.0]
+    for i in range(OUTPUTS):
+        w = kernel_matmul_grad_sym_plain(Xs, M[i], C[i], 1.0, 0.1, kernel_type="matern52")
+        want = [a + b for a, b in zip(want, w)]
+    grad_rel = {"X": _grad_rel(gX, want[0]),
+                "outputscale": abs(float(gs - want[1])) / abs(float(want[1])),
+                "sigma2": abs(float(gs2 - want[2])) / abs(float(want[2]))}
+    errs["grad"] = max(errs["grad"], _err(gX, want[0]))
+
+    Xb = Xs.to(torch.bfloat16).float()
+    bf = km.kernel_matmul_cuda(Xb, Xb, M, 1.0, 0.1, kernel_type="matern52",
+                               compute_dtype="bfloat16")
+    bf_ref = plain(Xb, Xb, M, 1.0, 0.1, kernel_type="matern52", compute_dtype="bfloat16")
+    bf_rel = _rel_max(bf, bf_ref)
+    errs["B2_bf16"] = max(errs["B2_bf16"], _err(bf, bf_ref))
+    emit({"phase": "batched_kernel", "n": n, "batch": OUTPUTS, "t": t,
+          "b2_vs_four_b1_max_abs": b2_vs_b1, "b2_vs_four_b1_rel": b2_rel,
+          "b2_grad_rel_err": grad_rel, "grad_tol_rel": REL_TOL, "backward_launches": launches,
+          "b2_bf16_vs_plain_rel": bf_rel, "bf16_tol_rel": BF16_REL_TOL})
+    check(b2_rel <= REL_TOL, f"B2 vs four B1 launches: {b2_rel:.3e} of the largest output")
+    check(launches == {"B2": 1, "B1": 0, "grad": 1}, f"B2 forward + backward launches {launches}")
+    for k, r in grad_rel.items():
+        check(r <= REL_TOL, f"B2 gradient {k}: relative error {r:.3e} > {REL_TOL}")
+    check(bf_rel <= BF16_REL_TOL, f"bf16 B2 vs its plain version: {bf_rel:.3e}")
+
+
+def _multi_output_data(seed, n, d=8):
+    """The serving data's X and y, and OUTPUTS - 1 more targets of the same
+    recipe (fresh noise), drawn from the seed."""
+    X, y = make_data(np.random.default_rng(seed), n, d)
+    rng = np.random.default_rng([seed, 4])
+    more = [(np.sin(3 * X[:, 0]) * np.cos(2 * X[:, -1]) + 0.05 * rng.standard_normal(n))
+            for _ in range(OUTPUTS - 1)]
+    Y = np.stack([y] + [m.astype("float32") for m in more])
+    return torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda()
+
+
+def _generator(seed=0):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+def _loss_and_grads(model, p0, Xd, Y):
+    """The summed loss of ``model`` on targets Y and its gradients, the
+    probes from a fresh generator of seed 0."""
+    p = {k: v.clone().requires_grad_() for k, v in p0.items()}
+    loss = model.loss(p, Xd, Y, _generator())
+    loss.sum().backward()
+    return loss.detach(), {k: v.grad for k, v in p.items()}
+
+
+def phase_multi_output(km, seed, n):
+    """Multi-output serving and training: ExactGP(matern52, mode="cuda") on
+    the serving X with Y (4, n); ``loss`` returns (4,) from ONE engine call
+    over (4, n, 9), its backward one gradient-kernel launch.  Unfused at
+    precond_rank=5 (B2 f32 every iteration), fused at precond_rank=0 (B3
+    with b = 4) and under precision="mixed" (bf16 B2 every iteration, f32
+    B2 for the refreshes): launches counted, forward + backward timed.
+    Over a PREFIX_ITERS prefix each against the loop of 4 single-output
+    losses from the same generator (BATCH_MLL_RTOL; gradients
+    BATCH_GRAD_TOL), and "mixed" against "highest" (MIXED_MLL_PER_POINT).
+    ``engine_state`` and ``solve`` with a (4, n) / (4, n, 9) right-hand
+    side."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings, engine_state, solve
+
+    Xd, Y = _multi_output_data(seed, n)
+    p = 25
+    refreshes = p // 2
+    configs = {
+        "unfused": dict(fuse_cg=False, precision="highest", rank=5),
+        "fused": dict(fuse_cg=True, precision="highest", rank=0),
+        "mixed": dict(fuse_cg=False, precision="mixed", rank=5),
+    }
+    want = {"unfused": {"fwd": {"B2": p}, "bwd": {"B2": 1, "grad": 1}},
+            "fused": {"fwd": {"B3": p}, "bwd": {"B2": 1, "grad": 1}},
+            "mixed": {"fwd": {"B2_bf16": p, "B2": refreshes + 1}, "bwd": {"B2": 1, "grad": 1}}}
+    totals = {k: 0 for k in _dtype_counts(km)}
+    rows, prefix_losses = {}, {}
+    for name, c in configs.items():
+        settings = BBMMSettings(num_probes=8, max_cg_iters=p, precond_rank=c["rank"])
+        gp = ExactGP(kernel_type="matern52", mode="cuda", fuse_cg=c["fuse_cg"],
+                     precision=c["precision"], settings=settings)
+        p0 = gp.init_params(Xd)
+        params = {k: v.clone().requires_grad_() for k, v in p0.items()}
+        km.reset_launch_counts()
+        loss, fwd_ms, _ = timed(lambda: gp.loss(params, Xd, Y, _generator()))
+        fwd = _dtype_counts(km)
+        km.reset_launch_counts()
+        _, bwd_ms, _ = timed(lambda: loss.sum().backward())
+        bwd = _dtype_counts(km)
+        for k in totals:
+            totals[k] += fwd[k] + bwd[k]
+        _, warm_ms, _ = timed(lambda: _loss_and_grads(gp, p0, Xd, Y))
+
+        # the prefix: the (4,) loss and its gradients against the loop
+        short = dataclasses.replace(gp, settings=dataclasses.replace(settings,
+                                                                     max_cg_iters=PREFIX_ITERS))
+        lb, gb = _loss_and_grads(short, p0, Xd, Y)
+        loop, gl = [], {k: torch.zeros_like(v) for k, v in p0.items()}
+        for i in range(OUTPUTS):
+            li, gi = _loss_and_grads(short, p0, Xd, Y[i])
+            loop.append(li)
+            for k in gl:
+                gl[k] += gi[k]
+        loop = torch.stack(loop)
+        prefix_losses[name] = lb
+        loss_rel = float(((lb - loop).abs() / loop.abs()).max())
+        grad_rel = {k: _grad_rel(gb[k], gl[k]) for k in gb}
+        grad_ok = all(_within(gb[k], gl[k], BATCH_GRAD_TOL) for k in gb)
+        rows[name] = {"loss": loss.tolist(), "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+                      "warm_step_ms": warm_ms, "launches": {"forward": fwd, "backward": bwd},
+                      "prefix_loss_vs_loop_rel": loss_rel, "prefix_grad_vs_loop_rel": grad_rel}
+        emit({"phase": "multi_output", "config": name, "n": n, "outputs": OUTPUTS,
+              "settings": {"num_probes": 8, "max_cg_iters": p, "precond_rank": c["rank"],
+                           "fuse_cg": c["fuse_cg"], "precision": c["precision"]},
+              **rows[name], "mll_rtol": BATCH_MLL_RTOL, "grad_tol": BATCH_GRAD_TOL})
+        check(loss.shape == (OUTPUTS,) and bool(torch.isfinite(loss).all()),
+              f"multi-output {name}: loss {loss.tolist()}")
+        for phase_name, got in (("fwd", fwd), ("bwd", bwd)):
+            exp = {k: 0 for k in got} | want[name][phase_name]
+            check(got == exp, f"multi-output {name} {phase_name} launches {got} != {exp}")
+        check(loss_rel <= BATCH_MLL_RTOL, f"multi-output {name}: prefix loss vs loop {loss_rel:.3e}")
+        check(grad_ok, f"multi-output {name}: prefix gradients vs loop {grad_rel}")
+    gap = float((prefix_losses["mixed"] - prefix_losses["unfused"]).abs().max()) / n
+    # engine_state and solve with a batched right-hand side
+    gp = ExactGP(kernel_type="matern52", mode="cuda",
+                 settings=BBMMSettings(num_probes=8, max_cg_iters=PREFIX_ITERS, precond_rank=5))
+    params = gp.init_params(Xd)
+    op = gp.operator(params, Xd)
+    st = engine_state(op, Y, _generator(), gp.settings)
+    U = solve(op, st.probes, gp.settings)
+    emit({"phase": "multi_output_state", "mll_per_point_mixed_vs_highest": gap,
+          "mll_tol": MIXED_MLL_PER_POINT, "engine_state_shapes": [list(st.solve_y.shape),
+                                                                 list(st.probe_solves.shape)],
+          "solve_shape": list(U.shape)})
+    check(gap <= MIXED_MLL_PER_POINT, f"multi-output mixed vs highest: {gap:.3e} per point")
+    check(st.solve_y.shape == (OUTPUTS, n) and st.probe_solves.shape == (OUTPUTS, n, 8)
+          and U.shape == (OUTPUTS, n, 8), "multi-output engine_state / solve shapes")
+    check(bool(torch.isfinite(st.solve_y).all() & torch.isfinite(U).all()),
+          "multi-output engine_state / solve: non-finite")
+    return totals, rows
+
+
+def phase_multi_restart(km, seed):
+    """Multi-restart: ``ExactGP.batched_loss`` with 4 hyperparameter sets at
+    n = RESTART_N (4 dense K, formed outside any kernel as the reference
+    forms them) against a loop of ``loss`` (mode="dense", the same K) from
+    the same generator, BATCH_MLL_RTOL, at full depth and over the prefix
+    at precond_rank=0, and at full depth at precond_rank=5: the batched
+    preconditioner pivots on the kernels' exact diagonals k(x, x), as the
+    loop's does (not on the materialized K's, whose distance expansion
+    rounds them ~3e-6 apart and breaks their ties), so the two build the
+    same factors and draw the same probes.  No kernel of the port runs
+    here."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings
+
+    X, y = make_data(np.random.default_rng([seed, 8]), RESTART_N, 8)
+    Xd, yd = torch.from_numpy(X).cuda(), torch.from_numpy(y).cuda()
+    out = {}
+    for rank, iters in ((0, 25), (0, PREFIX_ITERS), (5, 25)):
+        gp = ExactGP(kernel_type="matern52", mode="dense",
+                     settings=BBMMSettings(num_probes=8, max_cg_iters=iters, precond_rank=rank))
+        p0 = gp.init_params(Xd)
+        batch = {k: torch.stack([v, v + 0.3, v - 0.2, v + 0.1]) for k, v in p0.items()}
+        torch.cuda.reset_peak_memory_stats()
+        km.reset_launch_counts()
+        lb, ms, _ = timed(lambda: gp.batched_loss(batch, Xd, yd, _generator()))
+        peak = torch.cuda.max_memory_allocated()
+        launches = sum(_dtype_counts(km).values())
+        loop = torch.stack([gp.loss({k: v[i] for k, v in batch.items()}, Xd, yd, _generator())
+                            for i in range(4)])
+        rel = float(((lb - loop).abs() / loop.abs()).max())
+        out[f"rank{rank}_iters{iters}"] = rel
+        emit({"phase": "multi_restart", "n": RESTART_N, "restarts": 4, "precond_rank": rank,
+              "max_cg_iters": iters, "batched_loss": lb.tolist(), "loop_loss": loop.tolist(),
+              "rel_err": rel, "rtol": BATCH_MLL_RTOL,
+              "batched_loss_ms": ms, "peak_device_bytes": peak, "kernel_launches": launches})
+        check(bool(torch.isfinite(lb).all()), "multi-restart: non-finite loss")
+        check(rel <= BATCH_MLL_RTOL,
+              f"multi-restart (rank {rank}, {iters} iterations): batched vs loop {rel:.3e}")
+    return out
+
+
+def _panel_counts(km):
+    return {"B1": km.launches, "B1_bf16": km.bf16_launches, "B3": km.fused_launches,
+            "B3_bf16": km.bf16_fused_launches, "grad": km.grad_launches,
+            "panels": km.panel_launches}
+
+
+def phase_panel_parity(km, seed, errs):
+    """The panel streams at n = PARTITIONED_N (the million recipe, t = 9)
+    against the full-range launches: the streamed K·M against B1 (PANEL_TOL;
+    the max difference printed, 0 expected when the panel height is a
+    multiple of 64), 512 of its rows against a float64 K[rows, :]·M (2e-4
+    of the largest output); the panel-fused step against B3 (state
+    FUSED_STATE_TOL, reductions 2e-3) and its launches per CG iteration
+    against num_panels; the panel-streamed VJP against the one-launch
+    symmetric VJP (PANEL_VJP_TOL); one bf16 panel-fused step against the
+    bf16 full-range B3 (BF16_REL_TOL).  A fault the panel and full-range
+    launches share would pass those, so each panel stream is also held on
+    the same 512 rows to float64: the fused step's U′, R′, D′ to the
+    elementwise update (FUSED_STATE_TOL) and its V′ to K̂[rows, :]·D′ with
+    that D′ (2e-4 of the largest); the VJP's rows to a float64 VJP of
+    those rows (2e-4 of the largest, the gradient kernel's gate); the bf16
+    step's D′ to the update and its V′ to the bf16-rounded factors
+    (BF16_REL_TOL)."""
+    from repro_torch.core import PartitionedKernelOperator, panel_accounting
+    from repro_torch.gp import RBFKernel
+    from repro_torch.kernels.kernel_matmul.ops import (
+        panel_fused_cg_step_prescaled,
+        panel_matmul_prescaled,
+        panel_vjp_prescaled,
+    )
+
+    n, t = PARTITIONED_N, 9
+    Xd, _ = _million_data(seed, n)
+    Xs = (Xd / 0.25).contiguous()
+    rng = np.random.default_rng([seed, 200])
+    M = _randn(rng, (n, t), Xd.device)
+    kern = RBFKernel(lengthscale=torch.tensor(0.25, device="cuda"),
+                     outputscale=torch.tensor(1.0, device="cuda"))
+    op = PartitionedKernelOperator(kernel=kern, X=Xd)
+    p = op.panel_rows_for(n)
+    num_panels = -(-n // p)
+    stats = {"panel_rows": p, "num_panels": num_panels}
+
+    km.reset_launch_counts()
+    with panel_accounting() as records:
+        streamed = op.matmul(M)
+    torch.cuda.synchronize()
+    stats["matmul_launches"] = _panel_counts(km)
+    full = km.kernel_matmul_cuda(Xs, Xs, M, 1.0, 0.0, kernel_type="rbf")
+    stats["streamed_vs_full_max_abs"] = _err(streamed, full)
+    rows = torch.from_numpy(rng.choice(n, WITNESS_ROWS, replace=False)).cuda()
+    w = _rows_f64(Xs, M, rows, 1.0, 0.0, "rbf")
+    stats["streamed_vs_f64_rows_rel"] = _rel_max(streamed[rows], w)
+    stats["full_vs_f64_rows_rel"] = _rel_max(full[rows], w)
+    errs["B1"] = max(errs["B1"], _err(streamed[rows], w))
+
+    state, scalars = _cg_inputs(rng, Xd.device, 1, n, t)
+    full_step = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.0, 1.0,
+                                      kernel_type="rbf")
+    km.reset_launch_counts()
+    with panel_accounting() as records:
+        step = op.fused_cg_step_fn(sigma2=torch.tensor(1.0, device="cuda"))
+        panel_step = step(*(x[0] for x in state), *(x[0] for x in scalars))
+    torch.cuda.synchronize()
+    stats["fused_step_launches"] = _panel_counts(km)
+    stats["fused_record"] = {"num_panels": records[0].num_panels, "panel_rows": records[0].panel_rows}
+    state_err = max(_err(a, b[0]) for a, b in zip(panel_step[:4], full_step[:4]))
+    state_ok = all(_within(a, b[0], FUSED_STATE_TOL) for a, b in zip(panel_step[:4], full_step[:4]))
+    red = torch.stack(panel_step[4], dim=0)
+    red_rel = _rel_max(red, full_step[4][0])
+    stats["fused_state_max_abs"], stats["fused_red_rel"] = state_err, red_rel
+    errs["B3"] = max(errs["B3"], state_err)
+    exact = [x[0] for x in _advance_f64(state, scalars)]  # U′, R′, D′
+    v64 = _rows_f64(Xs, exact[2], rows, 1.0, 1.0, "rbf")
+    stats["fused_vs_f64_U_R_D_max_abs"] = [_err(a, b) for a, b in zip(panel_step[:3], exact)]
+    stats["fused_V_vs_f64_rows_rel"] = _rel_max(panel_step[3][rows], v64)
+    f64_state_ok = all(_within(a, b, FUSED_STATE_TOL) for a, b in zip(panel_step[:3], exact))
+    errs["B3"] = max(errs["B3"], _err(panel_step[3][rows], v64))
+    del exact, v64
+
+    C = _randn(rng, (n, t), Xd.device)
+    km.reset_launch_counts()
+    gX, gs = panel_vjp_prescaled(Xs, M, C, 1.0, p, kernel_type="rbf")
+    torch.cuda.synchronize()
+    stats["vjp_grad_launches"] = km.grad_launches
+    wX, ws, _ = km.kernel_matmul_grad_sym_cuda(Xs, M, C, 1.0, 0.0, kernel_type="rbf")
+    stats["vjp_X_max_abs"] = _err(gX, wX)
+    stats["vjp_outputscale_rel"] = abs(float(gs - ws)) / abs(float(ws))
+    g64 = _vjp_rows_f64_rbf(Xs, M, C, rows, 1.0)
+    stats["vjp_X_vs_f64_rows_rel"] = _rel_max(gX[rows], g64)
+    errs["grad"] = max(errs["grad"], stats["vjp_X_max_abs"], _err(gX[rows], g64))
+
+    Xb = Xs.to(torch.bfloat16).float()
+    full_bf = km.fused_cg_step_cuda(Xb, Xb, *state, *state[1:], *scalars, 1.0, 1.0,
+                                    kernel_type="rbf", compute_dtype="bfloat16")
+    km.reset_launch_counts()
+    panel_bf = panel_fused_cg_step_prescaled(Xb, *state, *scalars, 1.0, 1.0, panel_rows=p,
+                                             kernel_type="rbf", compute_dtype="bfloat16")
+    stats["bf16_fused_step_launches"] = _panel_counts(km)
+    bf_state = max(_rel_max(a, b) for a, b in zip(panel_bf[:4], full_bf[:4]))
+    bf_red = _rel_max(torch.stack(panel_bf[4], dim=-2), full_bf[4])
+    stats["bf16_fused_state_rel"], stats["bf16_fused_red_rel"] = bf_state, bf_red
+    errs["B3_bf16"] = max(errs["B3_bf16"], max(_err(a, b) for a, b in zip(panel_bf[:4], full_bf[:4])))
+    d64 = _advance_f64(state, scalars)[2][0]
+    v64 = _rows_f64(Xb, panel_bf[2][0].to(torch.bfloat16), rows, 1.0, 1.0, "rbf", bf16=True)
+    stats["bf16_fused_D_vs_f64_max_abs"] = _err(panel_bf[2][0], d64)
+    stats["bf16_fused_V_vs_f64_rows_rel"] = _rel_max(panel_bf[3][0, rows], v64)
+    bf_f64_ok = _within(panel_bf[2][0], d64, FUSED_STATE_TOL)
+    del d64, v64
+    emit({"phase": "panel_parity", "n": n, "t": t, **stats, "panel_tol": PANEL_TOL,
+          "vjp_tol": PANEL_VJP_TOL})
+    check(_within(streamed, full, PANEL_TOL), f"streamed K·M vs B1: {stats['streamed_vs_full_max_abs']:.3e}")
+    check(stats["streamed_vs_f64_rows_rel"] <= REL_TOL,
+          f"streamed K·M vs f64 rows: {stats['streamed_vs_f64_rows_rel']:.3e}")
+    check(stats["matmul_launches"]["B1"] == stats["matmul_launches"]["panels"] == num_panels,
+          f"streamed matmul launches {stats['matmul_launches']} != {num_panels} panels")
+    check(state_ok, f"panel-fused step state vs B3: {state_err:.3e}")
+    check(f64_state_ok, f"panel-fused step U′, R′, D′ vs float64: "
+          f"{stats['fused_vs_f64_U_R_D_max_abs']}")
+    check(stats["fused_V_vs_f64_rows_rel"] <= REL_TOL,
+          f"panel-fused V′ vs f64 rows: {stats['fused_V_vs_f64_rows_rel']:.3e}")
+    check(red_rel <= FUSED_RED_TOL["atol"], f"panel-fused reductions vs B3: {red_rel:.3e}")
+    check(stats["fused_step_launches"]["B3"] == stats["fused_step_launches"]["panels"]
+          == records[0].num_panels == num_panels,
+          f"panel-fused launches per iteration {stats['fused_step_launches']} != {num_panels}")
+    check(stats["vjp_grad_launches"] == num_panels, f"panel VJP launches {stats['vjp_grad_launches']}")
+    check(_within(gX, wX, PANEL_VJP_TOL) and stats["vjp_outputscale_rel"] <= PANEL_VJP_TOL["rtol"],
+          f"panel VJP vs the symmetric VJP: X {stats['vjp_X_max_abs']:.3e}, "
+          f"outputscale {stats['vjp_outputscale_rel']:.3e}")
+    check(stats["vjp_X_vs_f64_rows_rel"] <= REL_TOL,
+          f"panel VJP rows vs float64: {stats['vjp_X_vs_f64_rows_rel']:.3e}")
+    check(stats["bf16_fused_step_launches"]["B3_bf16"] == num_panels, "bf16 panel-fused launches")
+    check(bf_f64_ok, f"bf16 panel-fused D′ vs float64: {stats['bf16_fused_D_vs_f64_max_abs']:.3e}")
+    check(stats["bf16_fused_V_vs_f64_rows_rel"] <= BF16_REL_TOL,
+          f"bf16 panel-fused V′ vs f64 rows: {stats['bf16_fused_V_vs_f64_rows_rel']:.3e}")
+    check(max(bf_state, bf_red) <= BF16_REL_TOL, f"bf16 panel-fused step vs bf16 B3: {bf_state:.3e}, {bf_red:.3e}")
+    return stats
+
+
+def phase_panel_sweep(km, seed):
+    """The panel height at n = PARTITIONED_N, t = 9: the streamed K·M and
+    the panel-fused step timed (CUDA events) at each of SWEEP_ROWS — the
+    last, n, is the full-range launch — and at the cuda backend's default
+    height on this card, the data that default rests on."""
+    from repro_torch.kernels.kernel_matmul.ops import (
+        cuda_panel_rows,
+        panel_fused_cg_step_prescaled,
+        panel_matmul_prescaled,
+    )
+
+    n, t = PARTITIONED_N, 9
+    default = cuda_panel_rows(n, torch.cuda.get_device_properties(0).multi_processor_count)
+    Xd, _ = _million_data(seed, n)
+    Xs = (Xd / 0.25).contiguous()
+    rng = np.random.default_rng([seed, 201])
+    M = _randn(rng, (n, t), Xd.device)
+    state, scalars = _cg_inputs(rng, Xd.device, 1, n, t)
+    table = []
+    for p in sorted(set(SWEEP_ROWS) | {default}):
+        mm = time_ms(lambda: panel_matmul_prescaled(Xs, M, 1.0, p, kernel_type="rbf"), reps=3)
+        fs = time_ms(lambda: panel_fused_cg_step_prescaled(Xs, *state, *scalars, 1.0, 1.0,
+                                                           panel_rows=p, kernel_type="rbf"),
+                     reps=3)
+        table.append({"panel_rows": p, "num_panels": -(-n // p), "matmul_ms": mm,
+                      "fused_step_ms": fs})
+    emit({"phase": "panel_sweep", "n": n, "t": t, "d": 4, "kernel": "rbf",
+          "default_panel_rows": default, "table": table})
+    return table
+
+
+def phase_serve_partitioned(km, seed):
+    """Serving at n = PARTITIONED_N on ExactGP(rbf, mode="cuda_partitioned")
+    with the million recipe: over a PREFIX_ITERS prefix the engine state
+    (MLL, solves) against mode="cuda" (the full-range launches), MLL rtol
+    1e-4 and solves PANEL_TOL; then the posterior cache at precond_rank=5
+    (timed cold and warm; one launch per panel per CG iteration and for
+    the Gram product), one 1,024-point predict_cached, the SolveReport
+    status and peak memory.  The uncached 256-point predict is left out
+    for time (~50 streamed launches at t = 256)."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings, engine_state, health, panel_accounting
+
+    n = PARTITIONED_N
+    Xd, yd = _million_data(seed, n)
+    params = _million_params()
+    settings = BBMMSettings(num_probes=8, max_cg_iters=25, cg_tol=1e-2, precond_rank=5)
+    short = dataclasses.replace(settings, max_cg_iters=PREFIX_ITERS)
+    prefix = {}
+    for mode in ("cuda_partitioned", "cuda"):
+        gp = ExactGP(kernel_type="rbf", mode=mode, settings=short)
+        st = engine_state(gp.operator(params, Xd), yd, _generator(), short)
+        prefix[mode] = st
+    a, b = prefix["cuda_partitioned"], prefix["cuda"]
+    mll = {m: float(-0.5 * (s.inv_quad + s.logdet)) for m, s in prefix.items()}
+    mll_rel = abs(mll["cuda_partitioned"] - mll["cuda"]) / abs(mll["cuda"])
+    solves_ok = _within(a.solve_y, b.solve_y, PANEL_TOL) and _within(a.probe_solves, b.probe_solves,
+                                                                      PANEL_TOL)
+
+    gp = ExactGP(kernel_type="rbf", mode="cuda_partitioned", settings=settings)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.reset_launch_counts()
+    with health.collect() as reports, panel_accounting() as records:
+        cache, build_ms, build_dev_ms = timed(lambda: gp.posterior_cache(params, Xd, yd))
+    build = _panel_counts(km)
+    peak = torch.cuda.max_memory_allocated()
+    warm = [timed(lambda: gp.posterior_cache(params, Xd, yd))[1] for _ in range(2)]
+    q = torch.from_numpy(np.random.default_rng([seed, 202]).standard_normal((1024, 4)).astype(
+        "float32")).cuda()
+    km.reset_launch_counts()
+    (mean, var), req_ms, _ = timed(lambda: gp.predict_cached(params, Xd, cache, q))
+    req_warm = [timed(lambda: gp.predict_cached(params, Xd, cache, q))[1] for _ in range(3)]
+    req = _panel_counts(km)
+    num_panels = records[0].num_panels
+    emit({"phase": "serve_partitioned", "n": n, "d": 4, "kernel": "rbf",
+          "settings": {"num_probes": 8, "max_cg_iters": 25, "cg_tol": 1e-2, "precond_rank": 5},
+          "prefix_mll": mll, "prefix_mll_rel": mll_rel,
+          "prefix_solve_max_abs": _err(a.solve_y, b.solve_y),
+          "prefix_probe_solves_max_abs": _err(a.probe_solves, b.probe_solves),
+          "build_ms": build_ms, "build_device_ms": build_dev_ms, "build_warm_ms": warm,
+          "request_ms": req_ms, "request_warm_ms": req_warm,
+          "launches": {"build": build, "requests": req},
+          "panel_rows": records[0].panel_rows, "num_panels": num_panels,
+          "panel_records": len(records),
+          "panel_bytes": records[0].panel_bytes, "dense_bytes": records[0].dense_bytes,
+          "peak_device_bytes": peak,
+          "health": [{"status": r.status, "residual_norm": r.residual_norm} for r in reports]})
+    check(mll_rel <= MLL_RTOL, f"partitioned prefix MLL vs cuda: {mll_rel:.3e}")
+    check(solves_ok, "partitioned prefix solves vs cuda outside PANEL_TOL")
+    check(build["B1"] == build["panels"] == 26 * num_panels,
+          f"cache build launches {build} != 26 × {num_panels} panels")
+    check(sum(req.values()) == 0, f"predict_cached launched {req}")
+    # the recipe is well conditioned (σ² = 1): a healthy build converges or
+    # runs out of iterations, never worse
+    check(reports[-1].status in ("CONVERGED", "MAX_ITERS"),
+          f"partitioned cache build: {reports[-1].describe()}")
+    check(bool(torch.isfinite(mean).all() & torch.isfinite(var).all() & (var > 0).all()),
+          "partitioned serving output")
+    return {k: build[k] for k in ("B1",)}, {"build_ms": build_ms, "build_warm_ms": warm,
+                                            "request_warm_ms": req_warm, "peak": peak}
+
+
+def phase_train_partitioned(km, seed):
+    """Training at n = PARTITIONED_N on ExactGP(rbf, mode="cuda_partitioned",
+    fuse_cg=True, precond_rank=0) with the million recipe: over a
+    PREFIX_ITERS prefix the MLL and its gradients against mode="cuda"
+    (fused, full range), MLL rtol 1e-4, gradients PANEL_VJP_TOL; two Adam
+    steps from the recipe's hyperparameters (``loss`` / ``backward``, as
+    ``fit_gp`` steps; the same Adam settings), each timed with its
+    launches: B3 once per panel per CG iteration, the backward's primal
+    and the gradient kernel once per panel; one mixed panel-fused step
+    (bf16 B3 per panel per iteration, f32 refreshes streamed); peak
+    memory."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings, panel_accounting
+    from repro_torch.gp.training import ADAM_BETAS, ADAM_EPS
+
+    n = PARTITIONED_N
+    Xd, yd = _million_data(seed, n)
+    p0 = _million_params()
+    settings = BBMMSettings(num_probes=8, max_cg_iters=25, precond_rank=0)
+    short = dataclasses.replace(settings, max_cg_iters=PREFIX_ITERS)
+    prefix = {}
+    for mode in ("cuda_partitioned", "cuda"):
+        gp = ExactGP(kernel_type="rbf", mode=mode, fuse_cg=True, settings=short)
+        prefix[mode] = _loss_and_grads(gp, p0, Xd, yd)
+    (la, ga), (lb, gb) = prefix["cuda_partitioned"], prefix["cuda"]
+    mll_rel = abs(float(la - lb)) / abs(float(lb))
+    grad_rel = {k: _grad_rel(ga[k], gb[k]) for k in ga}
+    grads_ok = all(_within(ga[k], gb[k], PANEL_VJP_TOL) for k in ga)
+
+    gp = ExactGP(kernel_type="rbf", mode="cuda_partitioned", fuse_cg=True, settings=settings)
+    params = {k: v.clone().requires_grad_() for k, v in p0.items()}
+    opt = torch.optim.Adam(params.values(), lr=0.1, betas=ADAM_BETAS, eps=ADAM_EPS)
+    gen = _generator()
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        km.reset_launch_counts()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        with panel_accounting() as records:
+            loss = gp.loss(params, Xd, yd, gen)
+        fwd = _panel_counts(km)
+        km.reset_launch_counts()
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        steps.append({"step": i, "loss": float(loss.detach()), "ms": (time.perf_counter() - t0) * 1e3,
+                      "forward": fwd, "backward": _panel_counts(km),
+                      "num_panels": records[0].num_panels, "panel_rows": records[0].panel_rows})
+    peak = torch.cuda.max_memory_allocated()
+
+    mixed = ExactGP(kernel_type="rbf", mode="cuda_partitioned", fuse_cg=True, settings=settings,
+                    precision="mixed")
+    pm = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    km.reset_launch_counts()
+    t0 = time.perf_counter()
+    mloss = mixed.loss(pm, Xd, yd, _generator())
+    mfwd = _panel_counts(km)
+    km.reset_launch_counts()
+    mloss.backward()
+    torch.cuda.synchronize()
+    mixed_ms = (time.perf_counter() - t0) * 1e3
+    mbwd = _panel_counts(km)
+    P = steps[0]["num_panels"]
+    p = settings.max_cg_iters
+    emit({"phase": "train_partitioned", "n": n, "d": 4, "kernel": "rbf",
+          "settings": {"num_probes": 8, "max_cg_iters": p, "precond_rank": 0, "fuse_cg": True},
+          "prefix_mll_rel": mll_rel, "prefix_grad_rel": grad_rel, "steps": steps,
+          "mixed_step": {"loss": float(mloss.detach()), "ms": mixed_ms, "forward": mfwd, "backward": mbwd},
+          "peak_device_bytes": peak, "dense_bytes": 4 * n * n})
+    check(mll_rel <= MLL_RTOL, f"partitioned training prefix MLL vs cuda: {mll_rel:.3e}")
+    check(grads_ok, f"partitioned training prefix gradients vs cuda: {grad_rel}")
+    for st in steps:
+        check(math.isfinite(st["loss"]), f"partitioned step {st['step']}: non-finite loss")
+        check(st["forward"]["B3"] == st["forward"]["panels"] == p * P and st["forward"]["B1"] == 0,
+              f"partitioned step {st['step']} forward launches {st['forward']} != {p} × {P}")
+        check(st["backward"]["B1"] == st["backward"]["grad"] == st["backward"]["panels"] == P,
+              f"partitioned step {st['step']} backward launches {st['backward']} != {P} each")
+    refreshes = p // 2 + 1
+    check(mfwd["B3_bf16"] == p * P and mfwd["B1"] == refreshes * P and mfwd["B3"] == 0,
+          f"mixed partitioned step forward launches {mfwd}")
+    check(mbwd["grad"] == P and math.isfinite(float(mloss.detach())), f"mixed partitioned step {mbwd}")
+    check(all(bool(torch.isfinite(v).all()) for v in params.values()), "partitioned parameters")
+    launches = {k: sum(st["forward"][k] + st["backward"][k] for st in steps) + mfwd[k] + mbwd[k]
+                for k in ("B1", "B1_bf16", "B3", "B3_bf16", "grad")}
+    return launches, {"step_ms": [st["ms"] for st in steps], "mixed_step_ms": mixed_ms,
+                      "peak": peak}
+
+
+def phase_million(km, seed):
+    """n = MILLION_N, the million recipe on the cuda backend: one streamed
+    K̂·M at t = 9 (timed) held on 512 rows to a float64 K̂[rows, :]·M (2e-4
+    of the largest output); a 3-iteration panel-fused CG prefix over
+    [y | Z] — every state finite, launches per iteration equal to
+    num_panels, each iteration's U′, R′, D′ held to the float64 elementwise
+    update (FUSED_STATE_TOL) and its V′ on the 512 rows to a float64
+    K̂[rows, :]·D′ of that D′ (2e-4 of the largest), and the error falling
+    in the norm CG minimizes: the objective φ(u) = ½uᵀK̂u − bᵀu =
+    −½uᵀ(b + r) of every column (r the recursive residual; the last
+    iterate's true one) strictly decreasing.  The last iterate's true
+    residual comes from one more streamed product, whose launches are
+    counted and whose rows are held to float64 as the first's; the
+    residual the solver reports lies within RESIDUAL_TOL of it.  The
+    residual's 2-norm is reported: on a wide spectrum the first step, its
+    α fitted to the probes' Rayleigh quotient, overshoots the largest
+    eigenvalues and raises it.  Peak device memory (the witnesses' own
+    excluded) under MILLION_PEAK_BYTES, beside PanelLaunch.panel_bytes and
+    dense_bytes."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings, mbcg, panel_accounting
+
+    n, t = MILLION_N, 9
+    Xd, yd = _million_data(seed, n)
+    Xs = (Xd / 0.25).contiguous()
+    rows = torch.from_numpy(np.random.default_rng([seed, 203]).choice(
+        n, WITNESS_ROWS, replace=False)).cuda()
+    params = _million_params()
+    gp = ExactGP(kernel_type="rbf", mode="cuda_partitioned",
+                 settings=BBMMSettings(num_probes=t - 1, precond_rank=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    op = gp.operator(params, Xd)
+    Z = torch.randint(0, 2, (n, t - 1), generator=_generator(), device="cuda").float() * 2 - 1
+    B = torch.cat([yd[:, None], Z], dim=1)
+    prepared = op.prepare()
+    km.reset_launch_counts()
+    with panel_accounting() as records:
+        out, mvm_ms, mvm_dev_ms = timed(lambda: prepared.matmul(B))
+    mvm_launches = _panel_counts(km)
+    step = op.fused_cg_step_fn()
+    rr, phi, per_iter, steps_f64, peaks = [], [], [], [], []
+    witness_ms = [0.0]
+
+    def recording_step(*args):
+        km.reset_launch_counts()
+        res = step(*args)
+        per_iter.append(_panel_counts(km))
+        # the outputs' U, R are the iterate after the pending update
+        phi.append(-0.5 * (res[0] * (B + res[1])).sum(0))
+        rr.append(torch.sqrt(torch.clamp(res[4][1], min=0.0)))
+        # the float64 witness, outside the path's time and peak memory
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        peaks.append(torch.cuda.max_memory_allocated())
+        exact = _advance_f64(args[:4], args[4:])
+        v64 = _rows_f64(Xs, exact[2], rows, 1.0, 1.0, "rbf")
+        steps_f64.append({
+            "U_R_D_max_abs": [_err(a, b) for a, b in zip(res[:3], exact)],
+            "U_R_D_ok": all(_within(a, b, FUSED_STATE_TOL) for a, b in zip(res[:3], exact)),
+            "V_rows_rel": _rel_max(res[3][rows], v64)})
+        del exact, v64
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        witness_ms[0] += (time.perf_counter() - t0) * 1e3
+        return res
+
+    res, cg_wall_ms, _ = timed(lambda: mbcg(prepared.matmul, B, max_iters=3, tol=0.0,
+                                            fused_step=recording_step))
+    cg_ms = cg_wall_ms - witness_ms[0]
+    peak = max(peaks + [torch.cuda.max_memory_allocated()])
+    U = res.solves
+    km.reset_launch_counts()
+    KU = prepared.matmul(U)
+    torch.cuda.synchronize()
+    true_launches = _panel_counts(km)
+    R = B - KU
+    phi.append(-0.5 * (U * (B + R)).sum(0))
+    b_norm = torch.linalg.vector_norm(B, dim=0)
+    true_rel = torch.linalg.vector_norm(R, dim=0) / b_norm
+    rel = [float((r / b_norm).max()) for r in rr] + [float(res.residual_norm.max())]
+    true_vs_recursive = float((true_rel - res.residual_norm).abs().max())
+    residual_ok = _within(res.residual_norm, true_rel, RESIDUAL_TOL)
+    falling = all(bool((b < a).all()) for a, b in zip(phi, phi[1:]))
+    finite = bool(torch.isfinite(U).all() & torch.isfinite(out).all() & torch.isfinite(R).all())
+    witness = _rel_max(out[rows], _rows_f64(Xs, B, rows, 1.0, 1.0, "rbf"))
+    true_witness = _rel_max(KU[rows], _rows_f64(Xs, U, rows, 1.0, 1.0, "rbf"))
+    lau = records[0]
+    emit({"phase": "million", "n": n, "d": 4, "t": t, "kernel": "rbf",
+          "panel_rows": lau.panel_rows, "num_panels": lau.num_panels,
+          "mvm_ms": mvm_ms, "mvm_device_ms": mvm_dev_ms, "mvm_launches": mvm_launches,
+          "mvm_vs_f64_rows_rel": witness, "cg_prefix_ms": cg_ms,
+          "cg_witness_ms": witness_ms[0], "cg_launches_per_iteration": per_iter,
+          "cg_steps_vs_f64": steps_f64, "true_residual_launches": true_launches,
+          "true_residual_product_vs_f64_rows_rel": true_witness,
+          "max_rel_residual_by_iteration": rel,
+          "true_vs_recursive_residual": true_vs_recursive, "residual_tol": RESIDUAL_TOL,
+          "objective_by_iteration": [x.tolist() for x in phi],
+          "peak_device_bytes": peak, "panel_bytes": lau.panel_bytes,
+          "dense_bytes": lau.dense_bytes})
+    check(witness <= REL_TOL, f"million: streamed K̂·M vs f64 rows {witness:.3e}")
+    check(mvm_launches["B1"] == mvm_launches["panels"] == lau.num_panels,
+          f"million: matmul launches {mvm_launches} != {lau.num_panels} panels")
+    check(all(c["B3"] == c["panels"] == lau.num_panels for c in per_iter),
+          f"million: launches per CG iteration {per_iter} != {lau.num_panels}")
+    check(all(w["U_R_D_ok"] for w in steps_f64),
+          f"million: a CG step's U′, R′, D′ vs float64: {steps_f64}")
+    check(all(w["V_rows_rel"] <= REL_TOL for w in steps_f64),
+          f"million: a CG step's V′ vs f64 rows: {steps_f64}")
+    check(true_launches["B1"] == true_launches["panels"] == lau.num_panels,
+          f"million: true-residual product launches {true_launches} != {lau.num_panels} panels")
+    check(true_witness <= REL_TOL, f"million: true-residual product vs f64 rows {true_witness:.3e}")
+    check(residual_ok, f"million: reported residual vs the true one {true_vs_recursive:.3e}")
+    check(finite, "million: non-finite state")
+    check(falling, f"million: the CG objective is not falling: {[x.tolist() for x in phi]}")
+    check(peak < MILLION_PEAK_BYTES, f"million: peak device memory {peak} B")
+    return {"B1": mvm_launches["B1"] + true_launches["B1"],
+            "B3": sum(c["B3"] for c in per_iter)}, {
+        "mvm_ms": mvm_ms, "peak": peak, "num_panels": lau.num_panels}
 
 
 # --------------------------------------------------------------------------
@@ -2553,8 +3374,9 @@ def main() -> int:
     # the bf16 kernel phases draw from a generator of their own too
     rng_bf16 = np.random.default_rng([args.seed, 17])
     # the LM phases draw from a generator of their own, so that they leave
-    # the GP phases' data as it was
+    # the GP phases' data as it was; so does the batched kernel phase
     rng_lm = np.random.default_rng([args.seed, 13])
+    rng_batched = np.random.default_rng([args.seed, 18])
     t_gram = 9 * 26  # (num_probes + 1) · (max_cg_iters + 1) basis columns
     t_start = time.perf_counter()
     try:
@@ -2578,6 +3400,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         train, history, steps = phase_train(km, args.seed, args.n)
         train_mixed, mixed_steps = phase_train_mixed(km, args.seed, args.n, history)
+        phase_batched_kernel(km, kernel_matmul_plain, rng_batched, args.n, errs)
+        multi, multi_rows = phase_multi_output(km, args.seed, args.n)
+        restart = phase_multi_restart(km, args.seed)
+        torch.cuda.empty_cache()
+        panels = phase_panel_parity(km, args.seed, errs)
+        sweep = phase_panel_sweep(km, args.seed)
+        serve_part, serve_part_times = phase_serve_partitioned(km, args.seed)
+        train_part, train_part_times = phase_train_partitioned(km, args.seed)
+        torch.cuda.empty_cache()
+        million, million_stats = phase_million(km, args.seed)
         phase_lm_parity(args.seed, PARITY_LAYERS, tol=LM_PARITY_TOL, decode=True)
         phase_lm_parity(args.seed, FULL_LAYERS, tol=None, decode=False)
         lm = phase_lm_serve(args.seed)
@@ -2599,6 +3431,12 @@ def main() -> int:
                     "b1_bf16_ms_t9": timing["B1_bf16"]["ms"],
                     "b1_bf16_ms_t256": timing["B1_bf16_predict"]["ms"],
                     "b3_bf16_ms_t9": timing["B3_bf16"]["ms"]},
+          "multi_output": {k: {"warm_step_ms": r["warm_step_ms"]} for k, r in multi_rows.items()},
+          "multi_restart_rel_err": restart,
+          "partitioned": {"n": PARTITIONED_N, "panel_rows": panels["panel_rows"],
+                          "num_panels": panels["num_panels"], **serve_part_times,
+                          **train_part_times, "sweep": sweep},
+          "million": million_stats,
           "lm_serving": {"arch": "zamba2-7b", "prefill_ms": lm["prefill_ms"],
                          "prefill_warm_ms": lm["prefill_warm_ms"],
                          "decode_ms_per_token": lm["decode_ms_per_token"],
@@ -2611,23 +3449,26 @@ def main() -> int:
     for name, key, source, replaces, count in (
         ("kernel_matmul (B1)", "B1", KERNEL_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:298",
-         launches + train["B1"] + serve_mixed["B1"] + train_mixed["B1"]),
+         launches + train["B1"] + serve_mixed["B1"] + train_mixed["B1"] + multi["B1"]
+         + serve_part["B1"] + train_part["B1"] + million["B1"]),
         ("kernel_matmul batched (B2)", "B2", KERNEL_SOURCE,
-         "src/repro/kernels/kernel_matmul/kernel_matmul.py:199", batched),
+         "src/repro/kernels/kernel_matmul/kernel_matmul.py:199", batched + multi["B2"]),
         ("fused_cg_step (B3)", "B3", FUSED_SOURCE,
-         "src/repro/kernels/kernel_matmul/kernel_matmul.py:487", train["B3"]),
-        ("kernel_matmul_grad (port-only VJP, 1 launch per symmetric VJP)", "grad", GRAD_SOURCE,
-         "src/repro/core/inference.py:641 (jax.vjp, no TPU kernel)",
-         train["grad"] + train_mixed["grad"]),
+         "src/repro/kernels/kernel_matmul/kernel_matmul.py:487",
+         train["B3"] + multi["B3"] + train_part["B3"] + million["B3"]),
+        ("kernel_matmul_grad (port-only VJP, 1 launch per symmetric VJP or row panel)", "grad",
+         GRAD_SOURCE, "src/repro/core/inference.py:641 (jax.vjp, no TPU kernel)",
+         train["grad"] + train_mixed["grad"] + multi["grad"] + train_part["grad"]),
         ("kernel_matmul bf16 (B1, precision=mixed)", "B1_bf16", KERNEL_BF16_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:298 (compute_dtype=bfloat16)",
-         serve_mixed["B1_bf16"] + train_mixed["B1_bf16"]),
+         serve_mixed["B1_bf16"] + train_mixed["B1_bf16"] + multi["B1_bf16"]
+         + train_part["B1_bf16"]),
         ("kernel_matmul bf16 batched (B2, precision=mixed)", "B2_bf16", KERNEL_BF16_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:199 (compute_dtype=bfloat16)",
-         serve_mixed["B2_bf16"] + train_mixed["B2_bf16"]),
+         serve_mixed["B2_bf16"] + train_mixed["B2_bf16"] + multi["B2_bf16"]),
         ("fused_cg_step bf16 (B3, precision=mixed)", "B3_bf16", FUSED_BF16_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:487 (compute_dtype=bfloat16)",
-         train_mixed["B3_bf16"]),
+         train_mixed["B3_bf16"] + multi["B3_bf16"] + train_part["B3_bf16"]),
         ("flash_attention (B4)", "B4", FLASH_SOURCE,
          "src/repro/kernels/flash_attention/flash_attention.py:83", lm["launches"]["B4"]),
         ("ssd_scan (B5, bf16 on the tensor-core route)", "B5", SSD_SOURCE,

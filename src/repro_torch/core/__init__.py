@@ -25,9 +25,13 @@ from .inference import (
 )
 from .linear_operator import (
     AddedDiagOperator,
+    BatchDenseOperator,
     DenseOperator,
     DiagOperator,
     LinearOperator,
+    PanelLaunch,
+    PartitionedKernelOperator,
+    panel_accounting,
     replace_tensor_leaves,
     tensor_leaves,
 )

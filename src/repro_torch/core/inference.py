@@ -1,7 +1,11 @@
 """The BBMM inference engine (counterpart of ``repro.core.inference``).
 
 A single mBCG call over [y | Z] yields the solve K̂⁻¹y, the probe solves
-and the Lanczos tridiagonals for the SLQ log-determinant.
+and the Lanczos tridiagonals for the SLQ log-determinant.  A batched y
+(b, n) runs as ONE engine call over (b, n, t + 1): b targets of one
+shared K̂ (multi-output; on the GPU the product is B2) or of a batched K̂
+(:class:`BatchDenseOperator`, multi-restart), the probes shared across the
+batch; the MLL is then (b,).
 
   * :func:`marginal_log_likelihood` / :func:`inv_quad_logdet` — the
     differentiable MLL: a ``torch.autograd.Function`` whose forward is one
@@ -67,8 +71,8 @@ class BBMMSettings:
     on_failure: str = "warn"  # "raise" | "warn" | "degrade" (step 13)
     dense_fallback_max_n: int = 2048  # degradation ladder's dense rung (step 13)
     max_basis_columns: int = 0  # streaming cache compaction (step 14)
-    panel_rows: int = 0  # partitioned path (step 12)
-    panel_budget_bytes: int = 0  # partitioned path (step 12)
+    panel_rows: int = 0  # cuda_partitioned: rows per panel (0 = the backend's default)
+    panel_budget_bytes: int = 0  # cuda_partitioned: the byte-budget chooser's budget (0 = default)
     dense_direct_max_n: int = 0  # dense-Cholesky routing for tiny n (step 13)
 
     def __post_init__(self):
@@ -193,11 +197,14 @@ def _run_engine(
     """The shared engine forward pass: preconditioner + probes + ONE mBCG
     over [y | Z] and (optionally) the SLQ log-det.
 
-    Returns (precond, Z, res, probe_solves, logdet)."""
+    Returns (precond, Z, res, probe_solves, logdet) with leading batch dims
+    mirroring y's; the probes are drawn once and shared across them."""
     n = y.shape[-1]
+    batch_shape = y.shape[:-1]
     precond = build_preconditioner(op, settings.precond_rank, jitter=settings.precond_jitter)
     Z = precond.sample_probes(generator, settings.num_probes, n).to(y.dtype)
-    B = torch.cat([y[:, None], Z], dim=-1)
+    Z = Z.expand(*batch_shape, n, settings.num_probes)
+    B = torch.cat([y[..., None], Z], dim=-1)
 
     matmul, refresh_kwargs, fused_step = _solver_matmuls(op, settings)
     res = mbcg(
@@ -297,7 +304,8 @@ def cached_inv_quad(cache: PosteriorCache, Kxs: torch.Tensor) -> torch.Tensor:
 
 
 def solve(op, B, settings: BBMMSettings = BBMMSettings(), *, precond=None):
-    """Plain preconditioned solve K̂⁻¹B (prediction-time helper).
+    """Plain preconditioned solve K̂⁻¹B for B (n,), (n, t) or (b, n, t)
+    (prediction-time helper).
 
     ``precond``: a prebuilt preconditioner (e.g. ``PosteriorCache.precond``)
     to reuse instead of rebuilding the pivoted-Cholesky factors.
@@ -325,14 +333,14 @@ def solve(op, B, settings: BBMMSettings = BBMMSettings(), *, precond=None):
 class InferenceState(NamedTuple):
     """Every quantity a downstream consumer might want from one engine call."""
 
-    solve_y: torch.Tensor  # (n,)  K̂⁻¹y
-    inv_quad: torch.Tensor  # () yᵀK̂⁻¹y
-    logdet: torch.Tensor  # () log|K̂| estimate
-    probe_solves: torch.Tensor  # (n, t) K̂⁻¹zᵢ
-    probes: torch.Tensor  # (n, t) zᵢ
-    precond_probes: torch.Tensor  # (n, t) P̂⁻¹zᵢ
-    cg_iters: torch.Tensor  # (t+1,) iterations per RHS
-    residual: torch.Tensor  # (t+1,) final relative residuals
+    solve_y: torch.Tensor  # (…, n)  K̂⁻¹y
+    inv_quad: torch.Tensor  # (…,) yᵀK̂⁻¹y
+    logdet: torch.Tensor  # (…,) log|K̂| estimate
+    probe_solves: torch.Tensor  # (…, n, t) K̂⁻¹zᵢ
+    probes: torch.Tensor  # (…, n, t) zᵢ
+    precond_probes: torch.Tensor  # (…, n, t) P̂⁻¹zᵢ
+    cg_iters: torch.Tensor  # (…, t+1) iterations per RHS
+    residual: torch.Tensor  # (…, t+1) final relative residuals
 
 
 def _apply_policy(report, settings: BBMMSettings, context: str):
@@ -354,20 +362,15 @@ def _apply_policy(report, settings: BBMMSettings, context: str):
 
 
 def _engine_forward(op, y, generator, settings: BBMMSettings, *, context: str = "mll"):
-    """Engine forward pass → :class:`InferenceState`, health-checked
-    (check-only, see :func:`_apply_policy`) and stamped with its wall
-    time."""
-    if y.dim() != 1:
-        raise ValueError(
-            "the MLL takes a single problem (y of shape (n,)); batched y is "
-            "ROADMAP Queue A step 11"
-        )
+    """Engine forward pass → :class:`InferenceState` (leading dims of a
+    batched y (b, n) carried through), health-checked (check-only, see
+    :func:`_apply_policy`) and stamped with its wall time."""
     t0 = time.perf_counter()
     precond, Z, res, probe_solves, logdet = _run_engine(op, y, generator, settings)
     u = res.solves[..., 0]
     state = InferenceState(
         solve_y=u,
-        inv_quad=torch.dot(y, u),
+        inv_quad=torch.sum(y * u, dim=-1),
         logdet=logdet,
         probe_solves=probe_solves,
         probes=Z,
@@ -383,14 +386,18 @@ def _engine_forward(op, y, generator, settings: BBMMSettings, *, context: str = 
 
 
 class _InvQuadLogdet(torch.autograd.Function):
-    """(yᵀK̂⁻¹y, log|K̂|) with the BBMM gradient estimators.
+    """(yᵀK̂⁻¹y, log|K̂|) with the BBMM gradient estimators; for a batched y
+    (b, n) both are (b,).
 
     Inputs after the non-tensor ones are y and the operator's tensor
     leaves, so autograd reaches every hyperparameter the operator holds.
     Backward: ONE vector-Jacobian product through the blackbox matmul,
     K̂·[u | K̂⁻¹Z] with the cotangent [−g_iq·u | (g_ld/t)·P̂⁻¹Z], which gives
     −g_iq·uᵀ(∂K̂)u + g_ld·(1/t)Σᵢ(P̂⁻¹zᵢ)ᵀ(∂K̂)(K̂⁻¹zᵢ) for every leaf, and
-    d_y = 2·g_iq·u."""
+    d_y = 2·g_iq·u.  Batched, the cotangents broadcast over (n, t) per
+    batch element, and the product is (b, n, t + 1) — through a shared
+    kernel operator on the GPU one B2 launch, its VJP one gradient-kernel
+    launch over the batch folded into columns."""
 
     @staticmethod
     def forward(ctx, op, generator, settings, y, *leaves):
@@ -409,9 +416,10 @@ class _InvQuadLogdet(torch.autograd.Function):
         ]
         grads = [None] * len(leaves)
         wanted = [i for i, n in enumerate(need) if n]
+        g_iq, g_ld = g_iq[..., None, None], g_ld[..., None, None]  # over (n, t)
         if wanted:
-            rhs = torch.cat([u[:, None], probe_solves], dim=-1)
-            cot = torch.cat([-g_iq * u[:, None], (g_ld / t) * pinv_z], dim=-1)
+            rhs = torch.cat([u[..., None], probe_solves], dim=-1)
+            cot = torch.cat([-g_iq * u[..., None], (g_ld / t) * pinv_z], dim=-1)
             with torch.enable_grad():
                 op = replace_tensor_leaves(ctx.op, leaves)
                 out = op.prepare().matmul(rhs)
@@ -420,7 +428,7 @@ class _InvQuadLogdet(torch.autograd.Function):
                 )
             for i, g in zip(wanted, got):
                 grads[i] = torch.zeros_like(leaves[i]) if g is None else g
-        d_y = 2.0 * g_iq * u if ctx.needs_input_grad[3] else None
+        d_y = 2.0 * g_iq[..., 0] * u if ctx.needs_input_grad[3] else None
         return (None, None, None, d_y, *grads)
 
 
@@ -428,14 +436,16 @@ def inv_quad_logdet(op: LinearOperator, y: torch.Tensor, generator: torch.Genera
                     settings: BBMMSettings = BBMMSettings()):
     """Differentiable (yᵀK̂⁻¹y, log|K̂|) for any operator built of
     dataclasses and tensors (its hyperparameters, noise and inputs are
-    found by :func:`tensor_leaves`).  ``generator`` draws the probes."""
+    found by :func:`tensor_leaves`).  ``generator`` draws the probes.  A
+    batched y (b, n) returns (b,)-shaped values, still differentiable."""
     return _InvQuadLogdet.apply(op, generator, settings, y, *tensor_leaves(op))
 
 
 def marginal_log_likelihood(op: LinearOperator, y: torch.Tensor, generator: torch.Generator,
                             settings: BBMMSettings = BBMMSettings()):
     """GP marginal log likelihood −½(yᵀK̂⁻¹y + log|K̂| + n·log 2π) (Eq. 2),
-    differentiable w.r.t. every tensor the operator holds and y."""
+    differentiable w.r.t. every tensor the operator holds and y; (b,) for a
+    batched y (b, n)."""
     n = y.shape[-1]
     inv_quad, logdet = inv_quad_logdet(op, y, generator, settings)
     return -0.5 * (inv_quad + logdet + n * math.log(2.0 * math.pi))
@@ -444,6 +454,7 @@ def marginal_log_likelihood(op: LinearOperator, y: torch.Tensor, generator: torc
 def engine_state(op: LinearOperator, y: torch.Tensor, generator: torch.Generator,
                  settings: BBMMSettings = BBMMSettings()) -> InferenceState:
     """Non-differentiable full engine state (prediction paths,
-    diagnostics), health-checked check-only per ``settings.on_failure``."""
+    diagnostics) for y (n,) or a batch (b, n), health-checked check-only
+    per ``settings.on_failure``."""
     with torch.no_grad():
         return _engine_forward(op, y, generator, settings, context="engine_state")

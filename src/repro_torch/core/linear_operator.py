@@ -1,10 +1,14 @@
 """LinearOperator: the blackbox matrix abstraction at the heart of BBMM.
 
-Counterpart of ``repro.core.linear_operator``, main-path subset:
-:class:`LinearOperator`, :class:`DenseOperator`, :class:`DiagOperator` and
-:class:`AddedDiagOperator`.  An operator packages the blackbox routine
-``matmul(M) = K @ M`` with the cheap accessors the engine needs —
-``diagonal()`` and ``row(i)`` drive the pivoted-Cholesky preconditioner.
+Counterpart of ``repro.core.linear_operator``, single-device subset:
+:class:`LinearOperator`, :class:`DenseOperator`, :class:`DiagOperator`,
+:class:`AddedDiagOperator`, :class:`BatchDenseOperator` (b independent
+dense blocks, the multi-restart path) and :class:`PartitionedKernelOperator`
+(K streamed one row-panel at a time, the million-row path) with its
+accounting surface (:class:`PanelLaunch`, :func:`panel_accounting`).  An
+operator packages the blackbox routine ``matmul(M) = K @ M`` with the cheap
+accessors the engine needs — ``diagonal()`` and ``row(i)`` drive the
+pivoted-Cholesky preconditioner.
 
 Operators are frozen dataclasses holding tensors; there are no pytrees and
 no jit.  The device is the device of the tensors they hold.
@@ -17,8 +21,13 @@ differentiable MLL takes its gradients.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import warnings
+from contextlib import contextmanager
+from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .precision import is_reduced, normalize_compute_dtype
 
@@ -214,10 +223,11 @@ class AddedDiagOperator(LinearOperator):
 
     Kept as its own node because the engine builds the pivoted-Cholesky
     preconditioner from ``base`` and the noise separately
-    (P̂ = L_k L_kᵀ + σ²I)."""
+    (P̂ = L_k L_kᵀ + σ²I).  σ² is a scalar, or (b,) — one noise level per
+    block of a batched base (:class:`BatchDenseOperator`)."""
 
     base: LinearOperator
-    sigma2: torch.Tensor  # scalar
+    sigma2: torch.Tensor  # scalar, or (b,) for a batch of noise levels
 
     @property
     def shape(self):
@@ -231,11 +241,16 @@ class AddedDiagOperator(LinearOperator):
     def device(self):
         return self.base.device
 
+    def _s2(self, extra_dims: int):
+        """σ² shaped to broadcast against ``extra_dims`` trailing dims."""
+        s2 = torch.as_tensor(self.sigma2)
+        return s2.reshape(s2.shape + (1,) * extra_dims) if s2.dim() else s2
+
     def matmul(self, M):
-        return self.base.matmul(M) + self.sigma2 * M
+        return self.base.matmul(M) + self._s2(2 if M.dim() > 1 else 1) * M
 
     def diagonal(self):
-        return self.base.diagonal() + self.sigma2
+        return self.base.diagonal() + self._s2(1)
 
     def row(self, i):
         r = self.base.row(i).clone()
@@ -247,7 +262,7 @@ class AddedDiagOperator(LinearOperator):
         # blackbox matmul
         dense = self.base.to_dense()
         eye = torch.eye(dense.shape[-1], dtype=dense.dtype, device=dense.device)
-        return dense + self.sigma2 * eye
+        return dense + self._s2(2) * eye
 
     def prepare(self):
         return AddedDiagOperator(self.base.prepare(), self.sigma2)
@@ -258,10 +273,458 @@ class AddedDiagOperator(LinearOperator):
     def fused_cg_step_fn(self, sigma2=None):
         """Fold this diagonal into the base kernel's σ² tile term (the fused
         kernel adds it at global row == column, so the fused step IS K̂·D).
-        A batched σ² has no scalar tile term: None, the unfused loop."""
+        A batched σ² has no scalar tile term: None, the unfused loop — with
+        one warning per operator where the base has a fused step to give
+        up."""
         s2 = torch.as_tensor(self.sigma2)
         if s2.dim():
+            if type(self.base).fused_cg_step_fn is not LinearOperator.fused_cg_step_fn:
+                _warn_once_per_op(
+                    self,
+                    "added_diag_batched_sigma2",
+                    "fuse_cg=True with batched (per-model) noise: the fused kernel "
+                    "folds one scalar σ² into its diagonal tile, so batched σ² runs "
+                    "the unfused mBCG loop instead.",
+                )
             return None
         if sigma2 is not None:
             s2 = s2 + sigma2
         return self.base.fused_cg_step_fn(sigma2=s2)
+
+
+_FUSED_FALLBACK_WARNED: dict = {}
+
+
+def _warn_once_per_op(op, key: str, message: str) -> None:
+    """Warn once per operator construction, not once per solve.
+
+    ``fused_cg_step_fn`` is asked on every engine solve, and ``prepare()``
+    rebuilds fresh operator objects each time, so the dedup token is the
+    identity (and shape) of the operator's tensor leaves: every re-prepared
+    copy of one user-built operator shares them, a new operator (new
+    parameter tensors) warns afresh."""
+    leaves = tensor_leaves(op)
+    token = (key, tuple(id(x) for x in leaves) or id(op), tuple(tuple(x.shape) for x in leaves))
+    if token in _FUSED_FALLBACK_WARNED:
+        return
+    if len(_FUSED_FALLBACK_WARNED) > 4096:
+        _FUSED_FALLBACK_WARNED.clear()
+    _FUSED_FALLBACK_WARNED[token] = True
+    warnings.warn(message, stacklevel=4)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchDenseOperator(LinearOperator):
+    """Stack of b independent dense blocks (a block-diagonal view) — the
+    multi-restart path's b kernel matrices.  ``shape`` is one block's;
+    ``matmul`` takes (b, n, t) (or anything broadcasting against it).
+
+    ``compute_dtype="bfloat16"`` rounds both operands to bf16 and
+    accumulates in f32, as :class:`DenseOperator`.
+
+    ``diag`` is the blocks' exact diagonal where the caller knows it (a
+    stationary kernel's k(x, x)); the pivoted-Cholesky preconditioner
+    pivots on it, as it pivots on ``KernelOperator.diagonal()`` for one
+    hyperparameter set, so a batch and a loop pick the same pivots.  The
+    materialized diagonal carries the distance's rounding, which breaks
+    k(x, x)'s ties at random.  Without it, the matrices' diagonal."""
+
+    matrices: torch.Tensor  # (b, n, n)
+    compute_dtype: str = "float32"
+    diag: torch.Tensor | None = None  # (b, n)
+
+    @property
+    def shape(self):
+        return tuple(self.matrices.shape[-2:])
+
+    @property
+    def batch(self) -> int:
+        return self.matrices.shape[0]
+
+    @property
+    def dtype(self):
+        return self.matrices.dtype
+
+    @property
+    def device(self):
+        return self.matrices.device
+
+    def matmul(self, M):
+        if is_reduced(self.compute_dtype):
+            return _mixed_matmul(self.matrices, M)
+        return self.matrices @ M
+
+    def with_compute_dtype(self, compute_dtype):
+        return dataclasses.replace(self, compute_dtype=normalize_compute_dtype(compute_dtype))
+
+    def diagonal(self):
+        if self.diag is not None:
+            return self.diag
+        return torch.diagonal(self.matrices, dim1=-2, dim2=-1)
+
+    def to_dense(self):
+        return self.matrices
+
+
+# --- partitioned kernel streaming (million-row exact GPs) -------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PanelLaunch:
+    """Accounting record for one partitioned ``matmul`` or panel-fused CG
+    step.
+
+    The port runs eagerly, so there is one record per CALL — each CG
+    iteration of a partitioned solve records its own — where the
+    reference, which traces, records one per traced matmul (a matmul in a
+    CG scan traced once).  The memory contract it carries: no panel is the
+    full height, ``panel_rows < n``."""
+
+    n: int
+    rhs_cols: int
+    batch: int
+    panel_rows: int
+    num_panels: int
+    backend: str
+    itemsize: int = 4
+    #: True for a panel-fused CG step (one fused launch per panel per
+    #: iteration), False for a streamed matmul
+    fused: bool = False
+
+    @property
+    def panel_bytes(self) -> int:
+        """Working set of one streamed panel, as the reference counts it:
+        the (p × n) kernel slab plus the panel's output rows.  The torch
+        backend materializes the slab; the CUDA kernels never do (they hold
+        64-row tiles in shared memory), so for them it is an upper bound."""
+        return self.itemsize * self.panel_rows * (self.n + self.rhs_cols * max(self.batch, 1))
+
+    @property
+    def dense_bytes(self) -> int:
+        """What materializing K in f32 would cost instead."""
+        return 4 * self.n * self.n
+
+
+_PANEL_SINK = threading.local()
+
+
+@contextmanager
+def panel_accounting(into=None):
+    """Collect a :class:`PanelLaunch` for every partitioned matmul and
+    panel-fused step called in the block (mirrors
+    :func:`repro_torch.core.health.collect`).  Yields the list."""
+    launches = [] if into is None else into
+    prev = getattr(_PANEL_SINK, "launches", None)
+    _PANEL_SINK.launches = launches
+    try:
+        yield launches
+    finally:
+        _PANEL_SINK.launches = prev
+
+
+def _record_panels(launch: PanelLaunch) -> None:
+    """Deliver one PanelLaunch to the installed :func:`panel_accounting`
+    list, if any."""
+    sink = getattr(_PANEL_SINK, "launches", None)
+    if sink is not None:
+        sink.append(launch)
+
+
+def _panel_starts(rows: int, panel_rows: int) -> range:
+    return range(0, rows, max(1, min(int(panel_rows), rows)))
+
+
+def _torch_panel_matmul(kernel, X_rows, X_cols, M, panel_rows, *, compute_dtype):
+    """K(X_rows, X_cols) @ M streamed one (panel_rows × n) slab at a time
+    with the kernel evaluated by plain torch operations (the reference's
+    ``_xla_panel_matmul``).  Each panel runs under
+    ``torch.utils.checkpoint``, so the backward rematerializes one slab at
+    a time instead of keeping every panel live.  The output is f32
+    (…, rows, t)."""
+    reduced = is_reduced(normalize_compute_dtype(compute_dtype))
+    p = max(1, min(int(panel_rows), X_rows.shape[0]))
+    Mf = M.to(torch.float32)
+
+    def one_panel(Xpan):
+        tile = kernel(Xpan, X_cols).to(torch.float32)
+        return _mixed_matmul(tile, Mf) if reduced else tile @ Mf
+
+    outs = [
+        checkpoint(one_panel, X_rows[s : s + p], use_reentrant=False)
+        for s in _panel_starts(X_rows.shape[0], p)
+    ]
+    return torch.cat(outs, dim=-2)
+
+
+def _torch_panel_fused_step(kernel, X, U, R, D, V, alpha, beta, gamma, sigma2, panel_rows, *,
+                            compute_dtype):
+    """One CG iteration of K̂ = K(X, X) + σ²I streamed one (panel_rows × n)
+    slab at a time with plain torch operations — the twin of
+    :func:`repro_torch.kernels.kernel_matmul.ops.panel_fused_cg_step_prescaled`
+    and of the reference's ``_xla_panel_fused_step``.
+
+    The pending updates U += α∘D, R −= α∘V and the direction D₂ = γ∘R₂ +
+    β∘D are elementwise; V₂ = K̂·D₂ takes one slab per panel against the
+    full new direction; the [dᵀV; rᵀr; rᵀV; vᵀV] partials are summed over
+    each panel's rows and folded in panel order from zeros.  A last panel
+    that does not divide runs at its own height.  Not checkpointed: MLL
+    gradients go through the matmul, never through the fused step."""
+    reduced = is_reduced(normalize_compute_dtype(compute_dtype))
+    a, b, g = (s[..., None, :] for s in (alpha, beta, gamma))
+    U2 = U + a * D
+    R2 = R - a * V
+    D2 = g * R2 + b * D
+    Mc = D2.to(torch.float32)
+    s2 = torch.as_tensor(sigma2, dtype=torch.float32, device=U.device)
+    red = [torch.zeros(U.shape[:-2] + U.shape[-1:], dtype=torch.float32, device=U.device)
+           for _ in range(4)]
+    Vs = []
+    p = max(1, min(int(panel_rows), X.shape[0]))
+    for s in _panel_starts(X.shape[0], p):
+        tile = kernel(X[s : s + p], X).to(torch.float32)
+        D2p, R2p = D2[..., s : s + p, :], R2[..., s : s + p, :]
+        V2p = (_mixed_matmul(tile, Mc) if reduced else tile @ Mc) + s2 * D2p
+        parts = ((D2p * V2p).sum(-2), (R2p * R2p).sum(-2), (R2p * V2p).sum(-2),
+                 (V2p * V2p).sum(-2))
+        red = [r + q for r, q in zip(red, parts)]
+        Vs.append(V2p)
+    return U2, R2, D2, torch.cat(Vs, dim=-2), tuple(red)
+
+
+class _PartitionedMatmulFn(torch.autograd.Function):
+    """K(X, X)·M for pre-scaled X, streamed one row-panel at a time through
+    the kernel wrappers (one B1/B2 launch per panel with the panel's
+    ``row_offset``), differentiable in Xs, M and the outputscale — the
+    counterpart of the reference's ``_partitioned_matmul`` custom VJP.
+
+    Backward: for Xs and the outputscale, one gradient-kernel launch per
+    panel (:func:`repro_torch.kernels.kernel_matmul.ops.panel_vjp_prescaled`:
+    the panel's rows against all columns, with the symmetric weight
+    [C | M]ᵢ·[M | C]ⱼ, so each launch gives its rows' complete gradient),
+    the rows written in place and the outputscale's partial sums folded in
+    panel order; for M, the same panel stream on the cotangent (K is
+    symmetric).  No more than one panel is in flight.  On CPU tensors the
+    wrappers run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, Xs, M, outputscale, panel_rows, kernel_type):
+        from repro_torch.kernels.kernel_matmul.ops import panel_matmul_prescaled
+
+        ctx.save_for_backward(Xs, M, outputscale)
+        ctx.panel_rows, ctx.kernel_type = panel_rows, kernel_type
+        return panel_matmul_prescaled(Xs, M, outputscale, panel_rows, kernel_type=kernel_type)
+
+    @staticmethod
+    def backward(ctx, C):
+        from repro_torch.kernels.kernel_matmul.ops import (
+            panel_matmul_prescaled,
+            panel_vjp_prescaled,
+        )
+
+        Xs, M, s = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        p, kt = ctx.panel_rows, ctx.kernel_type
+        gXs = gM = gs = None
+        if need[0] or need[2]:
+            gXs, gs = panel_vjp_prescaled(Xs, M, C, s, p, kernel_type=kt)
+            gs = gs.reshape(s.shape)
+        if need[1]:
+            gM = panel_matmul_prescaled(Xs, C, s, p, kernel_type=kt)
+        return gXs, gM, gs, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedKernelOperator(LinearOperator):
+    """K(X, X) streamed one (panel_rows × n) row-panel at a time — the
+    operator that makes "n is bounded by O(n²) memory" false (Wang et al.
+    2019, "Exact Gaussian Processes on a Million Data Points").  Peak
+    memory is O(n·(d + t)) state plus one panel's working set.
+
+    Backends (``backend=``):
+
+      * ``"cuda"``  — one kernel launch per panel on pre-scaled inputs with
+        the panel's global ``row_offset`` (B1/B2; the fused step B3; the
+        gradient kernel in the backward, :class:`_PartitionedMatmulFn`).
+        The kernels never form a (panel_rows × n) slab, so the default
+        height comes from the card (``ops.cuda_panel_rows``, whole waves of
+        row blocks on its SMs), not from a byte budget.  On CPU tensors the
+        wrappers run their plain versions, which do form the slab, so
+        there the default is the reference's byte-budget chooser.
+      * ``"torch"`` — the kernel evaluated by plain torch operations, one
+        slab per panel under ``torch.utils.checkpoint`` (the reference's
+        ``"xla"`` backend).
+      * ``"auto"``  — ``"cuda"`` for a CUDA X, ``"torch"`` otherwise.
+
+    ``row()`` / ``diagonal()`` are exact O(n·d) primitives for the
+    pivoted-Cholesky preconditioner.  Single-device only: the reference's
+    ``data_axes`` / ``mesh`` sharding is ROADMAP Queue A step 16."""
+
+    kernel: Any  # stationary kernel (RBF / Matérn: __call__ and diag)
+    X: torch.Tensor  # (n, d) raw inputs
+    Xs: torch.Tensor | None = None  # prepare()-cached pre-scaled inputs (cuda backend)
+    kernel_type: str = "rbf"
+    panel_rows: int = 0  # 0 → the backend's default (cuda) or the budget chooser
+    panel_budget_bytes: int = 0  # 0 → ops.PANEL_BUDGET_BYTES
+    backend: str = "auto"  # auto | cuda | torch
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.backend not in ("auto", "cuda", "torch"):
+            raise ValueError(f"backend must be 'auto', 'cuda' or 'torch', got {self.backend!r}")
+
+    @property
+    def shape(self):
+        n = self.X.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return torch.float32  # panels accumulate in f32
+
+    @property
+    def device(self):
+        return self.X.device
+
+    @property
+    def resolved_backend(self) -> str:
+        if self.backend != "auto":
+            return self.backend
+        return "cuda" if self.X.device.type == "cuda" else "torch"
+
+    @property
+    def _itemsize(self) -> int:
+        return 2 if is_reduced(self.compute_dtype) else 4
+
+    def panel_rows_for(self, n: int, *, rhs_cols: int = 0, batch: int = 1,
+                       fused: bool = False) -> int:
+        """The panel height: the explicit ``panel_rows``; else, on the cuda
+        backend with X on the card and no byte budget, the card's default
+        (:func:`~repro_torch.kernels.kernel_matmul.ops.cuda_panel_rows` on
+        its SM count); else the reference's byte-budget chooser (``fused``
+        budgets the fused step's state slabs too)."""
+        from repro_torch.kernels.kernel_matmul.ops import choose_panel_rows, cuda_panel_rows
+
+        if self.panel_rows > 0:
+            p = self.panel_rows
+        elif (self.resolved_backend == "cuda" and self.X.device.type == "cuda"
+              and self.panel_budget_bytes <= 0):
+            sms = torch.cuda.get_device_properties(self.X.device).multi_processor_count
+            p = cuda_panel_rows(n, sms)
+        else:
+            p = choose_panel_rows(
+                n, budget_bytes=self.panel_budget_bytes or None, itemsize=self._itemsize,
+                rhs_cols=rhs_cols, batch=batch, fused=fused,
+            )
+        return max(1, min(p, n))
+
+    def _record(self, rhs_cols, batch, p, fused):
+        n = self.shape[0]
+        _record_panels(PanelLaunch(
+            n=n, rhs_cols=rhs_cols, batch=batch, panel_rows=p, num_panels=-(-n // p),
+            backend=self.resolved_backend, itemsize=self._itemsize, fused=fused,
+        ))
+
+    def matmul(self, M):
+        squeeze = M.dim() == 1
+        if squeeze:
+            M = M[:, None]
+        op = self._ready()
+        n = op.shape[0]
+        p = op.panel_rows_for(n)
+        op._record(M.shape[-1], _batch_size(M), p, False)
+        out = op._forward_matmul(M, p)
+        return out[..., 0] if squeeze else out
+
+    def _ready(self) -> "PartitionedKernelOperator":
+        if self.resolved_backend == "cuda" and self.Xs is None:
+            return self.prepare()
+        return self
+
+    def _forward_matmul(self, M, p):
+        if self.resolved_backend == "torch":
+            return _torch_panel_matmul(self.kernel, self.X, self.X, M, p,
+                                       compute_dtype=self.compute_dtype)
+        M = M.to(torch.float32).contiguous()
+        if is_reduced(self.compute_dtype):
+            # the bf16 stream carries no gradient: the MLL's backward
+            # differentiates the f32 operator
+            from repro_torch.kernels.kernel_matmul.ops import panel_matmul_prescaled
+
+            with torch.no_grad():
+                return panel_matmul_prescaled(
+                    self.Xs, M, self.kernel.outputscale, p,
+                    kernel_type=self.kernel_type, compute_dtype=self.compute_dtype,
+                )
+        s = torch.as_tensor(self.kernel.outputscale, dtype=torch.float32, device=M.device)
+        return _PartitionedMatmulFn.apply(self.Xs, M, s.reshape(()), p, self.kernel_type)
+
+    def diagonal(self):
+        return self.kernel.diag(self.X).to(torch.float32)
+
+    def row(self, i):
+        return self.kernel(self.X[i][None, :], self.X)[0].to(torch.float32)
+
+    def prepare(self):
+        """The cuda backend's per-solve work: X/ℓ (bf16-rounded under a
+        bf16 ``compute_dtype``) and the kernel-type code; the torch backend
+        has none.  Under grad mode Xs keeps its graph to the lengthscale."""
+        if self.Xs is not None or self.resolved_backend != "cuda":
+            return self
+        from repro_torch.kernels.kernel_matmul.ops import prescale_inputs, stationary_kernel_type
+
+        return dataclasses.replace(
+            self,
+            Xs=prescale_inputs(self.X, self.kernel.lengthscale, self.compute_dtype),
+            kernel_type=stationary_kernel_type(self.kernel),
+        )
+
+    def with_compute_dtype(self, compute_dtype):
+        compute_dtype = normalize_compute_dtype(compute_dtype)
+        if compute_dtype == self.compute_dtype:
+            return self
+        # drop the prescale cache: it was rounded for the old dtype
+        return dataclasses.replace(self, compute_dtype=compute_dtype, Xs=None)
+
+    def fused_cg_step_fn(self, sigma2=None):
+        """The panel-fused CG step: one fused launch per (panel_rows × n)
+        row-panel per iteration (B3 with the panel's ``row_offset``; the
+        column state is the full pre-update R, D, V for every panel), the
+        [dᵀV; rᵀr; rᵀV; vᵀV] reductions folded across panels in panel
+        order.  A batched σ² has no scalar tile term: one warning per
+        operator, then None (the unfused streamed loop)."""
+        s2 = torch.zeros((), device=self.X.device) if sigma2 is None else torch.as_tensor(sigma2)
+        if s2.dim():
+            _warn_once_per_op(
+                self,
+                "partitioned_batched_sigma2",
+                "fuse_cg=True on the partitioned path with batched noise: the fused "
+                "kernel folds one scalar σ² into its diagonal tile — running the "
+                "unfused streamed loop.",
+            )
+            return None
+        op = self._ready()
+        n = op.shape[0]
+
+        def step(U, R, D, V, alpha, beta, gamma):
+            t, b = U.shape[-1], _batch_size(U)
+            p = op.panel_rows_for(n, rhs_cols=t, batch=b, fused=True)
+            op._record(t, b, p, True)
+            if op.resolved_backend == "torch":
+                return _torch_panel_fused_step(op.kernel, op.X, U, R, D, V, alpha, beta, gamma,
+                                               s2, p, compute_dtype=op.compute_dtype)
+            from repro_torch.kernels.kernel_matmul.ops import panel_fused_cg_step_prescaled
+
+            return panel_fused_cg_step_prescaled(
+                op.Xs, U, R, D, V, alpha, beta, gamma, op.kernel.outputscale, s2,
+                panel_rows=p, kernel_type=op.kernel_type, compute_dtype=op.compute_dtype,
+            )
+
+        return step
+
+
+def _batch_size(M: torch.Tensor) -> int:
+    """The product of M's leading dims before (n, t): 1 for a 2-D M."""
+    b = 1
+    for s in M.shape[:-2]:
+        b *= s
+    return b

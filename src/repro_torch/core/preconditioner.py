@@ -10,6 +10,11 @@ All three operations the paper requires of a GP preconditioner are O(n·k²):
                   exactly.  Driven by a ``torch.Generator``: the draws differ
                   from the reference's ``jax.random`` ones for the same seed,
                   so parity tests inject the reference's probes.
+
+A batched base (:class:`BatchDenseOperator`, the multi-restart path) gets
+one factor per batch element, L (b, n, k) with σ² (b,); the Rademacher
+draws are shared across the batch, so a batched run uses the same
+randomness as a loop of single runs from the same generator.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import dataclasses
 
 import torch
 
-from .linear_operator import AddedDiagOperator, LinearOperator
+from .linear_operator import AddedDiagOperator, BatchDenseOperator, LinearOperator
 from .pivoted_cholesky import pivoted_cholesky
 
 
@@ -27,44 +32,53 @@ def _rademacher(generator: torch.Generator, shape, dtype, device) -> torch.Tenso
     return (2 * bits - 1).to(dtype)
 
 
+def _bcast_scalar(s: torch.Tensor, extra_dims: int = 2) -> torch.Tensor:
+    """A scalar, or a (b,) batch of them, shaped to broadcast against
+    (…, n, t)."""
+    return s.reshape(s.shape + (1,) * extra_dims) if s.dim() else s
+
+
 @dataclasses.dataclass(frozen=True)
 class PivotedCholeskyPreconditioner:
-    L: torch.Tensor  # (n, k)
-    sigma2: torch.Tensor  # scalar noise
-    inner_chol: torch.Tensor  # (k, k) chol(σ²I_k + LᵀL)
+    L: torch.Tensor  # (…, n, k)
+    sigma2: torch.Tensor  # noise: scalar, or (b,) matching L's batch dims
+    inner_chol: torch.Tensor  # (…, k, k) chol(σ²I_k + LᵀL)
 
     @staticmethod
     def build(L: torch.Tensor, sigma2) -> "PivotedCholeskyPreconditioner":
         k = L.shape[-1]
         sigma2 = torch.as_tensor(sigma2, dtype=L.dtype, device=L.device)
         eye = torch.eye(k, dtype=L.dtype, device=L.device)
-        inner = sigma2 * eye + L.T @ L
+        inner = _bcast_scalar(sigma2) * eye + L.transpose(-1, -2) @ L
         return PivotedCholeskyPreconditioner(L, sigma2, torch.linalg.cholesky(inner))
 
     def solve(self, R: torch.Tensor) -> torch.Tensor:
-        """P̂⁻¹ @ R for R of shape (n, t) (or (n,) vector)."""
+        """P̂⁻¹ @ R for R of shape (…, n, t) (or (n,) vector)."""
         squeeze = R.dim() == 1
         if squeeze:
             R = R[:, None]
-        w = torch.cholesky_solve(self.L.T @ R, self.inner_chol)
-        out = (R - self.L @ w) / self.sigma2
+        Lt_R = self.L.transpose(-1, -2) @ R  # (…, k, t)
+        chol = self.inner_chol.expand(Lt_R.shape[:-2] + self.inner_chol.shape[-2:])
+        w = torch.cholesky_solve(Lt_R, chol)
+        out = (R - self.L @ w) / _bcast_scalar(self.sigma2)
         return out[:, 0] if squeeze else out
 
     def matmul(self, M: torch.Tensor) -> torch.Tensor:
         """P̂ @ M (tests / residual checks)."""
-        return self.L @ (self.L.T @ M) + self.sigma2 * M
+        return self.L @ (self.L.transpose(-1, -2) @ M) + _bcast_scalar(self.sigma2) * M
 
     def logdet(self) -> torch.Tensor:
-        n, k = self.L.shape
-        diag = torch.diagonal(self.inner_chol)
-        return (n - k) * torch.log(self.sigma2) + 2.0 * torch.sum(torch.log(diag))
+        n, k = self.L.shape[-2:]
+        diag = torch.diagonal(self.inner_chol, dim1=-2, dim2=-1)
+        return (n - k) * torch.log(self.sigma2) + 2.0 * torch.sum(torch.log(diag), dim=-1)
 
     def sample_probes(self, generator: torch.Generator, num: int, n: int) -> torch.Tensor:
-        """Draw ``num`` probes with covariance exactly P̂ (Rademacher base)."""
+        """Draw ``num`` probes with covariance exactly P̂ (Rademacher base,
+        shared across any batch dims)."""
         k = self.L.shape[-1]
         g1 = _rademacher(generator, (k, num), self.L.dtype, self.L.device)
         g2 = _rademacher(generator, (n, num), self.L.dtype, self.L.device)
-        return self.L @ g1 + torch.sqrt(self.sigma2) * g2
+        return self.L @ g1 + torch.sqrt(_bcast_scalar(self.sigma2)) * g2
 
     def inv_quad(self, Z: torch.Tensor) -> torch.Tensor:
         """zᵀ P̂⁻¹ z per column — the SLQ probe normalization."""
@@ -97,7 +111,8 @@ def build_preconditioner(op: LinearOperator, rank: int, *, jitter: float = 1e-8)
     """Build P̂ from an AddedDiagOperator K̂ = K + σ²I.
 
     The low-rank factor approximates the *base* kernel K from its rows and
-    diagonal.  The preconditioner is a constant to autograd (built under
+    diagonal; a :class:`BatchDenseOperator` base gets one factor per batch
+    element.  The preconditioner is a constant to autograd (built under
     ``no_grad``): gradient estimators stay unbiased for any fixed P̂."""
     if rank <= 0:
         return IdentityPreconditioner(device=op.device)
@@ -108,6 +123,10 @@ def build_preconditioner(op: LinearOperator, rank: int, *, jitter: float = 1e-8)
         )
     base = op.base
     with torch.no_grad():
-        L = pivoted_cholesky(base.row, base.diagonal(), rank, jitter=jitter)
+        if isinstance(base, BatchDenseOperator):
+            L = torch.stack([pivoted_cholesky(K.__getitem__, dg, rank, jitter=jitter)
+                             for K, dg in zip(base.matrices, base.diagonal())])
+        else:
+            L = pivoted_cholesky(base.row, base.diagonal(), rank, jitter=jitter)
         sigma2 = torch.as_tensor(op.sigma2, dtype=L.dtype, device=L.device)
         return PivotedCholeskyPreconditioner.build(L, sigma2.detach())

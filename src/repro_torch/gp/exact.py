@@ -6,9 +6,12 @@ Training — ``loss`` (−MLL) and ``fit`` (:func:`repro_torch.gp.training.fit_g
 inherited from :class:`repro_torch.gp.model.KrylovCachePredictor`.  The
 hyperparameters are the reference's raw (softplus-inverse) values, so the
 reference's parameters carry over through
-:func:`repro_torch.convert.params_from_jax`.  Batched evaluation and cache
-updates come with later slices and raise ``NotImplementedError`` naming
-the ROADMAP step that brings them.
+:func:`repro_torch.convert.params_from_jax`.  ``loss`` takes y (n,) or
+(b, n) — b targets of one kernel in one engine call (multi-output, (b,)
+losses) — and ``batched_loss`` b hyperparameter sets (multi-restart, b
+dense kernel matrices in one engine call).  Cache updates come with a
+later slice and raise ``NotImplementedError`` naming the ROADMAP step
+that brings them.
 
 ``mode="cuda"`` runs every blackbox K̂·M through the hand-written CUDA
 kernel, its gradient through the gradient kernel, and — with
@@ -16,7 +19,9 @@ kernel, its gradient through the gradient kernel, and — with
 kernel launch; ``device`` defaults to CUDA and must be given as ``"cpu"``
 to run the plain path without a GPU.  ``precision="mixed"`` runs the CG
 loop's kernels with bf16 operands and f32 residual refreshes, the served
-mean with bf16 operands; the gradient stays f32.
+mean with bf16 operands; the gradient stays f32.  ``mode="cuda_partitioned"``
+streams K one row-panel at a time (``settings.panel_rows`` /
+``panel_budget_bytes``; ``panel_backend`` "auto" | "cuda" | "torch").
 """
 
 from __future__ import annotations
@@ -27,7 +32,12 @@ from functools import partial
 
 import torch
 
-from repro_torch.core import AddedDiagOperator, BBMMSettings, marginal_log_likelihood
+from repro_torch.core import (
+    AddedDiagOperator,
+    BatchDenseOperator,
+    BBMMSettings,
+    marginal_log_likelihood,
+)
 from repro_torch.device import resolve_device
 
 from .kernels import KernelOperator, MaternKernel, RBFKernel
@@ -58,8 +68,10 @@ def _not_ported(what: str, step: str):
 @dataclasses.dataclass
 class ExactGP(KrylovCachePredictor):
     kernel_type: str = "rbf"
-    mode: str = "dense"  # dense | blocked | cuda (the blackbox matmul impl)
+    # the blackbox matmul: dense | blocked | cuda | cuda_partitioned
+    mode: str = "dense"
     block_size: int = 512
+    panel_backend: str = "auto"  # cuda_partitioned: auto | cuda | torch
     settings: BBMMSettings = dataclasses.field(default_factory=BBMMSettings)
     # None → CUDA (raises without a GPU); "cpu" runs the plain path
     device: torch.device | str | None = None
@@ -108,11 +120,19 @@ class ExactGP(KrylovCachePredictor):
         )
 
     def operator(self, params, data) -> AddedDiagOperator:
+        extra = {}
+        if self.mode == "cuda_partitioned":
+            extra = {
+                "panel_rows": self.settings.panel_rows,
+                "panel_budget_bytes": self.settings.panel_budget_bytes,
+                "panel_backend": self.panel_backend,
+            }
         base = KernelOperator(
             kernel=self.kernel(params),
             X=self._tensor(data),
             mode=self.mode,
             block_size=self.block_size,
+            **extra,
         )
         return AddedDiagOperator(base, self.noise(params))
 
@@ -122,7 +142,8 @@ class ExactGP(KrylovCachePredictor):
     # -- training -------------------------------------------------------------
     def loss(self, params, data, y, generator):
         """−MLL, differentiable in ``params`` (and y); ``generator`` draws
-        the probes."""
+        the probes.  y (b, n) gives (b,) losses from one engine call (the
+        probes shared across the b targets)."""
         return -marginal_log_likelihood(
             self.operator(params, data), self._tensor(y), generator, self.settings
         )
@@ -130,12 +151,30 @@ class ExactGP(KrylovCachePredictor):
     def fit(self, X, y, *, steps=100, lr=0.1, generator=None, callback=None):
         return fit_gp(self, X, y, steps=steps, lr=lr, generator=generator, callback=callback)
 
-    # -- later slices ---------------------------------------------------------
-    def batched_operator(self, params_batch, X):
-        raise _not_ported("batched_operator", "step 11 (batched engine)")
+    # -- multi-restart ----------------------------------------------------------
+    def batched_operator(self, params_batch, X) -> AddedDiagOperator:
+        """K̂ for b hyperparameter sets as ONE batched operator: every leaf
+        of ``params_batch`` carries a leading (b,) dim.  The b kernel
+        matrices are materialized (as the reference does, outside any
+        kernel), and the engine solves all b problems in one mBCG call.
+        Their exact diagonals k(x, x) go beside them, so the batched
+        preconditioner pivots as a loop of ``operator`` does."""
+        X = self._tensor(X)
+        b = params_batch["raw_noise"].shape[0]
+        kernels = [self.kernel({k: v[i] for k, v in params_batch.items()}) for i in range(b)]
+        Ks = torch.stack([k(X, X) for k in kernels])
+        diag = torch.stack([k.diag(X) for k in kernels])
+        return AddedDiagOperator(BatchDenseOperator(Ks, diag=diag),
+                                 _softplus(params_batch["raw_noise"]))
 
     def batched_loss(self, params_batch, X, y, generator):
-        raise _not_ported("batched_loss", "step 11 (batched engine)")
+        """(b,) negative MLLs for b hyperparameter sets in one engine call;
+        ``y`` is (n,) (shared targets) or (b, n)."""
+        op = self.batched_operator(params_batch, X)
+        y = self._tensor(y)
+        yb = y.expand(op.base.batch, y.shape[-1]) if y.dim() == 1 else y
+        return -marginal_log_likelihood(op, yb, generator, self.settings)
 
+    # -- later slices ---------------------------------------------------------
     def update_cache(self, params, data, y, cache, X_new, y_new):
         raise _not_ported("update_cache", "step 14 (streaming serving)")

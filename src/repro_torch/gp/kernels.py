@@ -11,8 +11,14 @@ materialization strategy:
                   (``repro_torch/kernels/kernel_matmul``), K never formed;
                   the counterpart of the reference's ``pallas`` mode.  On
                   CPU tensors the kernel's wrapper runs its plain version.
+  * ``cuda_partitioned`` — K streamed one (panel_rows × n) row-panel at a
+                  time (:class:`repro_torch.core.PartitionedKernelOperator`),
+                  the million-row path; the reference's
+                  ``pallas_partitioned``.  ``panel_backend`` picks the
+                  kernels ("cuda") or plain torch panels ("torch"; the
+                  reference's "xla"); "auto" follows X's device.
 
-All three are numerically interchangeable; the tests assert it.
+All four are numerically interchangeable; the tests assert it.
 
 ``compute_dtype`` ('float32' | 'bfloat16', or the 'highest' / 'mixed'
 aliases; :mod:`repro_torch.core.precision`) selects the operands of the
@@ -33,13 +39,12 @@ import torch
 from repro_torch.core.linear_operator import LinearOperator, _mixed_matmul
 from repro_torch.core.precision import is_reduced, normalize_compute_dtype
 
-MODES = ("dense", "blocked", "cuda")
+MODES = ("dense", "blocked", "cuda", "cuda_partitioned")
 
 # reference modes that have no counterpart yet, and the ROADMAP step that
 # brings each
 _UNPORTED_MODES = {
     "pallas_sharded": "ROADMAP Queue A step 16 (multi-device)",
-    "pallas_partitioned": "ROADMAP Queue A step 12 (partitioned million-row path)",
 }
 
 
@@ -98,9 +103,13 @@ class KernelOperator(LinearOperator):
 
     kernel: object
     X: torch.Tensor  # (n, d)
-    mode: str = "dense"  # dense | blocked | cuda
+    mode: str = "dense"  # dense | blocked | cuda | cuda_partitioned
     block_size: int = 512
     compute_dtype: str = "float32"  # the product's operands (module docstring)
+    # cuda_partitioned knobs (see core.PartitionedKernelOperator):
+    panel_rows: int = 0  # 0 → the backend's default height
+    panel_budget_bytes: int = 0  # 0 → the chooser's default budget
+    panel_backend: str = "auto"  # auto | cuda | torch
 
     def __post_init__(self):
         if self.mode in _UNPORTED_MODES:
@@ -139,9 +148,12 @@ class KernelOperator(LinearOperator):
     def prepare(self):
         """Hoist the lengthscale pre-scaling out of the CG loop (cuda mode):
         returns an operator whose per-iteration matmul consumes the already
-        scaled X.  Other modes are returned as they are.  Under grad mode
-        the scaled X keeps its graph, so the matmul's gradient reaches the
-        lengthscale."""
+        scaled X.  ``cuda_partitioned`` prepares into the streaming
+        :class:`repro_torch.core.PartitionedKernelOperator`.  Other modes
+        are returned as they are.  Under grad mode the scaled X keeps its
+        graph, so the matmul's gradient reaches the lengthscale."""
+        if self.mode == "cuda_partitioned":
+            return self._partitioned().prepare()
         if self.mode != "cuda":
             return self
         from repro_torch.kernels.kernel_matmul.ops import (
@@ -164,10 +176,27 @@ class KernelOperator(LinearOperator):
         """A kernel block times M under this operator's policy."""
         return _mixed_matmul(K, M) if is_reduced(self.compute_dtype) else K @ M
 
+    def _partitioned(self):
+        """The streaming operator behind ``mode="cuda_partitioned"``."""
+        from repro_torch.core.linear_operator import PartitionedKernelOperator
+
+        return PartitionedKernelOperator(
+            kernel=self.kernel,
+            X=self.X,
+            panel_rows=self.panel_rows,
+            panel_budget_bytes=self.panel_budget_bytes,
+            backend=self.panel_backend,
+            compute_dtype=self.compute_dtype,
+        )
+
     def fused_cg_step_fn(self, sigma2=None):
         """Fused CG capability: cuda mode delegates to its prepared form (the
-        engine prepares before the loop anyway); dense and blocked have none
-        and keep the unfused loop."""
+        engine prepares before the loop anyway), ``cuda_partitioned`` to
+        the panel-fused step (one fused launch per row-panel per
+        iteration); dense and blocked have none and keep the unfused
+        loop."""
+        if self.mode == "cuda_partitioned":
+            return self._partitioned().fused_cg_step_fn(sigma2=sigma2)
         if self.mode != "cuda":
             return None
         return self.prepare().fused_cg_step_fn(sigma2=sigma2)
@@ -176,7 +205,8 @@ class KernelOperator(LinearOperator):
         n = self.X.shape[0]
         b = min(self.block_size, n)
         return torch.cat(
-            [self._contract(self.kernel(self.X[i : i + b], self.X), M) for i in range(0, n, b)]
+            [self._contract(self.kernel(self.X[i : i + b], self.X), M) for i in range(0, n, b)],
+            dim=-2,
         )
 
     def row(self, i):

@@ -11,9 +11,15 @@
     reference differentiates its matmul with ``jax.vjp``), and
     :func:`kernel_matmul_grad_sym_cuda` the same for X1 = X2 = X in one
     launch;
+  * :func:`kernel_matmul_grad_rows_cuda` — one launch of the gradient kernel
+    for given weight factors A, B: the rows' gradient and the outputscale
+    sum (a row panel of the symmetric VJP, the partitioned path's backward);
   * :class:`KernelMatmulFn` / :class:`SymKernelMatmulFn` — B1 as a
     ``torch.autograd.Function`` whose backward is the gradient kernel (the
-    second for one X on both sides, as in training).
+    second for one X on both sides, as in training);
+    :class:`BatchedKernelMatmulFn` the same for B2 (multi-output targets:
+    one K, b right-hand sides), its backward one gradient-kernel launch
+    over the batch folded into columns.
 
 B1/B2 and B3 take ``compute_dtype``: "float32" (``precision="highest"``)
 launches the 3xTF32 kernels above, "bfloat16" (``precision="mixed"``) their
@@ -32,7 +38,10 @@ The module-level counters count kernel launches per kernel and dtype
 (``launches``, ``batched_launches``, ``fused_launches``, ``grad_launches``
 for f32; ``bf16_launches``, ``bf16_batched_launches``,
 ``bf16_fused_launches`` for bf16), so a run can show that its main path
-went through the kernels it asked for.
+went through the kernels it asked for.  ``panel_launches`` counts, among
+the B1/B2/B3 launches of either dtype, those over a row panel (fewer rows
+than columns: the partitioned path), so a run can show that a streamed
+matmul or CG iteration took one launch per panel.
 """
 
 from __future__ import annotations
@@ -64,6 +73,8 @@ grad_launches = 0
 bf16_launches = 0
 bf16_batched_launches = 0
 bf16_fused_launches = 0
+#: B1/B2/B3 launches (any dtype) whose rows are a panel of the columns
+panel_launches = 0
 
 #: the most features the gradient kernel takes
 GRAD_MAX_D = 32
@@ -76,9 +87,9 @@ ROW_BLOCK = 64
 
 def reset_launch_counts() -> None:
     global launches, batched_launches, fused_launches, grad_launches
-    global bf16_launches, bf16_batched_launches, bf16_fused_launches
+    global bf16_launches, bf16_batched_launches, bf16_fused_launches, panel_launches
     launches = batched_launches = fused_launches = grad_launches = 0
-    bf16_launches = bf16_batched_launches = bf16_fused_launches = 0
+    bf16_launches = bf16_batched_launches = bf16_fused_launches = panel_launches = 0
 
 
 def _padded_width(t: int) -> int:
@@ -164,7 +175,7 @@ def kernel_matmul_cuda(
             compute_dtype=compute_dtype,
         )
     _check_cuda_args(X1, X2, M, kernel_type, row_offset)
-    global launches, batched_launches, bf16_launches, bf16_batched_launches
+    global launches, batched_launches, bf16_launches, bf16_batched_launches, panel_launches
     batched = M.dim() == 3
     rows, d = X1.shape
     cols, t = M.shape[-2:]
@@ -207,6 +218,8 @@ def kernel_matmul_cuda(
         batched_launches += 1
     else:
         launches += 1
+    if rows < cols:
+        panel_launches += 1
     return out
 
 
@@ -269,7 +282,7 @@ def fused_cg_step_cuda(
         Xs_rows, Xs_cols, (U, R, D, V), (R_cols, D_cols, V_cols), (alpha, beta, gamma),
         kernel_type, row_offset,
     )
-    global fused_launches, bf16_fused_launches
+    global fused_launches, bf16_fused_launches, panel_launches
     dev = U.device
     b, rows, t = U.shape
     cols, d = Xs_cols.shape
@@ -319,6 +332,8 @@ def fused_cg_step_cuda(
         bf16_fused_launches += 1
     else:
         fused_launches += 1
+    if rows < cols:
+        panel_launches += 1
     return Uo, Ro, Do, Vo, red
 
 
@@ -423,6 +438,82 @@ def kernel_matmul_grad_sym_cuda(X, M, C, outputscale, sigma2, *, kernel_type: st
     G, gsum = _grad_launch(X, X, torch.cat([C, M], dim=1), torch.cat([M, C], dim=1), scal,
                            kernel_type)
     return G, 0.5 * gsum, _sigma2_grad(M, C)
+
+
+def kernel_matmul_grad_rows_cuda(X1, X2, A, B, outputscale, *, kernel_type: str = "rbf"):
+    """One gradient-kernel launch for weight factors A (rows, k) and
+    B (cols, k): (G, g) with Gᵢ = Σⱼ ⟨Aᵢ, Bⱼ⟩·∂k(x1ᵢ, x2ⱼ)/∂x1ᵢ (rows, d) and
+    g = Σᵢⱼ ⟨Aᵢ, Bⱼ⟩·f(rᵢⱼ²), f the kernel over its outputscale.  X1, X2
+    are pre-divided by the lengthscale.
+
+    With X1 a row panel of X2 = X, A = [C | M] of the panel's rows and
+    B = [M | C], G is those rows' whole gradient of ⟨C, K(X, X)·M⟩ and g
+    twice their share of the outputscale's (the partitioned backward,
+    :func:`repro_torch.kernels.kernel_matmul.ops.panel_vjp_prescaled`).
+    On CPU tensors: the plain version (autograd of ⟨A, K(X1, X2)·B⟩)."""
+    if all(x.device.type == "cpu" for x in (X1, X2, A, B)):
+        gX1, _, gs, _ = kernel_matmul_grad_plain(
+            X1, X2, B, A, outputscale, 0.0, kernel_type=kernel_type
+        )
+        return gX1, gs
+    _check_grad_args(X1, X2, B, A, kernel_type)
+    if X1.shape[0] == 0 or X2.shape[0] == 0 or A.shape[1] == 0:
+        return torch.zeros_like(X1), torch.zeros((), device=X1.device)
+    scal = _device_scalar(outputscale, X1.device).reshape(1)
+    return _grad_launch(X1, X2, A, B, scal, kernel_type)
+
+
+def _fold_batch(x: torch.Tensor) -> torch.Tensor:
+    """(…, n, t) → (n, b·t): the leading dims folded into columns,
+    batch-major (a 2-D x comes back as it is)."""
+    n, t = x.shape[-2:]
+    return x.reshape(-1, n, t).permute(1, 0, 2).reshape(n, -1)
+
+
+class BatchedKernelMatmulFn(torch.autograd.Function):
+    """(K(X1, X2) + σ²·[row_offset+i = j])·M for a batched M (b, cols, t) —
+    B2, one K shared by b right-hand sides (the multi-output engine) —
+    differentiable in X1, X2, M, the outputscale and σ².
+
+    Forward: one B2 launch.  Backward: K is shared, so the hyperparameter
+    gradient is the sum over the batch: M and the cotangent folded from
+    (b, n, t) to (n, b·t) go through the 2-D vector-Jacobian product — one
+    gradient-kernel launch when ``symmetric`` (X1 is X2 and row_offset is
+    0, :func:`kernel_matmul_grad_sym_cuda`), else
+    :func:`kernel_matmul_grad_cuda` — and, only where M needs a gradient,
+    B2 on the cotangent with X1 and X2 swapped plus σ² on the shifted rows.
+    On CPU tensors both run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, X1, X2, M, outputscale, sigma2, row_offset, kernel_type, symmetric):
+        ctx.save_for_backward(X1, X2, M, outputscale, sigma2)
+        ctx.row_offset, ctx.kernel_type, ctx.symmetric = int(row_offset), kernel_type, symmetric
+        return kernel_matmul_cuda(
+            X1, X2, M, outputscale, sigma2, row_offset, kernel_type=kernel_type
+        )
+
+    @staticmethod
+    def backward(ctx, C):
+        X1, X2, M, s, s2 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        off, kt = ctx.row_offset, ctx.kernel_type
+        C = C.contiguous()
+        gX1 = gX2 = gM = gs = gs2 = None
+        if need[0] or need[1] or need[3] or need[4]:
+            M2, C2 = _fold_batch(M), _fold_batch(C)
+            if ctx.symmetric:
+                # one tensor on both sides: its whole gradient goes to X1
+                gX1, gs, gs2 = kernel_matmul_grad_sym_cuda(X1, M2, C2, s, s2, kernel_type=kt)
+            else:
+                gX1, gX2, gs, gs2 = kernel_matmul_grad_cuda(
+                    X1, X2, M2, C2, s, s2, off, kernel_type=kt, need_cols=need[1]
+                )
+            gs, gs2 = gs.reshape(s.shape), gs2.reshape(s2.shape)
+        if need[2]:
+            gM = kernel_matmul_cuda(X2, X1, C, s, 0.0, kernel_type=kt)
+            m = max(0, min(C.shape[-2], M.shape[-2] - off))
+            gM[:, off : off + m] += s2 * C[:, :m]
+        return gX1, gX2, gM, gs, gs2, None, None, None
 
 
 class KernelMatmulFn(torch.autograd.Function):

@@ -2,7 +2,9 @@
 B1/B2 (the kernel matmul), B3 (the fused CG step), the gradient kernel,
 B4 (flash attention) and B5 (the SSD scan), the training path through the
 first three and the zamba2 forward through the last two; B1/B2 and B3 also
-with bf16 operands (``precision="mixed"``) and the mixed GP paths' launches.
+with bf16 operands (``precision="mixed"``) and the mixed GP paths' launches;
+B2's gradient and the partitioned path's panel streams (B1/B2, B3 and the
+gradient kernel once per row panel) against their full-range launches.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: a
 hand-written kernel has no CPU mode.  The file imports no JAX, so it runs on
@@ -335,6 +337,165 @@ def test_fused_training_launches(cuda_device):
     _, history = gp.fit(X, y, steps=2, callback=on_step)
     assert all(np.isfinite(history))
     assert counts == [(10, 1, 1), (10, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,offset", [(1501, 0), (600, 433)])
+def test_batched_product_gradient_matches_plain(cuda_device, rows, offset):
+    """B2 differentiable: its backward folds the batch into columns, one
+    gradient-kernel launch (one X on both sides) or two (a row slice with
+    its offset), against the sum over the batch of the plain 2-D VJPs."""
+    from repro_torch.kernels.kernel_matmul.ops import fused_kernel_matmul_prescaled
+
+    n, b, t = 1501, 4, 9
+    Xs, M = _inputs(7, n, 8, (b, n, t), cuda_device)
+    C = torch.from_numpy(np.random.default_rng(8).standard_normal((b, rows, t)).astype(
+        np.float32)).to(cuda_device)
+    Xg = Xs.clone().requires_grad_()
+    s = torch.tensor(1.2, device=cuda_device, requires_grad=True)
+    s2 = torch.tensor(0.1, device=cuda_device, requires_grad=True)
+    Xr = Xg if rows == n else Xg[offset : offset + rows]
+    km.reset_launch_counts()
+    out = fused_kernel_matmul_prescaled(Xr, Xg, M, s, s2, offset, kernel_type="matern52")
+    got = torch.autograd.grad(out, (Xg, s, s2), C)
+    torch.cuda.synchronize()
+    assert (km.batched_launches, km.launches) == (1, 0)
+    assert km.grad_launches == (1 if rows == n else 2)
+    want = [torch.zeros_like(Xs), 0.0, 0.0]
+    for i in range(b):
+        g1, g2, gs, gs2 = kernel_matmul_grad_plain(Xs[offset : offset + rows], Xs, M[i], C[i],
+                                                   1.2, 0.1, offset, kernel_type="matern52")
+        want[0][offset : offset + rows] += g1
+        want[0] += g2
+        want[1] += gs
+        want[2] += gs2
+    assert _rel(got[0], want[0]) <= 2e-4
+    for g, w in zip(got[1:], want[1:]):
+        assert abs(float(g) - float(w)) <= 2e-4 * abs(float(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape_m", [(5003, 9), (3, 5003, 9)])
+def test_streamed_matmul_matches_full_range(cuda_device, shape_m, compute_dtype):
+    """K·M streamed one row panel at a time (a height that is a multiple of
+    64 and one that is not, the last panel shorter) against B1/B2's one
+    full-range launch: the same bits where the panels start on 64-row
+    blocks, 1e-4 otherwise; one launch per panel, each counted as a panel
+    launch."""
+    from repro_torch.kernels.kernel_matmul.ops import panel_matmul_prescaled
+
+    n = shape_m[-2]
+    Xs, M = _inputs(9, n, 4, shape_m, cuda_device)
+    full = km.kernel_matmul_cuda(Xs, Xs, M, 1.0, 0.0, kernel_type="rbf",
+                                 compute_dtype=compute_dtype)
+    for p in (1024, 1000):
+        km.reset_launch_counts()
+        out = panel_matmul_prescaled(Xs, M, 1.0, p, kernel_type="rbf",
+                                     compute_dtype=compute_dtype)
+        torch.cuda.synchronize()
+        launched = (km.launches + km.batched_launches + km.bf16_launches
+                    + km.bf16_batched_launches)
+        assert launched == km.panel_launches == -(-n // p)
+        if p % 64 == 0:
+            assert torch.equal(out, full)
+        torch.testing.assert_close(out, full, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_panel_fused_step_matches_full_range(cuda_device, b, compute_dtype):
+    """One CG iteration streamed by row panels (B3 once per panel on its
+    rows with its row offset, the full pre-update state as the column
+    side, a last panel that does not divide) against B3's one full-range
+    launch: the state at rtol / atol 2e-4 (the bits, where panels start on
+    64-row blocks), the reductions folded in panel order at 2e-3."""
+    from repro_torch.kernels.kernel_matmul.ops import panel_fused_cg_step_prescaled
+
+    n, t = 4099, 9
+    rng = np.random.default_rng(b)
+    Xs, _ = _inputs(11, n, 4, (1,), cuda_device)
+    state = [torch.from_numpy(rng.standard_normal((b, n, t)).astype(np.float32)).to(cuda_device)
+             for _ in range(4)]
+    scal = [torch.from_numpy(rng.uniform(0.1, 1.0, (b, t)).astype(np.float32)).to(cuda_device)
+            for _ in range(3)]
+    full = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scal, 1.0, 0.5,
+                                 kernel_type="rbf", compute_dtype=compute_dtype)
+    for p in (1024, 1000):
+        km.reset_launch_counts()
+        out = panel_fused_cg_step_prescaled(Xs, *state, *scal, 1.0, 0.5, panel_rows=p,
+                                            kernel_type="rbf", compute_dtype=compute_dtype)
+        torch.cuda.synchronize()
+        assert km.fused_launches + km.bf16_fused_launches == km.panel_launches == -(-n // p)
+        for a, w in zip(out[:4], full[:4]):
+            if p % 64 == 0:
+                assert torch.equal(a, w)
+            torch.testing.assert_close(a, w, **TOL)
+        red = torch.stack(out[4], dim=-2)
+        torch.testing.assert_close(red, full[4], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_m", [(3001, 9), (4, 3001, 9)])
+def test_panel_vjp_matches_symmetric_vjp(cuda_device, shape_m):
+    """The partitioned backward — one gradient-kernel launch per row panel
+    with the symmetric weight — against the one-launch symmetric VJP of
+    the same product (a batched M folded into columns), rtol 2e-3 / atol
+    1e-4 (tests/test_partitioned.py's gradient tolerance)."""
+    from repro_torch.kernels.kernel_matmul.kernel_matmul import _fold_batch
+    from repro_torch.kernels.kernel_matmul.ops import panel_vjp_prescaled
+
+    n = shape_m[-2]
+    Xs, M = _inputs(13, n, 4, shape_m, cuda_device)
+    C = torch.from_numpy(np.random.default_rng(14).standard_normal(shape_m).astype(
+        np.float32)).to(cuda_device)
+    km.reset_launch_counts()
+    gX, gs = panel_vjp_prescaled(Xs, M, C, 1.3, 1000, kernel_type="rbf")
+    torch.cuda.synchronize()
+    assert km.grad_launches == 4
+    wX, ws, _ = km.kernel_matmul_grad_sym_cuda(Xs, _fold_batch(M), _fold_batch(C), 1.3, 0.0,
+                                               kernel_type="rbf")
+    torch.testing.assert_close(gX, wX, rtol=2e-3, atol=1e-4)
+    assert abs(float(gs) - float(ws)) <= 2e-3 * abs(float(ws))
+
+
+@pytest.mark.cuda
+def test_multi_output_and_partitioned_gp_launches(cuda_device):
+    """A multi-output MLL (y (4, n)) runs B2 in every CG iteration and one
+    gradient launch in its backward; a cuda_partitioned fused MLL runs B3
+    once per panel per iteration and its backward one gradient launch per
+    panel."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings
+
+    g = torch.Generator().manual_seed(0)
+    n = 3000
+    X = (2 * torch.rand((n, 4), generator=g) - 1).to(cuda_device)
+    Y = torch.stack([torch.sin(3 * X[:, 0] + k) for k in range(4)])
+    p = 6
+    gp = ExactGP(kernel_type="matern52", mode="cuda",
+                 settings=BBMMSettings(num_probes=4, max_cg_iters=p, precond_rank=5))
+    params = {k: v.requires_grad_() for k, v in gp.init_params(X).items()}
+    km.reset_launch_counts()
+    loss = gp.loss(params, X, Y, torch.Generator(device=cuda_device).manual_seed(0))
+    assert loss.shape == (4,) and (km.batched_launches, km.launches) == (p, 0)
+    km.reset_launch_counts()
+    loss.sum().backward()
+    torch.cuda.synchronize()
+    assert (km.batched_launches, km.grad_launches) == (1, 1)  # the VJP's primal, one VJP
+    part = ExactGP(kernel_type="rbf", mode="cuda_partitioned", fuse_cg=True,
+                   settings=BBMMSettings(num_probes=4, max_cg_iters=p, precond_rank=0,
+                                         panel_rows=1024))
+    params = {k: v.detach().requires_grad_() for k, v in part.init_params(X).items()}
+    km.reset_launch_counts()
+    loss = part.loss(params, X, Y[0], torch.Generator(device=cuda_device).manual_seed(0))
+    assert (km.fused_launches, km.panel_launches) == (3 * p, 3 * p)
+    km.reset_launch_counts()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert km.grad_launches == 3 and km.launches == km.panel_launches == 3
+    assert all(bool(torch.isfinite(v.grad).all()) for v in params.values())
 
 
 # bf16 B1/B2/B3 against their bf16 plain versions: both round the same f32

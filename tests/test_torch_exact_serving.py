@@ -207,18 +207,16 @@ def test_unported_settings_raise(settings, step):
 
 def test_unported_model_methods_raise():
     """ExactGP exposes the whole GPModel protocol; what later slices bring
-    raises, naming the ROADMAP step."""
+    raises, naming the ROADMAP step (the batched engine is ported:
+    tests/test_torch_batched_engine.py)."""
     X, y, _ = _data(5)
     gp = ExactGP(device="cpu")
     assert isinstance(gp, GPModel) and missing_protocol_methods(gp) == []
     params = gp.init_params(X)
-    for call, step in (
-        (lambda: gp.batched_loss(params, X, y, None), "step 11"),
-        (lambda: gp.batched_operator(params, X), "step 11"),
-        (lambda: gp.update_cache(params, X, y, None, X, y), "step 14"),
-    ):
-        with pytest.raises(NotImplementedError, match=step):
-            call()
+    batch = {k: torch.stack([v, v + 0.1]) for k, v in params.items()}
+    assert gp.batched_operator(batch, X).base.batch == 2
+    with pytest.raises(NotImplementedError, match="step 14"):
+        gp.update_cache(params, X, y, None, X, y)
 
 
 @pytest.mark.parametrize("ard", [False, True])

@@ -187,11 +187,15 @@ def test_dense_diag_and_added_diag_operators():
 def test_unported_modes_and_precision_raise():
     X, _, ell = _data(7)
     k, _ = _kernels("rbf", ell)
-    for mode, step in (("pallas_sharded", "step 16"), ("pallas_partitioned", "step 12")):
-        with pytest.raises(NotImplementedError, match=step):
+    with pytest.raises(NotImplementedError, match="step 16"):
+        KernelOperator(kernel=k, X=torch.from_numpy(X), mode="pallas_sharded")
+    # the port renames the reference's pallas modes: pallas → cuda,
+    # pallas_partitioned → cuda_partitioned
+    for mode in ("pallas", "pallas_partitioned"):
+        with pytest.raises(ValueError, match="mode must be one of"):
             KernelOperator(kernel=k, X=torch.from_numpy(X), mode=mode)
-    with pytest.raises(ValueError, match="mode must be one of"):
-        KernelOperator(kernel=k, X=torch.from_numpy(X), mode="pallas")
+    assert KernelOperator(kernel=k, X=torch.from_numpy(X), mode="cuda_partitioned").shape == (
+        X.shape[0], X.shape[0])
     op = KernelOperator(kernel=k, X=torch.from_numpy(X), mode="cuda")
     # the precision policy is ported: "mixed" selects bf16 operands, and an
     # unknown dtype is refused
