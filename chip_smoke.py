@@ -2,8 +2,9 @@
 """GPU smoke run of the PyTorch port: builds its CUDA kernels, holds each
 against its plain PyTorch version on the card, and drives the exact-GP
 serving and training slices (single- and multi-output, multi-restart, and
-partitioned to a million rows) and zamba2-7b serving at full size through
-the kernels.
+partitioned to a million rows), streaming and threaded serving with the
+degradation ladder and the chaos drill, and zamba2-7b serving at full size
+through the kernels.
 
     python3 chip_smoke.py [--seed 0] [--n 40000]
 
@@ -162,14 +163,39 @@ and the final line is then not printed):
                 float64) and the reported residual against it (rtol 1e-4 /
                 atol 1e-6), peak device memory under 2 GB beside the panel
                 and dense bytes
- 10. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
+ 10. gp_stream  gp_serve.run_serve at n = 40,000, d = 8 (its RBF toy, 8
+                probes, 25 iterations, rank 5): 48 1,024-point requests,
+                64 observations every 8, max_staleness 4 (appends and
+                forced rebuilds), max_basis_columns 256 (every append
+                compacts); each append exactly p + 2 f32 B1 launches, its
+                cached variance conservative against the f64 posterior
+                (1e-3), its α's true residual within APPEND_RES_FACTOR of a
+                rebuild's at the same data and budget; points/s, ms per
+                request, append against rebuild ms, CG iterations
+     gp_threaded  run_serve_threaded, 4 query workers, double-buffered
+                refreshes: no query raised, every refresh swapped or
+                discarded (≥ 1 discarded), every answer replayed bit for bit
+                from the state it reports, the launch counters equal to the
+                sum of each call's own-thread counts
+     gp_ladder  solve through a FaultInjectingOperator: mixed fused →
+                precision_f32, f32 fused → unfused, extend_budget, at 2,048
+                rows dense_cholesky and dense_direct; each rung's status
+                and launches by kernel and dtype (the trace's launch
+                markers), the healed answer's true residual
+     gp_chaos   run_serve_chaos at n = 40,000 (mixed, degrade, 2 threads,
+                CHAOS_CG_ITERS): chaos_ok, a CONVERGED clean build, the
+                faults on bf16 B1 counted
+     gp_metrics the drill again through gp_serve.main --metrics-port 0 on a
+                thread, /metrics and /health scraped and rendered by gp_top:
+                escalation, degraded-query and mbcg counters non-zero
+ 11. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
                 prompt, at 13 layers and at all 81: the forward with B4/B5
                 and every B4/B5 call in it no further from the f64 witness
                 (the plain path in f64) than 4 × the f32 plain forward and
                 calls; at 13 layers also the forward vs its plain version
                 (rtol/atol 1e-3) and vs decode stepped over the prompt at
                 every position (2e-2)
- 11. lm_serve   zamba2-7b at full size (81 layers, bf16, weights from the
+ 12. lm_serve   zamba2-7b at full size (81 layers, bf16, weights from the
                 seed on the card): one make_prefill_step over 4 × 512-token
                 prompts (81 B5 and 13 B4 launches, counted), then the serve
                 loop (decode stepped over the prompts, 32 greedy tokens,
@@ -1317,14 +1343,17 @@ def f64_witness(gp, params, Xd, yd, qd, Pd, precond):
     return means, (Kxs.T @ alpha, torch.clamp(var, min=1e-8) + noise), onset
 
 
-def exact_posterior(X, y, queries, lengthscale, outputscale, noise):
-    """Exact Matérn-5/2 posterior mean and predictive variance by an f64
-    Cholesky of K̂ on the card, for each query block."""
+def exact_posterior(X, y, queries, lengthscale, outputscale, noise, kernel="matern52"):
+    """Exact Matérn-5/2 (or RBF) posterior mean and predictive variance by
+    an f64 Cholesky of K̂ on the card, for each query block."""
     n = X.shape[0]
     Xs = X.double() / lengthscale
 
     def k(A, B):
-        a = math.sqrt(5.0) * torch.cdist(A, B, compute_mode="donot_use_mm_for_euclid_dist")
+        r = torch.cdist(A, B, compute_mode="donot_use_mm_for_euclid_dist")
+        if kernel == "rbf":
+            return outputscale * torch.exp(-0.5 * r * r)
+        a = math.sqrt(5.0) * r
         return outputscale * (1.0 + a + a * a / 3.0) * torch.exp(-a)
 
     K = torch.empty((n, n), dtype=torch.float64, device=X.device)
@@ -3332,6 +3361,499 @@ def phase_lm_serve(seed):
     return result
 
 
+# --------------------------------------------------------------------------
+# streaming serving, health and telemetry (gp_serve at the kin40k shape)
+# --------------------------------------------------------------------------
+
+#: the card's name and power limit (nvidia-smi), printed beside every phase
+CARD = ""
+STREAM_D = 8
+STREAM_BATCH = 1024
+STREAM_REQUESTS = 48
+OBSERVE_EVERY = 8
+OBSERVE_BATCH = 64
+STREAM_STALENESS = 4
+STREAM_CG_ITERS = 25
+#: the build's (8 + 1)·(25 + 1) = 234 Krylov columns plus ≤ 26 an append
+#: pass this, so every append runs the Rayleigh–Ritz compaction
+STREAM_BASIS = 256
+#: an appended α's true relative residual against a full rebuild's at the
+#: same data and the same 25 iterations: at most this factor of the larger
+#: of the rebuild's and cg_tol (both solves aim at cg_tol; where one
+#: stopped there, f32 CG's recursive residual may undershoot its true one)
+APPEND_RES_FACTOR = 2.0
+THREADS = 4
+#: every query, refresh and driver thread of these phases joins within this
+JOIN_TIMEOUT_S = 300.0
+#: the ladder's f32 rungs at n = 40,000 (one column, rank 0) reach cg_tol =
+#: 1e-4 within this many iterations on the card (residual 1.6e-3 at 100)
+LADDER_CG_ITERS = 200
+LADDER_DENSE_N = 2048
+#: a healed answer's true relative residual (f64) at most this: cg_tol
+#: plus the drift of f32 CG's recursive residual from its true one
+LADDER_TRUE_RES = 1e-3
+#: the chaos drill's iteration budget: its clean build (mixed, rank 5, 8
+#: probes) at n = 40,000 converges at iteration 198 on the card (worst
+#: column 0.53 at the reference drill's 40, 1.2e-3 at 150); 220 leaves
+#: 10 % headroom
+CHAOS_CG_ITERS = 220
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _stream_queries(seed, count, rows=256):
+    from repro_torch.launch import gp_serve
+
+    return [torch.from_numpy(gp_serve._query_batch(seed, 10_000 + i, rows, STREAM_D)).cuda()
+            for i in range(count)]
+
+
+def _true_rel_residual(kern, noise, X, y, alpha, rows=4096):
+    """‖y − K̂α‖/‖y‖ in f64, K̂ formed a row block at a time."""
+    X64, a64, y64 = X.double(), alpha.double(), y.double()
+    r = torch.empty_like(y64)
+    for i in range(0, X.shape[0], rows):
+        Kb = kern(X64[i : i + rows], X64)
+        r[i : i + rows] = y64[i : i + rows] - Kb @ a64 - noise * a64[i : i + rows]
+    return float(r.norm() / y64.norm())
+
+
+def _rbf64(gp, params):
+    from repro_torch.gp import RBFKernel
+
+    kern = gp.kernel(params)
+    return RBFKernel(lengthscale=kern.lengthscale.double(),
+                     outputscale=kern.outputscale.double()), float(gp.noise(params))
+
+
+def _convergence(seed, n, iters, **model_kw):
+    """The gp_serve system's solve health by iteration budget: one cache
+    build (``cache=True``, the worst of its 9 columns) or one solve of y
+    per budget — status, relative residual, iterations used."""
+    import warnings
+
+    from repro_torch.core import SolveHealthWarning, collect, solve
+    from repro_torch.launch import gp_serve
+
+    X, y = gp_serve._toy(seed, n, STREAM_D)
+    Xd, yd = torch.from_numpy(X).cuda(), torch.from_numpy(y).cuda()
+    cache = model_kw.pop("cache", False)
+    rows = []
+    for p in iters:
+        gp = gp_serve.build_model("exact", max_cg_iters=p, **model_kw)
+        params = gp.init_params(X)
+        with warnings.catch_warnings(), collect() as reports:
+            warnings.simplefilter("ignore", SolveHealthWarning)
+            if cache:
+                gp.posterior_cache(params, Xd, yd)
+            else:
+                solve(gp.operator(params, Xd), yd, gp.settings)
+        r = reports[-1]
+        rows.append({"max_cg_iters": p, "status": r.status, "residual": r.residual_norm,
+                     "iters": r.num_iters})
+    return rows
+
+
+def phase_gp_stream(km, seed, n):
+    """The sequential driver (``gp_serve.run_serve``) at n = 40,000: 48
+    1,024-point requests, 64 observations every 8, ``max_staleness=4`` (both
+    appends and forced rebuilds), ``max_basis_columns=256`` (an append of
+    26 new directions to the build's 234 compacts).  Gates: every append launched f32 B1 (the residual, one per
+    CG iteration, the new columns: p + 2) and nothing else; every appended
+    cache's variance conservative against the exact f64 posterior at its
+    data; every appended α's true residual within APPEND_RES_FACTOR of a
+    full rebuild's at the same data and budget."""
+    import warnings
+
+    from repro_torch.core import SolveHealthWarning
+    from repro_torch.launch import gp_serve
+
+    p = STREAM_CG_ITERS
+    state, observes = {}, []
+    # y's one-column solve on this system (rank 5, "highest") by budget
+    convergence = _convergence(seed, n, (p, 100))
+
+    def on_session(session):
+        state["session"] = session
+        state["build_iters"] = int(session.cache.cg_iters.max())
+        state["mark"] = km.launch_counts()
+
+    def on_observe(session, r, path, seconds):
+        now = km.launch_counts()
+        observes.append({"r": r, "path": path, "ms": seconds * 1e3, "n": session.n,
+                         "launches": _delta(now, state["mark"]),
+                         "cg_iters": int(session.cache.cg_iters.max()),
+                         "basis": int(session.cache.basis.shape[1]), "cache": session.cache})
+        state["mark"] = now
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", SolveHealthWarning)  # 25 iterations: MAX_ITERS
+        km.reset_launch_counts()
+        metrics = gp_serve.run_serve(
+            model="exact", n=n, d=STREAM_D, requests=STREAM_REQUESTS, batch=STREAM_BATCH,
+            observe_every=OBSERVE_EVERY, observe_batch=OBSERVE_BATCH,
+            max_staleness=STREAM_STALENESS, max_cg_iters=p, max_basis_columns=STREAM_BASIS,
+            seed=seed, session_hook=on_session, observe_hook=on_observe)
+        totals = km.launch_counts()
+    session = state["session"]
+    appends = [o for o in observes if o["path"] == "append"]
+    rebuilds = [o for o in observes if o["path"] == "rebuild"]
+    check(len(appends) >= 1 and len(rebuilds) >= 1,
+          f"{len(appends)} appends and {len(rebuilds)} rebuilds: the workload needs both")
+    only_b1 = lambda d, k: d["launches"] == k and sum(d.values()) == k  # noqa: E731
+    for o in appends:
+        check(only_b1(o["launches"], p + 2),
+              f"append at r={o['r']} launched {o['launches']}, not {p + 2} f32 B1")
+        check(o["basis"] <= STREAM_BASIS, f"append at r={o['r']}: basis {o['basis']} columns "
+              f"past max_basis_columns = {STREAM_BASIS}")
+    check(any(o["basis"] == STREAM_BASIS for o in appends),
+          f"no append was compacted to {STREAM_BASIS} columns")
+    for o in rebuilds:
+        check(only_b1(o["launches"], p + 1), f"rebuild at r={o['r']} launched {o['launches']}")
+
+    gp, params = session.model, session.params
+    kern64, noise = _rbf64(gp, params)
+    kern = gp.kernel(params)
+    queries = _stream_queries(seed, 1)
+    rows = []
+    for o in appends:
+        m = o["n"]
+        Xi, yi = session.X[:m], session.y[:m]
+        cache = o["cache"]
+        (_, exact_var), = exact_posterior(Xi, yi, queries, float(kern.lengthscale),
+                                          float(kern.outputscale), noise, kernel="rbf")
+        _, var = gp.predict_cached(params, Xi, cache, queries[0])
+        under = float((exact_var - var.double()).max())
+        rebuilt = gp.posterior_cache(params, Xi, yi)
+        res_app = _true_rel_residual(kern64, noise, Xi, yi, cache.alpha)
+        res_reb = _true_rel_residual(kern64, noise, Xi, yi, rebuilt.alpha)
+        rows.append({"r": o["r"], "n": m, "var_max_undershoot": under,
+                     "alpha_true_res": res_app, "rebuild_true_res": res_reb,
+                     "append_cg_iters": o["cg_iters"], "append_ms": o["ms"]})
+        check(under <= 1e-3, f"append at n={m}: cached variance undershoots the exact one "
+              f"by {under:.3e}")
+        check(res_app <= APPEND_RES_FACTOR * max(res_reb, gp.settings.cg_tol),
+              f"append at n={m}: true residual {res_app:.3e} vs a rebuild's {res_reb:.3e}")
+        del rebuilt
+        torch.cuda.empty_cache()
+    statuses = {}
+    for r in session.health_reports:
+        statuses.setdefault(r.context, []).append(r.status)
+    emit({"phase": "gp_stream", "card": CARD, "n": n, "final_n": metrics["final_n"],
+          "requests": STREAM_REQUESTS, "batch": STREAM_BATCH,
+          "cached_points_per_s": metrics["cached_qps"], "ms_per_request": metrics["query_ms"],
+          "append_ms_min": metrics["append_s"] * 1e3, "append_ms_mean": metrics["append_avg_s"] * 1e3,
+          "observe_rebuild_ms": [o["ms"] for o in rebuilds],
+          "rebuild_ms": metrics["rebuild_s"] * 1e3, "cache_build_ms": metrics["cache_build_s"] * 1e3,
+          "append_speedup": metrics["append_speedup"],
+          "cg_iters_build": state["build_iters"],
+          "cg_iters_appends": [o["cg_iters"] for o in appends],
+          "launches_by_observe": [{"r": o["r"], "path": o["path"], **o["launches"]} for o in observes],
+          "launches": totals, "appends": rows, "statuses": statuses,
+          "y_solve_by_budget": convergence})
+    return {"B1": totals["launches"], "B1_bf16": totals["bf16_launches"]}
+
+
+@contextlib.contextmanager
+def per_call_launches(calls):
+    """Patch ExactGP's cache builds, appends and cached predictions to
+    record, per call, the launches its own thread made during it
+    (``km.thread_launch_counts``), into ``calls``: (method, counts)."""
+    import threading
+
+    from repro_torch.gp.model import KrylovCachePredictor
+    from repro_torch.kernels.kernel_matmul import kernel_matmul as km
+
+    lock = threading.Lock()
+    names = ("posterior_cache", "update_cache", "predict_cached")
+    saved = {nm: getattr(KrylovCachePredictor, nm) for nm in names}
+
+    def wrap(nm, fn):
+        def counted(self, *a, **kw):
+            before = km.thread_launch_counts()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                d = _delta(km.thread_launch_counts(), before)
+                with lock:
+                    calls.append((nm, d))
+        return counted
+
+    for nm, fn in saved.items():
+        setattr(KrylovCachePredictor, nm, wrap(nm, fn))
+    try:
+        yield calls
+    finally:
+        for nm, fn in saved.items():
+            setattr(KrylovCachePredictor, nm, fn)
+
+
+def phase_gp_threaded(km, seed, n):
+    """``gp_serve.run_serve_threaded`` at n = 40,000 with 4 query workers
+    and the double-buffered refreshes on the refresher worker, the
+    gp_stream workload.  Gates: no query raised; every refresh swapped or
+    discarded (counted) and at least one discarded; each served answer
+    equal, bit for bit, to the same query answered afterwards from the
+    state it reports (one cache object per version); the launch counters'
+    totals equal the sum of what each call launched on its own thread."""
+    import threading
+    import warnings
+
+    from repro_torch.core import SolveHealthWarning
+    from repro_torch.launch import gp_serve
+
+    served, calls, lock, state = [], [], threading.Lock(), {}
+
+    def on_query(r, Xq, answer, s):
+        with lock:
+            served.append((r, Xq, answer, s))
+
+    with warnings.catch_warnings(), per_call_launches(calls):
+        warnings.simplefilter("ignore", SolveHealthWarning)
+        km.reset_launch_counts()
+        metrics = gp_serve.run_serve_threaded(
+            model="exact", n=n, d=STREAM_D, requests=STREAM_REQUESTS, batch=STREAM_BATCH,
+            observe_every=OBSERVE_EVERY, observe_batch=OBSERVE_BATCH,
+            max_staleness=STREAM_STALENESS, max_cg_iters=STREAM_CG_ITERS,
+            max_basis_columns=STREAM_BASIS, threads=THREADS, seed=seed,
+            session_hook=lambda s: state.setdefault("session", s), query_hook=on_query,
+            timeout_s=JOIN_TIMEOUT_S)
+        totals = km.launch_counts()
+    check(len(served) == STREAM_REQUESTS, f"{len(served)} of {STREAM_REQUESTS} queries answered")
+    refreshes = metrics["async_refreshes_swapped"] + metrics["async_refreshes_discarded"]
+    appends = sum(1 for nm, _ in calls if nm == "update_cache")
+    check(refreshes == appends, f"{refreshes} refreshes for {appends} appends")
+    check(metrics["async_refreshes_discarded"] >= 1, "no stale buffer was discarded")
+    summed = {k: sum(d[k] for _, d in calls) for k in totals}
+    check(summed == totals, f"launch counters {totals} != the calls' sum {summed}")
+    check(all(sum(d.values()) == 0 for nm, d in calls if nm == "predict_cached"),
+          "a cached prediction launched a kernel")
+    gp = state["session"].model
+    caches = {}
+    for r, Xq, (mean, var), s in served:
+        caches.setdefault(s.info.version, set()).add(id(s.cache))
+        again = gp.predict_cached(s.params, s.data, s.cache, Xq)
+        check(torch.equal(again[0], mean) and torch.equal(again[1], var),
+              f"query {r} does not replay bit for bit from cache v{s.info.version}")
+    check(all(len(ids) == 1 for ids in caches.values()), "two caches under one version")
+    emit({"phase": "gp_threaded", "card": CARD, "n": n, "threads": THREADS,
+          "concurrent_points_per_s": metrics["concurrent_qps"],
+          "query_ms_p50": metrics["query_ms_p50"],
+          "refreshes_swapped": metrics["async_refreshes_swapped"],
+          "refreshes_discarded": metrics["async_refreshes_discarded"],
+          "versions_served": sorted(caches), "final_version": metrics["cache_version"],
+          "calls": {nm: sum(1 for c, _ in calls if c == nm) for nm in
+                    ("posterior_cache", "update_cache", "predict_cached")},
+          "launches": totals})
+    return {"B1": totals["launches"], "B1_bf16": totals["bf16_launches"]}
+
+
+def _rung_launches(col):
+    """Launches by counter inside each ``rung:*`` span of a trace (the
+    kernel wrappers' ``launch`` markers on the span's thread)."""
+    marks = col.instants("launch")
+    out = []
+    for span in col.spans():
+        if not span["name"].startswith("rung:"):
+            continue
+        lo, hi = span["ts"], span["ts"] + span["dur"]
+        counts = {}
+        for m in marks:
+            if m["tid"] == span["tid"] and lo <= m["ts"] <= hi:
+                key = m["args"]["counter"]
+                counts[key] = counts.get(key, 0) + m["args"]["count"]
+        out.append((span["name"][5:], counts))
+    return out
+
+
+def phase_gp_ladder(km, seed, n):
+    """The degradation ladder on the card: ``solve`` of the gp_serve system
+    (RBF, ℓ = 0.5, s = 1, σ² = 0.1) through a FaultInjectingOperator, each
+    scenario's rung sequence, statuses and launches by kernel and dtype
+    inside each rung (from the trace's launch markers) against what the
+    settings call for."""
+    import warnings
+
+    from repro_torch import obs
+    from repro_torch.core import (
+        BBMMSettings,
+        FaultSchedule,
+        SolveHealthWarning,
+        collect,
+        health,
+        solve,
+    )
+    from repro_torch.launch import gp_serve
+
+    X, y = gp_serve._toy(seed, n, STREAM_D)
+    gp = gp_serve.build_model("exact")
+    params = gp.init_params(X)
+    Xd, yd = torch.from_numpy(X).cuda(), torch.from_numpy(y).cuda()
+    p = LADDER_CG_ITERS
+    base = dict(num_probes=8, max_cg_iters=p, precond_rank=0, on_failure="degrade")
+    C, D = health.CONVERGED, health.NON_FINITE
+    scenarios = [
+        # name, rows, schedule, settings, [(rung, status or None, launches)]
+        ("mixed_fused_precision_f32", n, dict(nan_rate=1.0, reduced_only=True),
+         dict(base, precision="mixed", fuse_cg=True),
+         # the initial rung's f32 refreshes: ⌊p/2⌋ in the loop and a final one
+         [("initial", "unhealthy", {"bf16_fused_launches": p, "launches": p // 2 + 1}),
+          ("precision_f32", C, {"fused_launches": p})]),
+        ("f32_fused_unfused", n, dict(nan_calls=(2,)), dict(base, fuse_cg=True),
+         [("initial", D, {"fused_launches": p}), ("unfused", C, {"launches": p})]),
+        ("extend_budget", n, dict(nan_calls=(1,)), dict(base),
+         [("initial", D, {"launches": p}), ("extend_budget", C, {"launches": 2 * p})]),
+        ("dense_cholesky", LADDER_DENSE_N, dict(nan_rate=1.0), dict(base, max_cg_iters=4),
+         [("initial", D, {"launches": 4}), ("extend_budget", D, {"launches": 8}),
+          ("dense_cholesky", C, {"launches": 1})]),
+        ("dense_direct", LADDER_DENSE_N, dict(), dict(base, dense_direct_max_n=LADDER_DENSE_N),
+         [("dense_direct", C, {"launches": 1})]),
+    ]
+    rows = []
+    b1 = b1_bf16 = b3 = b3_bf16 = 0
+    for name, rows_n, sched_kw, settings, expect in scenarios:
+        schedule = FaultSchedule(seed, **sched_kw)
+        op = gp_serve._inject_operator(gp.operator(params, Xd[:rows_n]), schedule)
+        with warnings.catch_warnings(), collect() as reports, obs.trace() as col:
+            warnings.simplefilter("ignore", SolveHealthWarning)
+            km.reset_launch_counts()
+            x = solve(op, yd[:rows_n], BBMMSettings(**settings))
+            torch.cuda.synchronize()
+            totals = km.launch_counts()
+        report = reports[-1]
+        got = _rung_launches(col)
+        trail = [(r.rung, r.status) for r in report.rungs]
+        kern64, noise = _rbf64(gp, params)
+        res = _true_rel_residual(kern64, noise, Xd[:rows_n], yd[:rows_n], x)
+        rows.append({"scenario": name, "n": int(Xd[:rows_n].shape[0]), "trail": trail, "residual": res,
+                     "rung_ms": [r.duration_s * 1e3 for r in report.rungs],
+                     "rung_launches": got, "injected": len(schedule.injected),
+                     "schedule_calls": schedule.calls})
+        check([r for r, _ in trail] == [r for r, _, _ in expect] == [g for g, _ in got],
+              f"ladder {name}: rungs {trail}, spans {[g for g, _ in got]}")
+        for (rung, status), (_, want, launches), (_, counts) in zip(trail, expect, got):
+            ok = status != C if want == "unhealthy" else status == want
+            check(ok, f"ladder {name}: rung {rung} is {status}, expected {want}")
+            check(counts == launches, f"ladder {name}: rung {rung} launched {counts}, "
+                  f"expected {launches}")
+        check(report.status == C and res <= LADDER_TRUE_RES,
+              f"ladder {name}: healed to {report.status}, true residual {res:.3e}")
+        b1 += totals["launches"]
+        b1_bf16 += totals["bf16_launches"]
+        b3 += totals["fused_launches"]
+        b3_bf16 += totals["bf16_fused_launches"]
+    emit({"phase": "gp_ladder", "card": CARD, "max_cg_iters": p, "scenarios": rows})
+    return {"B1": b1, "B1_bf16": b1_bf16, "B3": b3, "B3_bf16": b3_bf16}
+
+
+def phase_gp_chaos(km, seed, n):
+    """``gp_serve.run_serve_chaos`` at n = 40,000 (mixed, ``on_failure=
+    "degrade"``, 2 query threads, CHAOS_CG_ITERS): gated on ``chaos_ok``
+    (≥ 1 precision_f32 escalation, ≥ 1 degraded query, 0 raised queries,
+    the breaker opened and re-closed) and on a CONVERGED clean build; the
+    bf16 B1 launches and the faults injected into them recorded."""
+    from repro_torch.core import health
+    from repro_torch.launch import gp_serve
+
+    # the drill's clean build (mixed, rank 5, 8 probes) by budget: the
+    # reference's 40 and upward, to the budget the drill runs at
+    convergence = _convergence(seed, n, (40, 60, 150, CHAOS_CG_ITERS), precision="mixed",
+                               cache=True)
+    km.reset_launch_counts()
+    metrics, host_ms, _ = timed(lambda: gp_serve.run_serve_chaos(
+        n=n, d=STREAM_D, batch=STREAM_BATCH, threads=2, max_cg_iters=CHAOS_CG_ITERS,
+        seed=seed, timeout_s=JOIN_TIMEOUT_S))
+    totals = km.launch_counts()
+    C = health.CONVERGED
+    emit({"phase": "gp_chaos", "card": CARD, "n": n, "max_cg_iters": CHAOS_CG_ITERS,
+          "ms": host_ms, **metrics, "launches": totals, "clean_build_by_budget": convergence})
+    check(metrics["clean_build_status"] == [C],
+          f"the drill's clean build is {metrics['clean_build_status']}, not CONVERGED: raise "
+          "CHAOS_CG_ITERS")
+    check(metrics["chaos_ok"], f"chaos drill failed: {metrics}")
+    check(totals["bf16_launches"] >= metrics["fault_injected_bf16"] >= 1,
+          "no fault landed on a bf16 B1 launch")
+    return {"B1": totals["launches"], "B1_bf16": totals["bf16_launches"]}
+
+
+def phase_gp_metrics(km, seed, n):
+    """The chaos drill again through ``gp_serve.main`` with ``--metrics-port
+    0`` on a thread, ``/metrics`` and ``/health`` scraped while it runs and
+    in its hold window, parsed with ``obs.parse_prometheus`` and rendered
+    with ``gp_top``.  Gates: the escalation, degraded-query and mbcg
+    counters present and non-zero; the run's own exit status."""
+    import threading
+    import urllib.request
+
+    from repro_torch import obs
+    from repro_torch.launch import gp_serve, gp_top
+
+    url, result = [], {}
+
+    def run():
+        try:
+            result["metrics"] = gp_serve.main(
+                ["--chaos", "--metrics-port", "0", "--metrics-hold", "2", "--n", str(n),
+                 "--d", str(STREAM_D), "--batch", str(STREAM_BATCH), "--threads", "2",
+                 "--max-cg-iters", str(CHAOS_CG_ITERS), "--seed", str(seed)],
+                on_metrics_server=lambda srv: url.append(srv.url))
+        except BaseException as e:  # noqa: BLE001 — reported below (sys.exit too)
+            result["error"] = repr(e)
+
+    def get(path):
+        with urllib.request.urlopen(url[0] + path, timeout=10) as resp:
+            return resp.read().decode()
+
+    km.reset_launch_counts()
+    worker = threading.Thread(target=run, name="gp_serve-metrics")
+    worker.start()
+    scrapes, last = 0, {}
+    t0 = time.perf_counter()
+    try:
+        while worker.is_alive() and time.perf_counter() - t0 < JOIN_TIMEOUT_S:
+            if url:
+                try:
+                    last = {"metrics": get("/metrics"), "health": get("/health")}
+                    scrapes += 1
+                except OSError:
+                    pass
+            time.sleep(0.25)
+        worker.join(timeout=JOIN_TIMEOUT_S)
+    finally:
+        obs.uninstall()  # main() installed the process registry
+    totals = km.launch_counts()
+    check(not worker.is_alive(), "gp_serve --metrics-port did not finish in time")
+    check("error" not in result, f"gp_serve --chaos --metrics-port failed: {result.get('error')}")
+    check(bool(last), "no scrape of /metrics and /health succeeded")
+    fams = obs.parse_prometheus(last["metrics"])
+    health_json = json.loads(last["health"])
+
+    def total(name, **match):
+        return sum(v for lab, v in fams.get(name, {"samples": []})["samples"]
+                   if all(lab.get(k) == w for k, w in match.items()))
+
+    got = {"escalations": total("ladder_rungs_total", rung="precision_f32"),
+           "degraded": total("serving_degraded_total"),
+           "cg_solves": total("cg_solves_total"),
+           "cg_iterations": total("cg_iterations", __part="count")}
+    table = gp_top.render(fams)
+    print(table, flush=True)
+    emit({"phase": "gp_metrics", "card": CARD, "n": n, "scrapes": scrapes,
+          "families": len(fams), "counters": got, "health_status": health_json.get("status"),
+          "breaker_state": health_json.get("breaker_state"), "launches": totals,
+          "chaos_ok": result["metrics"]["chaos_ok"]})
+    check(all(v > 0 for v in got.values()), f"scraped counters missing or zero: {got}")
+    check(health_json.get("status") == "serving", f"/health said {health_json.get('status')}")
+    return {"B1": totals["launches"], "B1_bf16": totals["bf16_launches"]}
+
+
+def _streamed(streaming, key):
+    """The new streaming / health phases' launches of one kernel."""
+    return sum(r.get(key, 0) for r in streaming.values())
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3364,6 +3886,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     emit({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "seed": args.seed})
 
@@ -3410,6 +3934,15 @@ def main() -> int:
         train_part, train_part_times = phase_train_partitioned(km, args.seed)
         torch.cuda.empty_cache()
         million, million_stats = phase_million(km, args.seed)
+        torch.cuda.empty_cache()
+        streaming = {}
+        for name, phase in (("gp_stream", phase_gp_stream), ("gp_threaded", phase_gp_threaded),
+                            ("gp_ladder", phase_gp_ladder), ("gp_chaos", phase_gp_chaos),
+                            ("gp_metrics", phase_gp_metrics)):
+            t_phase = time.perf_counter()
+            streaming[name] = phase(km, args.seed, args.n)
+            streaming[name]["seconds"] = time.perf_counter() - t_phase
+            torch.cuda.empty_cache()
         phase_lm_parity(args.seed, PARITY_LAYERS, tol=LM_PARITY_TOL, decode=True)
         phase_lm_parity(args.seed, FULL_LAYERS, tol=None, decode=False)
         lm = phase_lm_serve(args.seed)
@@ -3437,6 +3970,7 @@ def main() -> int:
                           "num_panels": panels["num_panels"], **serve_part_times,
                           **train_part_times, "sweep": sweep},
           "million": million_stats,
+          "streaming_phase_seconds": {k: v["seconds"] for k, v in streaming.items()},
           "lm_serving": {"arch": "zamba2-7b", "prefill_ms": lm["prefill_ms"],
                          "prefill_warm_ms": lm["prefill_warm_ms"],
                          "decode_ms_per_token": lm["decode_ms_per_token"],
@@ -3450,25 +3984,27 @@ def main() -> int:
         ("kernel_matmul (B1)", "B1", KERNEL_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:298",
          launches + train["B1"] + serve_mixed["B1"] + train_mixed["B1"] + multi["B1"]
-         + serve_part["B1"] + train_part["B1"] + million["B1"]),
+         + serve_part["B1"] + train_part["B1"] + million["B1"] + _streamed(streaming, "B1")),
         ("kernel_matmul batched (B2)", "B2", KERNEL_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:199", batched + multi["B2"]),
         ("fused_cg_step (B3)", "B3", FUSED_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:487",
-         train["B3"] + multi["B3"] + train_part["B3"] + million["B3"]),
+         train["B3"] + multi["B3"] + train_part["B3"] + million["B3"]
+         + _streamed(streaming, "B3")),
         ("kernel_matmul_grad (port-only VJP, 1 launch per symmetric VJP or row panel)", "grad",
          GRAD_SOURCE, "src/repro/core/inference.py:641 (jax.vjp, no TPU kernel)",
          train["grad"] + train_mixed["grad"] + multi["grad"] + train_part["grad"]),
         ("kernel_matmul bf16 (B1, precision=mixed)", "B1_bf16", KERNEL_BF16_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:298 (compute_dtype=bfloat16)",
          serve_mixed["B1_bf16"] + train_mixed["B1_bf16"] + multi["B1_bf16"]
-         + train_part["B1_bf16"]),
+         + train_part["B1_bf16"] + _streamed(streaming, "B1_bf16")),
         ("kernel_matmul bf16 batched (B2, precision=mixed)", "B2_bf16", KERNEL_BF16_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:199 (compute_dtype=bfloat16)",
          serve_mixed["B2_bf16"] + train_mixed["B2_bf16"] + multi["B2_bf16"]),
         ("fused_cg_step bf16 (B3, precision=mixed)", "B3_bf16", FUSED_BF16_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:487 (compute_dtype=bfloat16)",
-         train_mixed["B3_bf16"] + multi["B3_bf16"] + train_part["B3_bf16"]),
+         train_mixed["B3_bf16"] + multi["B3_bf16"] + train_part["B3_bf16"]
+         + _streamed(streaming, "B3_bf16")),
         ("flash_attention (B4)", "B4", FLASH_SOURCE,
          "src/repro/kernels/flash_attention/flash_attention.py:83", lm["launches"]["B4"]),
         ("ssd_scan (B5, bf16 on the tensor-core route)", "B5", SSD_SOURCE,

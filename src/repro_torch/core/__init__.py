@@ -1,6 +1,7 @@
 """BBMM core in PyTorch: mBCG (unfused and fused), pivoted-Cholesky
-preconditioning, SLQ log-dets, the differentiable MLL and the serving
-engine (counterpart of ``repro.core``)."""
+preconditioning, SLQ log-dets, the differentiable MLL, the serving engine
+with its streaming cache updates, the solve-health ladder and the fault
+injection harness (counterpart of ``repro.core``)."""
 
 from .health import (
     RungRecord,
@@ -17,6 +18,7 @@ from .inference import (
     PosteriorCache,
     build_posterior_cache,
     cached_inv_quad,
+    extend_posterior_cache,
     cached_mean,
     engine_state,
     inv_quad_logdet,
@@ -28,6 +30,8 @@ from .linear_operator import (
     BatchDenseOperator,
     DenseOperator,
     DiagOperator,
+    FaultInjectingOperator,
+    FaultSchedule,
     LinearOperator,
     PanelLaunch,
     PartitionedKernelOperator,
@@ -35,7 +39,7 @@ from .linear_operator import (
     replace_tensor_leaves,
     tensor_leaves,
 )
-from .mbcg import MBCGResult, mbcg, plain_cg_step, tridiag_matrices
+from .mbcg import CGStepFn, MBCGResult, mbcg, plain_cg_step, tridiag_matrices
 from .pivoted_cholesky import pivoted_cholesky, pivoted_cholesky_dense
 from .precision import normalize_compute_dtype, precision_compute_dtype, validate_precision
 from .preconditioner import (

@@ -14,9 +14,8 @@ small closed taxonomy:
 
 Classification reads a handful of scalars on the host after the solve (it
 synchronises once; never inside the CG loop).  Reports reach interested
-callers through a thread-local sink — :func:`collect` / :func:`record`.
-Metrics emission (the reference's ``repro.obs`` seam) comes with ROADMAP
-Queue A step 14.
+callers through a thread-local sink — :func:`collect` / :func:`record`,
+which is also the one metrics seam for solve outcomes (:mod:`repro_torch.obs`).
 """
 
 from __future__ import annotations
@@ -29,6 +28,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
+
 # --- taxonomy -------------------------------------------------------------
 
 CONVERGED = "CONVERGED"
@@ -40,7 +41,11 @@ DIVERGED = "DIVERGED"
 
 STATUSES = (CONVERGED, MAX_ITERS, STALLED, RESCUED, NON_FINITE, DIVERGED)
 
-#: statuses that count as healthy
+#: statuses that count as healthy for the degradation ladder.  RESCUED means
+#: the rescue caught a transient non-finite and the final residual still
+#: certifies the answer, so it is unhealthy only when it *also* failed to
+#: converge — that combination classifies as RESCUED (res > tol) and is not
+#: in this set.
 HEALTHY = (CONVERGED,)
 
 #: relative-residual threshold past which a finite solve is DIVERGED rather
@@ -106,7 +111,7 @@ class SolveReport:
 
 
 class SolveFailure(RuntimeError):
-    """Raised when a solve is unhealthy and the policy says raise."""
+    """Raised when a solve is unhealthy and no ladder rung could heal it."""
 
     def __init__(self, message: str, report: Optional[SolveReport] = None):
         super().__init__(message)
@@ -114,7 +119,7 @@ class SolveFailure(RuntimeError):
 
 
 class SolveHealthWarning(UserWarning):
-    """Emitted for unhealthy-but-served solves."""
+    """Emitted for unhealthy-but-served and degraded-but-healed solves."""
 
 
 # --- classification -------------------------------------------------------
@@ -199,10 +204,31 @@ def collect(into: Optional[list] = None):
 
 
 def record(report: Optional[SolveReport]) -> Optional[SolveReport]:
-    """Deliver a report to the innermost collect() on this thread, if any."""
+    """Deliver a report to the innermost collect() on this thread, if any.
+
+    Also the single metrics seam for solve outcomes: every final report —
+    and only final reports — passes through here, so the obs registry sees
+    exactly one ``solves_total`` increment per engine solve with the full
+    rung trail attached."""
     if report is None:
         return None
+    if obs.active() is not None:
+        _obs_emit(report)
     stack = getattr(_sink, "stack", None)
     if stack:
         stack[-1].append(report)
     return report
+
+
+def _obs_emit(report: SolveReport) -> None:
+    """Translate one SolveReport into registry updates (sink installed)."""
+    obs.inc("solves_total", status=report.status, context=report.context)
+    if report.degraded:
+        obs.inc("solves_degraded_total", context=report.context)
+    for r in report.rungs:
+        obs.inc("ladder_rungs_total", rung=r.rung, status=r.status or "error")
+        if r.duration_s is not None:
+            obs.observe("ladder_rung_seconds", r.duration_s, rung=r.rung)
+    dur = report.duration_s
+    if dur is not None:
+        obs.observe("solve_seconds", dur, context=report.context)

@@ -5,7 +5,9 @@ Counterpart of ``repro.core.linear_operator``, single-device subset:
 :class:`AddedDiagOperator`, :class:`BatchDenseOperator` (b independent
 dense blocks, the multi-restart path) and :class:`PartitionedKernelOperator`
 (K streamed one row-panel at a time, the million-row path) with its
-accounting surface (:class:`PanelLaunch`, :func:`panel_accounting`).  An
+accounting surface (:class:`PanelLaunch`, :func:`panel_accounting`), and
+the robustness harness (:class:`FaultSchedule`,
+:class:`FaultInjectingOperator`).  An
 operator packages the blackbox routine ``matmul(M) = K @ M`` with the cheap
 accessors the engine needs — ``diagonal()`` and ``row(i)`` drive the
 pivoted-Cholesky preconditioner.
@@ -21,13 +23,17 @@ differentiable MLL takes its gradients.
 from __future__ import annotations
 
 import dataclasses
+import random
 import threading
+import time
 import warnings
 from contextlib import contextmanager
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch import obs
 
 from .precision import is_reduced, normalize_compute_dtype
 
@@ -423,11 +429,30 @@ def panel_accounting(into=None):
 
 
 def _record_panels(launch: PanelLaunch) -> None:
-    """Deliver one PanelLaunch to the installed :func:`panel_accounting`
-    list, if any."""
+    """Deliver one PanelLaunch to every installed sink.
+
+    Three sinks, same record: the :func:`panel_accounting` list, the obs
+    metrics registry (launch / byte counters), and the obs trace (one
+    ``panel_launch`` span per record, so a trace's panel-span count equals
+    ``panel_accounting()``'s list length by construction).  All are no-ops
+    when nothing is installed."""
     sink = getattr(_PANEL_SINK, "launches", None)
     if sink is not None:
         sink.append(launch)
+    if obs.active() is not None:
+        labels = dict(backend=launch.backend, fused=str(launch.fused).lower(),
+                      sharded="false")
+        obs.inc("panel_matmuls_traced_total", **labels)
+        obs.inc("panel_launches_traced_total", launch.num_panels, **labels)
+        obs.inc("panel_bytes_streamed_total", launch.panel_bytes * launch.num_panels, **labels)
+        obs.set_gauge("panel_rows", launch.panel_rows, backend=launch.backend)
+    col = obs.active_trace()
+    if col is not None:
+        # a record per call: the span marks the launch, not a wall time
+        col.add_complete("panel_launch", col.now_us(), 0.0, {
+            "n": launch.n, "panel_rows": launch.panel_rows, "num_panels": launch.num_panels,
+            "backend": launch.backend, "fused": launch.fused, "sharded": False,
+        })
 
 
 def _panel_starts(rows: int, panel_rows: int) -> range:
@@ -728,3 +753,215 @@ def _batch_size(M: torch.Tensor) -> int:
     for s in M.shape[:-2]:
         b *= s
     return b
+
+
+# --- fault injection (robustness harness) ----------------------------------
+
+
+class FaultSchedule:
+    """Seeded, deterministic host-side fault plan for
+    :class:`FaultInjectingOperator` (the reference's, the same decisions).
+
+    One schedule is shared by every prepared / dtype-switched copy of its
+    operator, so the call counter ticks once per ACTUAL matmul or fused
+    step — once per kernel launch of the CG loop, as the reference's
+    ``pure_callback`` ticks once per execution of its scan body — and a
+    seed gives the reference's fault sequence.
+
+    Attributes are plain and mutable on purpose: a chaos driver toggles
+    ``nan_rate`` / ``total_outage`` mid-run.
+
+      * ``nan_calls`` / ``inf_calls`` — exact call indices to corrupt;
+      * ``nan_rate`` — per-call corruption probability from the seeded rng
+        (deterministic given the seed and the call order);
+      * ``latency_s`` — host sleep per call (operational latency);
+      * ``total_outage`` — corrupt EVERY call, and ``to_dense`` too (takes
+        out the terminal dense ladder rung: the unhealable fault that must
+        trip the serving circuit breaker);
+      * ``reduced_only`` — corrupt only reduced-precision (bf16) instances,
+        leaving f32 clean — makes the ``precision_f32`` rung heal;
+      * ``panel`` — (row_start, num_rows): corrupt this row band instead of
+        row 0, one panel of a ``mode="cuda_partitioned"`` solve.
+
+    ``injected`` records ``(call_index, code)`` for every corruption
+    delivered — the assertion surface for tests.
+    """
+
+    NAN = 1.0
+    INF = 2.0
+
+    def __init__(
+        self,
+        seed: int = 0,
+        *,
+        nan_calls: Sequence[int] = (),
+        inf_calls: Sequence[int] = (),
+        nan_rate: float = 0.0,
+        latency_s: float = 0.0,
+        total_outage: bool = False,
+        reduced_only: bool = False,
+        panel: tuple | None = None,
+    ):
+        self._rng = random.Random(seed)
+        self._lock = threading.Lock()
+        self.nan_calls = frozenset(nan_calls)
+        self.inf_calls = frozenset(inf_calls)
+        self.nan_rate = float(nan_rate)
+        self.latency_s = float(latency_s)
+        self.total_outage = bool(total_outage)
+        self.reduced_only = bool(reduced_only)
+        self.panel = None if panel is None else (int(panel[0]), int(panel[1]))
+        self.calls = 0
+        self.injected: list = []
+
+    def next_code(self, reduced: bool) -> float:
+        """Tick the call counter and decide this call's fate (host side)."""
+        with self._lock:
+            idx = self.calls
+            self.calls += 1
+            if self.latency_s:
+                time.sleep(self.latency_s)
+            code = 0.0
+            if self.total_outage:
+                code = self.NAN
+            elif self.reduced_only and not reduced:
+                code = 0.0
+            elif idx in self.nan_calls:
+                code = self.NAN
+            elif idx in self.inf_calls:
+                code = self.INF
+            elif self.nan_rate and self._rng.random() < self.nan_rate:
+                code = self.NAN
+            if code:
+                self.injected.append((idx, code))
+            return code
+
+    def rows(self) -> slice:
+        """The row band a fault corrupts: the panel band, else row 0."""
+        s0, rows = self.panel if self.panel is not None else (0, 1)
+        return slice(s0, s0 + rows)
+
+
+def _corrupt(out: torch.Tensor, code: float, rows: slice) -> torch.Tensor:
+    """``out`` with NaN (code NAN) or +Inf (code INF) added to a row band
+    of its (…, n, t) rows — or of a vector's entries; ``out`` itself when
+    the code is 0."""
+    if not code:
+        return out
+    bad = float("nan") if code == FaultSchedule.NAN else float("inf")
+    out = out.clone()
+    if out.dim() == 1:
+        out[rows] += bad
+    else:
+        out[..., rows, :] += bad
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultInjectingOperator(LinearOperator):
+    """Wrap any operator with seeded, deterministic fault injection (the
+    reference's robustness harness).
+
+    Three fault families:
+
+      * **non-finite outputs** — the schedule corrupts row 0 (or its panel
+        band) of the matmul result with NaN/Inf on chosen (or seeded-random)
+        calls.  The wrapped operator still launches its kernel; the
+        schedule decides on the host, once per call, and the corruption is
+        added to the kernel's own output;
+      * **non-PSD perturbation** — ``negative_diag`` subtracts c·I;
+      * **latency / outage** — host sleeps and the total-outage mode that
+        corrupts everything including ``to_dense``.
+
+    ``diagonal`` / ``row`` delegate CLEAN (the pivoted-Cholesky
+    preconditioner is not the thing under test).  The wrapper forwards the
+    base's fused CG step with the same seam: a corrupted call poisons the
+    scheduled row band of the iteration's V′ AND the (4, t) reductions, as
+    a faulted launch would (``negative_diag`` stays unfused-only).
+
+    Wrap INSIDE the noise wrapper — ``AddedDiagOperator(FaultInjecting…(K),
+    σ²)`` — so ``build_preconditioner`` still sees the ``AddedDiagOperator``
+    it requires.
+    """
+
+    base: LinearOperator
+    schedule: FaultSchedule | None = dataclasses.field(default_factory=FaultSchedule)
+    negative_diag: float = 0.0
+    reduced: bool = False
+
+    @property
+    def shape(self):
+        return self.base.shape
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def matmul(self, M):
+        out = self.base.matmul(M)
+        if self.negative_diag:
+            out = out - self.negative_diag * M
+        if self.schedule is None:
+            return out
+        return _corrupt(out, self.schedule.next_code(self.reduced), self.schedule.rows())
+
+    def diagonal(self):
+        d = self.base.diagonal()
+        return d - self.negative_diag if self.negative_diag else d
+
+    def row(self, i):
+        r = self.base.row(i)
+        if self.negative_diag:
+            r = r.clone()
+            r[i] -= self.negative_diag
+        return r
+
+    def to_dense(self):
+        dense = self.base.to_dense()
+        if self.negative_diag:
+            n = dense.shape[-1]
+            dense = dense - self.negative_diag * torch.eye(n, dtype=dense.dtype,
+                                                           device=dense.device)
+        if self.schedule is not None and self.schedule.total_outage:
+            # the outage takes the dense fallback down too: the unhealable
+            # fault class (→ the serving circuit breaker)
+            dense = torch.full_like(dense, float("nan"))
+        return dense
+
+    def fused_cg_step_fn(self, sigma2=None):
+        if self.negative_diag:
+            # a structural perturbation of K̂ itself: the unfused loop, whose
+            # matmul seam applies it
+            return None
+        base_fn = self.base.fused_cg_step_fn(sigma2=sigma2)
+        sched = self.schedule
+        if base_fn is None or sched is None:
+            return base_fn
+        reduced = self.reduced
+
+        def step(U, R, D, V, alpha, beta, gamma):
+            Un, Rn, Dn, Vn, red = base_fn(U, R, D, V, alpha, beta, gamma)
+            code = sched.next_code(reduced)
+            if code:
+                # the faulted rows' V′ goes bad, and so do the epilogue
+                # partials already summed into the (4, t) reductions
+                Vn = _corrupt(Vn, code, sched.rows())
+                bad = float("nan") if code == FaultSchedule.NAN else float("inf")
+                red = tuple(r + bad for r in red)
+            return Un, Rn, Dn, Vn, red
+
+        return step
+
+    def prepare(self):
+        return dataclasses.replace(self, base=self.base.prepare())
+
+    def with_compute_dtype(self, compute_dtype):
+        return dataclasses.replace(
+            self,
+            base=self.base.with_compute_dtype(compute_dtype),
+            reduced=self.reduced or is_reduced(compute_dtype),
+        )

@@ -41,14 +41,23 @@ loop with an (α = 0, β = 1, γ = 0) no-op prologue.
 The refresh schedule is host control flow (the f32 matmul is launched only
 on refresh steps): the static schedule needs no host synchronisation; the
 adaptive one reads the largest drift once per refresh.
+
+Telemetry (:mod:`repro_torch.obs`): with a trace active each call is one
+``mbcg`` span; with a metrics registry installed it also records its
+iteration count, per-iteration wall time and refresh / rescue / curvature
+counters — reading the worst column's count is one host synchronisation,
+taken only then.  With neither installed nothing is read.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch import obs
 
 
 class MBCGResult(NamedTuple):
@@ -400,6 +409,42 @@ def mbcg(
         preconditioner composes with it: passing ``precond_solve`` too is
         an error, never a silent fallback.
     """
+    kwargs = dict(precond_solve=precond_solve, max_iters=max_iters, tol=tol,
+                  return_basis=return_basis, refresh_every=refresh_every,
+                  refresh_matmul=refresh_matmul, refresh_adaptive=refresh_adaptive,
+                  refresh_max_period=refresh_max_period, fused_step=fused_step)
+    if obs.active() is None and obs.active_trace() is None:
+        return _mbcg(matmul, B, **kwargs)
+    with obs.span("mbcg", fused=fused_step is not None, refresh=bool(refresh_every)):
+        t0 = time.perf_counter()
+        result = _mbcg(matmul, B, **kwargs)
+        _obs_record_mbcg(result, t0, fused=fused_step is not None)
+    return result
+
+
+def _obs_record_mbcg(result: MBCGResult, t0: float, *, fused: bool) -> None:
+    """Fold one mbcg call into the metrics registry (if installed)."""
+    if obs.active() is None:
+        return
+    # the host read synchronises, so the wall time covers the solve
+    iters = int(torch.max(result.num_iters)) if result.num_iters.numel() else 0
+    wall = time.perf_counter() - t0
+    mode = "fused" if fused else "plain"
+    obs.inc("cg_solves_total", mode=mode)
+    obs.observe("cg_iterations", iters, mode=mode)
+    obs.observe("cg_iteration_seconds", wall / max(iters, 1), mode=mode)
+    for name, raw in (
+        ("cg_refreshes_total", result.num_refreshes),
+        ("cg_rescues_total", result.num_rescues),
+        ("cg_curvature_skips_total", result.num_curvature_skips),
+    ):
+        count = 0 if raw is None else int(torch.max(raw))
+        if count:
+            obs.inc(name, count)
+
+
+def _mbcg(matmul, B, *, precond_solve, max_iters, tol, return_basis, refresh_every,
+          refresh_matmul, refresh_adaptive, refresh_max_period, fused_step) -> MBCGResult:
     if fused_step is not None and precond_solve is not None:
         raise ValueError(
             "mbcg: fused_step cannot run a precond_solve inside the fused "

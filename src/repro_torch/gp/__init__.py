@@ -1,5 +1,6 @@
 """GP models on top of the BBMM engine (counterpart of ``repro.gp``):
-the exact GP, its training driver and its serving cache."""
+the exact GP, its training driver and its serving cache with streaming
+updates."""
 
 from repro_torch.core.linear_operator import (
     BatchDenseOperator,
@@ -17,5 +18,13 @@ from .kernels import (
     RBFKernel,
     sq_dist,
 )
-from .model import PROTOCOL_METHODS, GPModel, KrylovCachePredictor, missing_protocol_methods
+from .model import (
+    PROTOCOL_METHODS,
+    STREAMING_METHODS,
+    GPModel,
+    KrylovCachePredictor,
+    SupportsStreaming,
+    missing_protocol_methods,
+    supports_streaming,
+)
 from .training import fit_gp

@@ -9,9 +9,9 @@ reference's parameters carry over through
 :func:`repro_torch.convert.params_from_jax`.  ``loss`` takes y (n,) or
 (b, n) — b targets of one kernel in one engine call (multi-output, (b,)
 losses) — and ``batched_loss`` b hyperparameter sets (multi-restart, b
-dense kernel matrices in one engine call).  Cache updates come with a
-later slice and raise ``NotImplementedError`` naming the ROADMAP step
-that brings them.
+dense kernel matrices in one engine call).  Streaming appends —
+``update_cache`` — are inherited too (warm-started CG with Krylov-basis
+recycling).
 
 ``mode="cuda"`` runs every blackbox K̂·M through the hand-written CUDA
 kernel, its gradient through the gradient kernel, and — with
@@ -59,10 +59,6 @@ KERNELS = {
     "matern32": partial(MaternKernel, nu=1.5),
     "matern12": partial(MaternKernel, nu=0.5),
 }
-
-
-def _not_ported(what: str, step: str):
-    return NotImplementedError(f"ExactGP.{what} is not ported yet: ROADMAP Queue A {step}")
 
 
 @dataclasses.dataclass
@@ -174,7 +170,3 @@ class ExactGP(KrylovCachePredictor):
         y = self._tensor(y)
         yb = y.expand(op.base.batch, y.shape[-1]) if y.dim() == 1 else y
         return -marginal_log_likelihood(op, yb, generator, self.settings)
-
-    # -- later slices ---------------------------------------------------------
-    def update_cache(self, params, data, y, cache, X_new, y_new):
-        raise _not_ported("update_cache", "step 14 (streaming serving)")

@@ -12,8 +12,14 @@ Every GP model exposes the same structural protocol:
     predict_cached(params, data, cache, Xstar) -> (mean, var)
     predict(params, data, y, Xstar)       -> (mean, var)
 
-:class:`KrylovCachePredictor` implements the three serving methods on top
-of the engine: Rayleigh–Ritz variances from an orthonormal Krylov basis.
+Streaming-capable models also implement (:class:`SupportsStreaming`)
+
+    update_cache(params, data, y, cache, X_new, y_new) -> cache
+
+the seam :class:`repro_torch.serving.PosteriorSession` folds appended
+observations in through.  :class:`KrylovCachePredictor` implements the
+serving methods on top of the engine: Rayleigh–Ritz variances from an
+orthonormal Krylov basis, recycled across appends.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from repro_torch.core import (
     BBMMSettings,
     build_posterior_cache,
     cached_inv_quad,
+    extend_posterior_cache,
     precision_compute_dtype,
 )
 from repro_torch.core import solve as bbmm_solve
@@ -40,6 +47,8 @@ PROTOCOL_METHODS = (
     "predict_cached",
     "predict",
 )
+
+STREAMING_METHODS = ("update_cache",)
 
 
 @runtime_checkable
@@ -65,9 +74,20 @@ class GPModel(Protocol):
     def predict(self, params, data, y, Xstar): ...
 
 
+@runtime_checkable
+class SupportsStreaming(Protocol):
+    """Models whose serving cache accepts incremental data appends."""
+
+    def update_cache(self, params, data, y, cache, X_new, y_new): ...
+
+
 def missing_protocol_methods(model, methods=PROTOCOL_METHODS) -> list[str]:
     """Names from ``methods`` the model fails to expose as callables."""
     return [m for m in methods if not callable(getattr(model, m, None))]
+
+
+def supports_streaming(model) -> bool:
+    return not missing_protocol_methods(model, STREAMING_METHODS)
 
 
 class KrylovCachePredictor:
@@ -154,3 +174,14 @@ class KrylovCachePredictor:
         # predictive (observation) variance: latent var + likelihood noise
         var = kern.diag(Xstar) - torch.sum(Kxs * solves, dim=0)
         return mean, torch.clamp(var, min=1e-8) + self.noise(params)
+
+    def update_cache(self, params, data, y, cache, X_new, y_new):
+        """Streaming append: warm-started CG + Krylov-basis recycling.
+
+        ``data`` / ``y`` are the FULL updated inputs (appended block
+        included); the old ``alpha`` seeds the solve and the old basis is
+        recycled into the new variance cache — see
+        :func:`repro_torch.core.extend_posterior_cache`."""
+        return extend_posterior_cache(
+            self.operator(params, data), self._tensor(y), cache, self.settings
+        )

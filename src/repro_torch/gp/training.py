@@ -25,6 +25,12 @@ Robustness, as in the reference:
     failures fall through to skip-and-warn.  The retry draws its probes
     anew from the generator, as the reference's splits a new key.
 
+With an ``obs`` registry installed each step (taken, skipped or retried)
+adds to ``fit_steps_total`` and ``fit_step_seconds``, a finite one sets the
+``fit_loss`` gauge and a non-finite one counts in
+``fit_nonfinite_steps_total`` (all labelled by model class), for
+``gp_top`` during long fits.
+
 The reference's fallback for a Pallas autodiff gap of its pinned jax has no
 counterpart: the port's kernels carry their own backward.
 """
@@ -33,11 +39,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 import warnings
 from typing import Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.health import SolveFailure, SolveHealthWarning
 
 ADAM_BETAS = (0.9, 0.999)
@@ -98,10 +106,12 @@ def fit_gp(
     precision_degraded = False
     i = 0
     while i < steps:
+        t_step = time.perf_counter()
         opt.zero_grad(set_to_none=True)
         loss = model.loss(params, data, y, generator)
         loss_f = float(loss.detach())  # host sync: the forward is done here
         if not math.isfinite(loss_f):
+            _obs_step(model, t_step, loss_f)
             if policy == "raise":
                 raise SolveFailure(
                     f"fit_gp: non-finite loss ({loss_f}) at step {i} with "
@@ -136,11 +146,25 @@ def fit_gp(
             continue
         loss.backward()
         opt.step()
+        _obs_step(model, t_step, loss_f)
         history.append(loss_f)
         if callback is not None:
             callback(i, loss_f)
         i += 1
     return {k: v.detach() for k, v in params.items()}, history
+
+
+def _obs_step(model, t_step: float, loss_f: float) -> None:
+    """Per-step training telemetry, when a registry is installed."""
+    if obs.active() is None:
+        return
+    mname = type(model).__name__
+    obs.inc("fit_steps_total", model=mname)
+    obs.observe("fit_step_seconds", time.perf_counter() - t_step, model=mname)
+    if math.isfinite(loss_f):
+        obs.set_gauge("fit_loss", loss_f, model=mname)
+    else:
+        obs.inc("fit_nonfinite_steps_total", model=mname)
 
 
 def _at_highest(model):

@@ -24,7 +24,13 @@ The build happens at first use, into ``_build/`` beside this file
 library's name carries one hash of every source and header under the
 ``csrc/`` directories and of the flags, so editing any of them rebuilds and
 a stale library is never loaded.  Nothing is downloaded; a failed build
-raises :class:`KernelBuildError`.
+raises :class:`KernelBuildError`, and a wrapper whose launch returns a CUDA
+error raises :class:`KernelLaunchError`.
+
+:func:`build_all` and :func:`load_library` run under one module lock, so
+threads that reach a kernel for the first time together (the serving
+session's query workers and its refresher) build each library once and
+load it once.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -77,6 +84,11 @@ class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a kernel source."""
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's entry point returned a CUDA error: a fault of the kernel
+    or of the card, never of the numbers it was given."""
+
+
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
     path: Path
@@ -86,6 +98,8 @@ class BuildInfo:
 
 _libs: dict[str, ctypes.CDLL] = {}
 _infos: dict[str, BuildInfo] = {}
+# guards _infos and _libs; reentrant, since load_library builds
+_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -137,7 +151,13 @@ def _check_sources() -> None:
 
 def build_all() -> dict[str, BuildInfo]:
     """Compile every library whose build does not exist yet, one nvcc
-    process per source, all running at once."""
+    process per source, all running at once.  Concurrent callers wait for
+    the one build."""
+    with _lock:
+        return _build_all_locked()
+
+
+def _build_all_locked() -> dict[str, BuildInfo]:
     _check_sources()
     todo = {}
     for name in ENTRY_POINTS:
@@ -191,11 +211,15 @@ def build(name: str) -> BuildInfo:
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (a key of :data:`ENTRY_POINTS`), built
     first if needed, with its C signature set."""
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build(name).path))
-        symbol, argtypes = ENTRY_POINTS[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return _libs[name]
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name).path))
+            symbol, argtypes = ENTRY_POINTS[name]
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]

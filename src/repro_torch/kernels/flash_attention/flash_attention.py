@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from ..build import load_library
+from ..build import KernelLaunchError, load_library
 from .ref import gqa_attention_plain
 
 #: B4 launches since the last reset
@@ -102,7 +102,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, scale=None):
             int(bool(causal)), stream,
         )
     if err != 0:
-        raise RuntimeError(
+        raise KernelLaunchError(
             f"flash_attention_fwd launch failed with cudaError {err} "
             f"(b={b}, hq={hq}, hkv={hkv}, sq={sq}, skv={skv}, dh={dh})"
         )

@@ -41,16 +41,25 @@ for f32; ``bf16_launches``, ``bf16_batched_launches``,
 went through the kernels it asked for.  ``panel_launches`` counts, among
 the B1/B2/B3 launches of either dtype, those over a row panel (fewer rows
 than columns: the partitioned path), so a run can show that a streamed
-matmul or CG iteration took one launch per panel.
+matmul or CG iteration took one launch per panel.  The counters are updated
+under one lock, so they stay exact when several threads launch (the
+serving session's query workers and its refresher);
+:func:`thread_launch_counts` gives the calling thread's own counts since it
+started, so a caller can attribute launches to one call.  While an
+``obs.trace()`` is active, each launch also drops a ``launch`` marker on
+it.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from repro_torch import obs
 from repro_torch.core.precision import is_reduced
 
-from ..build import load_library
+from ..build import KernelLaunchError, load_library
 from .ref import (
     KERNEL_TYPES,
     fused_cg_step_plain,
@@ -85,11 +94,48 @@ GRAD_MAX_K = 128
 ROW_BLOCK = 64
 
 
+COUNTERS = ("launches", "batched_launches", "fused_launches", "grad_launches",
+            "bf16_launches", "bf16_batched_launches", "bf16_fused_launches",
+            "panel_launches")
+
+_count_lock = threading.Lock()
+_thread_counts = threading.local()
+
+
 def reset_launch_counts() -> None:
-    global launches, batched_launches, fused_launches, grad_launches
-    global bf16_launches, bf16_batched_launches, bf16_fused_launches, panel_launches
-    launches = batched_launches = fused_launches = grad_launches = 0
-    bf16_launches = bf16_batched_launches = bf16_fused_launches = panel_launches = 0
+    with _count_lock:
+        for name in COUNTERS:
+            globals()[name] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Every counter, read together under the counters' lock."""
+    with _count_lock:
+        return {name: globals()[name] for name in COUNTERS}
+
+
+def thread_launch_counts() -> dict[str, int]:
+    """The calling thread's launches by counter since the thread started
+    (never reset): the difference around a call is what that call
+    launched, whatever other threads launch meanwhile."""
+    counts = _thread_counts.__dict__
+    return {name: counts.get(name, 0) for name in COUNTERS}
+
+
+def _count(name: str, k: int = 1, *, panel: bool = False) -> None:
+    """Record k launches on counter ``name`` (and on ``panel_launches``
+    for a row panel): atomically on the module counters, on this thread's
+    counts, and as a marker on an active trace."""
+    names = (name, "panel_launches") if panel else (name,)
+    with _count_lock:
+        for nm in names:
+            globals()[nm] += k
+    counts = _thread_counts.__dict__
+    for nm in names:
+        counts[nm] = counts.get(nm, 0) + k
+    col = obs.active_trace()
+    if col is not None:
+        col.add_instant("launch", {"counter": name, "count": k, "panel": panel})
 
 
 def _padded_width(t: int) -> int:
@@ -175,7 +221,6 @@ def kernel_matmul_cuda(
             compute_dtype=compute_dtype,
         )
     _check_cuda_args(X1, X2, M, kernel_type, row_offset)
-    global launches, batched_launches, bf16_launches, bf16_batched_launches, panel_launches
     batched = M.dim() == 3
     rows, d = X1.shape
     cols, t = M.shape[-2:]
@@ -206,20 +251,12 @@ def kernel_matmul_cuda(
                 KERNEL_TYPE_CODES[kernel_type], stream,
             )
     if err != 0:
-        raise RuntimeError(
+        raise KernelLaunchError(
             f"{symbol} launch failed with cudaError {err} "
             f"(rows={rows}, cols={cols}, d={d}, t={t}, batch={batch})"
         )
-    if reduced and batched:
-        bf16_batched_launches += 1
-    elif reduced:
-        bf16_launches += 1
-    elif batched:
-        batched_launches += 1
-    else:
-        launches += 1
-    if rows < cols:
-        panel_launches += 1
+    counter = ("bf16_" if reduced else "") + ("batched_launches" if batched else "launches")
+    _count(counter, panel=rows < cols)
     return out
 
 
@@ -282,7 +319,6 @@ def fused_cg_step_cuda(
         Xs_rows, Xs_cols, (U, R, D, V), (R_cols, D_cols, V_cols), (alpha, beta, gamma),
         kernel_type, row_offset,
     )
-    global fused_launches, bf16_fused_launches, panel_launches
     dev = U.device
     b, rows, t = U.shape
     cols, d = Xs_cols.shape
@@ -324,16 +360,11 @@ def fused_cg_step_cuda(
                 KERNEL_TYPE_CODES[kernel_type], stream,
             )
     if err != 0:
-        raise RuntimeError(
+        raise KernelLaunchError(
             f"{symbol} launch failed with cudaError {err} "
             f"(rows={rows}, cols={cols}, d={d}, t={t}, batch={b})"
         )
-    if reduced:
-        bf16_fused_launches += 1
-    else:
-        fused_launches += 1
-    if rows < cols:
-        panel_launches += 1
+    _count("bf16_fused_launches" if reduced else "fused_launches", panel=rows < cols)
     return Uo, Ro, Do, Vo, red
 
 
@@ -341,7 +372,6 @@ def _grad_launch(X1, X2, A, B, scal, kernel_type):
     """One call of the gradient kernel's entry point: G (rows, d) and
     Σᵢⱼ⟨Aᵢ, Bⱼ⟩f(rᵢⱼ²).  One launch for A, B up to GRAD_MAX_K columns wide,
     one more for each further GRAD_MAX_K."""
-    global grad_launches
     rows, d = X1.shape
     cols, t = B.shape
     G = torch.empty((rows, d), dtype=torch.float32, device=X1.device)
@@ -356,11 +386,11 @@ def _grad_launch(X1, X2, A, B, scal, kernel_type):
             KERNEL_TYPE_CODES[kernel_type], stream,
         )
     if err != 0:
-        raise RuntimeError(
+        raise KernelLaunchError(
             f"kernel_matmul_grad_f32 launch failed with cudaError {err} "
             f"(rows={rows}, cols={cols}, d={d}, t={t})"
         )
-    grad_launches += -(-t // GRAD_MAX_K)
+    _count("grad_launches", -(-t // GRAD_MAX_K))
     return G, gsum[0]
 
 

@@ -38,12 +38,19 @@ numbers, and the distance stays one f32 fmaf chain), and the product
 launches the bf16 kernels.  The bf16 product carries no gradient: the
 MLL's backward differentiates the f32 operator, as the reference's VJP
 does.
+
+Under ``obs.enable_annotations()`` the single-device product, the fused
+step and the panel-fused step each run inside a profiler range
+(``cuda:kernel_matmul``, ``cuda:fused_cg_step``,
+``cuda:panel_fused_cg_step``), to line the kernels up with the host spans
+in a ``torch.profiler`` or Nsight capture.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.precision import is_reduced
 
 from .kernel_matmul import (
@@ -136,29 +143,37 @@ def fused_kernel_matmul_prescaled(
     M = M.to(torch.float32).contiguous()
     symmetric = Xs_rows is Xs_cols and int(row_offset) == 0
     Xs_rows, Xs_cols = Xs_rows.contiguous(), Xs_cols.contiguous()
+    with obs.annotation("cuda:kernel_matmul"):
+        out = _kernel_matmul_fn(Xs_rows, Xs_cols, M, outputscale, sigma2, row_offset,
+                                kernel_type, compute_dtype, symmetric)
+    return out[..., 0] if squeeze else out
+
+
+def _kernel_matmul_fn(Xs_rows, Xs_cols, M, outputscale, sigma2, row_offset, kernel_type,
+                      compute_dtype, symmetric):
+    """The product through the autograd Function its shape calls for (the
+    bf16 one without a gradient)."""
     if is_reduced(compute_dtype):
         with torch.no_grad():
-            out = kernel_matmul_cuda(
+            return kernel_matmul_cuda(
                 Xs_rows, Xs_cols, M, outputscale, sigma2, row_offset,
                 kernel_type=kernel_type, compute_dtype=compute_dtype,
             )
-    elif M.dim() == 3:
-        out = BatchedKernelMatmulFn.apply(
+    if M.dim() == 3:
+        return BatchedKernelMatmulFn.apply(
             Xs_rows, Xs_rows if symmetric else Xs_cols, M,
             _device_scalar(outputscale, M.device), _device_scalar(sigma2, M.device),
             row_offset, kernel_type, symmetric,
         )
-    elif symmetric:
-        out = SymKernelMatmulFn.apply(
+    if symmetric:
+        return SymKernelMatmulFn.apply(
             Xs_rows, M, _device_scalar(outputscale, M.device), _device_scalar(sigma2, M.device),
             kernel_type,
         )
-    else:
-        out = KernelMatmulFn.apply(
-            Xs_rows, Xs_cols, M, _device_scalar(outputscale, M.device),
-            _device_scalar(sigma2, M.device), row_offset, kernel_type,
-        )
-    return out[..., 0] if squeeze else out
+    return KernelMatmulFn.apply(
+        Xs_rows, Xs_cols, M, _device_scalar(outputscale, M.device),
+        _device_scalar(sigma2, M.device), row_offset, kernel_type,
+    )
 
 
 def fused_kernel_matmul(X, M, lengthscale, outputscale, sigma2, *, kernel_type="rbf",
@@ -213,10 +228,12 @@ def fused_cg_step(
         .reshape(b, t).contiguous()
         for s in (alpha, beta, gamma)
     ]
-    Un, Rn, Dn, Vn, red = fused_cg_step_cuda(
-        Xs_rows.contiguous(), Xs_cols.contiguous(), *state, *col_state, *scalars,
-        outputscale, sigma2, row_offset, kernel_type=kernel_type, compute_dtype=compute_dtype,
-    )
+    with obs.annotation("cuda:fused_cg_step"):
+        Un, Rn, Dn, Vn, red = fused_cg_step_cuda(
+            Xs_rows.contiguous(), Xs_cols.contiguous(), *state, *col_state, *scalars,
+            outputscale, sigma2, row_offset, kernel_type=kernel_type,
+            compute_dtype=compute_dtype,
+        )
     Un, Rn, Dn, Vn = (x.reshape(*lead, rows, t) for x in (Un, Rn, Dn, Vn))
     red = red.reshape(*lead, 4, t)
     return Un, Rn, Dn, Vn, tuple(red[..., k, :] for k in range(4))
@@ -362,8 +379,9 @@ def panel_fused_cg_step_prescaled(
     one B3 launch per panel, the column state the full pre-update (R, D, V)
     (:func:`_panel_fused_cg_step_bands`)."""
     R, D, V = (x.to(torch.float32).contiguous() for x in (R, D, V))
-    return _panel_fused_cg_step_bands(
-        Xs.contiguous(), Xs.contiguous(), U, R, D, V, R, D, V, alpha, beta, gamma,
-        outputscale, sigma2, 0, panel_rows=panel_rows, kernel_type=kernel_type,
-        compute_dtype=compute_dtype,
-    )
+    with obs.annotation("cuda:panel_fused_cg_step"):
+        return _panel_fused_cg_step_bands(
+            Xs.contiguous(), Xs.contiguous(), U, R, D, V, R, D, V, alpha, beta, gamma,
+            outputscale, sigma2, 0, panel_rows=panel_rows, kernel_type=kernel_type,
+            compute_dtype=compute_dtype,
+        )

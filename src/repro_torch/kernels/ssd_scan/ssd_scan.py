@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from ..build import load_library
+from ..build import KernelLaunchError, load_library
 from .ref import ssd_scan_chunked_ref
 
 #: B5 launches since the last reset
@@ -164,7 +164,7 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk=128, _cuda_cores=False):
             stream,
         )
     if err != 0:
-        raise RuntimeError(
+        raise KernelLaunchError(
             f"ssd_scan_fwd launch failed with cudaError {err} "
             f"(b={b}, h={h}, l={l}, dh={dh}, ds={ds}, chunk={chunk})"
         )

@@ -927,3 +927,172 @@ def test_hybrid_forward_runs_the_kernels(cuda_device):
     plain = hybrid.forward(params, cfg, tok, use_kernels=False)
     assert (ssd.launches, fa.launches) == (7, 2)
     torch.testing.assert_close(out, plain, rtol=1e-3, atol=1e-3)
+
+
+# --- health and streaming serving on the card -------------------------------
+
+
+def _rbf_system(dev, n=1024, d=3, noise=0.5, seed=0):
+    """A small RBF exact-GP system on the card, easy for CG (σ² = 0.5)."""
+    from repro_torch import ExactGP
+    from repro_torch.core import BBMMSettings
+
+    rng = np.random.default_rng(seed)
+    X = torch.from_numpy(rng.uniform(-1, 1, (n, d)).astype(np.float32)).to(dev)
+    y = torch.sin(3 * X[:, 0]).contiguous()
+    gp = ExactGP(mode="cuda", kernel_type="rbf", device=dev,
+                 settings=BBMMSettings(num_probes=4, max_cg_iters=60, precond_rank=0))
+    params = gp.init_params(X)
+    params["raw_noise"] = torch.full((), float(np.log(np.expm1(noise))), device=dev)
+    return gp, params, X, y
+
+
+@pytest.mark.cuda
+def test_fault_seam_corrupts_the_kernels_own_outputs(cuda_device):
+    """FaultInjectingOperator on B1 and B3: every call still launches the
+    kernel; a scheduled call's output gets NaN in the scheduled row band
+    (and, for B3, in every reduction), any other call is the kernel's
+    output bit for bit."""
+    from repro_torch.core import AddedDiagOperator, FaultInjectingOperator, FaultSchedule
+
+    gp, params, X, _ = _rbf_system(cuda_device)
+    clean = gp.operator(params, X).prepare()
+    sched = FaultSchedule(0, nan_calls=(1, 3), panel=(64, 8))
+    op = AddedDiagOperator(FaultInjectingOperator(clean.base, schedule=sched),
+                           clean.sigma2).prepare()
+    M = torch.randn(X.shape[0], 9, device=cuda_device)
+    km.reset_launch_counts()
+    first, second = op.matmul(M), op.matmul(M)
+    torch.cuda.synchronize()
+    assert km.launches == 2
+    want = clean.matmul(M)
+    assert torch.equal(first, want)
+    bad = torch.nonzero(~torch.isfinite(second))[:, 0].unique().tolist()
+    assert bad == list(range(64, 72))
+    step, clean_step = op.fused_cg_step_fn(), clean.fused_cg_step_fn()
+    state = [torch.randn(X.shape[0], 9, device=cuda_device) for _ in range(4)]
+    scal = [torch.full((9,), v, device=cuda_device) for v in (0.1, 0.2, 1.0)]
+    km.reset_launch_counts()
+    out2 = step(*state, *scal)  # call 2: clean
+    out3 = step(*state, *scal)  # call 3: faulted
+    torch.cuda.synchronize()
+    assert km.fused_launches == 2
+    ref = clean_step(*state, *scal)
+    assert all(torch.equal(a, b) for a, b in zip(out2[:4], ref[:4]))
+    assert all(torch.equal(a, b) for a, b in zip(out3[:3], ref[:3]))
+    assert torch.nonzero(~torch.isfinite(out3[3]))[:, 0].unique().tolist() == list(range(64, 72))
+    assert all(bool(torch.isnan(r).all()) for r in out3[4])
+    assert sched.injected == [(1, FaultSchedule.NAN), (3, FaultSchedule.NAN)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["precision_f32", "unfused", "extend_budget", "dense_cholesky",
+                                  "dense_direct"])
+def test_each_ladder_rung_heals_on_the_card(cuda_device, rung):
+    """One heal per rung, the launches inside each rung (the trace's launch
+    markers) by kernel and dtype."""
+    import warnings
+
+    from repro_torch import obs
+    from repro_torch.core import BBMMSettings, FaultSchedule, collect, health, solve
+    from repro_torch.launch.gp_serve import _inject_operator
+
+    gp, params, X, y = _rbf_system(cuda_device)
+    p, C, D = 60, health.CONVERGED, health.NON_FINITE
+    base = dict(num_probes=4, max_cg_iters=p, precond_rank=0, on_failure="degrade")
+    sched_kw, settings, expect = {
+        "precision_f32": (dict(nan_rate=1.0, reduced_only=True),
+                          dict(base, precision="mixed", fuse_cg=True),
+                          [("initial", None, {"bf16_fused_launches": p, "launches": p // 2 + 1}),
+                           ("precision_f32", C, {"fused_launches": p})]),
+        "unfused": (dict(nan_calls=(2,)), dict(base, fuse_cg=True),
+                    [("initial", D, {"fused_launches": p}), ("unfused", C, {"launches": p})]),
+        "extend_budget": (dict(nan_calls=(1,)), base,
+                          [("initial", D, {"launches": p}),
+                           ("extend_budget", C, {"launches": 2 * p})]),
+        "dense_cholesky": (dict(nan_rate=1.0), dict(base, max_cg_iters=4),
+                           [("initial", D, {"launches": 4}), ("extend_budget", D, {"launches": 8}),
+                            ("dense_cholesky", C, {"launches": 1})]),
+        "dense_direct": (dict(), dict(base, dense_direct_max_n=2048),
+                         [("dense_direct", C, {"launches": 1})]),
+    }[rung]
+    op = _inject_operator(gp.operator(params, X), FaultSchedule(0, **sched_kw))
+    with warnings.catch_warnings(), collect() as reports, obs.trace() as col:
+        warnings.simplefilter("ignore", health.SolveHealthWarning)
+        x = solve(op, y, BBMMSettings(**settings))
+        torch.cuda.synchronize()
+    report = reports[-1]
+    assert [(r.rung, r.status) for r in report.rungs][-1] == (expect[-1][0], C)
+    marks = col.instants("launch")
+    spans = [s for s in col.spans() if s["name"].startswith("rung:")]
+    assert [s["name"][5:] for s in spans] == [r for r, _, _ in expect]
+    for span, (name, status, launches), rec in zip(spans, expect, report.rungs):
+        assert status is None or rec.status == status, (name, rec.status)
+        counts = {}
+        for m in marks:
+            if span["ts"] <= m["ts"] <= span["ts"] + span["dur"]:
+                counts[m["args"]["counter"]] = counts.get(m["args"]["counter"], 0) + 1
+        assert counts == launches, (name, counts)
+    K = gp.kernel(params)(X, X).double() + gp.noise(params).double() * torch.eye(
+        X.shape[0], dtype=torch.float64, device=cuda_device)
+    res = float((K @ x.double() - y.double()).norm() / y.double().norm())
+    assert res < 1e-3  # tests/test_health.py:225
+
+
+@pytest.mark.cuda
+def test_session_append_on_the_card(cuda_device):
+    """PosteriorSession.observe on the card: an append launches f32 B1 for
+    the residual, once per CG iteration and once for the new columns; the
+    served mean is the rebuild's within CG tolerance and the variance is
+    conservative against the exact posterior (tests/test_serving.py)."""
+    from repro_torch.core import BBMMSettings
+    from repro_torch.serving import PosteriorSession
+
+    gp, params, X, y = _rbf_system(cuda_device, n=2000)
+    gp.settings = BBMMSettings(num_probes=4, max_cg_iters=60, cg_tol=1e-6)
+    session = PosteriorSession(gp, params, X[:1900], y[:1900])
+    km.reset_launch_counts()
+    assert session.observe(X[1900:], y[1900:]) == "append"
+    torch.cuda.synchronize()
+    assert (km.launches, km.bf16_launches, km.fused_launches) == (60 + 2, 0, 0)
+    Xs = torch.rand(64, 3, device=cuda_device) * 2 - 1
+    mean, var = session.query(Xs)
+    rebuilt = PosteriorSession(gp, params, X, y)
+    torch.testing.assert_close(mean, rebuilt.query(Xs)[0], rtol=1e-4, atol=1e-4)
+    kern, noise = gp.kernel(params), gp.noise(params).double()
+    K = kern(X, X).double() + noise * torch.eye(X.shape[0], dtype=torch.float64,
+                                                device=cuda_device)
+    Kxs = kern(X, Xs).double()
+    exact = kern.diag(Xs).double() - (Kxs * torch.linalg.solve(K, Kxs)).sum(0) + noise
+    assert bool((var.double() >= exact - 1e-3).all())
+
+
+@pytest.mark.cuda
+def test_engine_qr_is_safe_under_threads(cuda_device):
+    """The engine's QR (``inference._qr``, the cache builds' and appends')
+    from four threads at once on the card: cuSOLVER's geqrf fails when two
+    threads call it together, so the engine serialises it; every call
+    succeeds and gives the single-threaded factor."""
+    import threading
+
+    from repro_torch.core import inference
+
+    A = torch.randn(40_000, 234, device=cuda_device)
+    want = inference._qr(A)
+    errors, outs = [], []
+
+    def work():
+        for _ in range(10):
+            try:
+                outs.append(inference._qr(A))
+            except Exception as e:  # noqa: BLE001 — counted below
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=work) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not errors and len(outs) == 40
+    assert all(torch.equal(o, want) for o in outs)

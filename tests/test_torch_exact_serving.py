@@ -199,24 +199,39 @@ def test_health_policy_warn_raise_and_reports():
     ],
 )
 def test_unported_settings_raise(settings, step):
+    """These settings raised NotImplementedError, naming ROADMAP Queue A
+    ``step``, until that step was ported; now they build the cache:
+    "degrade" through the ladder (here the initial rung already heals),
+    ``dense_direct_max_n`` ≥ n straight through the dense Cholesky (one
+    "dense_direct" rung, an exact cache: the identity basis)."""
     X, y, _ = _data(4)
-    gp = ExactGP(mode="cuda", settings=BBMMSettings(**settings), device="cpu")
-    with pytest.raises(NotImplementedError, match=step):
-        gp.posterior_cache(gp.init_params(X), X, y)
+    gp = ExactGP(mode="cuda", settings=BBMMSettings(**dict(SETTINGS, **settings)), device="cpu")
+    with collect() as reports:
+        cache = gp.posterior_cache(gp.init_params(X), X, y)
+    (report,) = reports
+    assert report.healthy and report.context == "cache_build", (step, report.describe())
+    direct = settings.get("dense_direct_max_n", 0) >= N
+    assert [r.rung for r in report.rungs] == (["dense_direct"] if direct else ["initial"])
+    if direct:
+        assert cache.basis.shape == (N, N)
+    assert bool(torch.isfinite(cache.alpha).all())
 
 
 def test_unported_model_methods_raise():
-    """ExactGP exposes the whole GPModel protocol; what later slices bring
-    raises, naming the ROADMAP step (the batched engine is ported:
-    tests/test_torch_batched_engine.py)."""
+    """ExactGP exposes the whole GPModel protocol.  Every method of it is
+    ported now (the batched engine: tests/test_torch_batched_engine.py;
+    streaming: tests/test_torch_serving.py): ``update_cache``, which raised
+    naming step 14, extends a cache over appended rows."""
     X, y, _ = _data(5)
-    gp = ExactGP(device="cpu")
+    gp = ExactGP(device="cpu", settings=BBMMSettings(**SETTINGS))
     assert isinstance(gp, GPModel) and missing_protocol_methods(gp) == []
     params = gp.init_params(X)
     batch = {k: torch.stack([v, v + 0.1]) for k, v in params.items()}
     assert gp.batched_operator(batch, X).base.batch == 2
-    with pytest.raises(NotImplementedError, match="step 14"):
-        gp.update_cache(params, X, y, None, X, y)
+    cache = gp.posterior_cache(params, X[:-3], y[:-3])
+    new = gp.update_cache(params, X, y, cache, X[-3:], y[-3:])
+    assert new.alpha.shape == (N,) and new.basis.shape[0] == N
+    assert bool(torch.isfinite(new.alpha).all())
 
 
 @pytest.mark.parametrize("ard", [False, True])
