@@ -3,8 +3,8 @@
 against its plain PyTorch version on the card, and drives the exact-GP
 serving and training slices (single- and multi-output, multi-restart, and
 partitioned to a million rows), streaming and threaded serving with the
-degradation ladder and the chaos drill, and zamba2-7b serving at full size
-through the kernels.
+degradation ladder and the chaos drill, SGPR, BLR, DKL and the multitask
+GP, and zamba2-7b serving at full size through the kernels.
 
     python3 chip_smoke.py [--seed 0] [--n 40000]
 
@@ -20,7 +20,9 @@ and the final line is then not printed):
                 which must not be 0
   2. kernel     B1 (2-D M) and B2 (3-D M) against ``kernel_matmul_plain``
                 for rbf / matern12/32/52 at odd n, ARD, t ∈ {1, 9, 17, 234,
-                256, 512};
+                256, 512}; the multitask widths (n = 10,000 and 30,000 at
+                t = 36, here and in kernel_bf16 and, symmetric, in
+                grad_kernel);
                 row_offset slices of the n=40,000 product; b=4 batches;
                 tolerance 2e-4 relative (max |Δ| / max |plain|)
      fused_kernel  B3 against ``fused_cg_step_plain``: odd n, t ∈ {1, 9, 16,
@@ -188,14 +190,46 @@ and the final line is then not printed):
      gp_metrics the drill again through gp_serve.main --metrics-port 0 on a
                 thread, /metrics and /health scraped and rendered by gp_top:
                 escalation, degraded-query and mbcg counters non-zero
- 11. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
+ 11. sgpr       SGPR(num_inducing=300) on kin40k-shaped data, n = 40,000
+                (precond_rank=1, max_cg_iters=40), at "highest" and "mixed":
+                the MLL against an f64 SoR MLL from the same root (rtol
+                2e-3), at most 3 CG iterations (the root is the
+                preconditioner), three Adam steps and one with the inducing
+                points frozen (unchanged bit for bit), the Woodbury cache,
+                a 1,024-point request against the f64 SoR posterior (1e-4),
+                a 64-point append through PosteriorSession against a
+                rebuild (rtol 1e-3 / atol 1e-4) with zero CG; no launch
+     blr        BayesianLinearRegression at n = 40,000, d = 64: the same
+     dkl        DKLExactGP(hidden=(32, 32, 2)) at n = 40,000, dense: the
+                MLL and every weight's gradient over a 5-iteration prefix
+                against float64 (rtol 2e-3 / atol 1e-4; the last bias's
+                gradient 0 up to rounding), two Adam steps, a Krylov cache
+                build and a 1,024-point request; no launch
+     multitask  MultitaskGP(num_tasks=4, mode="cuda") on 10,000 locations
+                × 4 tasks (8 probes, 25 iterations, rank 0): the prefix
+                against mode="dense" (MLL 1e-4, gradients rtol 2e-3 / atol
+                1e-4) and structure="hadamard" against Kronecker (1e-5); a
+                training step (one B1 at t = 36 per CG iteration, the
+                backward one B1 and one gradient launch, no B3), a cache
+                build, a 1,024-row request (no launch), a 256-row predict
+                (its mean predict_cached's bit for bit, the cached variance
+                no lower than the exact f64 one − 1e-6); the Hadamard panel
+                (30,000 rows); B1, bf16 B1 and the gradient timed at t = 36
+     multitask_mixed  the same at precision="mixed": bf16 B1 per iteration,
+                f32 refreshes, against "highest" (means 2e-2, MLL 1e-2 per
+                point)
+     gp_serve_zoo  run_serve for sgpr, blr, dkl and multitask (8 requests of
+                1,024 points, 64 appended points every 2) and
+                run_serve_threaded (4 workers) for sgpr, every answer
+                replayed bit for bit; the Woodbury appends run no CG
+ 12. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
                 prompt, at 13 layers and at all 81: the forward with B4/B5
                 and every B4/B5 call in it no further from the f64 witness
                 (the plain path in f64) than 4 × the f32 plain forward and
                 calls; at 13 layers also the forward vs its plain version
                 (rtol/atol 1e-3) and vs decode stepped over the prompt at
                 every position (2e-2)
- 12. lm_serve   zamba2-7b at full size (81 layers, bf16, weights from the
+ 13. lm_serve   zamba2-7b at full size (81 layers, bf16, weights from the
                 seed on the card): one make_prefill_step over 4 × 512-token
                 prompts (81 B5 and 13 B4 launches, counted), then the serve
                 loop (decode stepped over the prompts, 32 greedy tokens,
@@ -563,6 +597,18 @@ def phase_kernel(km, plain, rng, errs):
             for i in range(4):
                 one = km.kernel_matmul_cuda(Xs, Xs, M[i], 0.9, 0.05, kernel_type=kt)
                 compare(f"B2 {kt} slice {i} vs B1 n={n} t={t}", out[i], one, "B2")
+
+    # the multitask widths: the Kronecker product's n = 10,000 locations and
+    # the Hadamard panel's m = 30,000 rows at T·(1 + probes) = 36 columns,
+    # σ² = 0 (the per-task noise is added outside the data kernel)
+    for n in (MT_N, MT_HADAMARD_ROWS):
+        Xs = torch.from_numpy((rng.uniform(-1, 1, (n, d)) / 0.5).astype("float32")).to(dev)
+        M = torch.from_numpy(rng.standard_normal((n, MT_WIDTH)).astype("float32")).to(dev)
+        out = km.kernel_matmul_cuda(Xs, Xs, M, 1.0, 0.0, kernel_type="rbf")
+        ref = plain(Xs, Xs, M, 1.0, 0.0, kernel_type="rbf")
+        compare(f"B1 rbf multitask n={n} t={MT_WIDTH}", out, ref, "B1")
+        del Xs, M, out, ref
+    torch.cuda.empty_cache()
     emit({"phase": "kernel", "cases": len(cases), "tolerance_rel": REL_TOL,
           "max_rel_err": max(c["rel_err"] for c in cases),
           "max_abs_err": {k: v for k, v in errs.items()}})
@@ -633,6 +679,17 @@ def phase_kernel_bf16(km, plain, rng, errs):
                 one = km.kernel_matmul_cuda(Xs, Xs, M[i], 0.9, 0.05, kernel_type=kt,
                                             compute_dtype="bfloat16")
                 check(torch.equal(out[i], one), f"B2 bf16 {kt} slice {i}: differs from bf16 B1")
+
+    # the multitask widths under precision="mixed" (phase kernel's cases)
+    for n in (MT_N, MT_HADAMARD_ROWS):
+        X = torch.from_numpy(rng.uniform(-1, 1, (n, d)).astype("float32")).to(dev)
+        Xs = prescale_inputs(X, 0.5, "bfloat16")
+        M = torch.from_numpy(rng.standard_normal((n, MT_WIDTH)).astype("float32")).to(dev)
+        out = km.kernel_matmul_cuda(Xs, Xs, M, 1.0, 0.0, kernel_type="rbf", compute_dtype="bfloat16")
+        ref = plain(Xs, Xs, M, 1.0, 0.0, kernel_type="rbf", compute_dtype="bfloat16")
+        f32 = plain(Xs, Xs, M, 1.0, 0.0, kernel_type="rbf")
+        compare(f"B1 bf16 rbf multitask n={n} t={MT_WIDTH}", out, ref, f32, "B1_bf16")
+        del X, Xs, M, out, ref, f32
     torch.cuda.empty_cache()
     emit({"phase": "kernel_bf16", "cases": len(cases), "tolerance_rel": BF16_REL_TOL,
           "tolerance_rel_vs_f32": BF16_F32_REL,
@@ -1089,10 +1146,23 @@ def phase_grad_kernel(km, rng, errs):
     ours = km.kernel_matmul_grad_cuda(Xs, Xs, M, C, 1.0, 0.1, kernel_type="matern52")
     ref = kernel_matmul_grad_plain(Xs, Xs, M, C, 1.0, 0.1, kernel_type="matern52")
     compare(f"grad matern52 n={n} t=9", ours, ref)
-    del ours, ref
+    del ours, ref, Xs, M, C
+
+    # the multitask MLL's backward: the symmetric VJP of the data kernel at
+    # T·(1 + probes) = 36 columns over the n = 10,000 locations, one launch
+    n = MT_N
+    Xs = torch.from_numpy((rng.uniform(-1, 1, (n, d)) / 0.5).astype("float32")).to(dev)
+    M, C = _randn(rng, (n, MT_WIDTH), dev), _randn(rng, (n, MT_WIDTH), dev)
+    before = km.grad_launches
+    ours = km.kernel_matmul_grad_sym_cuda(Xs, M, C, 1.0, 0.0, kernel_type="rbf")
+    check(km.grad_launches - before == 1,
+          f"multitask VJP: {km.grad_launches - before} gradient launches, 1 expected")
+    ref = kernel_matmul_grad_sym_plain(Xs, M, C, 1.0, 0.0, kernel_type="rbf")
+    compare(f"grad sym rbf multitask n={n} t={MT_WIDTH}", ours, ref, SYM_NAMES)
+    del ours, ref, Xs, M, C
     torch.cuda.empty_cache()
     emit({"phase": "grad_kernel", "cases": len(cases), "tolerance_rel": REL_TOL,
-          "largest_n": n, "max_rel_err": max(c["rel_err"] for c in cases),
+          "largest_n": 40_000, "max_rel_err": max(c["rel_err"] for c in cases),
           "max_abs_err": errs["grad"]})
 
 
@@ -1684,19 +1754,21 @@ def phase_train(km, seed, n):
     return main, history, steps
 
 
-def profile_step(gp, Xd, yd, top=6):
+def profile_step(gp, Xd, yd, top=6, data=None):
     """Device time of one warm training step (loss and backward) by kernel,
-    from torch.profiler: the largest ``top`` entries, the rest summed, and
-    the step's wall time."""
+    from torch.profiler: the largest ``top`` entries, the rest summed, the
+    step's wall time and the device's busy time in all (``data``: the
+    model's prepared inputs, X itself by default)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.gp.training import tree_map
 
-    p0 = {k: v.clone().requires_grad_() for k, v in gp.init_params(Xd).items()}
+    p0 = tree_map(lambda v: v.clone().requires_grad_(), gp.init_params(Xd))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gp.loss(p0, Xd, yd, gen).backward()
+        gp.loss(p0, Xd if data is None else data, yd, gen).backward()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = sorted(
@@ -1707,6 +1779,7 @@ def profile_step(gp, Xd, yd, top=6):
     out = {name[:60]: ms for name, ms in kernels[:top]}
     out["other"] = sum(ms for _, ms in kernels[top:])
     out["step_wall_ms_profiled"] = wall
+    out["device_busy_ms"] = sum(ms for _, ms in kernels)
     return out
 
 
@@ -3849,6 +3922,678 @@ def phase_gp_metrics(km, seed, n):
     return {"B1": totals["launches"], "B1_bf16": totals["bf16_launches"]}
 
 
+# --------------------------------------------------------------------------
+# the model zoo: SGPR, BLR, DKL and the multitask GP (phases sgpr, blr, dkl,
+# multitask, multitask_mixed, gp_serve_zoo)
+# --------------------------------------------------------------------------
+
+ZOO_N = 40_000  # SGPR and BLR rows (the exact path's system size)
+SGPR_M = 300  # SGPR's default inducing points (benchmarks/speed.py:313)
+BLR_D = 64  # BLR's width (benchmarks/serve.py:96)
+DKL_N = ZOO_N  # DKL's dense kernel forms K (n²) in every CG matmul
+MT_N = 10_000  # multitask locations: n·T = 40,000 rows
+MT_T = 4
+MT_PROBES = 8
+MT_ITERS = 25
+MT_WIDTH = MT_T * (1 + MT_PROBES)  # the data kernel's columns per CG iteration: 36
+MT_HADAMARD_ROWS = 30_000  # the panel with 25 % of the rows dropped
+ZOO_BATCH = 1024
+ZOO_APPEND = 64
+ZOO_REQUESTS = 8
+ZOO_OBSERVE_EVERY = 2
+SOR_MLL_RTOL = 2e-3  # tests/test_gp_models.py:132
+WOODBURY_POSTERIOR_RTOL = 1e-4
+WOODBURY_APPEND_TOL = dict(rtol=1e-3, atol=1e-4)  # tests/test_serving.py:213-218
+LOW_RANK_CG_ITERS = 3  # the exact root preconditioner: O(1) iterations
+DKL_TOL = dict(rtol=2e-3, atol=1e-4)
+MT_MLL_RTOL = 1e-4
+MT_GRAD_TOL = dict(rtol=2e-3, atol=1e-4)
+MT_STRUCTURE_RTOL = 1e-5
+MT_VAR_UNDERSHOOT = 1e-6
+
+
+def _kin40k(seed, n, d=8):
+    """kin40k-shaped data: X ~ U(−1, 1)^d, y = sin(3x₀)·cos(2x₇) + 0.05ε."""
+    rng = np.random.default_rng([seed, 21, n, d])
+    X = rng.uniform(-1, 1, (n, d)).astype("float32")
+    y = (np.sin(3 * X[:, 0]) * np.cos(2 * X[:, 7]) + 0.05 * rng.standard_normal(n)).astype("float32")
+    Xq = rng.uniform(-1, 1, (ZOO_BATCH, d)).astype("float32")
+    Xn = rng.uniform(-1, 1, (ZOO_APPEND, d)).astype("float32")
+    yn = (np.sin(3 * Xn[:, 0]) * np.cos(2 * Xn[:, 7]) + 0.05 * rng.standard_normal(ZOO_APPEND))
+    dev = torch.device("cuda")
+    return tuple(torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (X, y, Xq, Xn, yn))
+
+
+@contextlib.contextmanager
+def _cg_calls():
+    """Count the engine's mBCG calls in the block."""
+    from repro_torch.core import inference
+
+    box, real = [0], inference.mbcg
+
+    def counting(*a, **k):
+        box[0] += 1
+        return real(*a, **k)
+
+    inference.mbcg = counting
+    try:
+        yield box
+    finally:
+        inference.mbcg = real
+
+
+def _generator(seed=0):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _woodbury_f64(R, y, noise, Rs):
+    """The exact low-rank posterior and MLL in f64: (mean, predictive
+    variance) at the root rows Rs and −½(yᵀK̂⁻¹y + log|K̂| + n log 2π) for
+    K̂ = RRᵀ + σ²I, through the m-dimensional Woodbury identity."""
+    R, y, Rs = R.double(), y.double(), Rs.double()
+    n, m = R.shape
+    A = R.T @ R + noise * torch.eye(m, dtype=torch.float64, device=R.device)
+    L = torch.linalg.cholesky(A)
+    b = R.T @ y
+    w = torch.cholesky_solve(b[:, None], L)[:, 0]
+    V = torch.linalg.solve_triangular(L, Rs.T, upper=False)
+    inv_quad = (y @ y - b @ w) / noise
+    logdet = (n - m) * math.log(noise) + 2 * torch.log(torch.diagonal(L)).sum()
+    mll = -0.5 * (inv_quad + logdet + n * math.log(2 * math.pi))
+    return Rs @ w, noise * (V * V).sum(0) + noise, float(mll)
+
+
+def _low_rank_phase(km, name, gp, X, y, Xq, Xn, yn, root64, fit_kw):
+    """The shared body of phases sgpr and blr: MLL against the f64
+    closed form, the CG count, three Adam steps, the Woodbury cache, one
+    request against the f64 posterior, an append through the session
+    against a rebuild with zero CG; no kernel launch anywhere."""
+    from repro_torch.core import engine_state
+    from repro_torch.serving import PosteriorSession
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.reset_launch_counts()
+    t_phase = time.perf_counter()
+    out = {"precision": gp.settings.precision}
+    params0 = gp.init_params(X)
+    with torch.no_grad():
+        mll = -float(gp.loss(params0, X, y, _generator()))
+        st = engine_state(gp.operator(params0, X), y, _generator(), gp.settings)
+    R64, Rq64, noise64 = root64(params0, X, Xq)
+    _, _, mll64 = _woodbury_f64(R64, y, noise64, Rq64)
+    iters = int(st.cg_iters.max())
+    out.update(mll=mll, mll_f64=mll64, mll_rel=abs(mll - mll64) / abs(mll64), cg_iters=iters)
+    if gp.settings.precision == "highest":
+        check(out["mll_rel"] <= SOR_MLL_RTOL, f"{name}: MLL {mll} vs f64 {mll64}")
+        check(iters <= LOW_RANK_CG_ITERS,
+              f"{name}: {iters} CG iterations with the exact root preconditioner")
+    else:
+        check(abs(mll - mll64) / X.shape[0] <= MIXED_MLL_PER_POINT,
+              f"{name} mixed: MLL {mll} vs f64 {mll64}")
+
+    steps = []
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        steps.append({"step": i, "loss": loss, "ms": (time.perf_counter() - t0[0]) * 1e3})
+        t0[0] = time.perf_counter()
+
+    t0 = [time.perf_counter()]
+    params, history = gp.fit(X, y, steps=3, callback=on_step, **fit_kw)
+    check(all(math.isfinite(h) for h in history), f"{name}: non-finite training loss")
+    out["train_steps"] = steps
+    out["step_profile"] = profile_step(gp, X, y)
+    if "inducing" in params0:
+        frozen, _ = gp.fit(X, y, steps=1, learn_inducing=False)
+        check(torch.equal(frozen["inducing"], params0["inducing"]),
+              f"{name}: learn_inducing=False moved the inducing points")
+        check(not torch.equal(params["inducing"], params0["inducing"]),
+              f"{name}: the inducing points did not move when learned")
+
+    with torch.no_grad():
+        cache, out["cache_build_ms"], _ = timed(lambda: gp.posterior_cache(params, X, y))
+        (mean, var), out["request_ms"], _ = timed(lambda: gp.predict_cached(params, X, cache, Xq))
+        R64, Rq64, noise64 = root64(params, X, Xq)
+        mean64, var64, _ = _woodbury_f64(R64, y, noise64, Rq64)
+    out["mean_rel"] = float((mean.double() - mean64).abs().max() / mean64.abs().max())
+    out["var_rel"] = float(((var.double() - var64) / var64).abs().max())
+    check(out["mean_rel"] <= WOODBURY_POSTERIOR_RTOL and out["var_rel"] <= WOODBURY_POSTERIOR_RTOL,
+          f"{name}: Woodbury posterior {out['mean_rel']:.2e} / {out['var_rel']:.2e} from f64")
+
+    session = PosteriorSession(gp, params, X, y)
+    with _cg_calls() as cg:
+        path, out["append_ms"], _ = timed(lambda: session.observe(Xn, yn))
+        appended = session.query(Xq)
+    # the rank-k refresh alone: observe adds the concatenation of (X, y)
+    # and the chained digest of the appended rows
+    out["update_cache_ms"] = timed(lambda: gp.update_cache(params, None, None, cache, Xn, yn))[1]
+    check(path == "append" and cg[0] == 0, f"{name}: append took {path} with {cg[0]} CG solves")
+    rebuilt = PosteriorSession(gp, params, torch.cat([X, Xn]), torch.cat([y, yn])).query(Xq)
+    out["append_vs_rebuild"] = [rel_err(a, b)[1] for a, b in zip(appended, rebuilt)]
+    for a, b in zip(appended, rebuilt):
+        check(bool(torch.allclose(a, b, **WOODBURY_APPEND_TOL)), f"{name}: append vs rebuild")
+    torch.cuda.synchronize()
+    out["launches"] = _dtype_counts(km)
+    check(all(v == 0 for v in km.launch_counts().values()), f"{name}: a kernel launched")
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_sgpr(km, seed):
+    """SGPR(num_inducing=300) at n = 40,000 (RBF, precond_rank=1,
+    max_cg_iters=40), at "highest" and at "mixed": the MLL against an f64
+    SoR MLL from the same root, the CG iterations (O(1) with the root
+    preconditioner), three Adam steps learning the inducing points and one
+    with them frozen (unchanged bit for bit), the Woodbury cache, a 1,024-
+    point request against the f64 SoR posterior, a 64-point append through
+    PosteriorSession against a rebuild with zero CG; no kernel launch."""
+    from repro_torch import SGPR
+
+    X, y, Xq, Xn, yn = _kin40k(seed, ZOO_N)
+
+    def root64(params, X, Xq):
+        p = {k: v.double() for k, v in params.items()}
+        kern = gp.kernel(p)
+        U = p["inducing"]
+        L = torch.linalg.cholesky(kern(U, U) + gp.jitter * torch.eye(
+            U.shape[0], dtype=torch.float64, device=U.device))
+        rows = lambda A: torch.linalg.solve_triangular(L, kern(A.double(), U).T, upper=False).T  # noqa: E731
+        return rows(X), rows(Xq), float(gp.noise(p))
+
+    rows = {}
+    for precision in ("highest", "mixed"):
+        gp = SGPR(num_inducing=SGPR_M, precision=precision)
+        rows[precision] = _low_rank_phase(km, "sgpr", gp, X, y, Xq, Xn, yn, root64, {})
+    emit({"phase": "sgpr", "card": CARD, "n": ZOO_N, "num_inducing": SGPR_M, **rows})
+    return rows
+
+
+def phase_blr(km, seed):
+    """BayesianLinearRegression at n = 40,000, d = 64: as phase sgpr
+    against the f64 closed-form posterior; no kernel launch."""
+    from repro_torch import BayesianLinearRegression
+
+    X, y, Xq, Xn, yn = _kin40k(seed, ZOO_N, BLR_D)
+
+    def root64(params, X, Xq):
+        s = torch.nn.functional.softplus(params["raw_prior_scale"].double())
+        return X.double() * s, Xq.double() * s, float(gp.noise({k: v.double()
+                                                                for k, v in params.items()}))
+
+    gp = BayesianLinearRegression()
+    row = _low_rank_phase(km, "blr", gp, X, y, Xq, Xn, yn, root64, {})
+    emit({"phase": "blr", "card": CARD, "n": ZOO_N, "d": BLR_D, **row})
+    return row
+
+
+def phase_dkl(km, seed):
+    """DKLExactGP(hidden=(32, 32, 2)) at n = 40,000 in dense mode: the MLL
+    and every weight's gradient over a 5-iteration CG prefix against the
+    same computation in float64 (rtol 2e-3 / atol 1e-4; precond_rank=0 so
+    the two precisions draw the same probes and have no pivots to choose),
+    two Adam steps at the class's settings, a Krylov cache build, one
+    1,024-point request; no kernel launch."""
+    from repro_torch import DKLExactGP
+    from repro_torch.core import BBMMSettings, marginal_log_likelihood, tensor_leaves
+    from repro_torch.gp.training import tree_map
+
+    X, y, Xq, _, _ = _kin40k(seed, DKL_N)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.reset_launch_counts()
+    t_phase = time.perf_counter()
+    prefix = BBMMSettings(max_cg_iters=PREFIX_ITERS, precond_rank=0)
+    gp = DKLExactGP(settings=prefix)
+    params0 = gp.init_params(X)
+    grads = {}
+    for dtype in (torch.float32, torch.float64):
+        p = tree_map(lambda v: v.detach().to(dtype).requires_grad_(), params0)
+        op = gp.operator(p, X)
+        op = dataclasses.replace(op, base=dataclasses.replace(op.base, X=X.to(dtype)))
+        loss = -marginal_log_likelihood(op, y.to(dtype), _generator(), prefix)
+        loss.backward()
+        grads[dtype] = (float(loss), [leaf.grad for leaf in tensor_leaves(p)])
+        del op, loss
+        torch.cuda.empty_cache()
+    (l32, g32), (l64, g64) = grads[torch.float32], grads[torch.float64]
+    mll_rel = abs(l32 - l64) / abs(l64)
+    check(mll_rel <= DKL_TOL["rtol"], f"dkl: prefix MLL {l32} vs f64 {l64}")
+    # the leaves in order: each layer's w and b, then ℓ, s, σ².  The last
+    # layer's bias moves every feature alike, which a stationary kernel
+    # cannot see: its gradient is 0 up to rounding (held to 1e-4 of the
+    # largest weight gradient, as tests/test_torch_dkl.py holds it)
+    last_bias = 2 * len(params0["net"]) - 1
+    scale = max(float(g.abs().max()) for g in g32)
+    for i, a in enumerate(g32):
+        check(a is not None and bool(torch.isfinite(a).all()), f"dkl: leaf {i} has no gradient")
+    # each leaf's gradient relative to its size (the script's convention,
+    # GRAD_RTOL): max |Δ| ≤ rtol · max |f64| + atol
+    grad_rel = [rel_err(a.double(), b)[1] for a, b in zip(g32, g64)]
+    grad_ok = [float((a.double() - b).abs().max()) <= DKL_TOL["rtol"] * float(b.abs().max())
+               + DKL_TOL["atol"] for a, b in zip(g32, g64)]
+    leaves = len(g32)
+
+    steps, t0 = [], [time.perf_counter()]
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        steps.append({"step": i, "loss": loss, "ms": (time.perf_counter() - t0[0]) * 1e3})
+        t0[0] = time.perf_counter()
+
+    gp = DKLExactGP()
+    params, history = gp.fit(X, y, steps=2, callback=on_step)
+    check(all(math.isfinite(h) for h in history), "dkl: non-finite training loss")
+    step_profile = profile_step(gp, X, y)
+    with torch.no_grad():
+        cache, build_ms, _ = timed(lambda: gp.posterior_cache(params, X, y))
+        (mean, var), request_ms, _ = timed(lambda: gp.predict_cached(params, X, cache, Xq))
+    row = {"phase": "dkl", "card": CARD, "n": DKL_N, "hidden": list(gp.hidden),
+           "prefix_mll_rel": mll_rel, "prefix_leaves": leaves,
+           "prefix_grad_rel": grad_rel, "last_bias_grad_over_scale":
+               float(g32[last_bias].abs().max()) / scale, "train_steps": steps,
+           "step_profile": step_profile,
+           "cache_build_ms": build_ms, "request_ms": request_ms,
+           "launches": _dtype_counts(km), "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    for i, ok in enumerate(grad_ok):
+        if i == last_bias:  # a shift of every feature: 0 up to rounding
+            check(row["last_bias_grad_over_scale"] <= 1e-4, "dkl: the last bias has a gradient")
+        else:
+            check(ok and float(g32[i].abs().max()) > 0, f"dkl: leaf {i} gradient vs f64")
+    check(bool(torch.isfinite(mean).all() & (var > 0).all()), "dkl: served non-finite output")
+    check(all(v == 0 for v in km.launch_counts().values()), "dkl: a kernel launched")
+    return row
+
+
+@contextlib.contextmanager
+def _data_kernel_widths():
+    """Record (columns, whether M arrived contiguous) for every data-kernel
+    product of the cuda path — each ``PreparedKernelOperator.matmul``, the
+    one seam of the f32 and the bf16 launches; a non-contiguous M costs one
+    copy before the launch."""
+    from repro_torch.gp.kernels import PreparedKernelOperator
+
+    widths, real = [], PreparedKernelOperator.matmul
+
+    def recording(self, M):
+        widths.append((M.shape[-1], M.is_contiguous()))
+        return real(self, M)
+
+    PreparedKernelOperator.matmul = recording
+    try:
+        yield widths
+    finally:
+        PreparedKernelOperator.matmul = real
+
+
+def _multitask_data(seed):
+    """The multitask panel: n = 10,000 kin40k-shaped locations crossed with
+    T = 4 tasks (gp_serve's task targets), 1,024 long-format query rows, and
+    the Hadamard panel with 25 % of the rows dropped (seeded)."""
+    from repro_torch.gp import to_long_format
+    from repro_torch.launch import gp_serve
+
+    rng = np.random.default_rng([seed, 22])
+    X = rng.uniform(-1, 1, (MT_N, 8)).astype("float32")
+    Xl, yl = to_long_format(X, gp_serve._task_targets(rng, X, MT_T))
+    Xq = to_long_format(rng.uniform(-1, 1, (ZOO_BATCH, 8)), task_ids=rng.integers(0, MT_T, ZOO_BATCH),
+                        num_tasks=MT_T)
+    keep = np.sort(rng.permutation(Xl.shape[0])[:MT_HADAMARD_ROWS])
+    dev = torch.device("cuda")
+    return tuple(torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                 for a in (Xl, yl, Xq, Xl[keep], yl[keep]))
+
+
+def _multitask_exact_variance(gp, params, data, Xq):
+    """The exact posterior variance at long-format queries in f64: K̂ formed
+    densely ((n·T)², 12.8 GB at n·T = 40,000) and factored once."""
+    from repro_torch.gp.multitask import split_long_format
+
+    p = {k: v.double() for k, v in params.items()}
+    kern, KT, noise = gp.kernel(p), gp.task_covariance(p), gp.noise(p)
+    Xd = data.X.double()
+    K = torch.kron(kern(Xd, Xd), KT)
+    K.diagonal().add_(noise.repeat(Xd.shape[0]))
+    L = torch.linalg.cholesky(K)
+    del K
+    coords, qt = split_long_format(Xq.double())
+    Kx = kern(Xd, coords)
+    Kxs = (Kx[:, None, :] * KT[:, qt][None]).reshape(L.shape[0], -1)
+    V = torch.linalg.solve_triangular(L, Kxs, upper=False)
+    var = kern.diag(coords) * torch.diagonal(KT)[qt] - (V * V).sum(0) + noise[qt]
+    del L, V
+    torch.cuda.empty_cache()
+    return var
+
+
+def _rbf_yardstick(Xs, M, bf16=False):
+    """torch.cdist → RBF map → torch.matmul (a bf16 one with ``bf16``): the
+    library composition for K·M at the multitask kernel.  Timed only."""
+    K = torch.exp(-0.5 * torch.cdist(Xs, Xs) ** 2)
+    if bf16:
+        K, M = K.to(torch.bfloat16), M.to(torch.bfloat16)
+    return K @ M
+
+
+def _rbf_grad_yardstick(Xs, M, C, rows=8192):
+    """Autograd through the RBF yardstick, a row slice at a time: the
+    gradient for X (both sides) and the outputscale.  Timed only."""
+    X1 = Xs.detach().requires_grad_()
+    s = torch.ones((), device=Xs.device, requires_grad=True)
+    for i in range(0, Xs.shape[0], rows):
+        K = s * torch.exp(-0.5 * torch.cdist(X1[i : i + rows], X1) ** 2)
+        (K @ M).backward(C[i : i + rows])
+    return X1.grad, s.grad
+
+
+def _time_multitask_kernels(km, rng):
+    """B1 (f32 and bf16) and the symmetric VJP at the multitask width, n =
+    10,000 and t = 36, beside their plain versions, the library composition
+    and the card's bound (``kernel_bound`` / ``grad_bound``)."""
+    from repro_torch.kernels.kernel_matmul.ref import (
+        kernel_matmul_grad_sym_plain,
+        kernel_matmul_plain,
+    )
+
+    dev = torch.device("cuda")
+    n, d, t = MT_N, 8, MT_WIDTH
+    Xs = torch.from_numpy((rng.uniform(-1, 1, (n, d)) / 0.5).astype("float32")).to(dev)
+    M, C = _randn(rng, (n, t), dev), _randn(rng, (n, t), dev)
+    rows = {}
+    for label, bf16 in (("B1", False), ("B1_bf16", True)):
+        Xk = Xs.to(torch.bfloat16).float() if bf16 else Xs
+        cd = "bfloat16" if bf16 else "float32"
+        ms = time_ms(lambda: km.kernel_matmul_cuda(Xk, Xk, M, 1.0, 0.0, kernel_type="rbf",
+                                                   compute_dtype=cd), reps=20)
+        plain_ms = time_ms(lambda: kernel_matmul_plain(Xk, Xk, M, 1.0, 0.0, kernel_type="rbf",
+                                                       compute_dtype=cd), reps=3)
+        library_ms = time_ms(lambda: _rbf_yardstick(Xk, M, bf16), reps=3)
+        bound_ms, bound_by, _ = kernel_bound(n, n, d, t, bf16=bf16)
+        rows[label] = {"n": n, "d": d, "t": t, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_share": bound_ms / ms}
+    ms = time_ms(lambda: km.kernel_matmul_grad_sym_cuda(Xs, M, C, 1.0, 0.0, kernel_type="rbf"),
+                 reps=10)
+    plain_ms = time_ms(lambda: kernel_matmul_grad_sym_plain(Xs, M, C, 1.0, 0.0, kernel_type="rbf"),
+                       reps=2)
+    library_ms = time_ms(lambda: _rbf_grad_yardstick(Xs, M, C), reps=2)
+    bound_ms, bound_by = grad_bound(n, d, t)
+    rows["grad"] = {"n": n, "d": d, "t": t, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_share": bound_ms / ms}
+    for label, row in rows.items():
+        emit({"phase": "timing", "kernel": f"{label}_multitask", "card": CARD, **row})
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_multitask(km, seed, precision="highest", highest=None, rng=None):
+    """MultitaskGP(num_tasks=4, mode="cuda") on n = 10,000 locations × 4
+    tasks (40,000 rows), RBF, task rank 1, 8 probes, 25 iterations, rank 0.
+
+    * a 5-iteration prefix of the MLL and its gradients (lengthscale,
+      outputscale, task root, task diagonal, noise) on mode="cuda" against
+      mode="dense" with the same probes (MLL 1e-4 relative, gradients rtol
+      2e-3 / atol 1e-4; "mixed": 1e-2 per point and 1e-2), and the Kronecker
+      operator against structure="hadamard" forced on the grid (1e-5);
+    * a training step at the full 25 iterations: one B1 launch at t = 36
+      columns per CG iteration (bf16 under "mixed", with f32 refreshes),
+      the backward's primal and ONE gradient launch; no B3;
+    * a cache build, a 1,024-row long-format request (no launch), a
+      256-row predict: its mean equal to predict_cached's bit for bit, the
+      cached variance no lower than the exact f64 posterior variance −
+      1e-6 ("highest");
+    * the Hadamard panel (m = 30,000 rows): a training step, a cache build
+      and a request, B1 at t = 36 over the panel's rows.
+    """
+    from repro_torch import MultitaskGP
+    from repro_torch.core import BBMMSettings, health
+
+    Xl, yl, Xq, Xh, yh = _multitask_data(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    mixed = precision == "mixed"
+    settings = BBMMSettings(num_probes=MT_PROBES, max_cg_iters=MT_ITERS, precond_rank=0)
+    gp = MultitaskGP(num_tasks=MT_T, mode="cuda", settings=settings, precision=precision)
+    data = gp.prepare_inputs(Xl)
+    check(data.task_ids is None and data.X.shape[0] == MT_N, "multitask: the grid was not detected")
+    params0 = gp.init_params(Xl)
+    out = {"precision": precision}
+
+    # the prefix: cuda against dense (and the Hadamard gather on the grid)
+    prefix = dataclasses.replace(gp.settings, max_cg_iters=PREFIX_ITERS)
+    vals = {}
+    for mode, structure in (("cuda", "auto"), ("dense", "auto"), ("cuda", "hadamard")):
+        m = MultitaskGP(num_tasks=MT_T, mode=mode, structure=structure, settings=prefix)
+        p = {k: v.clone().requires_grad_() for k, v in params0.items()}
+        loss = m.loss(p, m.prepare_inputs(Xl), yl, _generator())
+        grads = torch.autograd.grad(loss, list(p.values())) if structure == "auto" else None
+        vals[(mode, structure)] = (float(loss), grads)
+        del loss
+    (lc, gc), (ld, gd) = vals[("cuda", "auto")], vals[("dense", "auto")]
+    lh = vals[("cuda", "hadamard")][0]
+    out["prefix_mll"] = lc
+    with torch.no_grad():  # the served mean from a cache of the prefix's depth
+        pgp = MultitaskGP(num_tasks=MT_T, mode="cuda", settings=prefix)
+        out["prefix_served_mean"] = pgp.predict_cached(
+            params0, data, pgp.posterior_cache(params0, data, yl), Xq)[0]
+    out["prefix_mll_rel"] = abs(lc - ld) / abs(ld)
+    out["hadamard_vs_kronecker_mll_rel"] = abs(lh - lc) / abs(lc)
+    out["prefix_grad_rel"] = {k: rel_err(a, b)[1] for k, a, b in zip(params0, gc, gd)}
+    if mixed:
+        check(abs(lc - ld) / yl.shape[0] <= MIXED_MLL_PER_POINT, f"multitask mixed: {lc} vs {ld}")
+        for k, a, b in zip(params0, gc, gd):
+            check(rel_err(a, b)[1] <= MIXED_GRAD_RTOL, f"multitask mixed: d/d{k} vs dense")
+    else:
+        check(out["prefix_mll_rel"] <= MT_MLL_RTOL, f"multitask: prefix MLL {lc} vs dense {ld}")
+        for k, a, b in zip(params0, gc, gd):
+            check(bool(torch.allclose(a, b, **MT_GRAD_TOL)), f"multitask: d/d{k} cuda vs dense")
+    check(out["hadamard_vs_kronecker_mll_rel"] <= (MIXED_MLL_PER_POINT if mixed else MT_STRUCTURE_RTOL),
+          f"multitask: Hadamard {lh} vs Kronecker {lc}")
+    if not mixed:
+        op = gp.operator(params0, data)
+        had = MultitaskGP(num_tasks=MT_T, mode="cuda", structure="hadamard")
+        oph = had.operator(params0, had.prepare_inputs(Xl))
+        Mt = torch.randn(Xl.shape[0], MT_PROBES + 1, device=Xl.device,
+                         generator=_generator(1))
+        with torch.no_grad():
+            a, b = op.matmul(Mt), oph.matmul(Mt)
+        out["hadamard_vs_kronecker_matmul_rel"] = rel_err(b, a)[1]
+        check(out["hadamard_vs_kronecker_matmul_rel"] <= MT_STRUCTURE_RTOL,
+              "multitask: Hadamard matmul vs Kronecker")
+        del a, b, Mt
+
+    # a training step at full depth, launches and widths recorded
+    p = MT_ITERS
+    f32_loop = p // settings.cg_refresh_every + 1 if mixed else p
+    want_fwd = {"B1_bf16": p if mixed else 0, "B1": f32_loop, "grad": 0}
+    params = {k: v.clone().requires_grad_() for k, v in params0.items()}
+    km.reset_launch_counts()
+    with _data_kernel_widths() as widths:
+        loss, fwd_ms, fwd_dev_ms = timed(lambda: gp.loss(params, data, yl, _generator()))
+        fwd = _dtype_counts(km)
+        _, bwd_ms, bwd_dev_ms = timed(lambda: loss.backward())
+    step = _dtype_counts(km)
+    out.update(train_forward_ms=fwd_ms, train_forward_device_ms=fwd_dev_ms,
+               train_backward_ms=bwd_ms, train_backward_device_ms=bwd_dev_ms,
+               train_loss=float(loss), train_launches=step)
+    check({k: fwd[k] for k in want_fwd} == want_fwd, f"multitask forward launches {fwd}")
+    check(step["B1"] == fwd["B1"] + 1 and step["grad"] == 1 and step["B3"] == 0
+          and step["B3_bf16"] == 0 and step["B2"] == 0,
+          f"multitask step launches {step}: the backward is one B1 and one gradient launch")
+    check(all(w == MT_WIDTH for w, _ in widths),
+          f"multitask: data-kernel widths {sorted(set(widths))}, {MT_WIDTH} expected")
+    out["train_data_kernel_calls"] = len(widths)
+    out["train_copies_before_launch"] = sum(1 for _, c in widths if not c)
+    check(all(math.isfinite(float(g.abs().max())) for g in (v.grad for v in params.values())),
+          "multitask: non-finite gradient")
+    del loss
+    params = {k: v.detach() for k, v in params0.items()}
+    if not mixed:
+        km.reset_launch_counts()
+        out["step_profile"] = profile_step(gp, Xl, yl, data=data)
+
+    # serving
+    km.reset_launch_counts()
+    with health.collect() as reports:
+        cache, out["cache_build_ms"], out["cache_build_device_ms"] = timed(
+            lambda: gp.posterior_cache(params, data, yl))
+    out["cache_build_launches"] = _dtype_counts(km)
+    out["cache_status"] = [r.status for r in reports]
+    km.reset_launch_counts()
+    (qmean, qvar), out["request_ms"], _ = timed(lambda: gp.predict_cached(params, data, cache, Xq))
+    out["request_warm_ms"] = [timed(lambda: gp.predict_cached(params, data, cache, Xq))[1]
+                              for _ in range(3)]
+    check(sum(_dtype_counts(km).values()) == 0, "multitask: a cached request launched a kernel")
+    check(bool(torch.isfinite(qmean).all() & (qvar > 0).all()), "multitask: served non-finite output")
+    P = Xq[:256]
+    (pmean, pvar), out["predict_256_ms"], _ = timed(lambda: gp.predict(params, data, yl, P))
+    cmean, cvar = gp.predict_cached(params, data, cache, P)
+    check(torch.equal(pmean, cmean), "multitask: predict's mean differs from predict_cached's")
+    out["served_mean"] = qmean
+    if not mixed:
+        exact = _multitask_exact_variance(gp, params, data, P)
+        out["cached_var_max_undershoot"] = float((exact - cvar.double()).max())
+        check(out["cached_var_max_undershoot"] <= MT_VAR_UNDERSHOOT,
+              f"multitask: cached variance undershoots the exact one by "
+              f"{out['cached_var_max_undershoot']:.3e}")
+    else:
+        # at 25 iterations neither precision has converged, and two correct
+        # paths part by about their distance from the answer (phase
+        # serve_mixed): the full depth is reported, the prefix gated
+        out["mean_vs_highest"] = _rel_norm(qmean, highest["served_mean"])
+        out["mll_vs_highest_per_point"] = abs(out["train_loss"] - highest["train_loss"]) / yl.shape[0]
+        out["prefix_mean_vs_highest"] = _rel_norm(out["prefix_served_mean"],
+                                                  highest["prefix_served_mean"])
+        out["prefix_mll_vs_highest_per_point"] = abs(lc - highest["prefix_mll"]) / yl.shape[0]
+        check(out["prefix_mean_vs_highest"] <= MIXED_MEAN_REL,
+              f"multitask mixed: served mean {out['prefix_mean_vs_highest']:.3e} from highest")
+        check(out["prefix_mll_vs_highest_per_point"] <= MIXED_MLL_PER_POINT,
+              "multitask mixed: the MLL per point moved from highest")
+    del cache
+
+    # the Hadamard panel
+    km.reset_launch_counts()
+    hdata = gp.prepare_inputs(Xh)
+    check(hdata.task_ids is not None and hdata.X.shape[0] == MT_HADAMARD_ROWS,
+          "multitask: the panel was not classified heterogeneous")
+    hp = {k: v.clone().requires_grad_() for k, v in params0.items()}
+    with _data_kernel_widths() as widths:
+        _, out["hadamard_step_ms"], _ = timed(
+            lambda: gp.loss(hp, hdata, yh, _generator()).backward())
+    out["hadamard_step_launches"] = _dtype_counts(km)
+    out["hadamard_step_warm_ms"] = timed(
+        lambda: gp.loss(hp, hdata, yh, _generator()).backward())[1]
+    check(out["hadamard_step_launches"]["grad"] == 1 and all(w == MT_WIDTH for w, _ in widths),
+          f"multitask Hadamard step: {out['hadamard_step_launches']}, widths {sorted(set(widths))}")
+    with torch.no_grad():
+        hcache, out["hadamard_cache_build_ms"], _ = timed(lambda: gp.posterior_cache(params, hdata, yh))
+        (hm, hv), out["hadamard_request_ms"], _ = timed(
+            lambda: gp.predict_cached(params, hdata, hcache, Xq))
+    check(bool(torch.isfinite(hm).all() & (hv > 0).all()), "multitask Hadamard: non-finite output")
+    del hcache
+    if rng is not None:
+        out["timing"] = _time_multitask_kernels(km, rng)
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "multitask_mixed" if mixed else "multitask", "card": CARD, "n": MT_N,
+          "tasks": MT_T, "rows": MT_N * MT_T, "width": MT_WIDTH,
+          **{k: v for k, v in out.items() if k not in ("served_mean", "prefix_served_mean")}})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mt_launches(row):
+    """A multitask phase's launches by counter (its step, builds and panel)."""
+    total = {}
+    for key in ("train_launches", "cache_build_launches", "hadamard_step_launches"):
+        for k, v in row[key].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_gp_serve_zoo(km, seed):
+    """gp_serve's drivers for the ported models: run_serve for sgpr and blr
+    at n = 40,000 (blr d = 64), dkl at 40,000 and multitask at 10,000
+    locations × 4 tasks, 8 requests of 1,024 points and an append of 64
+    points (a task block each for multitask) every 2; run_serve_threaded
+    with 4 workers for sgpr, every answer replayed bit for bit from the
+    state it reports.  Gates: nothing raised, every observe an append, the
+    Woodbury appends 0 CG solves."""
+    import threading
+
+    from repro_torch.gp.model import WoodburyCachePredictor
+    from repro_torch.launch import gp_serve
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    rows, launches = {}, {}
+    appends_cg = []
+    real_update = WoodburyCachePredictor.update_cache
+
+    def counted_update(self, *a, **kw):
+        with _cg_calls() as cg:
+            out = real_update(self, *a, **kw)
+        appends_cg.append(cg[0])
+        return out
+
+    WoodburyCachePredictor.update_cache = counted_update
+    try:
+        for model, n, d in (("sgpr", ZOO_N, 8), ("blr", ZOO_N, BLR_D), ("dkl", DKL_N, 8),
+                            ("multitask", MT_N, 8)):
+            km.reset_launch_counts()
+            t0 = time.perf_counter()
+            m = gp_serve.run_serve(model=model, n=n, d=d, requests=ZOO_REQUESTS, batch=ZOO_BATCH,
+                                   observe_every=ZOO_OBSERVE_EVERY, observe_batch=ZOO_APPEND,
+                                   num_tasks=MT_T, seed=seed, verbose=False)
+            launches[model] = _dtype_counts(km)
+            check(m["num_appends"] == ZOO_REQUESTS // ZOO_OBSERVE_EVERY and not m["num_rebuilds"],
+                  f"zoo {model}: {m['num_appends']} appends, {m['num_rebuilds']} rebuilds")
+            rows[model] = {k: m[k] for k in ("cache_build_s", "cached_qps", "query_ms",
+                                             "append_s", "append_avg_s", "rebuild_s", "final_n")}
+            rows[model].update(seconds=time.perf_counter() - t0, launches=launches[model])
+        check(len(appends_cg) == 2 * ZOO_REQUESTS // ZOO_OBSERVE_EVERY and not any(appends_cg),
+              f"Woodbury appends ran CG: {appends_cg}")
+        for model in ("sgpr", "blr", "dkl"):
+            check(sum(launches[model].values()) == 0, f"zoo {model}: a kernel launched")
+        check(launches["multitask"]["B1"] > 0, "zoo multitask: no B1 launch")
+
+        served, lock = [], threading.Lock()
+
+        def on_query(r, Xq, answer, s):
+            with lock:
+                served.append((r, Xq, answer, s))
+
+        state = {}
+        m = gp_serve.run_serve_threaded(
+            model="sgpr", n=ZOO_N, d=8, requests=ZOO_REQUESTS, batch=ZOO_BATCH,
+            observe_every=ZOO_OBSERVE_EVERY, observe_batch=ZOO_APPEND, threads=THREADS, seed=seed,
+            session_hook=lambda s: state.setdefault("session", s), query_hook=on_query,
+            timeout_s=JOIN_TIMEOUT_S, verbose=False)
+    finally:
+        WoodburyCachePredictor.update_cache = real_update
+    check(len(served) == ZOO_REQUESTS, f"zoo threaded: {len(served)} answers")
+    gp = state["session"].model
+    for r, Xq, (mean, var), s in served:
+        again = gp.predict_cached(s.params, s.data, s.cache, Xq)
+        check(torch.equal(again[0], mean) and torch.equal(again[1], var),
+              f"zoo threaded: query {r} does not replay from cache v{s.info.version}")
+    rows["sgpr_threaded"] = {k: m[k] for k in ("concurrent_qps", "query_ms_p50",
+                                               "async_refreshes_swapped",
+                                               "async_refreshes_discarded", "cache_version")}
+    emit({"phase": "gp_serve_zoo", "card": CARD, "batch": ZOO_BATCH, "requests": ZOO_REQUESTS,
+          "append_rows": ZOO_APPEND, "woodbury_append_cg_solves": sum(appends_cg), **rows,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t_phase})
+    return {"B1": launches["multitask"]["B1"], "B1_bf16": launches["multitask"]["B1_bf16"],
+            "grad": launches["multitask"]["grad"]}
+
+
 def _streamed(streaming, key):
     """The new streaming / health phases' launches of one kernel."""
     return sum(r.get(key, 0) for r in streaming.values())
@@ -3943,6 +4688,26 @@ def main() -> int:
             streaming[name] = phase(km, args.seed, args.n)
             streaming[name]["seconds"] = time.perf_counter() - t_phase
             torch.cuda.empty_cache()
+        # the model zoo: each phase resets the counters before it and reads
+        # them after; its wall time and peak memory are in its line
+        zoo, zoo_seconds = {}, {}
+        rng_zoo = np.random.default_rng([args.seed, 23])
+        for name, run in (
+            ("sgpr", lambda: phase_sgpr(km, args.seed)),
+            ("blr", lambda: phase_blr(km, args.seed)),
+            ("dkl", lambda: phase_dkl(km, args.seed)),
+            ("multitask", lambda: phase_multitask(km, args.seed, rng=rng_zoo)),
+            ("multitask_mixed", lambda: phase_multitask(km, args.seed, "mixed",
+                                                        highest=zoo["multitask"])),
+            ("gp_serve_zoo", lambda: phase_gp_serve_zoo(km, args.seed)),
+        ):
+            t_phase = time.perf_counter()
+            zoo[name] = run()
+            zoo_seconds[name] = time.perf_counter() - t_phase
+            emit({"phase_wall_s": name, "seconds": zoo_seconds[name]})
+            torch.cuda.empty_cache()
+        mt_launches = {k: _mt_launches(zoo[k]) for k in ("multitask", "multitask_mixed")}
+        mt_timing = zoo["multitask"]["timing"]
         phase_lm_parity(args.seed, PARITY_LAYERS, tol=LM_PARITY_TOL, decode=True)
         phase_lm_parity(args.seed, FULL_LAYERS, tol=None, decode=False)
         lm = phase_lm_serve(args.seed)
@@ -3971,6 +4736,9 @@ def main() -> int:
                           **train_part_times, "sweep": sweep},
           "million": million_stats,
           "streaming_phase_seconds": {k: v["seconds"] for k, v in streaming.items()},
+          "zoo": {"phase_seconds": zoo_seconds,
+                  "multitask_launches": mt_launches,
+                  "multitask_ms_t36": {k: v["ms"] for k, v in mt_timing.items()}},
           "lm_serving": {"arch": "zamba2-7b", "prefill_ms": lm["prefill_ms"],
                          "prefill_warm_ms": lm["prefill_warm_ms"],
                          "decode_ms_per_token": lm["decode_ms_per_token"],
@@ -3984,7 +4752,9 @@ def main() -> int:
         ("kernel_matmul (B1)", "B1", KERNEL_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:298",
          launches + train["B1"] + serve_mixed["B1"] + train_mixed["B1"] + multi["B1"]
-         + serve_part["B1"] + train_part["B1"] + million["B1"] + _streamed(streaming, "B1")),
+         + serve_part["B1"] + train_part["B1"] + million["B1"] + _streamed(streaming, "B1")
+         + mt_launches["multitask"]["B1"] + mt_launches["multitask_mixed"]["B1"]
+         + zoo["gp_serve_zoo"]["B1"]),
         ("kernel_matmul batched (B2)", "B2", KERNEL_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:199", batched + multi["B2"]),
         ("fused_cg_step (B3)", "B3", FUSED_SOURCE,
@@ -3993,11 +4763,14 @@ def main() -> int:
          + _streamed(streaming, "B3")),
         ("kernel_matmul_grad (port-only VJP, 1 launch per symmetric VJP or row panel)", "grad",
          GRAD_SOURCE, "src/repro/core/inference.py:641 (jax.vjp, no TPU kernel)",
-         train["grad"] + train_mixed["grad"] + multi["grad"] + train_part["grad"]),
+         train["grad"] + train_mixed["grad"] + multi["grad"] + train_part["grad"]
+         + mt_launches["multitask"]["grad"] + mt_launches["multitask_mixed"]["grad"]
+         + zoo["gp_serve_zoo"]["grad"]),
         ("kernel_matmul bf16 (B1, precision=mixed)", "B1_bf16", KERNEL_BF16_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:298 (compute_dtype=bfloat16)",
          serve_mixed["B1_bf16"] + train_mixed["B1_bf16"] + multi["B1_bf16"]
-         + train_part["B1_bf16"] + _streamed(streaming, "B1_bf16")),
+         + train_part["B1_bf16"] + _streamed(streaming, "B1_bf16")
+         + mt_launches["multitask_mixed"]["B1_bf16"] + zoo["gp_serve_zoo"]["B1_bf16"]),
         ("kernel_matmul bf16 batched (B2, precision=mixed)", "B2_bf16", KERNEL_BF16_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:199 (compute_dtype=bfloat16)",
          serve_mixed["B2_bf16"] + train_mixed["B2_bf16"] + multi["B2_bf16"]),

@@ -1,7 +1,7 @@
 """BBMM core in PyTorch: mBCG (unfused and fused), pivoted-Cholesky
 preconditioning, SLQ log-dets, the differentiable MLL, the serving engine
-with its streaming cache updates, the solve-health ladder and the fault
-injection harness (counterpart of ``repro.core``)."""
+with its streaming cache updates, the variational KL, the solve-health
+ladder and the fault injection harness (counterpart of ``repro.core``)."""
 
 from .health import (
     RungRecord,
@@ -32,7 +32,11 @@ from .linear_operator import (
     DiagOperator,
     FaultInjectingOperator,
     FaultSchedule,
+    HadamardKroneckerOperator,
+    KroneckerAddedDiagOperator,
+    KroneckerKernelOperator,
     LinearOperator,
+    LowRankRootOperator,
     PanelLaunch,
     PartitionedKernelOperator,
     panel_accounting,
@@ -48,3 +52,4 @@ from .preconditioner import (
     build_preconditioner,
 )
 from .slq import logdet_from_mbcg, slq_quadrature
+from .variational import gaussian_kl, root_logdet

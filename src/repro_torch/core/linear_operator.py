@@ -2,7 +2,10 @@
 
 Counterpart of ``repro.core.linear_operator``, single-device subset:
 :class:`LinearOperator`, :class:`DenseOperator`, :class:`DiagOperator`,
-:class:`AddedDiagOperator`, :class:`BatchDenseOperator` (b independent
+:class:`AddedDiagOperator`, :class:`LowRankRootOperator` (R·Rᵀ, the SGPR /
+BLR kernel), the multitask operators (:class:`KroneckerKernelOperator`,
+:class:`HadamardKroneckerOperator`, :class:`KroneckerAddedDiagOperator`),
+:class:`BatchDenseOperator` (b independent
 dense blocks, the multi-restart path) and :class:`PartitionedKernelOperator`
 (K streamed one row-panel at a time, the million-row path) with its
 accounting surface (:class:`PanelLaunch`, :func:`panel_accounting`), and
@@ -15,7 +18,8 @@ pivoted-Cholesky preconditioner.
 Operators are frozen dataclasses holding tensors; there are no pytrees and
 no jit.  The device is the device of the tensors they hold.
 :func:`tensor_leaves` / :func:`replace_tensor_leaves` list and swap the
-tensors an operator holds (its kernel's hyperparameters included) — the
+tensors an operator holds (its kernel's hyperparameters included, and the
+weights of a deep kernel's network, held as lists and dicts) — the
 counterpart of the reference's pytree leaves, through which the
 differentiable MLL takes its gradients.
 """
@@ -48,8 +52,10 @@ def _mixed_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 def tensor_leaves(obj) -> list[torch.Tensor]:
-    """Every tensor a (nested) dataclass holds, depth first in field order:
-    for an operator, its data, its kernel's hyperparameters and its noise."""
+    """Every tensor a (nested) dataclass holds, depth first in field order,
+    through lists, tuples and dict values (in insertion order) too: for an
+    operator, its data, its kernel's hyperparameters (a deep kernel's
+    network weights included) and its noise.  Callables hold no leaf."""
     if isinstance(obj, torch.Tensor):
         return [obj]
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
@@ -59,6 +65,10 @@ def tensor_leaves(obj) -> list[torch.Tensor]:
             if f.init
             for leaf in tensor_leaves(getattr(obj, f.name))
         ]
+    if isinstance(obj, (list, tuple)):
+        return [leaf for item in obj for leaf in tensor_leaves(item)]
+    if isinstance(obj, dict):
+        return [leaf for item in obj.values() for leaf in tensor_leaves(item)]
     return []
 
 
@@ -73,6 +83,11 @@ def replace_tensor_leaves(obj, leaves):
         if dataclasses.is_dataclass(o) and not isinstance(o, type):
             changes = {f.name: rebuild(getattr(o, f.name)) for f in dataclasses.fields(o) if f.init}
             return dataclasses.replace(o, **changes)
+        if isinstance(o, (list, tuple)):
+            items = [rebuild(item) for item in o]
+            return type(o)(*items) if hasattr(o, "_fields") else type(o)(items)
+        if isinstance(o, dict):
+            return {k: rebuild(v) for k, v in o.items()}
         return o
 
     out = rebuild(obj)
@@ -224,6 +239,47 @@ class DiagOperator(LinearOperator):
 
 
 @dataclasses.dataclass(frozen=True)
+class LowRankRootOperator(LinearOperator):
+    """R·Rᵀ for a tall-skinny root R (n, m) — the SoR / SGPR kernel
+    K_XU·K_UU⁻¹·K_UX with R = K_XU·L⁻ᵀ, L = chol(K_UU), and BLR's scaled
+    features: an O(t·n·m) matmul of two plain contractions, no kernel.
+
+    ``compute_dtype="bfloat16"`` runs both contractions with bf16 operands
+    and f32 accumulation (:func:`_mixed_matmul`)."""
+
+    root: torch.Tensor  # (n, m)
+    compute_dtype: str = "float32"
+
+    @property
+    def shape(self):
+        n = self.root.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.root.dtype
+
+    @property
+    def device(self):
+        return self.root.device
+
+    def matmul(self, M):
+        R = self.root
+        if is_reduced(self.compute_dtype):
+            return _mixed_matmul(R, _mixed_matmul(R.T, M))
+        return R @ (R.T @ M)
+
+    def with_compute_dtype(self, compute_dtype):
+        return dataclasses.replace(self, compute_dtype=normalize_compute_dtype(compute_dtype))
+
+    def diagonal(self):
+        return torch.sum(self.root * self.root, dim=-1)
+
+    def row(self, i):
+        return self.root @ self.root[i]
+
+
+@dataclasses.dataclass(frozen=True)
 class AddedDiagOperator(LinearOperator):
     """K̂ = K + σ²·I — the paper's hatted matrix.
 
@@ -370,6 +426,221 @@ class BatchDenseOperator(LinearOperator):
 
     def to_dense(self):
         return self.matrices
+
+
+# --- multitask (Kronecker / Hadamard) operators -------------------------------
+
+
+def _warn_unfused_kronecker(op):
+    _warn_once_per_op(
+        op,
+        "kronecker_unfused",
+        "fuse_cg=True requested on a Kronecker-structured operator: the "
+        "Kronecker CG step has no fused kernel (the task contraction sits "
+        "between the state update and the tile product) — falling back to "
+        "the unfused mBCG loop.  The data-kernel matmul inside each "
+        "iteration still runs the prepared kernel path.",
+    )
+
+
+def _as_columns(M: torch.Tensor):
+    """(M as (…, rows, t), whether it was a vector)."""
+    return (M[:, None], True) if M.dim() == 1 else (M, False)
+
+
+@dataclasses.dataclass(frozen=True)
+class KroneckerKernelOperator(LinearOperator):
+    """K_X ⊗ K_T — the multitask covariance over a complete task grid.
+
+    Rows are data-major: global row i·T + τ is (data point i, task τ), so
+    (K_X ⊗ K_T)[iT+τ, jT+τ'] = K_X[i, j]·K_T[τ, τ'].  ``matmul`` is ONE
+    data-kernel call: the (n·T, t) right-hand side viewed as an (n, T·t)
+    block (a view where it is contiguous) goes through ``data_op.matmul``
+    — on the card one kernel-matrix launch at T·t columns — and the result
+    is contracted against the small (T, T) task kernel in f32, whatever
+    the data operator's precision: O(t·(n²T + nT²))."""
+
+    data_op: LinearOperator  # (n, n) — any data-kernel operator
+    task: torch.Tensor  # (T, T) symmetric PSD task kernel
+
+    @property
+    def shape(self):
+        nT = self.data_op.shape[0] * self.task.shape[0]
+        return (nT, nT)
+
+    @property
+    def num_tasks(self) -> int:
+        return self.task.shape[0]
+
+    @property
+    def dtype(self):
+        return self.data_op.dtype
+
+    @property
+    def device(self):
+        return self.data_op.device
+
+    def matmul(self, M):
+        M, squeeze = _as_columns(M)
+        T = self.task.shape[0]
+        n = self.data_op.shape[0]
+        t = M.shape[-1]
+        batch = M.shape[:-2]
+        block = M.reshape(*batch, n, T * t)  # row iT+τ → (i, τ·t + column)
+        Y = self.data_op.matmul(block).reshape(*batch, n, T, t)
+        out = torch.einsum("st,...utc->...usc", self.task, Y).reshape(*batch, n * T, t)
+        return out[..., 0] if squeeze else out
+
+    def diagonal(self):
+        return torch.outer(self.data_op.diagonal(), torch.diagonal(self.task)).reshape(-1)
+
+    def row(self, i):
+        T = self.task.shape[0]
+        return torch.outer(self.data_op.row(i // T), self.task[i % T]).reshape(-1)
+
+    def prepare(self):
+        return KroneckerKernelOperator(self.data_op.prepare(), self.task)
+
+    def with_compute_dtype(self, compute_dtype):
+        # the O(n²·Tt) data matmul takes the policy; the (T, T) task
+        # contraction stays f32
+        return KroneckerKernelOperator(self.data_op.with_compute_dtype(compute_dtype), self.task)
+
+    def fused_cg_step_fn(self, sigma2=None):
+        """No fused step: warns once per operator and returns None (the
+        unfused loop)."""
+        _warn_unfused_kronecker(self)
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class HadamardKroneckerOperator(LinearOperator):
+    """The multitask covariance of a heterogeneous panel: each of the m rows
+    is one (data point, task) observation with its ``task_ids[i]``, and
+
+        K[i, j] = K_X[i, j] · K_T[task_ids[i], task_ids[j]].
+
+    ``matmul`` keeps the one-data-matmul structure: the right-hand side is
+    scattered into per-task slots (one-hot on the task id), the (m, T·t)
+    block makes ONE ``data_op.matmul`` call, and the task-kernel rows
+    gathered by task id contract the result.  On a complete data-major
+    grid it equals :class:`KroneckerKernelOperator` entry for entry."""
+
+    data_op: LinearOperator  # (m, m) over the rows' data coordinates
+    task: torch.Tensor  # (T, T)
+    task_ids: torch.Tensor  # (m,) int64 task of each row (never differentiated)
+
+    @property
+    def shape(self):
+        m = self.data_op.shape[0]
+        return (m, m)
+
+    @property
+    def num_tasks(self) -> int:
+        return self.task.shape[0]
+
+    @property
+    def dtype(self):
+        return self.data_op.dtype
+
+    @property
+    def device(self):
+        return self.data_op.device
+
+    def matmul(self, M):
+        M, squeeze = _as_columns(M)
+        T = self.task.shape[0]
+        m = self.data_op.shape[0]
+        t = M.shape[-1]
+        batch = M.shape[:-2]
+        onehot = torch.nn.functional.one_hot(self.task_ids, T).to(M.dtype)  # (m, T)
+        expanded = (onehot[:, :, None] * M[..., :, None, :]).reshape(*batch, m, T * t)
+        Y = self.data_op.matmul(expanded).reshape(*batch, m, T, t)
+        rows = self.task[self.task_ids]  # (m, T) gathered task-kernel rows
+        out = torch.sum(rows[:, :, None] * Y, dim=-2)
+        return out[..., 0] if squeeze else out
+
+    def diagonal(self):
+        return self.data_op.diagonal() * torch.diagonal(self.task)[self.task_ids]
+
+    def row(self, i):
+        return self.data_op.row(i) * self.task[self.task_ids[i]][self.task_ids]
+
+    def prepare(self):
+        return HadamardKroneckerOperator(self.data_op.prepare(), self.task, self.task_ids)
+
+    def with_compute_dtype(self, compute_dtype):
+        return HadamardKroneckerOperator(
+            self.data_op.with_compute_dtype(compute_dtype), self.task, self.task_ids
+        )
+
+    def fused_cg_step_fn(self, sigma2=None):
+        _warn_unfused_kronecker(self)
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class KroneckerAddedDiagOperator(LinearOperator):
+    """K̂ = K_multitask + Σ_noise with per-task noise σ²_τ.
+
+    In the data-major Kronecker layout the noise is I_n ⊗ diag(σ²) (row
+    i·T + τ gets σ²_τ); over a Hadamard base it is the gather
+    σ²_{task_ids[i]}.  ``task_ids=None`` selects the tiled grid layout.
+    ``diagonal()`` is exact, which keeps cached Rayleigh–Ritz variances
+    conservative; ``with_compute_dtype`` recurses into the base while the
+    noise stays f32."""
+
+    base: LinearOperator  # Kronecker or Hadamard multitask kernel
+    task_noise: torch.Tensor  # (T,) per-task σ²_τ (scalar = shared)
+    task_ids: torch.Tensor | None = None  # (m,) int64, None → tiled grid layout
+
+    @property
+    def shape(self):
+        return self.base.shape
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def _row_noise(self):
+        noise = torch.as_tensor(self.task_noise)
+        m = self.base.shape[0]
+        if noise.dim() == 0:
+            return noise.expand(m)
+        if self.task_ids is None:
+            return noise.repeat(m // noise.shape[0])
+        return noise[self.task_ids]
+
+    def matmul(self, M):
+        noise = self._row_noise()
+        if M.dim() == 1:
+            return self.base.matmul(M) + noise * M
+        return self.base.matmul(M) + noise[:, None] * M
+
+    def diagonal(self):
+        return self.base.diagonal() + self._row_noise()
+
+    def row(self, i):
+        r = self.base.row(i).clone()
+        r[i] += self._row_noise()[i]
+        return r
+
+    def prepare(self):
+        return KroneckerAddedDiagOperator(self.base.prepare(), self.task_noise, self.task_ids)
+
+    def with_compute_dtype(self, compute_dtype):
+        # the noise stays f32 — only the multitask kernel matmul reduces
+        return KroneckerAddedDiagOperator(
+            self.base.with_compute_dtype(compute_dtype), self.task_noise, self.task_ids
+        )
+
+    def fused_cg_step_fn(self, sigma2=None):
+        _warn_unfused_kronecker(self)
+        return None
 
 
 # --- partitioned kernel streaming (million-row exact GPs) -------------------

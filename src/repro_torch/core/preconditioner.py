@@ -11,7 +11,10 @@ All three operations the paper requires of a GP preconditioner are O(n·k²):
                   from the reference's ``jax.random`` ones for the same seed,
                   so parity tests inject the reference's probes.
 
-A batched base (:class:`BatchDenseOperator`, the multi-restart path) gets
+A low-rank-root base (:class:`LowRankRootOperator`, SGPR and BLR) is its
+own factor: P̂ = RRᵀ + σ²I = K̂ exactly, so CG converges in O(1)
+iterations whatever the requested rank.  A batched base
+(:class:`BatchDenseOperator`, the multi-restart path) gets
 one factor per batch element, L (b, n, k) with σ² (b,); the Rademacher
 draws are shared across the batch, so a batched run uses the same
 randomness as a loop of single runs from the same generator.
@@ -23,7 +26,13 @@ import dataclasses
 
 import torch
 
-from .linear_operator import AddedDiagOperator, BatchDenseOperator, LinearOperator
+from .linear_operator import (
+    AddedDiagOperator,
+    BatchDenseOperator,
+    KroneckerAddedDiagOperator,
+    LinearOperator,
+    LowRankRootOperator,
+)
 from .pivoted_cholesky import pivoted_cholesky
 
 
@@ -116,6 +125,13 @@ def build_preconditioner(op: LinearOperator, rank: int, *, jitter: float = 1e-8)
     ``no_grad``): gradient estimators stay unbiased for any fixed P̂."""
     if rank <= 0:
         return IdentityPreconditioner(device=op.device)
+    if isinstance(op, KroneckerAddedDiagOperator):
+        raise NotImplementedError(
+            "task-kernel preconditioning for Kronecker multitask operators is "
+            "not implemented — the Woodbury solve / logdet assume a scalar σ², "
+            "not per-task noise.  Run multitask solves with precond_rank=0 "
+            "(MultitaskGP's default settings do)."
+        )
     if not isinstance(op, AddedDiagOperator):
         raise TypeError(
             "Preconditioning requires K̂ = K + σ²I (AddedDiagOperator); got "
@@ -123,6 +139,10 @@ def build_preconditioner(op: LinearOperator, rank: int, *, jitter: float = 1e-8)
         )
     base = op.base
     with torch.no_grad():
+        if isinstance(base, LowRankRootOperator):
+            # the root IS the ideal factor (rank ignored): P̂ = K̂ exactly
+            sigma2 = torch.as_tensor(op.sigma2, dtype=base.root.dtype, device=base.root.device)
+            return PivotedCholeskyPreconditioner.build(base.root.detach(), sigma2.detach())
         if isinstance(base, BatchDenseOperator):
             L = torch.stack([pivoted_cholesky(K.__getitem__, dg, rank, jitter=jitter)
                              for K, dg in zip(base.matrices, base.diagonal())])

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import torch
 
@@ -95,6 +96,30 @@ class MaternKernel:
 
     def diag(self, X):
         return torch.ones(X.shape[0], dtype=X.dtype, device=X.device) * self.outputscale
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepKernel:
+    """k(g(x), g(x')) — deep kernel learning (paper §6 SKI+DKL experiments).
+
+    ``feature_fn(net_params, X)`` is any torch feature extractor (an MLP,
+    :func:`repro_torch.gp.dkl.mlp_apply`); ``net_params`` is its weights in
+    lists / dicts of tensors, which :func:`repro_torch.core.tensor_leaves`
+    walks, so the MLL's gradient reaches them as it reaches any other
+    hyperparameter.  Not stationary in X: a :class:`KernelOperator` over it
+    runs in dense or blocked mode (``mode="cuda"`` raises TypeError)."""
+
+    base: object  # RBFKernel | MaternKernel on the features
+    net_params: object
+    feature_fn: Callable | None = None
+
+    def __call__(self, X1, X2):
+        Z1 = self.feature_fn(self.net_params, X1)
+        Z2 = self.feature_fn(self.net_params, X2)
+        return self.base(Z1, Z2)
+
+    def diag(self, X):
+        return self.base.diag(X)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,11 +186,12 @@ class KernelOperator(LinearOperator):
             stationary_kernel_type,
         )
 
+        kernel_type = stationary_kernel_type(self.kernel)  # a deep kernel raises here
         return PreparedKernelOperator(
             kernel=self.kernel,
             X=self.X,
             Xs=prescale_inputs(self.X, self.kernel.lengthscale, self.compute_dtype),
-            kernel_type=stationary_kernel_type(self.kernel),
+            kernel_type=kernel_type,
             compute_dtype=self.compute_dtype,
         )
 

@@ -17,14 +17,22 @@ Streaming-capable models also implement (:class:`SupportsStreaming`)
     update_cache(params, data, y, cache, X_new, y_new) -> cache
 
 the seam :class:`repro_torch.serving.PosteriorSession` folds appended
-observations in through.  :class:`KrylovCachePredictor` implements the
-serving methods on top of the engine: Rayleigh–Ritz variances from an
-orthonormal Krylov basis, recycled across appends.
+observations in through.  Two shared implementations of the serving
+methods:
+
+  * :class:`KrylovCachePredictor` — on top of the engine: Rayleigh–Ritz
+    variances from an orthonormal Krylov basis, recycled across appends
+    (ExactGP; DKL on featurized inputs; MultitaskGP over its Kronecker
+    system, with its own cross-covariance);
+  * :class:`WoodburyCachePredictor` — the closed-form cache of models whose
+    kernel IS a low-rank root (SGPR, BLR): the serving state lives in the
+    m root coordinates (G = RᵀR, b = Rᵀy), so an append is an exact rank-k
+    refresh of two m-sized statistics — O(m³), zero CG, no n.
 """
 
 from __future__ import annotations
 
-from typing import Protocol, runtime_checkable
+from typing import NamedTuple, Protocol, runtime_checkable
 
 import torch
 
@@ -185,3 +193,100 @@ class KrylovCachePredictor:
         return extend_posterior_cache(
             self.operator(params, data), self._tensor(y), cache, self.settings
         )
+
+
+class WoodburyCache(NamedTuple):
+    """Closed-form serving cache for low-rank-root kernels (K̂ = RRᵀ + σ²I).
+
+    Everything a query needs lives in the m-dimensional root coordinates:
+
+      G = RᵀR,  b = Rᵀy                      (sufficient statistics)
+      chol = chol(σ²I_m + G)
+      w = RᵀK̂⁻¹y = (σ²I_m + G)⁻¹b            (mean weights)
+      Luu: maps k(X*, U) into root coordinates (None when the root is
+           direct, as BLR's scaled features are)
+
+    (G, b) are additive in the data rows, so an append is an exact rank-k
+    refresh: G += RₖᵀRₖ, b += Rₖᵀyₖ, re-derive (:func:`woodbury_update`).
+
+    The reference also keeps H = RᵀK̂⁻¹R, evaluates w and H as
+    (b − G·chol⁻¹b)/σ² and (G − G·chol⁻¹G)/σ² and the variance as
+    r*ᵀr* − r*ᵀHr*: the same numbers in exact arithmetic, but the
+    subtractions cancel ‖G‖/σ² of f32 precision (SGPR at n = 40,000: 4e-4
+    of the variance).  Here w and the variance are solves against chol,
+    with no subtraction, and H is never needed."""
+
+    G: torch.Tensor  # (m, m)
+    b: torch.Tensor  # (m,)
+    chol: torch.Tensor  # (m, m)
+    w: torch.Tensor  # (m,)
+    Luu: torch.Tensor | None  # (m, m) or None
+    noise: torch.Tensor  # scalar σ²
+
+
+def _derive_woodbury(G, b, noise, Luu) -> WoodburyCache:
+    m = G.shape[0]
+    C = torch.linalg.cholesky(noise * torch.eye(m, dtype=G.dtype, device=G.device) + G)
+    w = torch.cholesky_solve(b[:, None], C)[:, 0]
+    return WoodburyCache(G=G, b=b, chol=C, w=w, Luu=Luu, noise=noise)
+
+
+def build_woodbury_cache(R, y, noise, Luu=None) -> WoodburyCache:
+    """Exact O(n·m²) Woodbury serving cache from the root R (n, m)."""
+    return _derive_woodbury(R.T @ R, R.T @ y, noise, Luu)
+
+
+def woodbury_update(cache: WoodburyCache, R_new, y_new) -> WoodburyCache:
+    """Exact rank-k refresh for k appended rows — O(m³), zero CG, no n."""
+    return _derive_woodbury(
+        cache.G + R_new.T @ R_new, cache.b + R_new.T @ y_new, cache.noise, cache.Luu
+    )
+
+
+def woodbury_predict(cache: WoodburyCache, Rstar):
+    """Mean / variance from the cache for test roots Rstar (s, m) —
+    O(s·m²), one triangular solve and no CG.  The latent variance
+    r*ᵀr* − r*ᵀHr* is evaluated as σ²·‖chol⁻¹r*‖², without the
+    subtraction."""
+    mean = Rstar @ cache.w
+    V = torch.linalg.solve_triangular(cache.chol, Rstar.T, upper=False)
+    var = cache.noise * torch.sum(V * V, dim=0)
+    return mean, torch.clamp(var, min=1e-8) + cache.noise
+
+
+class WoodburyCachePredictor:
+    """Serving cache + prediction for low-rank-root models (SGPR, BLR).
+
+    Mixin contract: the model provides ``noise(params)``, ``_tensor(x)``
+    and two root hooks —
+
+      * ``_woodbury_root(params, data) -> (R, Luu)`` — the training root
+        (n, m) and the triangular map into root coordinates (None when
+        roots come directly from inputs);
+      * ``_woodbury_root_rows(params, Luu, Xq) -> (q, m)`` — root rows of
+        query or appended points.
+
+    The posterior algebra is exact for these kernels, so ``predict`` goes
+    through the cache (no CG anywhere) and appends are exact rank-k
+    refreshes."""
+
+    def posterior_cache(self, params, data, y) -> WoodburyCache:
+        R, Luu = self._woodbury_root(params, data)
+        return build_woodbury_cache(R, self._tensor(y), self.noise(params), Luu)
+
+    def predict_cached(self, params, data, cache, Xstar):
+        """Mean / variance from the Woodbury cache — O(s·m²), no solves."""
+        Rstar = self._woodbury_root_rows(params, cache.Luu, self._tensor(Xstar))
+        return woodbury_predict(cache, Rstar)
+
+    def predict(self, params, data, y, Xstar):
+        """Predictive mean / variance under the low-rank kernel, through
+        :meth:`posterior_cache`: the Woodbury algebra is exact, so no CG
+        runs and the mean equals ``predict_cached``'s bit for bit."""
+        cache = self.posterior_cache(params, data, y)
+        return self.predict_cached(params, data, cache, Xstar)
+
+    def update_cache(self, params, data, y, cache, X_new, y_new):
+        """Streaming append: exact rank-k Woodbury refresh — zero CG."""
+        R_new = self._woodbury_root_rows(params, cache.Luu, self._tensor(X_new))
+        return woodbury_update(cache, R_new, self._tensor(y_new))

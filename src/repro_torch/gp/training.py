@@ -11,6 +11,12 @@ shared path:
 with ``torch.optim.Adam`` at the reference's β₁ = 0.9, β₂ = 0.999,
 ε = 1e-8 (the same update, p −= lr·m̂/(√v̂ + ε), as ``repro.optim.adam``)
 and every step's probes drawn from one seeded ``torch.Generator``.
+``params`` may nest lists and dicts (DKL's network is a list of
+``{"w", "b"}``); every tensor in it is a leaf of the optimizer.
+
+``grad_mask`` covers the one structured-training variant in the zoo
+(SGPR's ``learn_inducing=False`` freezes the inducing points): a
+params-shaped transform of each step's gradients, applied before Adam.
 
 Robustness, as in the reference:
 
@@ -47,6 +53,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.health import SolveFailure, SolveHealthWarning
+from repro_torch.core.linear_operator import replace_tensor_leaves, tensor_leaves
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -72,6 +79,7 @@ def fit_gp(
     lr: float = 0.1,
     generator: torch.Generator | None = None,
     callback: Callable[[int, float], None] | None = None,
+    grad_mask: Callable | None = None,
 ):
     """Fit any GPModel with Adam on the mBCG marginal log likelihood.
 
@@ -84,6 +92,9 @@ def fit_gp(
         history is deterministic).
       callback: called after each step (taken or skipped) with its index
         and loss — per-step telemetry.
+      grad_mask: optional transform of the gradients (a structure shaped as
+        ``params``, e.g. a dict) applied before each Adam update — e.g.
+        zero the inducing-point leaf.
 
     Returns:
       (params, history) — the final parameters (detached tensors) and the
@@ -98,8 +109,9 @@ def fit_gp(
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
     data = model.prepare_inputs(X)
-    params = {k: v.detach().clone().requires_grad_() for k, v in model.init_params(X).items()}
-    opt = torch.optim.Adam(params.values(), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+    params = tree_map(lambda v: v.detach().clone().requires_grad_(), model.init_params(X))
+    leaves = tensor_leaves(params)
+    opt = torch.optim.Adam(leaves, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
     policy = getattr(getattr(model, "settings", None), "on_failure", "warn")
 
     history = []
@@ -145,13 +157,24 @@ def fit_gp(
             i += 1
             continue
         loss.backward()
+        if grad_mask is not None:
+            grads = replace_tensor_leaves(
+                params, [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves])
+            for p, g in zip(leaves, tensor_leaves(grad_mask(grads))):
+                p.grad = g
         opt.step()
         _obs_step(model, t_step, loss_f)
         history.append(loss_f)
         if callback is not None:
             callback(i, loss_f)
         i += 1
-    return {k: v.detach() for k, v in params.items()}, history
+    return tree_map(torch.Tensor.detach, params), history
+
+
+def tree_map(fn, tree):
+    """``tree`` (tensors in nested dicts, lists and tuples) with ``fn``
+    applied to every tensor."""
+    return replace_tensor_leaves(tree, [fn(leaf) for leaf in tensor_leaves(tree)])
 
 
 def _obs_step(model, t_step: float, loss_f: float) -> None:

@@ -2,19 +2,26 @@
 observations through a :class:`repro_torch.serving.PosteriorSession`
 (counterpart of ``repro.launch.gp_serve``).
 
-    PYTHONPATH=src python -m repro_torch.launch.gp_serve --model exact \
+    PYTHONPATH=src python -m repro_torch.launch.gp_serve --model sgpr \
         --n 2000 --requests 40 --batch 256 --observe-every 8
 
 A request loop answers batched mean / variance queries entirely from the
 posterior cache (no CG per request), periodically interrupted by new
-observations folded in *incrementally* — warm-started CG with Krylov-basis
-recycling for ExactGP — under the session's ``max_staleness`` policy.
-Reports cached query points per second and the append-vs-rebuild latency
-split.  The model is ``ExactGP(mode="cuda", kernel_type="rbf")``: on the
-GPU every K̂·M is a launch of the kernel-matrix kernel (B1, or its bf16 mode
-under ``--precision mixed``); ``--device cpu`` runs the same model on the
-plain versions.  The other models of the reference's driver (sgpr, ski,
-dkl, blr, multitask) are ROADMAP Queue A step 15 and raise.
+observations folded in *incrementally* — an exact rank-k Woodbury refresh
+with zero CG for SGPR and BLR, warm-started CG with Krylov-basis recycling
+for ExactGP, DKL and the multitask GP — under the session's
+``max_staleness`` policy.  Reports cached query points per second and the
+append-vs-rebuild latency split.
+
+``--model`` (default ``sgpr``, as the reference's driver): ``exact`` is
+``ExactGP(mode="cuda", kernel_type="rbf")`` and ``multitask`` is
+``MultitaskGP(mode="cuda")`` over ``--num-tasks`` tasks (long-format rows;
+appends are complete task blocks): on the GPU every data-kernel K·M is a
+launch of the kernel-matrix kernel (B1, or its bf16 mode under
+``--precision mixed``).  ``sgpr``, ``blr`` (low-rank roots) and ``dkl`` (a
+deep kernel, dense mode) run plain PyTorch contractions and launch no
+kernel.  ``--device cpu`` runs every model on the plain versions.
+``ski`` is ROADMAP Queue A step 15b and raises.
 
 ``--threads N`` switches to the **thread-pool request driver**: N worker
 threads issue query batches concurrently while the main thread streams
@@ -61,7 +68,14 @@ from repro_torch.core import (
     extend_posterior_cache,
 )
 from repro_torch.core.health import CONVERGED, SolveHealthWarning
-from repro_torch.gp import ExactGP
+from repro_torch.gp import (
+    SGPR,
+    BayesianLinearRegression,
+    DKLExactGP,
+    ExactGP,
+    MultitaskGP,
+    to_long_format,
+)
 from repro_torch.serving import CircuitBreaker, PosteriorSession
 
 MODELS = ("exact", "sgpr", "ski", "dkl", "blr", "multitask")
@@ -73,44 +87,81 @@ def build_model(
     max_cg_iters: int = 25,
     precision: str | None = None,
     max_basis_columns: int = 0,
+    num_tasks: int = 2,
     device=None,
 ):
-    """``ExactGP(mode="cuda", kernel_type="rbf")`` at 8 probes and the
-    engine's default rank-5 preconditioner."""
+    """The driver's models, at the reference driver's settings: ``exact``
+    is ``ExactGP(mode="cuda", kernel_type="rbf")`` at 8 probes and the
+    engine's default rank-5 preconditioner, ``multitask``
+    ``MultitaskGP(mode="cuda")`` at rank 0; ``sgpr`` has 64 inducing points
+    and ``dkl`` a (16, 2) network."""
     if name not in MODELS:
         raise ValueError(f"unknown model {name!r} ({'|'.join(MODELS)})")
-    if name != "exact":
-        raise NotImplementedError(
-            f"--model {name} is not ported yet: ROADMAP Queue A step 15 "
-            "(the other GP models)"
-        )
     settings = BBMMSettings(num_probes=8, max_cg_iters=max_cg_iters,
                             max_basis_columns=max_basis_columns)
-    return ExactGP(mode="cuda", kernel_type="rbf", settings=settings, precision=precision,
-                   device=device)
+    if name == "exact":
+        return ExactGP(mode="cuda", kernel_type="rbf", settings=settings, precision=precision,
+                       device=device)
+    if name == "sgpr":
+        return SGPR(num_inducing=64, precision=precision, device=device)
+    if name == "dkl":
+        return DKLExactGP(hidden=(16, 2), settings=settings, precision=precision, device=device)
+    if name == "blr":
+        return BayesianLinearRegression(precision=precision, device=device)
+    if name == "multitask":
+        # task-kernel preconditioning is not implemented: rank 0
+        return MultitaskGP(num_tasks=num_tasks, mode="cuda",
+                           settings=dataclasses.replace(settings, precond_rank=0),
+                           precision=precision, device=device)
+    raise NotImplementedError(
+        f"--model {name} is not ported yet: ROADMAP Queue A step 15b (SKI and its "
+        "structured operators)"
+    )
 
 
 def _targets(rng, X):
     return np.sin(3 * X[:, 0]) * np.cos(2 * X[:, -1]) + 0.05 * rng.standard_normal(X.shape[0])
 
 
-def _toy(seed, n, d):
-    """(X, y) training data, float32."""
+def _task_targets(rng, coords, T):
+    """Per-task targets (n, T): one shared latent signal, a task-specific
+    scale."""
+    latent = np.sin(3 * coords[:, 0]) * np.cos(2 * coords[:, -1])
+    scales = 1.0 + 0.3 * np.arange(T)
+    return latent[:, None] * scales[None, :] + 0.05 * rng.standard_normal((coords.shape[0], T))
+
+
+def _rows(rng, X, num_tasks):
+    """(X, y) float32 for locations X: long-format rows, every location
+    crossed with each task, when ``num_tasks`` > 0."""
+    if num_tasks:
+        return to_long_format(X, _task_targets(rng, X, num_tasks))
+    return X, _targets(rng, X).astype(np.float32)
+
+
+def _toy(seed, n, d, num_tasks=0):
+    """(X, y) training data, float32 — n locations (n·T long-format rows
+    for ``num_tasks`` > 0)."""
     rng = np.random.default_rng([seed, 0])
-    X = rng.uniform(-1, 1, (n, d)).astype(np.float32)
-    return X, _targets(rng, X).astype(np.float32)
+    return _rows(rng, rng.uniform(-1, 1, (n, d)).astype(np.float32), num_tasks)
 
 
-def _query_batch(seed, r, batch, d):
-    """Query batch r (its own generator: any thread can draw it)."""
-    return np.random.default_rng([seed, 1, r]).uniform(-1, 1, (batch, d)).astype(np.float32)
+def _query_batch(seed, r, batch, d, num_tasks=0):
+    """Query batch r (its own generator: any thread can draw it); with
+    ``num_tasks`` > 0, long-format rows with a random task each."""
+    rng = np.random.default_rng([seed, 1, r])
+    coords = rng.uniform(-1, 1, (batch, d)).astype(np.float32)
+    if num_tasks:
+        return to_long_format(coords, task_ids=rng.integers(0, num_tasks, batch),
+                              num_tasks=num_tasks)
+    return coords
 
 
-def _observation(seed, r, k, d):
-    """k new observations after request r."""
+def _observation(seed, r, k, d, num_tasks=0):
+    """k new observations after request r — for multitask a complete task
+    block per location (the append that keeps the Kronecker structure)."""
     rng = np.random.default_rng([seed, 2, r])
-    X = rng.uniform(-1, 1, (k, d)).astype(np.float32)
-    return X, _targets(rng, X).astype(np.float32)
+    return _rows(rng, rng.uniform(-1, 1, (k, d)).astype(np.float32), num_tasks)
 
 
 def _sync(device) -> None:
@@ -119,7 +170,8 @@ def _sync(device) -> None:
 
 
 def _prepare(model, n, d, seed, fit_steps, **model_kw):
-    X, y = _toy(seed, n, d)
+    T = model_kw["num_tasks"] if model == "multitask" else 0
+    X, y = _toy(seed, n, d, T)
     gp = build_model(model, **model_kw)
     params = gp.fit(X, y, steps=fit_steps)[0] if fit_steps > 0 else gp.init_params(X)
     return gp, params, X, y
@@ -139,7 +191,7 @@ def _results(futures, timeout_s):
 
 def run_serve(
     *,
-    model: str = "exact",
+    model: str = "sgpr",
     n: int = 1000,
     d: int = 2,
     requests: int = 20,
@@ -151,6 +203,7 @@ def run_serve(
     max_cg_iters: int = 25,
     precision: str | None = None,
     max_basis_columns: int = 0,
+    num_tasks: int = 2,
     seed: int = 0,
     device=None,
     verbose: bool = True,
@@ -161,10 +214,12 @@ def run_serve(
 
     ``session_hook(session)`` fires once the session exists (the metrics
     endpoint wires ``/health`` to it); ``observe_hook(session, r, path,
-    seconds)`` after each observe, once its cache is ready."""
+    seconds)`` after each observe, once its cache is ready.  ``n`` counts
+    locations: the multitask model serves n·num_tasks rows."""
+    T = num_tasks if model == "multitask" else 0
     gp, params, X, y = _prepare(model, n, d, seed, fit_steps, max_cg_iters=max_cg_iters,
                                 precision=precision, max_basis_columns=max_basis_columns,
-                                device=device)
+                                num_tasks=num_tasks, device=device)
     dev = gp.device
 
     t0 = time.perf_counter()
@@ -175,19 +230,19 @@ def run_serve(
         session_hook(session)
 
     # warm the query path before timing
-    session.query(_query_batch(seed, requests + 1, batch, d))
+    session.query(_query_batch(seed, requests + 1, batch, d, T))
     _sync(dev)
 
     q_time = 0.0
     appends, rebuilds = [], []
     for r in range(requests):
-        Xq = _query_batch(seed, r, batch, d)
+        Xq = _query_batch(seed, r, batch, d, T)
         t0 = time.perf_counter()
         session.query(Xq)
         _sync(dev)
         q_time += time.perf_counter() - t0
         if observe_every and (r + 1) % observe_every == 0:
-            Xn, yn = _observation(seed, r, observe_batch, d)
+            Xn, yn = _observation(seed, r, observe_batch, d, T)
             t0 = time.perf_counter()
             path = session.observe(Xn, yn)
             _sync(dev)  # the UPDATED CACHE is in the measurement
@@ -240,7 +295,7 @@ def run_serve(
 
 def run_serve_threaded(
     *,
-    model: str = "exact",
+    model: str = "sgpr",
     n: int = 1000,
     d: int = 2,
     requests: int = 40,
@@ -252,6 +307,7 @@ def run_serve_threaded(
     max_cg_iters: int = 25,
     precision: str | None = None,
     max_basis_columns: int = 0,
+    num_tasks: int = 2,
     threads: int = 4,
     seed: int = 0,
     device=None,
@@ -268,23 +324,24 @@ def run_serve_threaded(
     ``query_hook(r, Xq, answer, served)`` sees each answer with the state
     it came from (:class:`repro_torch.serving.Served`).  ``timeout_s``
     bounds the wait for every query and refresh (TimeoutError past it)."""
+    T = num_tasks if model == "multitask" else 0
     gp, params, X, y = _prepare(model, n, d, seed, fit_steps, max_cg_iters=max_cg_iters,
                                 precision=precision, max_basis_columns=max_basis_columns,
-                                device=device)
+                                num_tasks=num_tasks, device=device)
     dev = gp.device
     session = PosteriorSession(gp, params, X, y, max_staleness=max_staleness)
     if session_hook is not None:
         session_hook(session)
 
     # warm the query path before opening the floodgates
-    session.query(_query_batch(seed, requests + 1, batch, d))
+    session.query(_query_batch(seed, requests + 1, batch, d, T))
     _sync(dev)
 
     latencies = []
     lat_lock = threading.Lock()
 
     def one_query(r):
-        Xq = _query_batch(seed, r, batch, d)
+        Xq = _query_batch(seed, r, batch, d, T)
         t0 = time.perf_counter()
         answer, served = session.query_served(Xq)
         _sync(dev)
@@ -303,7 +360,7 @@ def run_serve_threaded(
         for r in range(requests):
             query_futures.append(pool.submit(one_query, r))
             if observe_every and (r + 1) % observe_every == 0:
-                Xn, yn = _observation(seed, r, observe_batch, d)
+                Xn, yn = _observation(seed, r, observe_batch, d, T)
                 path = session.observe(Xn, yn)
                 # a double-buffered refresh off the request path, only after
                 # an incremental append (a rebuild left the cache fresh)
@@ -588,8 +645,11 @@ def main(argv=None, *, on_metrics_server=None):
     fires once the ``--metrics-port`` server is up (its ``url`` names the
     port, ephemeral under ``--metrics-port 0``)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", default="exact", choices=list(MODELS),
-                    help="exact (the others are ROADMAP Queue A step 15)")
+    ap.add_argument("--model", default="sgpr", choices=list(MODELS),
+                    help="sgpr | blr | dkl | exact | multitask (ski is ROADMAP Queue A "
+                    "step 15b and raises)")
+    ap.add_argument("--num-tasks", type=int, default=2,
+                    help="T for --model multitask (ignored otherwise)")
     ap.add_argument("--n", type=int, default=1000)
     ap.add_argument("--d", type=int, default=2)
     ap.add_argument("--requests", type=int, default=20)
@@ -661,8 +721,8 @@ def main(argv=None, *, on_metrics_server=None):
             observe_every=args.observe_every, observe_batch=args.observe_batch,
             max_staleness=args.max_staleness, fit_steps=args.fit_steps,
             max_cg_iters=args.max_cg_iters, precision=args.precision,
-            max_basis_columns=args.max_basis_columns, seed=args.seed, device=args.device,
-            session_hook=hook,
+            max_basis_columns=args.max_basis_columns, num_tasks=args.num_tasks,
+            seed=args.seed, device=args.device, session_hook=hook,
         )
         if args.threads > 0:
             return run_serve_threaded(threads=args.threads, **common)

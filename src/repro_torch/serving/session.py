@@ -12,7 +12,10 @@ version/fingerprint discipline:
   * every mutation goes through the session API (``observe`` appends data,
     ``update_params`` swaps hyperparameters), which re-fingerprints the
     state — a cache whose fingerprint no longer matches is rebuilt before
-    the next query is answered;
+    the next query is answered.  ``update_params`` hashes the whole
+    (params, X, y); ``observe`` chains the previous fingerprint with the
+    appended rows' digest (:func:`chain_fingerprint`), so an append
+    copies only its k rows to the host, never X;
   * ``observe(X_new, y_new)`` keeps the cache live *incrementally* when the
     model supports streaming (``update_cache``: warm-started CG with
     Krylov-basis recycling for ExactGP); once ``max_staleness``
@@ -84,6 +87,14 @@ def fingerprint(tree) -> str:
         h.update(str(arr.dtype).encode())
         h.update(arr.tobytes())
     return h.hexdigest()
+
+
+def chain_fingerprint(fp: str, appended) -> str:
+    """Fingerprint of the state reached from the state ``fp`` by appending
+    ``appended`` (the new rows): SHA-1 of ``fp`` and the rows' own digest.
+    O(k·d) on the host for k rows, where re-hashing (params, X, y) would
+    copy all of X."""
+    return hashlib.sha1((fp + fingerprint(appended)).encode()).hexdigest()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -455,7 +466,7 @@ class PosteriorSession:
             params, cache = self._params, self._cache
             staleness = self._info.staleness if self._info is not None else 0
             self._X, self._y, self._data = X_full, y_full, data
-            fp = fingerprint((params, X_full, y_full))
+            fp = chain_fingerprint(self._state_fp, (X_new, y_new))
             self._state_fp = fp
             if can_stream:
                 v0 = self._version

@@ -1096,3 +1096,95 @@ def test_engine_qr_is_safe_under_threads(cuda_device):
     torch.cuda.synchronize()
     assert not errors and len(outs) == 40
     assert all(torch.equal(o, want) for o in outs)
+
+
+# --- the multitask and low-rank models -------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2003, 10_000])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_kernel_at_the_multitask_width(cuda_device, n, compute_dtype):
+    """B1 at t = T·(1 + probes) = 36 (T = 4, 8 probes), f32 and bf16, against
+    its plain version."""
+    Xs, M = _inputs(n + 36, n, 8, (n, 36), cuda_device)
+    if compute_dtype == "bfloat16":
+        Xs = Xs.to(torch.bfloat16).float()
+    km.reset_launch_counts()
+    out = km.kernel_matmul_cuda(Xs, Xs, M, 1.1, 0.0, kernel_type="rbf",
+                                compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    plain = kernel_matmul_plain(Xs, Xs, M, 1.1, 0.0, kernel_type="rbf",
+                                compute_dtype=compute_dtype)
+    if compute_dtype == "float32":
+        assert (km.launches, km.bf16_launches) == (1, 0)
+        torch.testing.assert_close(out, plain, **TOL)
+    else:
+        assert (km.launches, km.bf16_launches) == (0, 1)
+        assert _rel(out, plain) <= BF16_REL
+
+
+def _multitask_problem(dev, n=1500, T=4):
+    from repro_torch.gp import to_long_format
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-1, 1, (n, 8)).astype(np.float32)
+    Y = np.sin(3 * X[:, :1]) * np.cos(2 * X[:, 7:8]) * (1 + 0.3 * np.arange(T))
+    Xl, yl = to_long_format(X, Y + 0.05 * rng.standard_normal((n, T)))
+    return torch.from_numpy(Xl).to(dev), torch.from_numpy(yl).to(dev)
+
+
+@pytest.mark.cuda
+def test_multitask_mll_gradient_on_the_card_matches_dense(cuda_device):
+    """MultitaskGP(mode="cuda"): every CG iteration one B1 launch at T·t
+    columns, the backward one gradient-kernel launch; over a 5-iteration
+    prefix the MLL and every gradient against mode="dense" with the same
+    probes (MLL 1e-4, gradients rtol 2e-3 / atol 1e-4)."""
+    from repro_torch import MultitaskGP
+    from repro_torch.core import BBMMSettings
+
+    Xl, yl = _multitask_problem(cuda_device)
+    settings = BBMMSettings(num_probes=8, max_cg_iters=5, cg_tol=1e-12, precond_rank=0)
+    out = {}
+    for mode in ("dense", "cuda"):
+        gp = MultitaskGP(num_tasks=4, mode=mode, settings=settings, device=cuda_device)
+        params = {k: v.requires_grad_() for k, v in gp.init_params(Xl).items()}
+        km.reset_launch_counts()
+        loss = gp.loss(params, gp.prepare_inputs(Xl), yl,
+                       torch.Generator(device=cuda_device).manual_seed(0))
+        forward = (km.launches, km.grad_launches)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[mode] = (float(loss), {k: v.grad for k, v in params.items()}, forward,
+                     (km.launches, km.grad_launches))
+    assert out["dense"][2:] == ((0, 0), (0, 0))
+    assert out["cuda"][2] == (5, 0)  # one B1 a CG iteration, 36 columns each
+    assert out["cuda"][3] == (6, 1)  # + the backward's primal and ONE gradient launch
+    assert abs(out["cuda"][0] - out["dense"][0]) <= 1e-4 * abs(out["dense"][0])
+    for k, g in out["cuda"][1].items():
+        torch.testing.assert_close(g, out["dense"][1][k], rtol=2e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_low_rank_and_deep_models_launch_no_kernel(cuda_device):
+    """SGPR and BLR (two plain contractions of the root) and DKL (a dense
+    deep kernel) train and serve on the card without a kernel launch."""
+    from repro_torch import SGPR, BayesianLinearRegression, DKLExactGP
+    from repro_torch.core import BBMMSettings
+    from repro_torch.serving import PosteriorSession
+
+    g = torch.Generator().manual_seed(0)
+    X = (2 * torch.rand((4000, 8), generator=g) - 1).to(cuda_device)
+    y = torch.sin(3 * X[:, 0])
+    km.reset_launch_counts()
+    for gp in (SGPR(num_inducing=100, device=cuda_device),
+               BayesianLinearRegression(device=cuda_device),
+               DKLExactGP(settings=BBMMSettings(max_cg_iters=10), device=cuda_device)):
+        params, hist = gp.fit(X, y, steps=2)
+        assert all(np.isfinite(hist))
+        session = PosteriorSession(gp, params, X, y)
+        assert session.observe(X[:16] * 0.5, y[:16]) == "append"
+        mean, var = session.query(X[:64])
+        assert bool(torch.isfinite(mean).all() & (var > 0).all())
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in km.launch_counts().values()), km.launch_counts()

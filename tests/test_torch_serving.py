@@ -426,16 +426,17 @@ class TestDoubleBufferedCache:
 
 class TestServeDriver:
     def test_sequential_smoke(self, capsys):
-        metrics = gp_serve.main(["--device", "cpu", "--n", "200", "--requests", "4",
-                                 "--batch", "16", "--observe-every", "2",
+        metrics = gp_serve.main(["--device", "cpu", "--model", "exact", "--n", "200",
+                                 "--requests", "4", "--batch", "16", "--observe-every", "2",
                                  "--max-basis-columns", "120"])
         assert metrics["num_appends"] >= 1 and metrics["cached_qps"] > 0
         assert metrics["final_n"] > 200
         assert "CG-free" in capsys.readouterr().out
 
     def test_threaded_smoke(self, capsys):
-        metrics = gp_serve.main(["--device", "cpu", "--n", "200", "--requests", "6",
-                                 "--batch", "16", "--observe-every", "3", "--threads", "3"])
+        metrics = gp_serve.main(["--device", "cpu", "--model", "exact", "--n", "200",
+                                 "--requests", "6", "--batch", "16", "--observe-every", "3",
+                                 "--threads", "3"])
         total = metrics["async_refreshes_swapped"] + metrics["async_refreshes_discarded"]
         assert total == 2  # one double-buffered refresh per (appending) observe
         assert metrics["concurrent_qps"] > 0
@@ -449,8 +450,16 @@ class TestServeDriver:
 
     @pytest.mark.parametrize("model", ["sgpr", "ski", "dkl", "blr", "multitask"])
     def test_unported_models_name_their_step(self, model):
-        with pytest.raises(NotImplementedError, match="step 15"):
-            gp_serve.main(["--device", "cpu", "--model", model, "--n", "20"])
+        """Of the reference driver's other models only ski is still to be
+        ported (ROADMAP Queue A step 15b) and raises naming its step; the
+        rest now serve."""
+        argv = ["--device", "cpu", "--model", model, "--n", "20", "--requests", "2",
+                "--batch", "4", "--observe-every", "1"]
+        if model == "ski":
+            with pytest.raises(NotImplementedError, match="step 15b"):
+                gp_serve.main(argv)
+        else:
+            assert gp_serve.main(argv)["final_n"] > 20
 
     def test_defaults_to_cuda(self):
         if torch.cuda.is_available():
