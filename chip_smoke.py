@@ -3,8 +3,9 @@
 against its plain PyTorch version on the card, and drives the exact-GP
 serving and training slices (single- and multi-output, multi-restart, and
 partitioned to a million rows), streaming and threaded serving with the
-degradation ladder and the chaos drill, SGPR, BLR, DKL and the multitask
-GP, and zamba2-7b serving at full size through the kernels.
+degradation ladder and the chaos drill, SGPR, BLR, DKL, the multitask GP
+and SKI / KISS-GP (no kernel of its own: ``torch.fft`` and indexing), and
+zamba2-7b serving at full size through the kernels.
 
     python3 chip_smoke.py [--seed 0] [--n 40000]
 
@@ -218,18 +219,41 @@ and the final line is then not printed):
      multitask_mixed  the same at precision="mixed": bf16 B1 per iteration,
                 f32 refreshes, against "highest" (means 2e-2, MLL 1e-2 per
                 point)
-     gp_serve_zoo  run_serve for sgpr, blr, dkl and multitask (8 requests of
-                1,024 points, 64 appended points every 2) and
-                run_serve_threaded (4 workers) for sgpr, every answer
-                replayed bit for bit; the Woodbury appends run no CG
- 12. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
+     gp_serve_zoo  run_serve for sgpr, blr, dkl, multitask and ski (8
+                requests of 1,024 points, 64 appended points every 2; ski on
+                the 2-D toy, grid 64, every observe a rebuild) and
+                run_serve_threaded (4 workers) for sgpr and ski, every
+                answer replayed bit for bit; the Woodbury appends run no CG
+ 12. ski        SKI(grid_size=10,000) at the reference's Fig. 2 SKI rows
+                (d = 1, 10 probes, 20 iterations, rank 5) at n = 10⁴, 10⁵
+                and 5·10⁵, nothing cut: the MLL forward and forward +
+                backward, cold and warm, CG iterations, peak memory; the
+                5-iteration prefix against the f64 operator through one
+                shared preconditioner, its MLL at every n (2e-3) and its
+                gradients at 10⁴ (rtol 2e-3 / atol 1e-4; reported beside
+                their estimator terms' scale at 10⁵ and 5·10⁵); at 5·10⁵ a
+                K̂·M on 512 rows and the diagonal against f64 (2e-4 of the
+                largest), two gradients bit for bit, a profiled step; at
+                10⁴ and 5·10⁵ two cache builds bit for bit and predict's
+                mean predict_cached's bit for bit; at 10⁴, where the
+                solves converge, the cached variance ≥ the solved − 1e-3
+     ski_complexity  the SKI matmul at grid 10,000 over n = 2·10⁴ … 1.6·10⁵
+                and the Toeplitz matmul over m = 4,096 … 262,144 (t = 10):
+                the fitted exponents beside the claimed O(n), O(m log m)
+     ski_mixed  SKI(precision="mixed") at n = 10⁵: the MLL finite and within
+                5e-2 of "highest"
+     ski_example  examples/torch_large_scale_ski.py at n = 10⁵: ms per step,
+                MAE < 0.4
+                Every SKI phase (and ski in gp_serve_zoo) launches no port
+                kernel: the counters stay 0
+ 13. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
                 prompt, at 13 layers and at all 81: the forward with B4/B5
                 and every B4/B5 call in it no further from the f64 witness
                 (the plain path in f64) than 4 × the f32 plain forward and
                 calls; at 13 layers also the forward vs its plain version
                 (rtol/atol 1e-3) and vs decode stepped over the prompt at
                 every position (2e-2)
- 13. lm_serve   zamba2-7b at full size (81 layers, bf16, weights from the
+ 14. lm_serve   zamba2-7b at full size (81 layers, bf16, weights from the
                 seed on the card): one make_prefill_step over 4 × 512-token
                 prompts (81 B5 and 13 B4 launches, counted), then the serve
                 loop (decode stepped over the prompts, 32 greedy tokens,
@@ -4522,8 +4546,9 @@ def phase_gp_serve_zoo(km, seed):
     locations × 4 tasks, 8 requests of 1,024 points and an append of 64
     points (a task block each for multitask) every 2; run_serve_threaded
     with 4 workers for sgpr, every answer replayed bit for bit from the
-    state it reports.  Gates: nothing raised, every observe an append, the
-    Woodbury appends 0 CG solves."""
+    state it reports; ski (:func:`_ski_serve_zoo`).  Gates: nothing raised,
+    every observe an append (for ski a rebuild), the Woodbury appends 0 CG
+    solves."""
     import threading
 
     from repro_torch.gp.model import WoodburyCachePredictor
@@ -4586,12 +4611,398 @@ def phase_gp_serve_zoo(km, seed):
     rows["sgpr_threaded"] = {k: m[k] for k in ("concurrent_qps", "query_ms_p50",
                                                "async_refreshes_swapped",
                                                "async_refreshes_discarded", "cache_version")}
+    rows.update(_ski_serve_zoo(km, seed))
     emit({"phase": "gp_serve_zoo", "card": CARD, "batch": ZOO_BATCH, "requests": ZOO_REQUESTS,
           "append_rows": ZOO_APPEND, "woodbury_append_cg_solves": sum(appends_cg), **rows,
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
           "seconds": time.perf_counter() - t_phase})
     return {"B1": launches["multitask"]["B1"], "B1_bf16": launches["multitask"]["B1_bf16"],
-            "grad": launches["multitask"]["grad"]}
+            "grad": launches["multitask"]["grad"], "ski_cached_qps": rows["ski"]["cached_qps"]}
+
+
+# --------------------------------------------------------------------------
+# SKI / KISS-GP: no kernel of the port (torch.fft and indexing)
+# --------------------------------------------------------------------------
+
+SKI_GRID = 10_000  # benchmarks/speed.py:324
+SKI_NS = (10_000, 100_000, 500_000)  # benchmarks/speed.py:322
+SKI_PROBES, SKI_ITERS, SKI_RANK = 10, 20, 5  # benchmarks/speed.py:39
+SKI_WITNESS_ROWS = 512
+SKI_MATMUL_REL = 2e-4
+SKI_PREFIX_TOL = dict(rtol=2e-3, atol=1e-4)  # the MLL 2e-3 relative, as DKL_TOL
+SKI_QUERIES = 256
+SKI_VAR_SLACK = 1e-3  # tests/test_posterior_cache.py:203
+SKI_COMPLEXITY_NS = (20_000, 40_000, 80_000, 160_000)  # benchmarks/complexity.py:50
+SKI_TOEPLITZ_MS = (4_096, 16_384, 65_536, 262_144)  # benchmarks/complexity.py:73
+SKI_COMPLEXITY_T = 10  # benchmarks/complexity.py:25
+SKI_MIXED_N = 100_000
+SKI_MIXED_RTOL = 5e-2  # tests/test_precision.py:217
+SKI_EXAMPLE_MAE = 0.4  # examples/large_scale_ski.py:38
+SKI_SERVE_D = 2  # gp_serve's toy: d = 2, SKI(grid_size=64), m = 4,096
+
+
+def _ski_settings(**kw):
+    from repro_torch.core import BBMMSettings
+
+    base = dict(num_probes=SKI_PROBES, max_cg_iters=SKI_ITERS, precond_rank=SKI_RANK)
+    return BBMMSettings(**{**base, **kw})
+
+
+def _rbf_problem(seed, n, d=1, noise=0.05):
+    """benchmarks/common.py:26 with numpy: X ~ U(0, 1)^d, y = sin(3·X·w) +
+    0.05ε with w ~ N(0, I), standardised; on the card.  As there, w is the
+    same at every n (a generator of its own)."""
+    w = np.random.default_rng([seed, 31, d]).standard_normal(d)
+    rng = np.random.default_rng([seed, 31, n, d])
+    X = rng.uniform(0, 1, (n, d)).astype("float32")
+    y = np.sin(3.0 * (X @ w)) + noise * rng.standard_normal(n)
+    y = ((y - y.mean()) / y.std()).astype("float32")
+    dev = torch.device("cuda")
+    return torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+
+
+def _ski_f64(op):
+    """The 1-D SKI operator K̂ = W·T·Wᵀ + σ²I (T Toeplitz) with float64
+    weights, column and σ²: its FFT product and interpolations run in f64."""
+    from repro_torch.core import AddedDiagOperator, ToeplitzOperator
+
+    interp = op.base
+    return AddedDiagOperator(dataclasses.replace(
+        interp, values=interp.values.double(),
+        base=ToeplitzOperator(interp.base.column.detach().double())), op.sigma2.detach().double())
+
+
+def _ski_rows_f64(op64, M, rows):
+    """Rows ``rows`` of K̂·M in f64: the (m, t) middle Wᵀ·M then T·(Wᵀ·M) in
+    full, W's rows and σ²·M's alone."""
+    interp = op64.base
+    mid = interp.base.matmul(interp._Wt_matmul(M.double()))
+    out = (interp.values[rows][:, :, None] * mid[interp.indices[rows]]).sum(1)
+    return out + op64.sigma2 * M[rows].double()
+
+
+def _launch_free(km, what):
+    counts = km.launch_counts()
+    check(not any(counts.values()), f"{what}: a port kernel launched: {counts}")
+
+
+def _ski_prefix(gp, params, geom, y, seed):
+    """−MLL and its gradients over the 5-iteration prefix in f32 and in f64
+    (the weights, the Toeplitz column, σ² and y in f64), both through ONE
+    preconditioner: the rank-5 pivoted Cholesky of the f64 operator (cast to
+    f32 for the f32 run).  The two runs then draw the same probes from the
+    same pivots — each precision would otherwise break the near-ties of the
+    interpolated diagonal its own way — and differ in arithmetic alone.
+
+    Per dtype: (−MLL, gradients, scales), a leaf's scale ½(|∂ yᵀK̂⁻¹y| +
+    |∂ log|K̂||): the two estimator terms its gradient is the difference of."""
+    from repro_torch.core import PivotedCholeskyPreconditioner, build_preconditioner, inference
+    from repro_torch.core import inv_quad_logdet
+    from repro_torch.gp.training import tree_map
+
+    ops = {}
+    for dtype in (torch.float32, torch.float64):
+        p = tree_map(lambda v: v.detach().to(dtype).requires_grad_(), params)
+        ops[dtype] = (p, gp.operator(p, dict(geom, values=geom["values"].to(dtype))))
+    with torch.no_grad():
+        p64 = build_preconditioner(ops[torch.float64][1], gp.settings.precond_rank)
+    fixed = {torch.float64: p64, torch.float32: PivotedCholeskyPreconditioner.build(
+        p64.L.float(), p64.sigma2.float())}
+    real, out = inference.build_preconditioner, {}
+    n = y.shape[0]
+    try:
+        for dtype, (p, op) in ops.items():
+            inference.build_preconditioner = lambda *a, **k: fixed[dtype]  # noqa: B023
+            iq, ld = inv_quad_logdet(op, y.to(dtype), _generator(seed), gp.settings)
+            keys = sorted(p)
+            g_iq = torch.autograd.grad(iq, [p[k] for k in keys], retain_graph=True)
+            g_ld = torch.autograd.grad(ld, [p[k] for k in keys])
+            loss = 0.5 * (float((iq + ld).detach()) + n * math.log(2 * math.pi))
+            out[dtype] = (loss, {k: 0.5 * (a + b) for k, a, b in zip(keys, g_iq, g_ld)},
+                          {k: 0.5 * float(a.abs().max() + b.abs().max())
+                           for k, a, b in zip(keys, g_iq, g_ld)})
+    finally:
+        inference.build_preconditioner = real
+    return out
+
+
+def _ski_serving(gp, params, geom, y, Xq):
+    """Two cache builds (bit for bit?), a ``predict_cached`` request and a
+    ``predict`` (its mean ``predict_cached``'s bit for bit?), and how far
+    the cached variance lies below the solved one, with the status of the
+    build's and the predict's solves."""
+    from repro_torch.core import health
+
+    with torch.no_grad():
+        with health.collect() as reports:
+            cache, build_ms, _ = timed(lambda: gp.posterior_cache(params, geom, y))
+        again = gp.posterior_cache(params, geom, y)
+        same = all(torch.equal(getattr(cache, f), getattr(again, f))
+                   for f in ("alpha", "basis", "gram_chol", "probe_solves"))
+        del again
+        (mean_c, var_c), request_ms, _ = timed(lambda: gp.predict_cached(params, geom, cache, Xq))
+        (mean_p, var_p), predict_ms, _ = timed(lambda: gp.predict(params, geom, y, Xq))
+        with health.collect() as solve_reports:
+            gp.predict(params, geom, y, Xq)
+    return {"cache_build_ms": build_ms, "request_ms": request_ms, "predict_ms": predict_ms,
+            "builds_bitwise": same, "mean_bitwise": torch.equal(mean_c, mean_p),
+            "finite": bool(torch.isfinite(mean_c).all() & (var_c > 0).all()),
+            "variance_undershoot": float((var_p - var_c).max()),
+            "solve_status": [reports[0].status, solve_reports[-1].status]}
+
+
+def phase_ski(km, seed):
+    """SKI(grid_size=10,000) at the reference's Fig. 2 SKI rows
+    (benchmarks/speed.py:322-333, d = 1, 10 probes, 20 CG iterations, rank
+    5) at n = 10⁴, 10⁵ and 5·10⁵: the MLL forward and forward + backward,
+    cold and warm, their CG iterations, and the 5-iteration prefix against
+    the f64 operator (:func:`_ski_prefix`): the MLL within 2e-3 at every n,
+    the gradients within rtol 2e-3 / atol 1e-4 at 10⁴.  At 10⁵ and beyond
+    f32 CG on K̂ (κ ~ 10⁶) leaves ~2e-4 in the solves, which the ℓ and
+    outputscale gradients carry to 0.5–2.5 %: reported with the scale of
+    their estimator terms, not gated.  At 5·10⁵: a K̂·M on 512 rows and the
+    diagonal against f64 (2e-4 of the largest), two gradient evaluations
+    bit for bit, a profiled step.  At 10⁴ and 5·10⁵: two cache builds bit
+    for bit, ``predict``'s mean ``predict_cached``'s bit for bit; at 10⁴,
+    where the solves converge (at 5·10⁵ f32 CG ends MAX_ITERS at its
+    rounding floor, and an unconverged solve overstates the variance), the
+    cached variance ≥ the solved one − 1e-3.  No port kernel launched."""
+    from repro_torch import SKI
+    from repro_torch.core import health
+    from repro_torch.gp.training import tree_map
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.reset_launch_counts()
+    t_phase = time.perf_counter()
+    gp = SKI(grid_size=SKI_GRID, settings=_ski_settings())
+    prefix_gp = SKI(grid_size=SKI_GRID, settings=_ski_settings(max_cg_iters=PREFIX_ITERS))
+    rows, gates = {}, []  # the rows are emitted before the gates are checked
+    for n in SKI_NS:
+        torch.cuda.reset_peak_memory_stats()
+        X, y = _rbf_problem(seed, n)
+        geom, geom_ms, _ = timed(lambda: gp.prepare_inputs(X))
+        params = gp.init_params(X)
+        fwd, fwd_bwd, iters = [], [], []
+        for _ in range(2):  # cold, then warm
+            with torch.no_grad(), health.collect() as reports:
+                loss, ms, _ = timed(lambda: gp.loss(params, geom, y, _generator(seed)))
+            fwd.append(ms)
+            iters.append(max(r.num_iters or 0 for r in reports))
+            check(math.isfinite(float(loss)), f"ski n={n}: non-finite MLL")
+            p = tree_map(lambda v: v.detach().requires_grad_(), params)
+            _, ms, _ = timed(lambda: gp.loss(p, geom, y, _generator(seed)).backward())
+            fwd_bwd.append(ms)
+            check(all(bool(torch.isfinite(v.grad).all()) for v in p.values()),
+                  f"ski n={n}: non-finite gradient")
+        # the 5-iteration prefix against the f64 operator
+        (l32, g32, _), (l64, g64, scale) = (_ski_prefix(prefix_gp, params, geom, y, seed)[dt]
+                                            for dt in (torch.float32, torch.float64))
+        err = {k: float((g32[k].double() - g64[k]).abs().max()) for k in g64}
+        rows[n] = {"geometry_ms": geom_ms, "mll_forward_ms": fwd, "mll_forward_backward_ms": fwd_bwd,
+                   "cg_iters": iters, "loss": float(loss),
+                   "prefix_mll": [l32, l64], "prefix_mll_rel": abs(l32 - l64) / abs(l64),
+                   "prefix_grads": {k: [float(g32[k]), float(g64[k])] for k in g64},
+                   "prefix_grad_err": err,
+                   "prefix_grad_err_over_scale": {k: err[k] / scale[k] for k in g64},
+                   "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        emit({"phase": "ski_row", "card": CARD, "n": n, "grid": SKI_GRID, **rows[n]})
+        gates.append((rows[n]["prefix_mll_rel"] <= SKI_PREFIX_TOL["rtol"],
+                      f"ski n={n}: prefix MLL {l32} vs f64 {l64}"))
+        if n == SKI_NS[0]:
+            grad_ok = all(err[k] <= SKI_PREFIX_TOL["rtol"] * float(g64[k].abs().max())
+                          + SKI_PREFIX_TOL["atol"] for k in g64)
+            gates.append((grad_ok, f"ski n={n}: prefix gradients vs f64 {rows[n]['prefix_grads']}"))
+
+    # the other gates at the largest n (X, y, geom, params of the last row)
+    n = SKI_NS[-1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    M = torch.randn((n, SKI_PROBES + 1), generator=gen, device="cuda")
+    wrows = torch.randperm(n, generator=gen, device="cuda")[:SKI_WITNESS_ROWS]
+    op = gp.operator(params, geom).prepare()
+    op64 = _ski_f64(op)
+    with torch.no_grad():
+        ref = _ski_rows_f64(op64, M, wrows)
+        matmul_rel = float((op.matmul(M)[wrows].double() - ref).abs().max() / ref.abs().max())
+        d64 = op64.base.diagonal()
+        diag_rel = float((op.base.diagonal().double() - d64).abs().max() / d64.abs().max())
+    gates.append((matmul_rel <= SKI_MATMUL_REL, f"ski: K̂·M vs f64 {matmul_rel}"))
+    gates.append((diag_rel <= SKI_MATMUL_REL, f"ski: diagonal vs f64 {diag_rel}"))
+    del op, op64, ref, M
+
+    grads = []
+    for _ in range(2):
+        p = tree_map(lambda v: v.detach().requires_grad_(), params)
+        gp.loss(p, geom, y, _generator(seed)).backward()
+        grads.append([p[k].grad for k in sorted(p)])
+    gates.append((all(torch.equal(a, b) for a, b in zip(*grads)), "ski: two gradients differ"))
+
+    Xq = torch.rand((SKI_QUERIES, 1), generator=gen, device="cuda")
+    serving = {str(n): _ski_serving(gp, params, geom, y, Xq)}
+    first = SKI_NS[0]
+    Xf, yf = _rbf_problem(seed, first)
+    geom_f = gp.prepare_inputs(Xf)
+    serving[str(first)] = _ski_serving(gp, gp.init_params(Xf), geom_f, yf, Xq)
+    for size, srv in serving.items():
+        gates.append((srv["builds_bitwise"], f"ski n={size}: two cache builds differ"))
+        gates.append((srv["mean_bitwise"], f"ski n={size}: predict's mean is not predict_cached's"))
+        gates.append((srv["finite"], f"ski n={size}: served non-finite output"))
+    # the solved variance is the exact one only where its solves converge
+    # (at 5·10⁵ f32 CG stops at its rounding floor, status MAX_ITERS)
+    srv = serving[str(first)]
+    gates.append((srv["solve_status"] == ["CONVERGED"] * 2 and srv["variance_undershoot"]
+                  <= SKI_VAR_SLACK, f"ski n={first}: cached variance {srv}"))
+    step_profile = profile_step(gp, X, y, data=geom)
+    row = {"phase": "ski", "card": CARD, "grid": SKI_GRID, "rows": {str(k): v for k, v in rows.items()},
+           "matmul_rel_f64": matmul_rel, "diagonal_rel_f64": diag_rel,
+           "serving": serving, "queries": SKI_QUERIES, "step_profile": step_profile, "profile_n": n, "launches": km.launch_counts(),
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    for ok, what in gates:
+        check(ok, what)
+    _launch_free(km, "ski")
+    return row
+
+
+def _fit_exponent(xs, ts) -> float:
+    return float(np.polyfit(np.log(xs), np.log(ts), 1)[0])
+
+
+def phase_ski_complexity(km, seed):
+    """benchmarks/complexity.py:61-79 on the card: the SKI matmul at grid
+    10,000 over n = 20,000 … 160,000 and the Toeplitz FFT matmul over
+    m = 4,096 … 262,144, t = 10, CUDA events; the fitted log-log
+    exponents beside the claimed O(n) and O(m log m) (reported, not
+    gated)."""
+    from repro_torch import SKI
+    from repro_torch.core import ToeplitzOperator
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.reset_launch_counts()
+    t_phase = time.perf_counter()
+    gp = SKI(grid_size=SKI_GRID)
+    ski_ms, toe_ms = [], []
+    with torch.no_grad():
+        for n in SKI_COMPLEXITY_NS:
+            X, _ = _rbf_problem(seed, n)
+            op = gp.operator(gp.init_params(X), gp.prepare_inputs(X)).prepare()
+            M = torch.ones((n, SKI_COMPLEXITY_T), device="cuda")
+            ski_ms.append(time_ms(lambda: op.matmul(M), reps=20))
+        for m in SKI_TOEPLITZ_MS:
+            op = ToeplitzOperator(torch.exp(-0.5 * (torch.arange(m, device="cuda") * 0.01) ** 2))
+            M = torch.ones((m, SKI_COMPLEXITY_T), device="cuda")
+            toe_ms.append(time_ms(lambda: op.matmul(M), reps=20))
+    _launch_free(km, "ski_complexity")
+    row = {"phase": "ski_complexity", "card": CARD, "t": SKI_COMPLEXITY_T, "grid": SKI_GRID,
+           "ski_n": list(SKI_COMPLEXITY_NS), "ski_ms": ski_ms,
+           "ski_exponent": _fit_exponent(SKI_COMPLEXITY_NS, ski_ms), "ski_claimed": 1.0,
+           "toeplitz_m": list(SKI_TOEPLITZ_MS), "toeplitz_ms": toe_ms,
+           "toeplitz_exponent": _fit_exponent(SKI_TOEPLITZ_MS, toe_ms),
+           "toeplitz_claimed": "m log m (exponent 1 of ms / log m)",
+           "toeplitz_exponent_per_log_m": _fit_exponent(
+               SKI_TOEPLITZ_MS, [t / math.log(m) for t, m in zip(toe_ms, SKI_TOEPLITZ_MS)]),
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    return row
+
+
+def phase_ski_mixed(km, seed):
+    """SKI(precision="mixed") at n = 100,000 (the ski phase's settings): the
+    MLL finite and within the reference's 5e-2 of "highest"
+    (tests/test_precision.py:217, 225-235) from the same probes; cold and
+    warm forward times at both precisions."""
+    from repro_torch import SKI
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.reset_launch_counts()
+    t_phase = time.perf_counter()
+    X, y = _rbf_problem(seed, SKI_MIXED_N)
+    out = {}
+    for precision in ("highest", "mixed"):
+        gp = SKI(grid_size=SKI_GRID, settings=_ski_settings(), precision=precision)
+        geom, params = gp.prepare_inputs(X), gp.init_params(X)
+        ms = []
+        with torch.no_grad():
+            for _ in range(2):
+                loss, t, _ = timed(lambda: gp.loss(params, geom, y, _generator(seed)))
+                ms.append(t)
+        out[precision] = {"loss": float(loss), "mll_forward_ms": ms}
+    lh, lm = out["highest"]["loss"], out["mixed"]["loss"]
+    rel = abs(lm - lh) / abs(lh)
+    _launch_free(km, "ski_mixed")
+    row = {"phase": "ski_mixed", "card": CARD, "n": SKI_MIXED_N, "grid": SKI_GRID, **out,
+           "mixed_vs_highest_rel": rel, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    check(math.isfinite(lm) and rel <= SKI_MIXED_RTOL, f"ski_mixed: {lm} vs highest {lh}")
+    return row
+
+
+def phase_ski_example(km, seed):
+    """examples/torch_large_scale_ski.py at its full n = 100,000 on the card
+    (its own assert holds the MAE under 0.4): ms per Adam step and the test
+    MAE."""
+    import runpy
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.reset_launch_counts()
+    t_phase = time.perf_counter()
+    main = runpy.run_path(str(ROOT / "examples" / "torch_large_scale_ski.py"))["main"]
+    out = main([])
+    _launch_free(km, "ski_example")
+    row = {"phase": "ski_example", "card": CARD, "n": out["n"], "ms_per_step": out["ms_per_step"],
+           "mae": out["mae"], "loss_history": out["history"],
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    check(out["mae"] < SKI_EXAMPLE_MAE, f"ski_example: MAE {out['mae']}")
+    return row
+
+
+def _ski_serve_zoo(km, seed):
+    """gp_serve's drivers for ski (``SKI(grid_size=64)`` on the 2-D toy, m =
+    4,096) at n = 40,000: run_serve, where every observe is a rebuild, and
+    run_serve_threaded with 4 workers, every answer replayed bit for bit
+    from the state it reports; no port kernel launched."""
+    import threading
+
+    from repro_torch.launch import gp_serve
+
+    km.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = gp_serve.run_serve(model="ski", n=ZOO_N, d=SKI_SERVE_D, requests=ZOO_REQUESTS,
+                           batch=ZOO_BATCH, observe_every=ZOO_OBSERVE_EVERY,
+                           observe_batch=ZOO_APPEND, seed=seed, verbose=False)
+    check(m["num_rebuilds"] == ZOO_REQUESTS // ZOO_OBSERVE_EVERY and not m["num_appends"],
+          f"zoo ski: {m['num_appends']} appends, {m['num_rebuilds']} rebuilds")
+    row = {k: m[k] for k in ("cache_build_s", "cached_qps", "query_ms", "observe_rebuild_s",
+                             "rebuild_s", "final_n")}
+    row["seconds"] = time.perf_counter() - t0
+    served, lock, state = [], threading.Lock(), {}
+
+    def on_query(r, Xq, answer, s):
+        with lock:
+            served.append((r, Xq, answer, s))
+
+    m = gp_serve.run_serve_threaded(
+        model="ski", n=ZOO_N, d=SKI_SERVE_D, requests=ZOO_REQUESTS, batch=ZOO_BATCH,
+        observe_every=ZOO_OBSERVE_EVERY, observe_batch=ZOO_APPEND, threads=THREADS, seed=seed,
+        session_hook=lambda s: state.setdefault("session", s), query_hook=on_query,
+        timeout_s=JOIN_TIMEOUT_S, verbose=False)
+    check(len(served) == ZOO_REQUESTS, f"zoo ski threaded: {len(served)} answers")
+    gp = state["session"].model
+    for r, Xq, (mean, var), s in served:
+        again = gp.predict_cached(s.params, s.data, s.cache, Xq)
+        check(torch.equal(again[0], mean) and torch.equal(again[1], var),
+              f"zoo ski threaded: query {r} does not replay from cache v{s.info.version}")
+    _launch_free(km, "zoo ski")
+    return {"ski": row, "ski_threaded": {k: m[k] for k in ("concurrent_qps", "query_ms_p50",
+                                                            "cache_version", "final_n")}}
 
 
 def _streamed(streaming, key):
@@ -4708,6 +5119,16 @@ def main() -> int:
             torch.cuda.empty_cache()
         mt_launches = {k: _mt_launches(zoo[k]) for k in ("multitask", "multitask_mixed")}
         mt_timing = zoo["multitask"]["timing"]
+        # SKI: each phase resets the counters before it and holds them at 0
+        # after; its wall time and peak memory are in its line
+        ski, ski_seconds = {}, {}
+        for name, phase in (("ski", phase_ski), ("ski_complexity", phase_ski_complexity),
+                            ("ski_mixed", phase_ski_mixed), ("ski_example", phase_ski_example)):
+            t_phase = time.perf_counter()
+            ski[name] = phase(km, args.seed)
+            ski_seconds[name] = time.perf_counter() - t_phase
+            emit({"phase_wall_s": name, "seconds": ski_seconds[name]})
+            torch.cuda.empty_cache()
         phase_lm_parity(args.seed, PARITY_LAYERS, tol=LM_PARITY_TOL, decode=True)
         phase_lm_parity(args.seed, FULL_LAYERS, tol=None, decode=False)
         lm = phase_lm_serve(args.seed)
@@ -4739,6 +5160,14 @@ def main() -> int:
           "zoo": {"phase_seconds": zoo_seconds,
                   "multitask_launches": mt_launches,
                   "multitask_ms_t36": {k: v["ms"] for k, v in mt_timing.items()}},
+          "ski": {"phase_seconds": ski_seconds,
+                  "mll_forward_backward_ms": {n: r["mll_forward_backward_ms"]
+                                              for n, r in ski["ski"]["rows"].items()},
+                  "exponents": {k: ski["ski_complexity"][k]
+                                for k in ("ski_exponent", "toeplitz_exponent")},
+                  "example_ms_per_step": ski["ski_example"]["ms_per_step"],
+                  "example_mae": ski["ski_example"]["mae"],
+                  "gp_serve_ski_cached_qps": zoo["gp_serve_zoo"]["ski_cached_qps"]},
           "lm_serving": {"arch": "zamba2-7b", "prefill_ms": lm["prefill_ms"],
                          "prefill_warm_ms": lm["prefill_warm_ms"],
                          "decode_ms_per_token": lm["decode_ms_per_token"],

@@ -1,7 +1,7 @@
 """repro_torch — the BBMM GP system in PyTorch, for NVIDIA Hopper (the
-exact GP, SGPR, Bayesian linear regression, deep kernel learning, the
-multitask GP and the variational KL), and the LM substrate's zamba2
-serving path.
+exact GP, SGPR, SKI / KISS-GP, Bayesian linear regression, deep kernel
+learning, the multitask GP and the variational KL), and the LM
+substrate's zamba2 serving path.
 
 The port of the JAX/Pallas package ``repro`` (which stays the reference):
 the same module layout and names, written in PyTorch's idiom, with every
@@ -27,17 +27,21 @@ from .device import NoCudaDeviceError, resolve_device  # noqa: E402
 from .core import gaussian_kl, root_logdet  # noqa: E402
 from .gp import (  # noqa: E402
     SGPR,
+    SKI,
     BayesianLinearRegression,
     DKLExactGP,
     ExactGP,
+    Grid,
     MultitaskGP,
 )
 
 __all__ = [
     "SGPR",
+    "SKI",
     "BayesianLinearRegression",
     "DKLExactGP",
     "ExactGP",
+    "Grid",
     "MultitaskGP",
     "NoCudaDeviceError",
     "gaussian_kl",

@@ -9,9 +9,10 @@
   the exact GP's three), ``"blr"`` (``raw_prior_scale`` (d,),
   ``raw_noise``), ``"multitask"`` (``raw_lengthscale``,
   ``raw_outputscale``, ``raw_task_root`` (T, r), ``raw_task_diag`` (T,),
-  ``raw_noise`` (T,), and a deep kernel's ``net`` where there is one) and
+  ``raw_noise`` (T,), and a deep kernel's ``net`` where there is one),
   ``"dkl"`` (``net``, a list of ``{"w": (a, b), "b": (b,)}`` layers
-  chaining a → b, and the exact GP's three).
+  chaining a → b, and the exact GP's three) and ``"ski"`` (the exact GP's
+  three, ``raw_lengthscale`` ARD (d,): one per grid axis).
 * ``lm_params_from_jax``: an LM's parameter pytree (nested dicts), carried
   over leaf by leaf with its shapes and dtypes (bf16 stays bf16).
 """
@@ -26,7 +27,7 @@ from repro_torch.device import resolve_device
 EXACT_GP_PARAMS = ("raw_lengthscale", "raw_outputscale", "raw_noise")
 
 _MODEL_NAMES = {"exact": "ExactGP", "sgpr": "SGPR", "blr": "BayesianLinearRegression",
-                "multitask": "MultitaskGP", "dkl": "DKLExactGP"}
+                "multitask": "MultitaskGP", "dkl": "DKLExactGP", "ski": "SKI"}
 
 #: model → (required names, optional names)
 GP_PARAMS = {
@@ -36,6 +37,7 @@ GP_PARAMS = {
     "multitask": (("raw_lengthscale", "raw_outputscale", "raw_task_root", "raw_task_diag",
                    "raw_noise"), ("net",)),
     "dkl": (("net",) + EXACT_GP_PARAMS, ()),
+    "ski": (EXACT_GP_PARAMS, ()),
 }
 
 #: name → allowed numbers of dimensions (``net`` is checked on its own)
@@ -46,6 +48,12 @@ _NDIMS = {
     "raw_prior_scale": (1,),
     "raw_task_root": (2,),
     "raw_task_diag": (1,),
+}
+
+#: (model, name) → allowed numbers of dimensions where a model narrows _NDIMS
+_MODEL_NDIMS = {
+    ("multitask", "raw_noise"): (1,),  # per task
+    ("ski", "raw_lengthscale"): (1,),  # per grid axis
 }
 
 
@@ -100,7 +108,7 @@ def params_from_jax(params: dict, device=None, *, model: str = "exact") -> dict:
         if name == "net":
             out[name] = _net_from_jax(params[name], device)
         else:
-            ndims = (1,) if (model, name) == ("multitask", "raw_noise") else _NDIMS.get(name, (0,))
+            ndims = _MODEL_NDIMS.get((model, name), _NDIMS.get(name, (0,)))
             out[name] = _gp_leaf(name, params[name], device, ndims)
     if model == "multitask":
         T = out["raw_task_root"].shape[0]

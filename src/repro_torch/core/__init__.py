@@ -1,7 +1,8 @@
 """BBMM core in PyTorch: mBCG (unfused and fused), pivoted-Cholesky
 preconditioning, SLQ log-dets, the differentiable MLL, the serving engine
 with its streaming cache updates, the variational KL, the solve-health
-ladder and the fault injection harness (counterpart of ``repro.core``)."""
+ladder, the fault injection harness, and the operator algebra with SKI's
+structured operators (counterpart of ``repro.core``)."""
 
 from .health import (
     RungRecord,
@@ -28,17 +29,24 @@ from .inference import (
 from .linear_operator import (
     AddedDiagOperator,
     BatchDenseOperator,
+    CallableOperator,
     DenseOperator,
     DiagOperator,
     FaultInjectingOperator,
     FaultSchedule,
     HadamardKroneckerOperator,
+    InterpolatedOperator,
     KroneckerAddedDiagOperator,
     KroneckerKernelOperator,
+    KroneckerOperator,
     LinearOperator,
     LowRankRootOperator,
     PanelLaunch,
     PartitionedKernelOperator,
+    ScaledOperator,
+    SumOperator,
+    ToeplitzOperator,
+    interpolation_order,
     panel_accounting,
     replace_tensor_leaves,
     tensor_leaves,

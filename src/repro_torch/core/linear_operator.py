@@ -1,9 +1,14 @@
 """LinearOperator: the blackbox matrix abstraction at the heart of BBMM.
 
 Counterpart of ``repro.core.linear_operator``, single-device subset:
-:class:`LinearOperator`, :class:`DenseOperator`, :class:`DiagOperator`,
-:class:`AddedDiagOperator`, :class:`LowRankRootOperator` (R·Rᵀ, the SGPR /
-BLR kernel), the multitask operators (:class:`KroneckerKernelOperator`,
+:class:`LinearOperator` (with its algebra: ``+`` → :class:`SumOperator`,
+a scalar ``*`` → :class:`ScaledOperator`), :class:`DenseOperator`,
+:class:`DiagOperator`, :class:`AddedDiagOperator`,
+:class:`LowRankRootOperator` (R·Rᵀ, the SGPR / BLR kernel), SKI's
+structured operators (:class:`ToeplitzOperator`, an FFT product;
+:class:`KroneckerOperator` over grid axes; :class:`InterpolatedOperator`,
+W·K·Wᵀ for a sparse W), the fully blackbox :class:`CallableOperator`, the
+multitask operators (:class:`KroneckerKernelOperator`,
 :class:`HadamardKroneckerOperator`, :class:`KroneckerAddedDiagOperator`),
 :class:`BatchDenseOperator` (b independent
 dense blocks, the multi-restart path) and :class:`PartitionedKernelOperator`
@@ -32,7 +37,7 @@ import threading
 import time
 import warnings
 from contextlib import contextmanager
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -157,6 +162,24 @@ class LinearOperator:
         normalize_compute_dtype(compute_dtype)
         return self
 
+    def entries(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """K[a, b] elementwise for integer tensors a, b of one shape.
+        Default: one ``row`` per distinct a; structured operators compute
+        the entries directly."""
+        rows, inverse = torch.unique(a, return_inverse=True)
+        return torch.stack([self.row(i) for i in rows])[inverse, b]
+
+    # -- algebra ------------------------------------------------------------
+    def __add__(self, other):
+        if isinstance(other, LinearOperator):
+            return SumOperator((self, other))
+        raise TypeError(other)
+
+    def __mul__(self, scalar):
+        return ScaledOperator(self, torch.as_tensor(scalar, dtype=self.dtype, device=self.device))
+
+    __rmul__ = __mul__
+
     def add_diagonal(self, sigma2) -> "AddedDiagOperator":
         return AddedDiagOperator(self, sigma2)
 
@@ -277,6 +300,81 @@ class LowRankRootOperator(LinearOperator):
 
     def row(self, i):
         return self.root @ self.root[i]
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaledOperator(LinearOperator):
+    """s·K for a scalar s (kept f32 under every precision policy)."""
+
+    base: LinearOperator
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.base.shape
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def matmul(self, M):
+        return self.scale * self.base.matmul(M)
+
+    def diagonal(self):
+        return self.scale * self.base.diagonal()
+
+    def row(self, i):
+        return self.scale * self.base.row(i)
+
+    def prepare(self):
+        return ScaledOperator(self.base.prepare(), self.scale)
+
+    def with_compute_dtype(self, compute_dtype):
+        return ScaledOperator(self.base.with_compute_dtype(compute_dtype), self.scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class SumOperator(LinearOperator):
+    """K₁ + K₂ + … — compositional kernels (paper §5 "Compositions")."""
+
+    ops: tuple
+
+    @property
+    def shape(self):
+        return self.ops[0].shape
+
+    @property
+    def dtype(self):
+        return self.ops[0].dtype
+
+    @property
+    def device(self):
+        return self.ops[0].device
+
+    def _sum(self, parts):
+        out = next(parts)
+        for part in parts:
+            out = out + part
+        return out
+
+    def matmul(self, M):
+        return self._sum(op.matmul(M) for op in self.ops)
+
+    def diagonal(self):
+        return self._sum(op.diagonal() for op in self.ops)
+
+    def row(self, i):
+        return self._sum(op.row(i) for op in self.ops)
+
+    def prepare(self):
+        return SumOperator(tuple(op.prepare() for op in self.ops))
+
+    def with_compute_dtype(self, compute_dtype):
+        return SumOperator(tuple(op.with_compute_dtype(compute_dtype) for op in self.ops))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -641,6 +739,321 @@ class KroneckerAddedDiagOperator(LinearOperator):
     def fused_cg_step_fn(self, sigma2=None):
         _warn_unfused_kronecker(self)
         return None
+
+
+# --- SKI's structured operators and the blackbox operator ------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ToeplitzOperator(LinearOperator):
+    """Symmetric Toeplitz matrix defined by its first column (m,) — the SKI /
+    KISS-GP K_UU along one regular grid axis (paper §5).
+
+    ``matmul`` is the circulant embedding of size 2m through ``torch.fft``
+    (rfft / irfft, cuFFT on the card): O(t·m log m), in f32 for f32 and
+    bf16 operands alike (f64 ones, a witness's, stay f64).  The embedding
+    is numerically unsafe at bf16, so ``with_compute_dtype`` keeps the
+    default no-op under "mixed"."""
+
+    column: torch.Tensor  # (m,)
+
+    @property
+    def shape(self):
+        m = self.column.shape[0]
+        return (m, m)
+
+    @property
+    def dtype(self):
+        return self.column.dtype
+
+    @property
+    def device(self):
+        return self.column.device
+
+    def matmul(self, M):
+        M, squeeze = _as_columns(M)
+        m = self.column.shape[0]
+        dtype = torch.promote_types(torch.promote_types(self.column.dtype, M.dtype), torch.float32)
+        col = self.column.to(dtype)
+        # [c0 c1 … c_{m−1} 0 c_{m−1} … c1]
+        circulant = torch.cat([col, col.new_zeros(1), col[1:].flip(0)])
+        spectrum = torch.fft.rfft(circulant)
+        fM = torch.fft.rfft(M.to(dtype), n=2 * m, dim=-2)
+        out = torch.fft.irfft(spectrum[:, None] * fM, n=2 * m, dim=-2)[..., :m, :].to(M.dtype)
+        return out[..., 0] if squeeze else out
+
+    def diagonal(self):
+        return self.column[:1].repeat(self.column.shape[0])
+
+    def row(self, i):
+        m = self.column.shape[0]
+        return self.column[torch.abs(torch.arange(m, device=self.column.device) - i)]
+
+    def entries(self, a, b):
+        return self.column[torch.abs(a - b)]
+
+    def to_dense(self):
+        idx = torch.arange(self.column.shape[0], device=self.column.device)
+        return self.column[torch.abs(idx[:, None] - idx[None, :])]
+
+
+@dataclasses.dataclass(frozen=True)
+class KroneckerOperator(LinearOperator):
+    """K₁ ⊗ K₂ ⊗ … — the K_UU of a multi-dimensional SKI grid, row-major
+    (the last factor's index varies fastest).  ``matmul`` applies each
+    factor along its own grid axis: O(t·m·Σmᵢ) instead of O(t·m²) for
+    m = Πmᵢ."""
+
+    factors: tuple  # of LinearOperators
+
+    @property
+    def shape(self):
+        m = 1
+        for f in self.factors:
+            m *= f.shape[0]
+        return (m, m)
+
+    @property
+    def dtype(self):
+        return self.factors[0].dtype
+
+    @property
+    def device(self):
+        return self.factors[0].device
+
+    def _dims(self) -> list[int]:
+        return [f.shape[0] for f in self.factors]
+
+    def _split(self, i):
+        """Row-major index i (an int or an integer tensor) → one index per
+        factor."""
+        idxs = []
+        for m in reversed(self._dims()):
+            idxs.append(i % m)
+            i = i // m
+        return idxs[::-1]
+
+    def matmul(self, M):
+        M, squeeze = _as_columns(M)
+        t = M.shape[-1]
+        dims = self._dims()
+        out = M.reshape(*dims, t)
+        for i, f in enumerate(self.factors):  # factor i contracts grid axis i
+            moved = out.movedim(i, 0)
+            rest = moved.shape[1:]
+            out = f.matmul(moved.reshape(dims[i], -1)).reshape(dims[i], *rest).movedim(0, i)
+        out = out.reshape(-1, t)
+        return out[:, 0] if squeeze else out
+
+    def diagonal(self):
+        d = self.factors[0].diagonal()
+        for f in self.factors[1:]:
+            d = torch.outer(d, f.diagonal()).reshape(-1)
+        return d
+
+    def row(self, i):
+        idxs = self._split(i)
+        r = self.factors[0].row(idxs[0])
+        for f, j in zip(self.factors[1:], idxs[1:]):
+            r = torch.outer(r, f.row(j)).reshape(-1)
+        return r
+
+    def entries(self, a, b):
+        out = None
+        for f, ai, bi in zip(self.factors, self._split(a), self._split(b)):
+            e = f.entries(ai, bi)
+            out = e if out is None else out * e
+        return out
+
+    def with_compute_dtype(self, compute_dtype):
+        return KroneckerOperator(tuple(f.with_compute_dtype(compute_dtype) for f in self.factors))
+
+
+def interpolation_order(indices: torch.Tensor, m: int):
+    """The fixed summation order of Wᵀ for a sparse W (n × m) held as
+    ``indices`` (n, q): (``order``, ``offsets``) — ``order`` (n·q,) the flat
+    positions sorted by grid index (a stable sort: each grid point keeps its
+    terms in row order), ``offsets`` (m + 1,) each grid point's segment of
+    it.  A CSR of Wᵀ; it depends on the data alone, so SKI builds it once."""
+    flat = indices.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    offsets = torch.searchsorted(flat[order], torch.arange(m + 1, device=flat.device))
+    return order, offsets
+
+
+def _w_product(V, indices, values):
+    """W·V (n, t): each row's q terms added in tap order."""
+    out = values[:, :1] * V[indices[:, 0]]
+    for k in range(1, indices.shape[1]):
+        out.addcmul_(values[:, k:k + 1], V[indices[:, k]])
+    return out
+
+
+def _wt_product(M, values, order, offsets):
+    """Wᵀ·M (m, t): each grid point's terms added in the order of
+    :func:`interpolation_order` (``torch.segment_reduce``: one sequential
+    sum per segment, no atomics)."""
+    q = values.shape[1]
+    terms = values.reshape(-1)[order, None] * M[order // q]
+    return torch.segment_reduce(terms, "sum", offsets=offsets, axis=0, unsafe=True, initial=0.0)
+
+
+class _WMatmulFn(torch.autograd.Function):
+    """W·V; its backward is Wᵀ·G (:class:`_WtMatmulFn`) — autograd's own
+    backward of the gather would scatter-add with atomics."""
+
+    @staticmethod
+    def forward(ctx, V, values, indices, order, offsets):
+        ctx.save_for_backward(V, values, indices, order, offsets)
+        return _w_product(V, indices, values)
+
+    @staticmethod
+    def backward(ctx, G):
+        V, values, indices, order, offsets = ctx.saved_tensors
+        dV = dvalues = None
+        if ctx.needs_input_grad[0]:
+            dV = _WtMatmulFn.apply(G, values, indices, order, offsets)
+        if ctx.needs_input_grad[1]:
+            dvalues = torch.stack(
+                [(G * V[indices[:, k]]).sum(-1) for k in range(indices.shape[1])], dim=1)
+        return dV, dvalues, None, None, None
+
+
+class _WtMatmulFn(torch.autograd.Function):
+    """Wᵀ·M; its backward is W·G (:class:`_WMatmulFn`)."""
+
+    @staticmethod
+    def forward(ctx, M, values, indices, order, offsets):
+        ctx.save_for_backward(M, values, indices, order, offsets)
+        return _wt_product(M, values, order, offsets)
+
+    @staticmethod
+    def backward(ctx, G):
+        M, values, indices, order, offsets = ctx.saved_tensors
+        dM = dvalues = None
+        if ctx.needs_input_grad[0]:
+            dM = _WMatmulFn.apply(G, values, indices, order, offsets)
+        if ctx.needs_input_grad[1]:
+            dvalues = torch.stack(
+                [(G[indices[:, k]] * M).sum(-1) for k in range(indices.shape[1])], dim=1)
+        return dM, dvalues, None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class InterpolatedOperator(LinearOperator):
+    """W·K_base·Wᵀ with a sparse interpolation W (n × m, q nonzeros a row)
+    held as (``indices``, ``values``) of shape (n, q) — SKI.  ``matmul``
+    costs O(t·n·q) for the interpolations plus one base product: with a
+    Toeplitz base the paper's O(t·n + t·m log m).
+
+    Deterministic on the card: W·V adds each row's terms in tap order, Wᵀ·M
+    each grid point's in the fixed order of :func:`interpolation_order`
+    (``order`` / ``offsets``; ``prepare`` computes them when not given), and
+    each is the other's backward — no atomic scatter-add, so two builds or
+    two gradients give the same bits.  ``diagonal`` reads the n·q² base
+    entries it needs directly (``entries``), never a row of length m per
+    entry.  ``with_compute_dtype`` recurses into the base only: the
+    interpolations stay f32."""
+
+    indices: torch.Tensor  # (n, q) int64 grid index of each nonzero
+    values: torch.Tensor  # (n, q) interpolation weights
+    base: LinearOperator  # (m, m)
+    order: torch.Tensor | None = None  # (n·q,) Wᵀ's summation order
+    offsets: torch.Tensor | None = None  # (m + 1,) its segments
+
+    @property
+    def shape(self):
+        n = self.indices.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    @property
+    def device(self):
+        return self.values.device
+
+    def _csr(self):
+        if self.order is None:
+            return interpolation_order(self.indices, self.base.shape[0])
+        return self.order, self.offsets
+
+    def _W_matmul(self, V):
+        """W·V: (n, t)."""
+        return _WMatmulFn.apply(_as_columns(V)[0], self.values, self.indices, *self._csr())
+
+    def _Wt_matmul(self, M):
+        """Wᵀ·M: (m, t)."""
+        return _WtMatmulFn.apply(_as_columns(M)[0], self.values, self.indices, *self._csr())
+
+    def matmul(self, M):
+        M, squeeze = _as_columns(M)
+        out = self._W_matmul(self.base.matmul(self._Wt_matmul(M)))
+        return out[:, 0] if squeeze else out
+
+    def row(self, i):
+        # (W K Wᵀ)[i, :] = W·(K·wᵢ), wᵢ row i of W as an m-vector
+        m = self.base.shape[0]
+        taps = torch.nn.functional.one_hot(self.indices[i], m).to(self.values.dtype)
+        w = (taps * self.values[i][:, None]).sum(0)
+        return self._W_matmul(self.base.matmul(w[:, None]))[:, 0]
+
+    def diagonal(self):
+        # diag_i = wᵢ·K[taps, taps]·wᵢᵀ over the q × q block at row i's taps
+        q = self.indices.shape[1]
+        sub = self.base.entries(self.indices[:, :, None].expand(-1, -1, q),
+                                self.indices[:, None, :].expand(-1, q, -1))
+        return torch.einsum("nq,nqr,nr->n", self.values, sub, self.values)
+
+    def prepare(self):
+        order, offsets = self._csr()
+        return dataclasses.replace(self, base=self.base.prepare(), order=order, offsets=offsets)
+
+    def with_compute_dtype(self, compute_dtype):
+        return dataclasses.replace(self, base=self.base.with_compute_dtype(compute_dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class CallableOperator(LinearOperator):
+    """Fully blackbox operator: the user's ``matmul_fn(params, M)`` and,
+    optionally, ``row_fn(params, i)`` and ``diag_fn(params)`` (else the
+    defaults through ``matmul``).  ``params`` — a tensor, or a dict or list
+    of tensors — is passed to every callback; its tensors are the operator's
+    leaves, so the MLL's gradient reaches each of them."""
+
+    params: Any
+    matmul_fn: Callable
+    row_fn: Callable | None = None
+    diag_fn: Callable | None = None
+    n: int = 0
+    _dtype: torch.dtype = torch.float32
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def device(self):
+        leaves = tensor_leaves(self.params)
+        return leaves[0].device if leaves else torch.device("cpu")
+
+    def matmul(self, M):
+        return self.matmul_fn(self.params, M)
+
+    def row(self, i):
+        if self.row_fn is None:
+            return super().row(i)
+        return self.row_fn(self.params, i)
+
+    def diagonal(self):
+        if self.diag_fn is None:
+            return super().diagonal()
+        return self.diag_fn(self.params)
 
 
 # --- partitioned kernel streaming (million-row exact GPs) -------------------

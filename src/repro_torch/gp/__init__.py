@@ -1,7 +1,7 @@
 """GP models on top of the BBMM engine (counterpart of ``repro.gp``): the
-exact GP, SGPR, Bayesian linear regression, deep kernel learning and the
-multitask GP, their training driver, and their serving caches (Krylov and
-Woodbury) with streaming updates."""
+exact GP, SGPR, SKI / KISS-GP, Bayesian linear regression, deep kernel
+learning and the multitask GP, their training driver, and their serving
+caches (Krylov and Woodbury) with streaming updates."""
 
 from repro_torch.core.linear_operator import (
     BatchDenseOperator,
@@ -38,4 +38,5 @@ from .model import (
 )
 from .multitask import MultitaskData, MultitaskGP, split_long_format, to_long_format
 from .sgpr import SGPR
+from .ski import SKI, Grid
 from .training import fit_gp

@@ -10,7 +10,8 @@ posterior cache (no CG per request), periodically interrupted by new
 observations folded in *incrementally* — an exact rank-k Woodbury refresh
 with zero CG for SGPR and BLR, warm-started CG with Krylov-basis recycling
 for ExactGP, DKL and the multitask GP — under the session's
-``max_staleness`` policy.  Reports cached query points per second and the
+``max_staleness`` policy; SKI has no incremental path, so each of its
+observations is a rebuild.  Reports cached query points per second and the
 append-vs-rebuild latency split.
 
 ``--model`` (default ``sgpr``, as the reference's driver): ``exact`` is
@@ -18,10 +19,11 @@ append-vs-rebuild latency split.
 ``MultitaskGP(mode="cuda")`` over ``--num-tasks`` tasks (long-format rows;
 appends are complete task blocks): on the GPU every data-kernel K·M is a
 launch of the kernel-matrix kernel (B1, or its bf16 mode under
-``--precision mixed``).  ``sgpr``, ``blr`` (low-rank roots) and ``dkl`` (a
-deep kernel, dense mode) run plain PyTorch contractions and launch no
-kernel.  ``--device cpu`` runs every model on the plain versions.
-``ski`` is ROADMAP Queue A step 15b and raises.
+``--precision mixed``).  ``sgpr``, ``blr`` (low-rank roots), ``dkl`` (a
+deep kernel, dense mode) and ``ski`` (``SKI(grid_size=64)``: cubic
+interpolation onto a 64-point grid per dimension, the grid kernel's
+Toeplitz factors through the FFT) run plain PyTorch and launch no kernel.
+``--device cpu`` runs every model on the plain versions.
 
 ``--threads N`` switches to the **thread-pool request driver**: N worker
 threads issue query batches concurrently while the main thread streams
@@ -70,6 +72,7 @@ from repro_torch.core import (
 from repro_torch.core.health import CONVERGED, SolveHealthWarning
 from repro_torch.gp import (
     SGPR,
+    SKI,
     BayesianLinearRegression,
     DKLExactGP,
     ExactGP,
@@ -93,8 +96,8 @@ def build_model(
     """The driver's models, at the reference driver's settings: ``exact``
     is ``ExactGP(mode="cuda", kernel_type="rbf")`` at 8 probes and the
     engine's default rank-5 preconditioner, ``multitask``
-    ``MultitaskGP(mode="cuda")`` at rank 0; ``sgpr`` has 64 inducing points
-    and ``dkl`` a (16, 2) network."""
+    ``MultitaskGP(mode="cuda")`` at rank 0; ``sgpr`` has 64 inducing points,
+    ``ski`` a 64-point grid per dimension and ``dkl`` a (16, 2) network."""
     if name not in MODELS:
         raise ValueError(f"unknown model {name!r} ({'|'.join(MODELS)})")
     settings = BBMMSettings(num_probes=8, max_cg_iters=max_cg_iters,
@@ -104,19 +107,16 @@ def build_model(
                        device=device)
     if name == "sgpr":
         return SGPR(num_inducing=64, precision=precision, device=device)
+    if name == "ski":
+        return SKI(grid_size=64, settings=settings, precision=precision, device=device)
     if name == "dkl":
         return DKLExactGP(hidden=(16, 2), settings=settings, precision=precision, device=device)
     if name == "blr":
         return BayesianLinearRegression(precision=precision, device=device)
-    if name == "multitask":
-        # task-kernel preconditioning is not implemented: rank 0
-        return MultitaskGP(num_tasks=num_tasks, mode="cuda",
-                           settings=dataclasses.replace(settings, precond_rank=0),
-                           precision=precision, device=device)
-    raise NotImplementedError(
-        f"--model {name} is not ported yet: ROADMAP Queue A step 15b (SKI and its "
-        "structured operators)"
-    )
+    # multitask: task-kernel preconditioning is not implemented, rank 0
+    return MultitaskGP(num_tasks=num_tasks, mode="cuda",
+                       settings=dataclasses.replace(settings, precond_rank=0),
+                       precision=precision, device=device)
 
 
 def _targets(rng, X):
@@ -646,8 +646,7 @@ def main(argv=None, *, on_metrics_server=None):
     port, ephemeral under ``--metrics-port 0``)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="sgpr", choices=list(MODELS),
-                    help="sgpr | blr | dkl | exact | multitask (ski is ROADMAP Queue A "
-                    "step 15b and raises)")
+                    help="sgpr | blr | dkl | exact | multitask | ski")
     ap.add_argument("--num-tasks", type=int, default=2,
                     help="T for --model multitask (ignored otherwise)")
     ap.add_argument("--n", type=int, default=1000)

@@ -13,9 +13,12 @@ version/fingerprint discipline:
     ``update_params`` swaps hyperparameters), which re-fingerprints the
     state — a cache whose fingerprint no longer matches is rebuilt before
     the next query is answered.  ``update_params`` hashes the whole
-    (params, X, y); ``observe`` chains the previous fingerprint with the
-    appended rows' digest (:func:`chain_fingerprint`), so an append
-    copies only its k rows to the host, never X;
+    (params, X, y); ``observe`` on a streaming session chains the previous
+    fingerprint with the appended rows' digest (:func:`chain_fingerprint`),
+    so an append copies only its k rows to the host, never X.  A session
+    that rebuilds on every ``observe`` (a model without ``update_cache``,
+    such as SKI, or ``max_staleness=0``) hashes the whole state, as the
+    reference does: its rebuild's O(n) device work dwarfs the copy;
   * ``observe(X_new, y_new)`` keeps the cache live *incrementally* when the
     model supports streaming (``update_cache``: warm-started CG with
     Krylov-basis recycling for ExactGP); once ``max_staleness``
@@ -102,7 +105,11 @@ class CacheInfo:
     """Provenance of a live posterior cache."""
 
     version: int  # bumped on every cache swap (build or incremental)
-    fingerprint: str  # of the (params, X, y) this cache serves
+    # of the state this cache serves: the SHA-1 of its (params, X, y), or,
+    # once a streaming session has observed, the chained fingerprint
+    # (chain_fingerprint); a rebuild-only session (SKI) hashes (params, X,
+    # y) on every observe, so there it is the reference's
+    fingerprint: str
     n: int  # training rows covered
     staleness: int  # incremental updates since the last full build
     degraded: bool = False  # True while queries are answered from the last
@@ -466,7 +473,10 @@ class PosteriorSession:
             params, cache = self._params, self._cache
             staleness = self._info.staleness if self._info is not None else 0
             self._X, self._y, self._data = X_full, y_full, data
-            fp = chain_fingerprint(self._state_fp, (X_new, y_new))
+            if self.streaming:
+                fp = chain_fingerprint(self._state_fp, (X_new, y_new))
+            else:
+                fp = fingerprint((params, X_full, y_full))
             self._state_fp = fp
             if can_stream:
                 v0 = self._version

@@ -1,8 +1,9 @@
 """The port stands alone, and runs on the GPU unless told otherwise.
 
 * No module of ``src/repro_torch`` — and not ``chip_smoke.py``, which drives
-  it on the GPU machine — imports ``jax`` or anything of the reference
-  package ``repro``, not even its JAX-free modules.
+  it on the GPU machine, nor the port's examples (``examples/torch_*.py``) —
+  imports ``jax`` or anything of the reference package ``repro``, not even
+  its JAX-free modules.
 * An entry point called without ``device="cpu"`` runs on CUDA, and raises
   when there is no GPU instead of carrying on quietly on the CPU.
 """
@@ -15,10 +16,11 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch import ExactGP, NoCudaDeviceError, params_from_jax, resolve_device
+from repro_torch import SKI, ExactGP, NoCudaDeviceError, params_from_jax, resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -37,7 +39,8 @@ def _imported_roots(path: Path):
 
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
-    assert {"kernel_matmul.py", "mbcg.py", "exact.py", "chip_smoke.py"} <= names
+    assert {"kernel_matmul.py", "mbcg.py", "exact.py", "ski.py", "chip_smoke.py",
+            "torch_quickstart.py", "torch_large_scale_ski.py"} <= names
     assert len(PORT_FILES) >= 20
 
 
@@ -61,10 +64,14 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert ExactGP().device.type == "cuda"
+        assert SKI().device.type == "cuda"
         assert params_from_jax(raw)["raw_noise"].is_cuda
         return
     with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
         ExactGP()
+    with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
+        SKI(grid_size=16)
+    assert SKI(device="cpu").device == torch.device("cpu")
     with pytest.raises(NoCudaDeviceError):
         ExactGP(mode="cuda", device="cuda")
     with pytest.raises(NoCudaDeviceError):

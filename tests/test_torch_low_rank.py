@@ -454,5 +454,7 @@ def test_params_from_jax_checks_the_low_rank_layouts():
                          "raw_outputscale": 0.0, "raw_noise": 0.0}, device="cpu", model="sgpr")
     with pytest.raises(ValueError, match="raw_prior_scale must be a vector"):
         params_from_jax({"raw_prior_scale": 1.0, "raw_noise": 0.0}, device="cpu", model="blr")
-    with pytest.raises(ValueError, match="model must be one of"):
+    with pytest.raises(ValueError, match="SKI parameters"):  # ski is a layout since SKI's port
         params_from_jax({}, device="cpu", model="ski")
+    with pytest.raises(ValueError, match="model must be one of"):
+        params_from_jax({}, device="cpu", model="svgp")

@@ -1,7 +1,8 @@
 """Serving the model zoo through one protocol: the port's ``GPModel``
-surface and ``PosteriorSession`` for SGPR, BLR, DKL and the multitask GP
-beside ExactGP (counterpart of the zoo half of tests/test_serving.py), and
-the ``gp_serve`` driver for each ported model on the CPU.
+surface and ``PosteriorSession`` for SGPR, BLR, DKL, SKI and the multitask
+GP beside ExactGP (counterpart of the zoo half of tests/test_serving.py),
+and the ``gp_serve`` driver for each ported model on the CPU.  SKI is
+rebuild-only, as in the reference: every observe rebuilds.
 
 Tolerances: a Woodbury append against a rebuild rtol 1e-3 / atol 1e-4
 (tests/test_serving.py:213-218), with zero CG solves; the served Woodbury
@@ -16,12 +17,14 @@ import torch
 
 import repro_torch.core.inference as inference_mod
 from repro.gp import SGPR as RefSGPR
+from repro.gp import SKI as RefSKI
 from repro.gp import BayesianLinearRegression as RefBLR
 from repro.gp import DKLExactGP as RefDKL
 from repro.serving import PosteriorSession as RefSession
 from repro.serving import fingerprint as ref_fingerprint
 from repro_torch import (
     SGPR,
+    SKI,
     BayesianLinearRegression,
     DKLExactGP,
     ExactGP,
@@ -64,6 +67,7 @@ def all_models():
     return {
         "exact": (ExactGP(mode="cuda", settings=s, device="cpu"), dict(lr=0.1)),
         "sgpr": (SGPR(num_inducing=20, device="cpu"), dict(lr=0.05)),
+        "ski": (SKI(grid_size=32, settings=s, device="cpu"), dict(lr=0.1)),
         "dkl": (DKLExactGP(hidden=(8, 2), settings=s, device="cpu"), dict(lr=0.01)),
         "blr": (BayesianLinearRegression(device="cpu"), dict(lr=0.05)),
         "multitask": (MultitaskGP(num_tasks=2, mode="cuda", device="cpu",
@@ -106,9 +110,9 @@ class TestProtocolConformance:
 
     def test_streaming_support_map(self):
         for name, (model, _) in all_models().items():
-            assert supports_streaming(model), name
+            assert supports_streaming(model) == (name != "ski"), name  # SKI: rebuild-only
 
-    @pytest.mark.parametrize("name", ["exact", "sgpr", "dkl", "blr", "multitask"])
+    @pytest.mark.parametrize("name", ["exact", "sgpr", "dkl", "blr", "multitask", "ski"])
     def test_fit_roundtrip_identical_through_shared_driver(self, name):
         """model.fit ≡ fit_gp bitwise (same generator seed, same loop), and
         the fitted parameters serve through the uniform surface."""
@@ -123,7 +127,7 @@ class TestProtocolConformance:
         mean, var = model.predict(p1, model.prepare_inputs(X), y, _queries(name, 9))
         assert mean.shape == (9,) and bool(torch.all(var > 0))
 
-    @pytest.mark.parametrize("name", ["exact", "sgpr", "dkl", "blr", "multitask"])
+    @pytest.mark.parametrize("name", ["exact", "sgpr", "dkl", "blr", "multitask", "ski"])
     def test_cached_mean_bitwise_across_zoo(self, name):
         """predict and predict_cached give the same mean bit for bit for
         every model — the protocol-wide serving invariant."""
@@ -204,6 +208,32 @@ class TestStreaming:
         mean, var = session.query(X[:7])
         assert bool(torch.all(torch.isfinite(mean))) and bool(torch.all(var > 0))
 
+    def test_ski_session_rebuilds_on_every_observe(self, monkeypatch):
+        """SKI has no update_cache: each observe re-runs prepare_inputs on the
+        grown X (the grid is re-fitted) and rebuilds, and the state is
+        stamped with the full fingerprint — the reference session's."""
+        X, y = toy(19, 100)
+        Xn = np.array([[-1.4], [1.3]], np.float32)  # beyond the training range
+        yn = np.sin(4.0 * Xn[:, 0])
+        rp = RefSKI(grid_size=24).init_params(jnp.asarray(X))
+        params = params_from_jax(jax.tree.map(np.asarray, rp), device="cpu", model="ski")
+        model = SKI(grid_size=24, settings=BBMMSettings(num_probes=4, max_cg_iters=20),
+                    device="cpu")
+        session = PosteriorSession(model, params, X, y)
+        assert not session.streaming
+        counter = _CGCounter(monkeypatch)
+        for k in range(2):
+            assert session.observe(Xn[k:k + 1], yn[k:k + 1]) == "rebuild"
+        assert counter.calls == 2 and session.cache_info.staleness == 0
+        assert session.n == 102 and not session.stale()
+        assert float(session._data["grid"].mins[0]) < float(model.prepare(X)["grid"].mins[0])
+        mean, var = session.query(X[:5])
+        assert bool(torch.all(torch.isfinite(mean))) and bool(torch.all(var > 0))
+        # the reference's observe stamps fingerprint((params, X_full, y_full))
+        X_full = np.concatenate([X, Xn])
+        assert session.cache_info.fingerprint == ref_fingerprint(
+            (rp, jnp.asarray(X_full), jnp.asarray(np.concatenate([y, yn]).astype(np.float32))))
+
     def test_fingerprint_hashes_a_network_as_the_reference_does(self):
         """A DKL parameter dict (its net a list of {"w", "b"} dicts) digests
         to the reference's fingerprint of the same arrays; a changed weight
@@ -218,24 +248,33 @@ class TestStreaming:
 
 
 class TestServeDriver:
-    @pytest.mark.parametrize("model", ["sgpr", "blr", "dkl", "multitask"])
+    @pytest.mark.parametrize("model", ["sgpr", "blr", "dkl", "multitask", "ski"])
     def test_sequential_smoke(self, model, capsys):
         metrics = gp_serve.main(["--device", "cpu", "--model", model, "--n", "120",
                                  "--requests", "4", "--batch", "16", "--observe-every", "2",
                                  "--observe-batch", "3"])
         rows = 120 * (2 if model == "multitask" else 1)
         assert metrics["model"] == f"serve_{model}"
-        assert metrics["num_appends"] == 2 and metrics["cached_qps"] > 0
+        # SKI is rebuild-only: each observe is a rebuild
+        paths = (metrics["num_appends"], metrics["num_rebuilds"])
+        assert paths == ((0, 2) if model == "ski" else (2, 0)) and metrics["cached_qps"] > 0
         assert metrics["final_n"] == rows + 2 * 3 * (2 if model == "multitask" else 1)
         assert "CG-free" in capsys.readouterr().out
 
-    @pytest.mark.parametrize("model", ["sgpr", "blr", "dkl", "multitask"])
+    @pytest.mark.parametrize("model", ["sgpr", "blr", "dkl", "multitask", "ski"])
     def test_threaded_smoke(self, model, capsys):
         metrics = gp_serve.main(["--device", "cpu", "--model", model, "--n", "100",
                                  "--requests", "6", "--batch", "16", "--observe-every", "3",
                                  "--threads", "3", "--num-tasks", "3"])
         total = metrics["async_refreshes_swapped"] + metrics["async_refreshes_discarded"]
-        assert total == 2 and metrics["concurrent_qps"] > 0
+        # a double-buffered refresh follows each append; SKI's observes
+        # rebuild in place (a query that meets the stale state may rebuild
+        # first) and schedule none
+        assert total == (0 if model == "ski" else 2) and metrics["concurrent_qps"] > 0
+        tasks = 3 if model == "multitask" else 1
+        assert metrics["final_n"] == (100 + 2) * tasks
+        if model == "ski":
+            assert metrics["cache_version"] >= 3 and metrics["cache_staleness"] == 0
         assert "double-buffered" in capsys.readouterr().out
 
     def test_default_model_is_sgpr(self):
@@ -252,8 +291,10 @@ class TestServeDriver:
         mt = gp_serve.build_model("multitask", num_tasks=4, precision="mixed", device="cpu")
         assert (mt.mode, mt.num_tasks, mt.settings.precond_rank) == ("cuda", 4, 0)
         assert mt.settings.precision == "mixed"
-        with pytest.raises(NotImplementedError, match="step 15b"):
-            gp_serve.build_model("ski", device="cpu")
+        ski = gp_serve.build_model("ski", max_cg_iters=9, precision="mixed", device="cpu")
+        assert isinstance(ski, SKI) and ski.grid_size == 64
+        assert (ski.settings.num_probes, ski.settings.max_cg_iters) == (8, 9)
+        assert ski.settings.precision == "mixed"
         with pytest.raises(ValueError, match="unknown model"):
             gp_serve.build_model("svgp", device="cpu")
 

@@ -450,16 +450,12 @@ class TestServeDriver:
 
     @pytest.mark.parametrize("model", ["sgpr", "ski", "dkl", "blr", "multitask"])
     def test_unported_models_name_their_step(self, model):
-        """Of the reference driver's other models only ski is still to be
-        ported (ROADMAP Queue A step 15b) and raises naming its step; the
-        rest now serve."""
+        """Every model of the reference driver is ported now (ski last, with
+        ROADMAP Queue A step 15b), so none raises naming a step: each serves
+        and folds its observations in."""
         argv = ["--device", "cpu", "--model", model, "--n", "20", "--requests", "2",
                 "--batch", "4", "--observe-every", "1"]
-        if model == "ski":
-            with pytest.raises(NotImplementedError, match="step 15b"):
-                gp_serve.main(argv)
-        else:
-            assert gp_serve.main(argv)["final_n"] > 20
+        assert gp_serve.main(argv)["final_n"] > 20
 
     def test_defaults_to_cuda(self):
         if torch.cuda.is_available():
