@@ -3,9 +3,10 @@
 against its plain PyTorch version on the card, and drives the exact-GP
 serving and training slices (single- and multi-output, multi-restart, and
 partitioned to a million rows), streaming and threaded serving with the
-degradation ladder and the chaos drill, SGPR, BLR, DKL, the multitask GP
-and SKI / KISS-GP (no kernel of its own: ``torch.fft`` and indexing), and
-zamba2-7b serving at full size through the kernels.
+degradation ladder and the chaos drill, SGPR, BLR, DKL, the multitask GP,
+SKI / KISS-GP (no kernel of its own: ``torch.fft`` and indexing) and the
+multi-device path on worlds of one and two ranks, and zamba2-7b serving
+at full size through the kernels.
 
     python3 chip_smoke.py [--seed 0] [--n 40000]
 
@@ -246,14 +247,39 @@ and the final line is then not printed):
                 MAE < 0.4
                 Every SKI phase (and ski in gp_serve_zoo) launches no port
                 kernel: the counters stay 0
- 13. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
+ 13. sharded    multi-device BBMM on two worlds on this card: one rank on
+                NCCL and two ranks on gloo (CUDA payloads, which gloo moves
+                through the host itself); each rank launches on its own row
+                band (kin40k-shaped n = 40,000, d = 8, Matérn-5/2, t = 9):
+                K·M through mode="cuda_sharded" (B1, B2 at b = 4, bf16 B1 /
+                B2: one launch and one all-gather per rank and product;
+                against mode="cuda" 1e-4, 512 rows against float64 2e-4,
+                bf16 against its plain version 2e-3; world 2 bit for bit
+                the single-device panel stream at 20,000 rows); one sharded
+                fused step (f32 and bf16 B3, one launch per rank) against
+                the single-device step (state 2e-4, reductions 2e-3); the
+                panel-fused engine (y + 8 probes, 25 iterations, panel =
+                the world-2 band) and the million recipe's panel-fused step
+                at n = 200,000 (panel 100,000): world 2 bit for bit world
+                1; pivoted_cholesky_sharded at rank 5 against the
+                replicated build (1e-5); ExactGP(mode="cuda_sharded"): a
+                cache build (its factor built sharded), a 1,024-point
+                request, two fused Adam steps (every rank's parameters the
+                same bits), the 5-iteration prefix against mode="cuda" (MLL
+                1e-4, gradients rtol 2e-3 / atol 1e-4);
+                MultitaskGP(mode="cuda_sharded") on 10,000 × 4 over the
+                prefix (MLL 1e-4); ms per sharded K·M and fused step beside
+                mode="cuda", collective bytes and launches per rank.  Every
+                world runs under a timeout; a hung collective fails the
+                phase
+ 14. lm_parity  zamba2-7b at full width in f32, batch 2, a 256-token
                 prompt, at 13 layers and at all 81: the forward with B4/B5
                 and every B4/B5 call in it no further from the f64 witness
                 (the plain path in f64) than 4 × the f32 plain forward and
                 calls; at 13 layers also the forward vs its plain version
                 (rtol/atol 1e-3) and vs decode stepped over the prompt at
                 every position (2e-2)
- 14. lm_serve   zamba2-7b at full size (81 layers, bf16, weights from the
+ 15. lm_serve   zamba2-7b at full size (81 layers, bf16, weights from the
                 seed on the card): one make_prefill_step over 4 × 512-token
                 prompts (81 B5 and 13 B4 launches, counted), then the serve
                 loop (decode stepped over the prompts, 32 greedy tokens,
@@ -5005,6 +5031,376 @@ def _ski_serve_zoo(km, seed):
                                                             "cache_version", "final_n")}}
 
 
+# --------------------------------------------------------------------------
+# multi-device: the sharded path on worlds of 1 (NCCL) and 2 (gloo) ranks
+# --------------------------------------------------------------------------
+
+SHARD_N = 40_000  # kin40k-shaped, the serving slice's system size
+SHARD_D = 8
+SHARD_T = 9  # y + 8 probes
+SHARD_B = 4
+SHARD_ITERS = 25
+SHARD_ENGINE_PANEL = SHARD_N // 2  # the world-2 band: one panel per band
+SHARD_MILLION_N = 200_000
+SHARD_MILLION_PANEL = SHARD_MILLION_N // 2
+SHARD_REQUEST = 1024
+SHARD_TRAIN_STEPS = 2
+SHARD_REL = 1e-4  # against mode="cuda", max |Δ| / max |ref|
+SHARD_F64_REL = 2e-4  # 512 rows against float64
+SHARD_BF16_REL = 2e-3  # bf16 against its plain version
+SHARD_PC_TOL = 1e-5  # the sharded pivoted Cholesky against the replicated build
+SHARD_GRAD_TOL = dict(rtol=2e-3, atol=1e-4)  # prefix gradients against mode="cuda"
+SHARD_WORLD_TIMEOUT_S = 420.0
+#: the worlds: one rank on NCCL (the users' backend, its collectives real at
+#: size 1) and two on gloo (NCCL cannot put two ranks on one card)
+SHARD_WORLDS = ((1, "nccl"), (2, "gloo"))
+
+
+def _digest(x) -> str:
+    import hashlib
+
+    return hashlib.sha256(x.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _sharded_rank(rank, world, seed):
+    """One rank of the ``sharded`` phase (run by ``spawn_world``): every
+    sharded path at full width, the kernel launches and collectives of each
+    counted on this rank, and — on rank 0 — each held against the
+    single-device path.  Returns this rank's report: numbers, digests for
+    the cross-rank and cross-world bitwise checks, and the launches of the
+    sharded calls (the main path; the single-device references are not
+    counted)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch import ExactGP, MultitaskGP
+    from repro_torch.core import (
+        AddedDiagOperator,
+        BBMMSettings,
+        PartitionedKernelOperator,
+        collect,
+        engine_state,
+        pivoted_cholesky,
+        pivoted_cholesky_sharded,
+    )
+    from repro_torch.distributed import (
+        collective_counts,
+        make_mesh,
+        reset_collective_counts,
+        use_mesh,
+    )
+    from repro_torch.gp import KernelOperator, MaternKernel, RBFKernel
+    from repro_torch.kernels.kernel_matmul import kernel_matmul as km
+    from repro_torch.kernels.kernel_matmul import ops
+    from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_plain
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh((world,), ("data",))
+    lead = rank == 0
+    rep = {"world": world, "rank": rank, "backend": mesh.backend, "digests": {}, "errs": {},
+           "ms": {}, "launches": {}, "collectives": {}}
+    main = {}  # the sharded calls' launches, by counter
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        km.reset_launch_counts()
+        reset_collective_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c = km.launch_counts()
+        rep["launches"][name] = {k: v for k, v in c.items() if v}
+        rep["collectives"][name] = collective_counts()
+        for k, v in c.items():
+            main[k] = main.get(k, 0) + v
+        return out
+
+    rng = np.random.default_rng([seed, 31])
+    n, d, t, n_band = SHARD_N, SHARD_D, SHARD_T, SHARD_N // world
+    X = torch.from_numpy(rng.uniform(-1, 1, (n, d)).astype("float32")).to(dev)
+    y = torch.sin(3 * X[:, 0]) * torch.cos(2 * X[:, -1])
+    M = _randn(rng, (n, t), dev)
+    Mb = _randn(rng, (SHARD_B, n, t), dev)
+    kern = MaternKernel(torch.tensor(0.5, device=dev), torch.tensor(1.0, device=dev), nu=2.5)
+    op = KernelOperator(kern, X, mode="cuda_sharded", mesh=mesh).prepare()
+    Xs, s = op.Xs, kern.outputscale
+    rows = torch.from_numpy(np.sort(rng.choice(n, WITNESS_ROWS, replace=False))).to(dev)
+
+    # 1. K·M: B1, B2 (b = 4) and bf16 B1 / B2, one launch per rank each
+    prods = {
+        "B1": counted("B1", lambda: op.matmul(M)),
+        "B2": counted("B2", lambda: op.matmul(Mb)),
+        "B1_bf16": counted("B1_bf16", lambda: op.with_compute_dtype("bfloat16").matmul(M)),
+        "B2_bf16": counted("B2_bf16", lambda: op.with_compute_dtype("bfloat16").matmul(Mb)),
+    }
+    counter = {"B1": "launches", "B2": "batched_launches", "B1_bf16": "bf16_launches",
+               "B2_bf16": "bf16_batched_launches"}
+    for name, out in prods.items():
+        c = rep["launches"][name]
+        check(c.get(counter[name]) == 1 and sum(c.values()) == 1 + c.get("panel_launches", 0),
+              f"sharded {name}: {c} launches on rank {rank}, one expected")
+        g = rep["collectives"][name]
+        check(g["all_gathers"] == 1 and g["gathered_bytes"] == out.numel() * 4,
+              f"sharded {name}: {g}, one all-gather of the output expected")
+        rep["digests"][name] = _digest(out)
+    if lead:
+        for name, out in prods.items():
+            bf16 = name.endswith("bf16")
+            rhs = Mb if name.startswith("B2") else M
+            stream = ops.panel_matmul_prescaled(Xs, rhs, s, SHARD_ENGINE_PANEL,
+                                                kernel_type="matern52",
+                                                compute_dtype="bfloat16" if bf16 else "float32")
+            rep["digests"][name + "_stream"] = _digest(stream)
+            if bf16:
+                plain = kernel_matmul_plain(Xs[rows], Xs, rhs, s, 0.0, kernel_type="matern52",
+                                            compute_dtype="bfloat16")
+                rep["errs"][name + "_plain"] = _rel_max(out[..., rows, :], plain)
+                check(rep["errs"][name + "_plain"] <= SHARD_BF16_REL,
+                      f"sharded {name} vs its plain version: {rep['errs'][name + '_plain']}")
+                continue
+            single = ops.fused_kernel_matmul_prescaled(Xs, Xs, rhs, s, 0.0,
+                                                       kernel_type="matern52")
+            rep["errs"][name + "_cuda"] = _rel_max(out, single)
+            f64 = torch.stack([_rows_f64(Xs, r, rows, float(s), 0.0, "matern52")
+                               for r in rhs.reshape(-1, n, t)])
+            rep["errs"][name + "_f64"] = _rel_max(out.reshape(-1, n, t)[:, rows], f64)
+            check(rep["errs"][name + "_cuda"] <= SHARD_REL,
+                  f"sharded {name} vs mode=cuda: {rep['errs'][name + '_cuda']}")
+            check(rep["errs"][name + "_f64"] <= SHARD_F64_REL,
+                  f"sharded {name} rows vs float64: {rep['errs'][name + '_f64']}")
+        if world > 1:
+            for name in prods:
+                check(rep["digests"][name] == rep["digests"][name + "_stream"],
+                      f"world-{world} {name} is not the single-device panel stream at "
+                      f"{SHARD_ENGINE_PANEL} rows bit for bit")
+    rep["ms"]["matmul"] = time_ms(lambda: op.matmul(M), reps=10)
+    if lead:
+        cuda_op = KernelOperator(kern, X, mode="cuda").prepare()
+        rep["ms"]["matmul_cuda"] = time_ms(lambda: cuda_op.matmul(M), reps=10)
+
+    # 2. one fused step (B3, one launch per rank's band), f32 and bf16
+    state, scalars = _cg_inputs(rng, dev, 1, n, t)
+    state = [x[0] for x in state]
+    scalars = [x[0] for x in scalars]
+    sigma2 = torch.tensor(0.1, device=dev)
+    for name, dtype in (("B3", "float32"), ("B3_bf16", "bfloat16")):
+        step = AddedDiagOperator(op.with_compute_dtype(dtype), sigma2).fused_cg_step_fn()
+        got = counted(name, lambda: step(*state, *scalars))
+        c = rep["launches"][name]
+        key = "fused_launches" if dtype == "float32" else "bf16_fused_launches"
+        check(c.get(key) == 1, f"sharded {name} step: {c}, one launch per rank expected")
+        g = rep["collectives"][name]
+        check(g["all_gathers"] == 2, f"sharded {name} step: {g}, two all-gathers expected")
+        rep["digests"][name] = _digest(torch.stack(got[:4]))
+        if lead:
+            ref = ops.fused_cg_step_prescaled(Xs, *state, *scalars, s, sigma2,
+                                              kernel_type="matern52", compute_dtype=dtype)
+            st_tol, red_tol = ((FUSED_STATE_TOL, FUSED_RED_TOL) if dtype == "float32" else
+                               (dict(rtol=SHARD_BF16_REL, atol=SHARD_BF16_REL),) * 2)
+            for a, b in zip(got[:4], ref[:4]):
+                check(_within(a, b, st_tol), f"sharded {name} state vs single-device: "
+                      f"{_err(a, b)}")
+            for a, b in zip(got[4], ref[4]):
+                check(_within(a, b, red_tol), f"sharded {name} reductions vs single-device: "
+                      f"{_err(a, b)}")
+            rep["errs"][name] = max(_err(a, b) for a, b in zip(got[:4], ref[:4]))
+    step = AddedDiagOperator(op, sigma2).fused_cg_step_fn()
+    rep["ms"]["fused_step"] = time_ms(lambda: step(*state, *scalars), reps=10)
+    if lead:
+        rep["ms"]["fused_step_cuda"] = time_ms(
+            lambda: ops.fused_cg_step_prescaled(Xs, *state, *scalars, s, sigma2,
+                                                kernel_type="matern52"), reps=10)
+
+    # 3. the panel-fused engine, y + 8 probes, 25 iterations, panel = the
+    #    world-2 band: its solves and logdet bitwise across worlds
+    part = PartitionedKernelOperator(kern, X, panel_rows=SHARD_ENGINE_PANEL, backend="cuda",
+                                     mesh=mesh)
+    settings = BBMMSettings(num_probes=SHARD_T - 1, max_cg_iters=SHARD_ITERS, precond_rank=0,
+                            fuse_cg=True)
+    with collect() as reports:
+        st = counted("engine", lambda: engine_state(AddedDiagOperator(part, sigma2), y,
+                                                    _generator(seed), settings))
+    rep["engine_status"] = reports[-1].status
+    rep["digests"]["engine_solve"] = _digest(st.solve_y)
+    rep["digests"]["engine_probe_solves"] = _digest(st.probe_solves)
+    rep["engine_logdet"] = float(st.logdet)
+
+    # 4. the sharded pivoted Cholesky, rank 5
+    base = KernelOperator(kern, X, mode="cuda")
+    L = pivoted_cholesky_sharded(base, 5, mesh=mesh)
+    rep["digests"]["pivoted_cholesky"] = _digest(L)
+    if lead:
+        L_rep = pivoted_cholesky(base.row, base.diagonal(), 5)
+        rep["errs"]["pivoted_cholesky"] = float((L - L_rep).abs().max())
+        check(rep["errs"]["pivoted_cholesky"] <= SHARD_PC_TOL,
+              f"sharded pivoted Cholesky vs replicated: {rep['errs']['pivoted_cholesky']}")
+
+    # 5. ExactGP(mode="cuda_sharded"): a cache build (rank 5, factor built
+    #    sharded), a 1,024-point request, two fused Adam steps; the
+    #    5-iteration prefix against mode="cuda"
+    from repro_torch import params_from_jax
+
+    params = params_from_jax({"raw_lengthscale": np.float32(inv_softplus(0.5)),
+                              "raw_outputscale": np.float32(inv_softplus(1.0)),
+                              "raw_noise": np.float32(inv_softplus(0.1))}, device=dev)
+    Xq = torch.from_numpy(rng.uniform(-1, 1, (SHARD_REQUEST, d)).astype("float32")).to(dev)
+    with use_mesh(mesh):
+        gp = ExactGP(kernel_type="matern52", mode="cuda_sharded", device=dev,
+                     settings=BBMMSettings(num_probes=8, max_cg_iters=SHARD_ITERS,
+                                           precond_rank=5))
+        # cold (this process's first) and warm: a second build and request
+        for key in ("cache_build", "cache_build_warm"):
+            cache, _, rep["ms"][key] = timed(
+                lambda: counted(key, lambda: gp.posterior_cache(params, X, y)))
+        for key in ("request", "request_warm"):
+            (mean, var), _, rep["ms"][key] = timed(
+                lambda: counted(key, lambda: gp.predict_cached(params, X, cache, Xq)))
+        check(bool(torch.isfinite(mean).all() & (var > 0).all()),
+              "cuda_sharded request: non-finite mean or non-positive variance")
+        rep["digests"]["request_mean"] = _digest(mean)
+        train = ExactGP(kernel_type="matern52", mode="cuda_sharded", fuse_cg=True, device=dev,
+                        settings=BBMMSettings(num_probes=8, max_cg_iters=SHARD_ITERS,
+                                              precond_rank=0))
+        clock, step_ms = [0.0], []
+
+        def on_step(i, loss):
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - clock[0]) * 1e3)
+            clock[0] = time.perf_counter()
+
+        def fit():
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+            return train.fit(X, y, steps=SHARD_TRAIN_STEPS, generator=_generator(seed),
+                             callback=on_step)
+
+        fitted, history = counted("fit", fit)
+        rep["ms"]["fit_steps"] = step_ms  # the first this process's cold one
+        check(all(math.isfinite(v) for v in history), f"cuda_sharded fit: {history}")
+        rep["digests"]["fit_params"] = _digest(torch.cat([v.reshape(-1) for v in
+                                                          fitted.values()]))
+        rep["fit_history"] = history
+        prefix = BBMMSettings(num_probes=8, max_cg_iters=PREFIX_ITERS, cg_tol=1e-12,
+                              precond_rank=0)
+        pre = dataclasses.replace(train, settings=prefix)
+
+        def loss_and_grads(model):
+            p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+            loss = model.loss(p, X, y, _generator(seed))
+            loss.backward()
+            return float(loss), {k: v.grad for k, v in p.items()}
+
+        sharded_prefix = counted("prefix", lambda: loss_and_grads(pre))
+    if lead:
+        mll, grads = sharded_prefix
+        mll_c, grads_c = loss_and_grads(dataclasses.replace(pre, mode="cuda"))
+        rep["errs"]["exact_prefix_mll"] = abs(mll - mll_c) / abs(mll_c)
+        check(rep["errs"]["exact_prefix_mll"] <= SHARD_REL,
+              f"cuda_sharded prefix MLL {mll} vs cuda {mll_c}")
+        for k in grads:
+            check(_within(grads[k], grads_c[k], SHARD_GRAD_TOL),
+                  f"cuda_sharded prefix gradient {k}: {grads[k]} vs {grads_c[k]}")
+        rep["errs"]["exact_prefix_grad"] = max(_grad_rel(grads[k], grads_c[k]) for k in grads)
+
+    # 6. MultitaskGP(mode="cuda_sharded"), 10,000 locations x 4 tasks: one
+    #    step over the 5-iteration prefix against mode="cuda"
+    Xl, yl = _multitask_data(seed)[:2]
+    mt_settings = BBMMSettings(num_probes=MT_PROBES, max_cg_iters=PREFIX_ITERS, cg_tol=1e-12,
+                               precond_rank=0)
+
+    def mt_step(mode):
+        gp = MultitaskGP(num_tasks=MT_T, mode=mode, device=dev, settings=mt_settings)
+        data = gp.prepare_inputs(Xl)
+        p = {k: v.detach().clone().requires_grad_() for k, v in gp.init_params(Xl).items()}
+        loss = gp.loss(p, data, yl, _generator(seed))
+        loss.backward()
+        return float(loss), {k: v.grad for k, v in p.items()}
+
+    with use_mesh(mesh):
+        mt = counted("multitask", lambda: mt_step("cuda_sharded"))
+    if lead:
+        mt_c = mt_step("cuda")
+        rep["errs"]["multitask_mll"] = abs(mt[0] - mt_c[0]) / abs(mt_c[0])
+        check(rep["errs"]["multitask_mll"] <= MT_MLL_RTOL,
+              f"multitask cuda_sharded MLL {mt[0]} vs cuda {mt_c[0]}")
+        for k in mt[1]:
+            check(_within(mt[1][k], mt_c[1][k], MT_GRAD_TOL),
+                  f"multitask cuda_sharded gradient {k}")
+
+    # 7. the million recipe at n = 200,000: one panel-fused step, panel
+    #    100,000, bitwise across worlds
+    Xm, _ = _million_data(seed, SHARD_MILLION_N)
+    km_kern = RBFKernel(torch.tensor(0.25, device=dev), torch.tensor(1.0, device=dev))
+    mop = PartitionedKernelOperator(km_kern, Xm, panel_rows=SHARD_MILLION_PANEL, backend="cuda",
+                                    mesh=mesh)
+    mstep = AddedDiagOperator(mop, torch.tensor(1.0, device=dev)).fused_cg_step_fn()
+    mstate, mscalars = _cg_inputs(np.random.default_rng([seed, 32]), dev, 1, SHARD_MILLION_N, t)
+    mstate, mscalars = [x[0] for x in mstate], [x[0] for x in mscalars]
+    mout = counted("million_step", lambda: mstep(*mstate, *mscalars))
+    rep["digests"]["million_step"] = _digest(torch.stack(mout[:4]))
+    rep["digests"]["million_red"] = _digest(torch.stack(mout[4]))
+    rep["ms"]["million_step"] = time_ms(lambda: mstep(*mstate, *mscalars), reps=3)
+    check(all(bool(torch.isfinite(x).all()) for x in mout[:4]), "million step: non-finite state")
+    rep["main_launches"] = main
+    return rep
+
+
+def phase_sharded(km, seed):
+    """Multi-device BBMM (mode="cuda_sharded", the sharded fused step, the
+    sharded pivoted Cholesky, the band-sharded partitioned path) on a
+    world of one rank on NCCL and a world of two ranks on gloo, both on
+    this card (two ranks cannot share a card under NCCL): the checks in
+    ``_sharded_rank``, then across the worlds' reports: every rank of a
+    world the same bits, and world 2's panel-fused engine and million step
+    world 1's bit for bit.  Returns the main path's launches, summed over
+    every rank of both worlds."""
+    from repro_torch.distributed import spawn_world
+
+    reports = {}
+    for world, backend in SHARD_WORLDS:
+        t0 = time.perf_counter()
+        ranks = spawn_world(_sharded_rank, world, backend, args=(seed,),
+                            timeout=SHARD_WORLD_TIMEOUT_S)
+        for r in ranks[1:]:
+            for k, v in r["digests"].items():
+                check(ranks[0]["digests"].get(k, v) == v,
+                      f"world {world}: rank {r['rank']}'s {k} differs from rank 0's")
+            check(r["engine_status"] == ranks[0]["engine_status"]
+                  and r["engine_logdet"] == ranks[0]["engine_logdet"],
+                  f"world {world}: the ranks' engine status / logdet differ")
+        reports[world] = ranks
+        emit({"phase": "sharded", "world": world, "backend": backend, "card": CARD,
+              "seconds": time.perf_counter() - t0,
+              "ms": ranks[0]["ms"], "errs": ranks[0]["errs"],
+              "launches_per_rank": [r["launches"] for r in ranks],
+              "collectives_per_rank": [r["collectives"] for r in ranks],
+              "engine": {"status": ranks[0]["engine_status"],
+                         "logdet": ranks[0]["engine_logdet"]},
+              "fit_history": ranks[0]["fit_history"]})
+    one, two = reports[1][0], reports[2][0]
+    for key in ("engine_solve", "engine_probe_solves", "million_step", "million_red"):
+        check(one["digests"][key] == two["digests"][key],
+              f"sharded: world 2's {key} is not world 1's bit for bit")
+    check(one["engine_logdet"] == two["engine_logdet"],
+          f"sharded: engine logdet {two['engine_logdet']} (world 2) vs {one['engine_logdet']}")
+    check(one["engine_status"] == two["engine_status"], "sharded: engine status differs")
+    # B1 and B2 panels at the world-2 band in world 1 give world 2's bits
+    for name in ("B1", "B2", "B1_bf16", "B2_bf16"):
+        check(one["digests"][name + "_stream"] == two["digests"][name],
+              f"sharded: world 2's {name} is not world 1's panel stream bit for bit")
+    launches = {}
+    for ranks in reports.values():
+        for r in ranks:
+            for k, v in r["main_launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    emit({"phase": "sharded", "summary": True, "card": CARD, "main_launches": launches,
+          "ms": {f"world{w}": reports[w][0]["ms"] for w in reports},
+          "collective_bytes": {
+              f"world{w}": {k: reports[w][0]["collectives"][k]["gathered_bytes"]
+                            for k in ("B1", "B2", "B3")} for w in reports},
+          "note": "world 2 runs both ranks on this one card: its times measure overhead and "
+                  "correctness, not scaling"})
+    return launches
+
+
 def _streamed(streaming, key):
     """The new streaming / health phases' launches of one kernel."""
     return sum(r.get(key, 0) for r in streaming.values())
@@ -5129,6 +5525,10 @@ def main() -> int:
             ski_seconds[name] = time.perf_counter() - t_phase
             emit({"phase_wall_s": name, "seconds": ski_seconds[name]})
             torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        sharded = phase_sharded(km, args.seed)
+        sharded_seconds = time.perf_counter() - t_phase
+        emit({"phase_wall_s": "sharded", "seconds": sharded_seconds})
         phase_lm_parity(args.seed, PARITY_LAYERS, tol=LM_PARITY_TOL, decode=True)
         phase_lm_parity(args.seed, FULL_LAYERS, tol=None, decode=False)
         lm = phase_lm_serve(args.seed)
@@ -5168,6 +5568,7 @@ def main() -> int:
                   "example_ms_per_step": ski["ski_example"]["ms_per_step"],
                   "example_mae": ski["ski_example"]["mae"],
                   "gp_serve_ski_cached_qps": zoo["gp_serve_zoo"]["ski_cached_qps"]},
+          "sharded": {"seconds": sharded_seconds, "main_launches": sharded},
           "lm_serving": {"arch": "zamba2-7b", "prefill_ms": lm["prefill_ms"],
                          "prefill_warm_ms": lm["prefill_warm_ms"],
                          "decode_ms_per_token": lm["decode_ms_per_token"],
@@ -5183,30 +5584,33 @@ def main() -> int:
          launches + train["B1"] + serve_mixed["B1"] + train_mixed["B1"] + multi["B1"]
          + serve_part["B1"] + train_part["B1"] + million["B1"] + _streamed(streaming, "B1")
          + mt_launches["multitask"]["B1"] + mt_launches["multitask_mixed"]["B1"]
-         + zoo["gp_serve_zoo"]["B1"]),
+         + zoo["gp_serve_zoo"]["B1"] + sharded.get("launches", 0)),
         ("kernel_matmul batched (B2)", "B2", KERNEL_SOURCE,
-         "src/repro/kernels/kernel_matmul/kernel_matmul.py:199", batched + multi["B2"]),
+         "src/repro/kernels/kernel_matmul/kernel_matmul.py:199",
+         batched + multi["B2"] + sharded.get("batched_launches", 0)),
         ("fused_cg_step (B3)", "B3", FUSED_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:487",
          train["B3"] + multi["B3"] + train_part["B3"] + million["B3"]
-         + _streamed(streaming, "B3")),
+         + _streamed(streaming, "B3") + sharded.get("fused_launches", 0)),
         ("kernel_matmul_grad (port-only VJP, 1 launch per symmetric VJP or row panel)", "grad",
          GRAD_SOURCE, "src/repro/core/inference.py:641 (jax.vjp, no TPU kernel)",
          train["grad"] + train_mixed["grad"] + multi["grad"] + train_part["grad"]
          + mt_launches["multitask"]["grad"] + mt_launches["multitask_mixed"]["grad"]
-         + zoo["gp_serve_zoo"]["grad"]),
+         + zoo["gp_serve_zoo"]["grad"] + sharded.get("grad_launches", 0)),
         ("kernel_matmul bf16 (B1, precision=mixed)", "B1_bf16", KERNEL_BF16_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:298 (compute_dtype=bfloat16)",
          serve_mixed["B1_bf16"] + train_mixed["B1_bf16"] + multi["B1_bf16"]
          + train_part["B1_bf16"] + _streamed(streaming, "B1_bf16")
-         + mt_launches["multitask_mixed"]["B1_bf16"] + zoo["gp_serve_zoo"]["B1_bf16"]),
+         + mt_launches["multitask_mixed"]["B1_bf16"] + zoo["gp_serve_zoo"]["B1_bf16"]
+         + sharded.get("bf16_launches", 0)),
         ("kernel_matmul bf16 batched (B2, precision=mixed)", "B2_bf16", KERNEL_BF16_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:199 (compute_dtype=bfloat16)",
-         serve_mixed["B2_bf16"] + train_mixed["B2_bf16"] + multi["B2_bf16"]),
+         serve_mixed["B2_bf16"] + train_mixed["B2_bf16"] + multi["B2_bf16"]
+         + sharded.get("bf16_batched_launches", 0)),
         ("fused_cg_step bf16 (B3, precision=mixed)", "B3_bf16", FUSED_BF16_SOURCE,
          "src/repro/kernels/kernel_matmul/kernel_matmul.py:487 (compute_dtype=bfloat16)",
          train_mixed["B3_bf16"] + multi["B3_bf16"] + train_part["B3_bf16"]
-         + _streamed(streaming, "B3_bf16")),
+         + _streamed(streaming, "B3_bf16") + sharded.get("bf16_fused_launches", 0)),
         ("flash_attention (B4)", "B4", FLASH_SOURCE,
          "src/repro/kernels/flash_attention/flash_attention.py:83", lm["launches"]["B4"]),
         ("ssd_scan (B5, bf16 on the tensor-core route)", "B5", SSD_SOURCE,

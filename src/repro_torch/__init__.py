@@ -8,6 +8,11 @@ the same module layout and names, written in PyTorch's idiom, with every
 Pallas kernel on its path replaced by a hand-written CUDA kernel.  This
 package imports neither ``jax`` nor anything of ``repro``.
 
+Multi-device: ``mode="cuda_sharded"`` (and ``cuda_partitioned`` under a
+live mesh) shards the kernel's rows over a :class:`Mesh` of a
+``torch.distributed`` world, installed with :func:`use_mesh`
+(:mod:`repro_torch.distributed`).
+
 Entry points (the GP models, ``params_from_jax``, ``lm_params_from_jax``,
 ``launch.serve.build_server``) run on CUDA unless the caller passes
 ``device="cpu"``, and raise :class:`repro_torch.device.NoCudaDeviceError`
@@ -24,6 +29,7 @@ disable_tf32()
 
 from .convert import lm_params_from_jax, params_from_jax  # noqa: E402
 from .device import NoCudaDeviceError, resolve_device  # noqa: E402
+from .distributed import Mesh, make_mesh, use_mesh  # noqa: E402
 from .core import gaussian_kl, root_logdet  # noqa: E402
 from .gp import (  # noqa: E402
     SGPR,
@@ -42,11 +48,14 @@ __all__ = [
     "DKLExactGP",
     "ExactGP",
     "Grid",
+    "Mesh",
     "MultitaskGP",
     "NoCudaDeviceError",
     "gaussian_kl",
     "lm_params_from_jax",
+    "make_mesh",
     "params_from_jax",
     "resolve_device",
     "root_logdet",
+    "use_mesh",
 ]

@@ -1,9 +1,12 @@
 """BBMM core in PyTorch: mBCG (unfused and fused), pivoted-Cholesky
 preconditioning, SLQ log-dets, the differentiable MLL, the serving engine
 with its streaming cache updates, the variational KL, the solve-health
-ladder, the fault injection harness, and the operator algebra with SKI's
-structured operators (counterpart of ``repro.core``)."""
+ladder, the fault injection harness, the operator algebra with SKI's
+structured operators, and the row-sharded pieces of the multi-device path
+(the sharded pivoted Cholesky, :class:`ShardedKernelOperator`)
+(counterpart of ``repro.core``)."""
 
+from .distributed import ShardedKernelOperator
 from .health import (
     RungRecord,
     SolveFailure,
@@ -52,7 +55,11 @@ from .linear_operator import (
     tensor_leaves,
 )
 from .mbcg import CGStepFn, MBCGResult, mbcg, plain_cg_step, tridiag_matrices
-from .pivoted_cholesky import pivoted_cholesky, pivoted_cholesky_dense
+from .pivoted_cholesky import (
+    pivoted_cholesky,
+    pivoted_cholesky_dense,
+    pivoted_cholesky_sharded,
+)
 from .precision import normalize_compute_dtype, precision_compute_dtype, validate_precision
 from .preconditioner import (
     IdentityPreconditioner,

@@ -47,6 +47,7 @@ posterior cache's Gram product stay f32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -57,6 +58,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import obs
+from repro_torch.distributed.sharding import current_mesh, use_mesh
 from repro_torch.kernels.build import KernelBuildError, KernelLaunchError
 
 from . import health
@@ -845,12 +847,17 @@ class _InvQuadLogdet(torch.autograd.Function):
     d_y = 2·g_iq·u.  Batched, the cotangents broadcast over (n, t) per
     batch element, and the product is (b, n, t + 1) — through a shared
     kernel operator on the GPU one B2 launch, its VJP one gradient-kernel
-    launch over the batch folded into columns."""
+    launch over the batch folded into columns.
+
+    The forward's ambient mesh (:func:`repro_torch.distributed.use_mesh`)
+    is installed again around the backward's product: autograd runs the
+    backward of CUDA tensors on a thread of its own, where the caller's
+    thread-local mesh is not seen."""
 
     @staticmethod
     def forward(ctx, op, generator, settings, y, *leaves):
         state = _engine_forward(op, y, generator, settings)
-        ctx.op = op
+        ctx.op, ctx.mesh = op, current_mesh()
         ctx.save_for_backward(state.solve_y, state.probe_solves, state.precond_probes)
         return state.inv_quad, state.logdet
 
@@ -868,7 +875,8 @@ class _InvQuadLogdet(torch.autograd.Function):
         if wanted:
             rhs = torch.cat([u[..., None], probe_solves], dim=-1)
             cot = torch.cat([-g_iq * u[..., None], (g_ld / t) * pinv_z], dim=-1)
-            with torch.enable_grad():
+            ambient = use_mesh(ctx.mesh) if ctx.mesh is not None else contextlib.nullcontext()
+            with torch.enable_grad(), ambient:
                 op = replace_tensor_leaves(ctx.op, leaves)
                 out = op.prepare().matmul(rhs)
                 got = torch.autograd.grad(

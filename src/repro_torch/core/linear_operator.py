@@ -43,6 +43,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import obs
+from repro_torch.distributed.sharding import all_gather_rows, current_mesh, ordered_psum, row_band
 
 from .precision import is_reduced, normalize_compute_dtype
 
@@ -1068,7 +1069,9 @@ class PanelLaunch:
     iteration of a partitioned solve records its own — where the
     reference, which traces, records one per traced matmul (a matmul in a
     CG scan traced once).  The memory contract it carries: no panel is the
-    full height, ``panel_rows < n``."""
+    full height, ``panel_rows < n``.  Sharded over ``devices`` row bands,
+    ``num_panels`` counts every band's panels (each rank launches its
+    own)."""
 
     n: int
     rhs_cols: int
@@ -1076,6 +1079,8 @@ class PanelLaunch:
     panel_rows: int
     num_panels: int
     backend: str
+    sharded: bool = False
+    devices: int = 1
     itemsize: int = 4
     #: True for a panel-fused CG step (one fused launch per panel per
     #: iteration), False for a streamed matmul
@@ -1125,7 +1130,7 @@ def _record_panels(launch: PanelLaunch) -> None:
         sink.append(launch)
     if obs.active() is not None:
         labels = dict(backend=launch.backend, fused=str(launch.fused).lower(),
-                      sharded="false")
+                      sharded=str(launch.sharded).lower())
         obs.inc("panel_matmuls_traced_total", **labels)
         obs.inc("panel_launches_traced_total", launch.num_panels, **labels)
         obs.inc("panel_bytes_streamed_total", launch.panel_bytes * launch.num_panels, **labels)
@@ -1135,7 +1140,7 @@ def _record_panels(launch: PanelLaunch) -> None:
         # a record per call: the span marks the launch, not a wall time
         col.add_complete("panel_launch", col.now_us(), 0.0, {
             "n": launch.n, "panel_rows": launch.panel_rows, "num_panels": launch.num_panels,
-            "backend": launch.backend, "fused": launch.fused, "sharded": False,
+            "backend": launch.backend, "fused": launch.fused, "sharded": launch.sharded,
         })
 
 
@@ -1165,32 +1170,53 @@ def _torch_panel_matmul(kernel, X_rows, X_cols, M, panel_rows, *, compute_dtype)
     return torch.cat(outs, dim=-2)
 
 
+def _new_direction(R, D, V, alpha, beta, gamma):
+    """This iteration's direction D₂ = γ∘(R − α∘V) + β∘D from the
+    pre-update state (every row's, for the column side of a band)."""
+    a = alpha[..., None, :]
+    return gamma[..., None, :] * (R - a * V) + beta[..., None, :] * D
+
+
 def _torch_panel_fused_step(kernel, X, U, R, D, V, alpha, beta, gamma, sigma2, panel_rows, *,
                             compute_dtype):
     """One CG iteration of K̂ = K(X, X) + σ²I streamed one (panel_rows × n)
     slab at a time with plain torch operations — the twin of
     :func:`repro_torch.kernels.kernel_matmul.ops.panel_fused_cg_step_prescaled`
-    and of the reference's ``_xla_panel_fused_step``.
+    and of the reference's ``_xla_panel_fused_step``: the band
+    (:func:`_torch_band_fused_step`) is every row."""
+    return _torch_band_fused_step(kernel, X, X, U, R, D, V, _new_direction(R, D, V, alpha, beta,
+                                                                           gamma),
+                                  alpha, beta, gamma, sigma2, panel_rows,
+                                  compute_dtype=compute_dtype)
+
+
+def _torch_band_fused_step(kernel, X_band, X_cols, U, R, D, V, D2_cols, alpha, beta, gamma,
+                           sigma2, panel_rows, *, compute_dtype):
+    """One CG iteration over a contiguous row band (U, R, D, V its rows),
+    streamed one (panel_rows × n) slab at a time with plain torch
+    operations — the reference's ``_xla_band_fused_step``.
 
     The pending updates U += α∘D, R −= α∘V and the direction D₂ = γ∘R₂ +
-    β∘D are elementwise; V₂ = K̂·D₂ takes one slab per panel against the
-    full new direction; the [dᵀV; rᵀr; rᵀV; vᵀV] partials are summed over
-    each panel's rows and folded in panel order from zeros.  A last panel
-    that does not divide runs at its own height.  Not checkpointed: MLL
-    gradients go through the matmul, never through the fused step."""
+    β∘D are elementwise over the band's rows; V₂ = K̂·D₂ takes one slab per
+    panel against ``D2_cols``, the full new direction; the [dᵀV; rᵀr; rᵀV;
+    vᵀV] partials are summed over each panel's rows and folded in panel
+    order from zeros.  A last panel that does not divide runs at its own
+    height.  Not checkpointed: MLL gradients go through the matmul, never
+    through the fused step."""
     reduced = is_reduced(normalize_compute_dtype(compute_dtype))
     a, b, g = (s[..., None, :] for s in (alpha, beta, gamma))
     U2 = U + a * D
     R2 = R - a * V
     D2 = g * R2 + b * D
-    Mc = D2.to(torch.float32)
+    Mc = D2_cols.to(torch.float32)
     s2 = torch.as_tensor(sigma2, dtype=torch.float32, device=U.device)
     red = [torch.zeros(U.shape[:-2] + U.shape[-1:], dtype=torch.float32, device=U.device)
            for _ in range(4)]
     Vs = []
-    p = max(1, min(int(panel_rows), X.shape[0]))
-    for s in _panel_starts(X.shape[0], p):
-        tile = kernel(X[s : s + p], X).to(torch.float32)
+    rows = X_band.shape[0]
+    p = max(1, min(int(panel_rows), rows))
+    for s in _panel_starts(rows, p):
+        tile = kernel(X_band[s : s + p], X_cols).to(torch.float32)
         D2p, R2p = D2[..., s : s + p, :], R2[..., s : s + p, :]
         V2p = (_mixed_matmul(tile, Mc) if reduced else tile @ Mc) + s2 * D2p
         parts = ((D2p * V2p).sum(-2), (R2p * R2p).sum(-2), (R2p * V2p).sum(-2),
@@ -1198,6 +1224,48 @@ def _torch_panel_fused_step(kernel, X, U, R, D, V, alpha, beta, gamma, sigma2, p
         red = [r + q for r, q in zip(red, parts)]
         Vs.append(V2p)
     return U2, R2, D2, torch.cat(Vs, dim=-2), tuple(red)
+
+
+class _ShardedBandMatmulFn(torch.autograd.Function):
+    """The full product from this rank's row band of it, with a
+    band-sharded backward (the reference's ``_sharded_partitioned_matmul``
+    custom VJP, for products evaluated by plain torch operations).
+
+    ``band_fn(M, leaves)`` gives rows ``[start, stop)`` of the product from
+    the right-hand side and the tensors it is differentiable in (X, the
+    kernel's hyperparameters).  Forward: the band, without a graph, and one
+    all-gather of the rows.  Backward: the cotangent is the full one, the
+    same on every rank; each rank recomputes its band with a graph
+    (checkpointed panels re-stream one slab at a time) and takes the
+    vector-Jacobian product at its rows of the cotangent, and every
+    gradient — the sum over the bands — is folded across ranks with
+    :func:`repro_torch.distributed.sharding.ordered_psum`."""
+
+    @staticmethod
+    def forward(ctx, band_fn, band, mesh, axes, M, *leaves):
+        ctx.band_fn, ctx.band, ctx.mesh, ctx.axes = band_fn, band, mesh, axes
+        ctx.save_for_backward(M, *leaves)
+        with torch.no_grad():
+            return all_gather_rows(band_fn(M, list(leaves)), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, C):
+        need = ctx.needs_input_grad[4:]
+        inputs = [x.detach().requires_grad_(nd) for x, nd in zip(ctx.saved_tensors, need)]
+        wanted = [x for x in inputs if x.requires_grad]
+        grads = [None] * len(inputs)
+        if wanted:
+            start, stop = ctx.band
+            with torch.enable_grad():
+                out = ctx.band_fn(inputs[0], inputs[1:])
+                got = torch.autograd.grad(out, wanted, C[..., start:stop, :], allow_unused=True)
+            it = iter(got)
+            for i, x in enumerate(inputs):
+                if x.requires_grad:
+                    g = next(it)
+                    grads[i] = ordered_psum(torch.zeros_like(x) if g is None else g,
+                                            ctx.mesh, ctx.axes)
+        return (None, None, None, None, *grads)
 
 
 class _PartitionedMatmulFn(torch.autograd.Function):
@@ -1265,8 +1333,20 @@ class PartitionedKernelOperator(LinearOperator):
       * ``"auto"``  — ``"cuda"`` for a CUDA X, ``"torch"`` otherwise.
 
     ``row()`` / ``diagonal()`` are exact O(n·d) primitives for the
-    pivoted-Cholesky preconditioner.  Single-device only: the reference's
-    ``data_axes`` / ``mesh`` sharding is ROADMAP Queue A step 16."""
+    pivoted-Cholesky preconditioner.
+
+    Multi-device: when ``data_axes`` names axes of a mesh (the ``mesh``
+    field, else the ambient :func:`repro_torch.distributed.use_mesh`), each
+    rank streams the panels of its own row band ``[i·n/S, (i+1)·n/S)`` at
+    their global ``row_offset`` and the bands are all-gathered (every rank
+    passes and gets the full operands).  The backward is band-sharded
+    (each rank re-streams its band's gradient panels; the cuda backend
+    through :class:`repro_torch.kernels.kernel_matmul.ops.ShardedMatmulFn`,
+    the torch one through :class:`_ShardedBandMatmulFn`), and the
+    panel-fused step folds its reductions across bands with
+    ``ordered_psum``, so with one panel per band a sharded fused solve is
+    the single-device one bit for bit.  An n the bands do not divide runs
+    single-device, with a warning; ``data_axes=()`` never shards."""
 
     kernel: Any  # stationary kernel (RBF / Matérn: __call__ and diag)
     X: torch.Tensor  # (n, d) raw inputs
@@ -1275,6 +1355,8 @@ class PartitionedKernelOperator(LinearOperator):
     panel_rows: int = 0  # 0 → the backend's default (cuda) or the budget chooser
     panel_budget_bytes: int = 0  # 0 → ops.PANEL_BUDGET_BYTES
     backend: str = "auto"  # auto | cuda | torch
+    data_axes: tuple = ("data",)  # mesh axes the rows are sharded over
+    mesh: Any = None  # explicit mesh (else the ambient one)
     compute_dtype: str = "float32"
 
     def __post_init__(self):
@@ -1326,11 +1408,36 @@ class PartitionedKernelOperator(LinearOperator):
             )
         return max(1, min(p, n))
 
-    def _record(self, rhs_cols, batch, p, fused):
+    def _live_mesh(self):
+        """The mesh this operator shards over, or None (single-device)."""
+        if self.mesh is not None:
+            return self.mesh
+        if not self.data_axes:
+            return None
+        mesh = current_mesh()
+        if mesh is None or any(a not in mesh.axis_names for a in self.data_axes):
+            return None
+        return mesh
+
+    def _sharding(self, what: str):
+        """(mesh, shards) for this call: (None, 1) single-device, also —
+        with one warning per operator — when the shards do not divide n."""
+        mesh = self._live_mesh()
+        shards = 1 if mesh is None else mesh.num_shards(tuple(self.data_axes))
+        n = self.shape[0]
+        if shards > 1 and n % shards:
+            _warn_once_per_op(self, f"partitioned_indivisible_{what}",
+                              f"partitioned {what}: n={n} not divisible by {shards} row "
+                              "shards; running single-device")
+            return None, 1
+        return (mesh, shards) if shards > 1 else (None, 1)
+
+    def _record(self, rhs_cols, batch, p, fused, shards=1):
         n = self.shape[0]
         _record_panels(PanelLaunch(
-            n=n, rhs_cols=rhs_cols, batch=batch, panel_rows=p, num_panels=-(-n // p),
-            backend=self.resolved_backend, itemsize=self._itemsize, fused=fused,
+            n=n, rhs_cols=rhs_cols, batch=batch, panel_rows=p,
+            num_panels=shards * -(-(n // shards) // p), backend=self.resolved_backend,
+            sharded=shards > 1, devices=shards, itemsize=self._itemsize, fused=fused,
         ))
 
     def matmul(self, M):
@@ -1339,9 +1446,10 @@ class PartitionedKernelOperator(LinearOperator):
             M = M[:, None]
         op = self._ready()
         n = op.shape[0]
-        p = op.panel_rows_for(n)
-        op._record(M.shape[-1], _batch_size(M), p, False)
-        out = op._forward_matmul(M, p)
+        mesh, shards = op._sharding("matmul")
+        p = min(op.panel_rows_for(n), n // shards)
+        op._record(M.shape[-1], _batch_size(M), p, False, shards)
+        out = op._forward_matmul(M, p, mesh)
         return out[..., 0] if squeeze else out
 
     def _ready(self) -> "PartitionedKernelOperator":
@@ -1349,7 +1457,9 @@ class PartitionedKernelOperator(LinearOperator):
             return self.prepare()
         return self
 
-    def _forward_matmul(self, M, p):
+    def _forward_matmul(self, M, p, mesh=None):
+        if mesh is not None:
+            return self._sharded_matmul(M, p, mesh)
         if self.resolved_backend == "torch":
             return _torch_panel_matmul(self.kernel, self.X, self.X, M, p,
                                        compute_dtype=self.compute_dtype)
@@ -1366,6 +1476,27 @@ class PartitionedKernelOperator(LinearOperator):
                 )
         s = torch.as_tensor(self.kernel.outputscale, dtype=torch.float32, device=M.device)
         return _PartitionedMatmulFn.apply(self.Xs, M, s.reshape(()), p, self.kernel_type)
+
+    def _sharded_matmul(self, M, p, mesh):
+        """The band-sharded panel stream over ``mesh`` (the reference's
+        ``_sharded_panel_matmul`` with its band-sharded VJP)."""
+        axes = tuple(self.data_axes)
+        if self.resolved_backend == "cuda":
+            from repro_torch.kernels.kernel_matmul.ops import sharded_kernel_matmul_prescaled
+
+            return sharded_kernel_matmul_prescaled(
+                self.Xs, M, self.kernel.outputscale, mesh, axes, panel_rows=p,
+                kernel_type=self.kernel_type, compute_dtype=self.compute_dtype,
+            )
+        start, stop = row_band(self.shape[0], mesh, axes)
+        kernel, compute_dtype = self.kernel, self.compute_dtype
+
+        def band_fn(m, leaves):
+            X, kern = leaves[0], replace_tensor_leaves(kernel, leaves[1:])
+            return _torch_panel_matmul(kern, X[start:stop], X, m, p, compute_dtype=compute_dtype)
+
+        return _ShardedBandMatmulFn.apply(band_fn, (start, stop), mesh, axes, M, self.X,
+                                          *tensor_leaves(kernel))
 
     def diagonal(self):
         return self.kernel.diag(self.X).to(torch.float32)
@@ -1400,7 +1531,12 @@ class PartitionedKernelOperator(LinearOperator):
         column state is the full pre-update R, D, V for every panel), the
         [dᵀV; rᵀr; rᵀV; vᵀV] reductions folded across panels in panel
         order.  A batched σ² has no scalar tile term: one warning per
-        operator, then None (the unfused streamed loop)."""
+        operator, then None (the unfused streamed loop).
+
+        Sharded, each rank streams its own band through the fused step
+        (panels no taller than the band) and the reductions are folded
+        across bands in shard order: with one panel per band the result is
+        the single-device step's, bit for bit."""
         s2 = torch.zeros((), device=self.X.device) if sigma2 is None else torch.as_tensor(sigma2)
         if s2.dim():
             _warn_once_per_op(
@@ -1413,11 +1549,22 @@ class PartitionedKernelOperator(LinearOperator):
             return None
         op = self._ready()
         n = op.shape[0]
+        mesh, shards = op._sharding("fused step")
 
         def step(U, R, D, V, alpha, beta, gamma):
             t, b = U.shape[-1], _batch_size(U)
-            p = op.panel_rows_for(n, rhs_cols=t, batch=b, fused=True)
-            op._record(t, b, p, True)
+            p = min(op.panel_rows_for(n, rhs_cols=t, batch=b, fused=True), n // shards)
+            op._record(t, b, p, True, shards)
+            if mesh is not None and op.resolved_backend == "torch":
+                return _sharded_torch_fused_step(op, U, R, D, V, alpha, beta, gamma, s2, p, mesh)
+            if mesh is not None:
+                from repro_torch.kernels.kernel_matmul.ops import sharded_fused_cg_step_prescaled
+
+                return sharded_fused_cg_step_prescaled(
+                    op.Xs, U, R, D, V, alpha, beta, gamma, op.kernel.outputscale, s2, mesh,
+                    op.data_axes, panel_rows=p, kernel_type=op.kernel_type,
+                    compute_dtype=op.compute_dtype,
+                )
             if op.resolved_backend == "torch":
                 return _torch_panel_fused_step(op.kernel, op.X, U, R, D, V, alpha, beta, gamma,
                                                s2, p, compute_dtype=op.compute_dtype)
@@ -1429,6 +1576,24 @@ class PartitionedKernelOperator(LinearOperator):
             )
 
         return step
+
+
+def _sharded_torch_fused_step(op, U, R, D, V, alpha, beta, gamma, sigma2, p, mesh):
+    """The torch backend's panel-fused step over ``mesh``: the full new
+    direction from the (global) pre-update state, this rank's band through
+    :func:`_torch_band_fused_step`, the four updated bands all-gathered and
+    the (…, 4, t) partials folded in shard order (the reference's
+    ``_sharded_xla_panel_fused_step``)."""
+    axes = tuple(op.data_axes)
+    start, stop = row_band(op.shape[0], mesh, axes)
+    bands = [x[..., start:stop, :] for x in (U, R, D, V)]
+    *state, red = _torch_band_fused_step(
+        op.kernel, op.X[start:stop], op.X, *bands, _new_direction(R, D, V, alpha, beta, gamma),
+        alpha, beta, gamma, sigma2, p, compute_dtype=op.compute_dtype,
+    )
+    red = ordered_psum(torch.stack(red, dim=-2), mesh, axes)
+    Un, Rn, Dn, Vn = all_gather_rows(torch.stack(state), mesh, axes).unbind(0)
+    return Un, Rn, Dn, Vn, tuple(red[..., k, :] for k in range(4))
 
 
 def _batch_size(M: torch.Tensor) -> int:

@@ -1,5 +1,5 @@
 """Pivoted-Cholesky preconditioner P̂ = L_k L_kᵀ + σ²I (counterpart of
-``repro.core.preconditioner``, single-device generic path).
+``repro.core.preconditioner``).
 
 All three operations the paper requires of a GP preconditioner are O(n·k²):
 
@@ -17,7 +17,9 @@ iterations whatever the requested rank.  A batched base
 (:class:`BatchDenseOperator`, the multi-restart path) gets
 one factor per batch element, L (b, n, k) with σ² (b,); the Rademacher
 draws are shared across the batch, so a batched run uses the same
-randomness as a loop of single runs from the same generator.
+randomness as a loop of single runs from the same generator.  Under an
+ambient mesh whose data axes divide n, the generic factor is built
+row-sharded (:func:`pivoted_cholesky_sharded`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed.sharding import batch_axes, current_mesh
+
 from .linear_operator import (
     AddedDiagOperator,
     BatchDenseOperator,
@@ -33,7 +37,20 @@ from .linear_operator import (
     LinearOperator,
     LowRankRootOperator,
 )
-from .pivoted_cholesky import pivoted_cholesky
+from .pivoted_cholesky import pivoted_cholesky, pivoted_cholesky_sharded
+
+
+def _precond_shard_axes(n: int) -> tuple:
+    """The ambient mesh's data axes to row-shard the pivoted-Cholesky build
+    over — () when there is no mesh, no data axis, one shard, or an n the
+    shards do not divide (the build then stays replicated: correctness
+    never depends on the sharding)."""
+    mesh = current_mesh()
+    axes = batch_axes()
+    if mesh is None or not axes:
+        return ()
+    shards = mesh.num_shards(axes)
+    return axes if shards > 1 and n % shards == 0 else ()
 
 
 def _rademacher(generator: torch.Generator, shape, dtype, device) -> torch.Tensor:
@@ -116,13 +133,20 @@ class IdentityPreconditioner:
         return torch.sum(Z * Z, dim=-2)
 
 
-def build_preconditioner(op: LinearOperator, rank: int, *, jitter: float = 1e-8):
+def build_preconditioner(op: LinearOperator, rank: int, *, jitter: float = 1e-8,
+                         shard: bool | None = None):
     """Build P̂ from an AddedDiagOperator K̂ = K + σ²I.
 
     The low-rank factor approximates the *base* kernel K from its rows and
     diagonal; a :class:`BatchDenseOperator` base gets one factor per batch
     element.  The preconditioner is a constant to autograd (built under
-    ``no_grad``): gradient estimators stay unbiased for any fixed P̂."""
+    ``no_grad``): gradient estimators stay unbiased for any fixed P̂.
+
+    Under an ambient mesh whose data axes divide n, the generic path builds
+    the factor row-sharded (:func:`pivoted_cholesky_sharded`; every rank
+    gets the full L).  ``shard=False`` forces the replicated build;
+    ``shard=True`` requires the sharded one and raises ``ValueError``
+    without such a mesh."""
     if rank <= 0:
         return IdentityPreconditioner(device=op.device)
     if isinstance(op, KroneckerAddedDiagOperator):
@@ -147,6 +171,13 @@ def build_preconditioner(op: LinearOperator, rank: int, *, jitter: float = 1e-8)
             L = torch.stack([pivoted_cholesky(K.__getitem__, dg, rank, jitter=jitter)
                              for K, dg in zip(base.matrices, base.diagonal())])
         else:
-            L = pivoted_cholesky(base.row, base.diagonal(), rank, jitter=jitter)
+            axes = _precond_shard_axes(base.shape[0]) if shard in (None, True) else ()
+            if shard is True and not axes:
+                raise ValueError("shard=True but no ambient mesh's data axes evenly divide "
+                                 f"n={base.shape[0]}")
+            if axes:
+                L = pivoted_cholesky_sharded(base, rank, jitter=jitter, axes=axes)
+            else:
+                L = pivoted_cholesky(base.row, base.diagonal(), rank, jitter=jitter)
         sigma2 = torch.as_tensor(op.sigma2, dtype=L.dtype, device=L.device)
         return PivotedCholeskyPreconditioner.build(L, sigma2.detach())

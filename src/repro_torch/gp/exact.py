@@ -22,6 +22,13 @@ loop's kernels with bf16 operands and f32 residual refreshes, the served
 mean with bf16 operands; the gradient stays f32.  ``mode="cuda_partitioned"``
 streams K one row-panel at a time (``settings.panel_rows`` /
 ``panel_budget_bytes``; ``panel_backend`` "auto" | "cuda" | "torch").
+``mode="cuda_sharded"`` (the reference's ``pallas_sharded``) shards the
+kernel's rows over the ambient :func:`repro_torch.distributed.use_mesh`
+mesh: every rank of the world calls ``loss`` / ``fit`` / ``posterior_cache``
+with the same data and parameters, launches on its own row band and
+gathers the rest, so every rank holds the same bits (``fuse_cg=True``: the
+sharded B3 step); under a live mesh ``cuda_partitioned`` shards its panel
+stream the same way.
 """
 
 from __future__ import annotations
@@ -64,7 +71,7 @@ KERNELS = {
 @dataclasses.dataclass
 class ExactGP(KrylovCachePredictor):
     kernel_type: str = "rbf"
-    # the blackbox matmul: dense | blocked | cuda | cuda_partitioned
+    # the blackbox matmul: dense | blocked | cuda | cuda_partitioned | cuda_sharded
     mode: str = "dense"
     block_size: int = 512
     panel_backend: str = "auto"  # cuda_partitioned: auto | cuda | torch
@@ -78,7 +85,7 @@ class ExactGP(KrylovCachePredictor):
     # ``settings.precision`` is what the engine reads either way.
     precision: str | None = None
     # fused-CG knob: True runs each mBCG iteration as ONE fused kernel launch
-    # where the operator has one (mode="cuda"; dense/blocked keep the
+    # where the operator has one (the cuda modes; dense/blocked keep the
     # unfused loop).  Requires precond_rank=0 (mbcg raises otherwise).  None
     # follows ``settings.fuse_cg``; an explicit value wins.
     fuse_cg: bool | None = None

@@ -17,8 +17,14 @@ materialization strategy:
                   ``pallas_partitioned``.  ``panel_backend`` picks the
                   kernels ("cuda") or plain torch panels ("torch"; the
                   reference's "xla"); "auto" follows X's device.
+  * ``cuda_sharded`` — the ``cuda`` kernels with the rows sharded over a
+                  :class:`repro_torch.distributed.Mesh` (the ``mesh`` field,
+                  else the ambient :func:`~repro_torch.distributed.use_mesh`;
+                  none raises ``ValueError``): each rank launches on its row
+                  band over the ``data_axes`` and the bands are
+                  all-gathered; the reference's ``pallas_sharded``.
 
-All four are numerically interchangeable; the tests assert it.
+All five are numerically interchangeable; the tests assert it.
 
 ``compute_dtype`` ('float32' | 'bfloat16', or the 'highest' / 'mixed'
 aliases; :mod:`repro_torch.core.precision`) selects the operands of the
@@ -39,14 +45,9 @@ import torch
 
 from repro_torch.core.linear_operator import LinearOperator, _mixed_matmul
 from repro_torch.core.precision import is_reduced, normalize_compute_dtype
+from repro_torch.distributed.sharding import current_mesh
 
-MODES = ("dense", "blocked", "cuda", "cuda_partitioned")
-
-# reference modes that have no counterpart yet, and the ROADMAP step that
-# brings each
-_UNPORTED_MODES = {
-    "pallas_sharded": "ROADMAP Queue A step 16 (multi-device)",
-}
+MODES = ("dense", "blocked", "cuda", "cuda_partitioned", "cuda_sharded")
 
 
 def sq_dist(X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
@@ -128,8 +129,10 @@ class KernelOperator(LinearOperator):
 
     kernel: object
     X: torch.Tensor  # (n, d)
-    mode: str = "dense"  # dense | blocked | cuda | cuda_partitioned
+    mode: str = "dense"  # dense | blocked | cuda | cuda_partitioned | cuda_sharded
     block_size: int = 512
+    data_axes: tuple = ("data",)  # cuda_sharded / cuda_partitioned: the row-sharding axes
+    mesh: object = None  # explicit mesh (else the ambient one)
     compute_dtype: str = "float32"  # the product's operands (module docstring)
     # cuda_partitioned knobs (see core.PartitionedKernelOperator):
     panel_rows: int = 0  # 0 → the backend's default height
@@ -137,11 +140,6 @@ class KernelOperator(LinearOperator):
     panel_backend: str = "auto"  # auto | cuda | torch
 
     def __post_init__(self):
-        if self.mode in _UNPORTED_MODES:
-            raise NotImplementedError(
-                f"KernelOperator mode {self.mode!r} is not ported yet: "
-                f"{_UNPORTED_MODES[self.mode]}"
-            )
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
 
@@ -173,13 +171,14 @@ class KernelOperator(LinearOperator):
     def prepare(self):
         """Hoist the lengthscale pre-scaling out of the CG loop (cuda mode):
         returns an operator whose per-iteration matmul consumes the already
-        scaled X.  ``cuda_partitioned`` prepares into the streaming
+        scaled X (``cuda_sharded``: and the resolved mesh).
+        ``cuda_partitioned`` prepares into the streaming
         :class:`repro_torch.core.PartitionedKernelOperator`.  Other modes
         are returned as they are.  Under grad mode the scaled X keeps its
         graph, so the matmul's gradient reaches the lengthscale."""
         if self.mode == "cuda_partitioned":
             return self._partitioned().prepare()
-        if self.mode != "cuda":
+        if self.mode not in ("cuda", "cuda_sharded"):
             return self
         from repro_torch.kernels.kernel_matmul.ops import (
             prescale_inputs,
@@ -187,13 +186,29 @@ class KernelOperator(LinearOperator):
         )
 
         kernel_type = stationary_kernel_type(self.kernel)  # a deep kernel raises here
-        return PreparedKernelOperator(
+        extra = {}
+        cls = PreparedKernelOperator
+        if self.mode == "cuda_sharded":
+            cls = PreparedShardedKernelOperator
+            extra = {"data_axes": tuple(self.data_axes), "mesh": self._mesh()}
+        return cls(
             kernel=self.kernel,
             X=self.X,
             Xs=prescale_inputs(self.X, self.kernel.lengthscale, self.compute_dtype),
             kernel_type=kernel_type,
             compute_dtype=self.compute_dtype,
+            **extra,
         )
+
+    def _mesh(self):
+        """The mesh ``cuda_sharded`` shards over: the field, else the
+        ambient one; neither raises."""
+        if self.mesh is not None:
+            return self.mesh
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError("cuda_sharded needs a mesh (the mesh field or use_mesh)")
+        return mesh
 
     def with_compute_dtype(self, compute_dtype):
         return dataclasses.replace(self, compute_dtype=normalize_compute_dtype(compute_dtype))
@@ -212,18 +227,20 @@ class KernelOperator(LinearOperator):
             panel_rows=self.panel_rows,
             panel_budget_bytes=self.panel_budget_bytes,
             backend=self.panel_backend,
+            data_axes=tuple(self.data_axes),
+            mesh=self.mesh,
             compute_dtype=self.compute_dtype,
         )
 
     def fused_cg_step_fn(self, sigma2=None):
-        """Fused CG capability: cuda mode delegates to its prepared form (the
-        engine prepares before the loop anyway), ``cuda_partitioned`` to
-        the panel-fused step (one fused launch per row-panel per
-        iteration); dense and blocked have none and keep the unfused
-        loop."""
+        """Fused CG capability: the cuda modes delegate to their prepared
+        form (the engine prepares before the loop anyway),
+        ``cuda_partitioned`` to the panel-fused step (one fused launch per
+        row-panel per iteration); dense and blocked have none and keep the
+        unfused loop."""
         if self.mode == "cuda_partitioned":
             return self._partitioned().fused_cg_step_fn(sigma2=sigma2)
-        if self.mode != "cuda":
+        if self.mode not in ("cuda", "cuda_sharded"):
             return None
         return self.prepare().fused_cg_step_fn(sigma2=sigma2)
 
@@ -305,6 +322,74 @@ class PreparedKernelOperator(LinearOperator):
             return fused_cg_step_prescaled(
                 Xs, U, R, D, V, alpha, beta, gamma, outputscale, s2, kernel_type=kernel_type,
                 compute_dtype=compute_dtype,
+            )
+
+        return step
+
+    def row(self, i):
+        return self.kernel(self.X[i][None, :], self.X)[0]
+
+    def diagonal(self):
+        return self.kernel.diag(self.X)
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedShardedKernelOperator(LinearOperator):
+    """KernelOperator(mode='cuda_sharded') after ``prepare()``: pre-scaled X
+    and a resolved mesh, so the CG loop's per-iteration matmul is one
+    kernel launch on this rank's row band and one all-gather
+    (:func:`repro_torch.kernels.kernel_matmul.ops.sharded_kernel_matmul_prescaled`),
+    differentiable in f32 through the band-sharded backward."""
+
+    kernel: object
+    X: torch.Tensor
+    Xs: torch.Tensor  # (n, d) pre-scaled, the full X on every rank
+    kernel_type: str = "rbf"
+    data_axes: tuple = ("data",)
+    mesh: object = None
+    compute_dtype: str = "float32"
+
+    @property
+    def shape(self):
+        n = self.X.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.X.dtype
+
+    @property
+    def device(self):
+        return self.X.device
+
+    def matmul(self, M):
+        from repro_torch.kernels.kernel_matmul.ops import sharded_kernel_matmul_prescaled
+
+        return sharded_kernel_matmul_prescaled(
+            self.Xs, M, self.kernel.outputscale, self.mesh, self.data_axes,
+            kernel_type=self.kernel_type, compute_dtype=self.compute_dtype,
+        )
+
+    def with_compute_dtype(self, compute_dtype):
+        return dataclasses.replace(self, compute_dtype=normalize_compute_dtype(compute_dtype))
+
+    def fused_cg_step_fn(self, sigma2=None):
+        """The row-sharded one-launch CG iteration: B3 on this rank's band,
+        the bands gathered and the reductions folded in shard order
+        (:func:`repro_torch.kernels.kernel_matmul.ops.sharded_fused_cg_step_prescaled`).
+        A batched σ² has no scalar tile term: None."""
+        from repro_torch.kernels.kernel_matmul.ops import sharded_fused_cg_step_prescaled
+
+        s2 = torch.zeros((), device=self.Xs.device) if sigma2 is None else torch.as_tensor(sigma2)
+        if s2.dim():
+            return None
+        Xs, outputscale, kernel_type = self.Xs, self.kernel.outputscale, self.kernel_type
+        mesh, axes, compute_dtype = self.mesh, self.data_axes, self.compute_dtype
+
+        def step(U, R, D, V, alpha, beta, gamma):
+            return sharded_fused_cg_step_prescaled(
+                Xs, U, R, D, V, alpha, beta, gamma, outputscale, s2, mesh, axes,
+                kernel_type=kernel_type, compute_dtype=compute_dtype,
             )
 
         return step

@@ -6,8 +6,9 @@ The covariance over T tasks is
     K = K_X ⊗ K_T + Σ_noise,        K_T = B·Bᵀ + diag(v)  (learned, T × T)
 
 with K_X any data kernel (RBF / Matérn, or a deep kernel through
-``kernel_fn``) in any of the port's single-device modes (``dense`` /
-``blocked`` / ``cuda``) and Σ_noise per task.  One Kronecker product costs
+``kernel_fn``) in any of the port's modes (``dense`` / ``blocked`` /
+``cuda``, or ``cuda_sharded`` with the data kernel's rows sharded over the
+ambient mesh) and Σ_noise per task.  One Kronecker product costs
 O(t·(n²T + nT²)): the O(n²) data-kernel work is ONE call of the data
 operator with T·t stacked columns — under ``mode="cuda"`` one launch of
 the kernel-matrix kernel (B1, or its bf16 mode under "mixed") per CG
@@ -52,11 +53,11 @@ from repro_torch.core import solve as bbmm_solve
 from repro_torch.device import resolve_device
 
 from .exact import KERNELS, _inv_softplus, _softplus
-from .kernels import _UNPORTED_MODES, KernelOperator
+from .kernels import KernelOperator
 from .model import KrylovCachePredictor
 from .training import fit_gp
 
-MODES = ("dense", "blocked", "cuda")
+MODES = ("dense", "blocked", "cuda", "cuda_sharded")
 
 
 class MultitaskData(NamedTuple):
@@ -134,12 +135,15 @@ class MultitaskGP(KrylovCachePredictor):
     overrides the data kernel (a :class:`repro_torch.gp.kernels.DeepKernel`
     over ``params["net"]``, with ``extra_params_init(generator)`` adding
     the network to ``init_params``); deep kernels run in dense or blocked
-    mode.  ``mode="cuda"`` is the reference's ``"pallas"``."""
+    mode.  ``mode="cuda"`` is the reference's ``"pallas"``,
+    ``"cuda_sharded"`` its ``"pallas_sharded"`` (the data kernel row-sharded
+    over the ambient :func:`repro_torch.distributed.use_mesh` mesh; none
+    raises ``ValueError``)."""
 
     num_tasks: int = 2
     task_rank: int = 1
     kernel_type: str = "rbf"
-    mode: str = "dense"  # dense | blocked | cuda
+    mode: str = "dense"  # dense | blocked | cuda | cuda_sharded
     block_size: int = 512
     structure: str = "auto"  # auto | kronecker | hadamard
     settings: BBMMSettings = dataclasses.field(
@@ -166,10 +170,6 @@ class MultitaskGP(KrylovCachePredictor):
             )
         if self.structure not in ("auto", "kronecker", "hadamard"):
             raise ValueError(f"unknown structure {self.structure!r}")
-        if self.mode in _UNPORTED_MODES:
-            raise NotImplementedError(
-                f"MultitaskGP mode {self.mode!r} is not ported yet: {_UNPORTED_MODES[self.mode]}"
-            )
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
 

@@ -16,7 +16,14 @@
     :func:`panel_fused_cg_step_prescaled` — K̂·M, its vector-Jacobian
     product and one fused CG iteration streamed one row-panel at a time:
     one B1/B2, gradient-kernel or B3 launch per panel with the panel's
-    ``row_offset``.
+    ``row_offset``; :func:`band_matmul_prescaled` and
+    :func:`band_vjp_prescaled` the same over one row band;
+  * :func:`sharded_kernel_matmul_prescaled` / :func:`sharded_kernel_matmul`
+    (differentiable through :class:`ShardedMatmulFn`) and
+    :func:`sharded_fused_cg_step_prescaled` — the row-sharded product and
+    fused step over a :class:`repro_torch.distributed.Mesh`: each rank
+    launches the same kernels on its own band at the band's
+    ``row_offset``, and the bands are all-gathered.
 
 A 2-D product goes through :class:`.kernel_matmul.KernelMatmulFn` (or
 :class:`.kernel_matmul.SymKernelMatmulFn` when one X is on both sides), a
@@ -52,6 +59,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.precision import is_reduced
+from repro_torch.distributed.sharding import all_gather_rows, ordered_psum, row_band
 
 from .kernel_matmul import (
     ROW_BLOCK,
@@ -293,16 +301,26 @@ def panel_matmul_prescaled(Xs, M, outputscale, panel_rows, *, kernel_type="rbf",
     not divide is launched at its own height.  Not differentiable by itself
     (:class:`repro_torch.core.linear_operator._PartitionedMatmulFn` is).
     Returns f32 (…, n, t)."""
-    M = M.to(torch.float32).contiguous()
     Xs = Xs.contiguous()
-    n = Xs.shape[0]
-    p = max(1, min(int(panel_rows), n))
+    return band_matmul_prescaled(Xs, M, outputscale, 0, Xs.shape[0], panel_rows,
+                                 kernel_type=kernel_type, compute_dtype=compute_dtype)
+
+
+def band_matmul_prescaled(Xs, M, outputscale, start, stop, panel_rows=None, *,
+                          kernel_type="rbf", compute_dtype="float32"):
+    """Rows ``[start, stop)`` of K(X, X) @ M for pre-scaled X: one B1/B2
+    launch per (panel_rows × n) panel of the band, each at its global
+    ``row_offset`` (``panel_rows=None``: the band in one launch).  Returns
+    f32 (…, stop − start, t)."""
+    M = M.to(torch.float32).contiguous()
+    rows = stop - start
+    p = rows if panel_rows is None else max(1, min(int(panel_rows), rows))
     outs = [
-        kernel_matmul_cuda(Xs[s : s + p], Xs, M, outputscale, 0.0, s, kernel_type=kernel_type,
-                           compute_dtype=compute_dtype)
-        for s in range(0, n, p)
+        kernel_matmul_cuda(Xs[s : min(s + p, stop)], Xs, M, outputscale, 0.0, s,
+                           kernel_type=kernel_type, compute_dtype=compute_dtype)
+        for s in range(start, stop, p)
     ]
-    return torch.cat(outs, dim=-2)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
 
 
 def panel_vjp_prescaled(Xs, M, C, outputscale, panel_rows, *, kernel_type="rbf"):
@@ -316,20 +334,33 @@ def panel_vjp_prescaled(Xs, M, C, outputscale, panel_rows, *, kernel_type="rbf")
     columns, A = [C | M] of its rows, B = [M | C] — gives those rows' whole
     gradient; the launches' outputscale sums (twice the derivative) are
     folded in panel order."""
+    Xs = Xs.contiguous()
+    gX, gsum = band_vjp_prescaled(Xs, M, C, outputscale, 0, Xs.shape[0], panel_rows,
+                                  kernel_type=kernel_type)
+    return gX, 0.5 * gsum
+
+
+def band_vjp_prescaled(Xs, M, C, outputscale, start, stop, panel_rows=None, *,
+                       kernel_type="rbf"):
+    """Rows ``[start, stop)`` of :func:`panel_vjp_prescaled`: the band's
+    rows of ∂/∂Xs (stop − start, d) and the band's outputscale sum Σ
+    (TWICE its share of the derivative), one gradient-kernel launch per
+    panel of the band (``panel_rows=None``: one for the band), the sums
+    folded in panel order from zeros."""
     M2, C2 = _fold_batch(M.to(torch.float32)), _fold_batch(C.to(torch.float32))
     B = torch.cat([M2, C2], dim=1).contiguous()
-    Xs = Xs.contiguous()
-    n = Xs.shape[0]
-    p = max(1, min(int(panel_rows), n))
-    gX = torch.empty_like(Xs)
+    rows = stop - start
+    p = rows if panel_rows is None else max(1, min(int(panel_rows), rows))
+    gX = torch.empty((rows, Xs.shape[1]), dtype=torch.float32, device=Xs.device)
     gsum = torch.zeros((), dtype=torch.float32, device=Xs.device)
-    for s in range(0, n, p):
-        A = torch.cat([C2[s : s + p], M2[s : s + p]], dim=1).contiguous()
-        G, g = kernel_matmul_grad_rows_cuda(Xs[s : s + p], Xs, A, B, outputscale,
+    for s in range(start, stop, p):
+        e = min(s + p, stop)
+        A = torch.cat([C2[s:e], M2[s:e]], dim=1).contiguous()
+        G, g = kernel_matmul_grad_rows_cuda(Xs[s:e], Xs, A, B, outputscale,
                                             kernel_type=kernel_type)
-        gX[s : s + p] = G
+        gX[s - start : e - start] = G
         gsum = gsum + g
-    return gX, 0.5 * gsum
+    return gX, gsum
 
 
 def _panel_fused_cg_step_bands(
@@ -385,3 +416,137 @@ def panel_fused_cg_step_prescaled(
             outputscale, sigma2, 0, panel_rows=panel_rows, kernel_type=kernel_type,
             compute_dtype=compute_dtype,
         )
+
+
+# ---------------------------------------------------------------------------
+# Row-sharded over a mesh (global view: every rank holds the full operands)
+# ---------------------------------------------------------------------------
+
+
+def _sharded_product(Xs, M, outputscale, mesh, axes, panel_rows, kernel_type, compute_dtype):
+    """This rank's band of K(X, X)·M (one B1/B2 launch, or one per panel of
+    the band, at the band's ``row_offset``), all-gathered: the full f32
+    product, the same bits on every rank."""
+    start, stop = row_band(Xs.shape[0], mesh, axes)
+    band = band_matmul_prescaled(Xs, M, outputscale, start, stop, panel_rows,
+                                 kernel_type=kernel_type, compute_dtype=compute_dtype)
+    return all_gather_rows(band, mesh, axes)
+
+
+class ShardedMatmulFn(torch.autograd.Function):
+    """K(X, X)·M for pre-scaled X with the rows sharded over a mesh,
+    differentiable in Xs, M and the outputscale — the sharded twin of
+    :class:`repro_torch.core.linear_operator._PartitionedMatmulFn`.
+
+    Forward: the band's launch(es) and one all-gather of the (…, n, t)
+    output.  Backward: the cotangent C is the full one, the same on every
+    rank.  Each rank runs the gradient kernel's row variant over its band
+    (A = [C | M] of its rows, B = [M | C]: the band's rows' whole gradient
+    and twice their share of the outputscale's), the Xs rows are
+    all-gathered and the outputscale partials folded with
+    :func:`~repro_torch.distributed.sharding.ordered_psum`; ∂M = K·C is
+    one more sharded forward (K is symmetric)."""
+
+    @staticmethod
+    def forward(ctx, Xs, M, outputscale, mesh, axes, panel_rows, kernel_type):
+        ctx.save_for_backward(Xs, M, outputscale)
+        ctx.mesh, ctx.axes, ctx.panel_rows, ctx.kernel_type = mesh, axes, panel_rows, kernel_type
+        return _sharded_product(Xs, M, outputscale, mesh, axes, panel_rows, kernel_type,
+                                "float32")
+
+    @staticmethod
+    def backward(ctx, C):
+        Xs, M, s = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        mesh, axes, p, kt = ctx.mesh, ctx.axes, ctx.panel_rows, ctx.kernel_type
+        C = C.contiguous()
+        gXs = gM = gs = None
+        if need[0] or need[2]:
+            start, stop = row_band(Xs.shape[0], mesh, axes)
+            G, g = band_vjp_prescaled(Xs, M, C, s, start, stop, p, kernel_type=kt)
+            gXs = all_gather_rows(G, mesh, axes, dim=0)
+            gs = (0.5 * ordered_psum(g.reshape(1), mesh, axes)).reshape(s.shape)
+        if need[1]:
+            gM = _sharded_product(Xs, C, s, mesh, axes, p, kt, "float32")
+        return gXs, gM, gs, None, None, None, None
+
+
+def sharded_kernel_matmul_prescaled(Xs, M, outputscale, mesh, axes=("data",), *,
+                                    panel_rows=None, kernel_type="rbf",
+                                    compute_dtype="float32"):
+    """Row-partitioned K(X, X) @ M over ``mesh`` for pre-scaled X — the
+    reference's ``sharded_kernel_matmul_prescaled`` in the global view.
+
+    Every rank passes the full Xs and M (2-D, B1; or (b, n, t), B2) and gets
+    the full f32 product back: it launches the kernel on its own row band
+    ``[i·n/S, (i+1)·n/S)`` with the band's global ``row_offset`` (one launch,
+    or one per ``panel_rows`` panel of the band), and the bands are
+    all-gathered — the one collective, n·t values, the bytes the
+    reference's all-gather of M moves.  An n the shards do not divide
+    raises ``ValueError``.  Under bf16 the bf16 kernel rounds M to bf16 (the
+    reference's cast before its gather; here M is not gathered) and the
+    output bands travel in f32, as the reference's output does.  The f32
+    product is differentiable (:class:`ShardedMatmulFn`), the bf16 one not."""
+    squeeze = M.dim() == 1
+    if squeeze:
+        M = M[:, None]
+    M = M.to(torch.float32).contiguous()
+    Xs, axes = Xs.contiguous(), tuple(axes)
+    with obs.annotation("cuda:sharded_kernel_matmul"):
+        if is_reduced(compute_dtype):
+            with torch.no_grad():
+                out = _sharded_product(Xs, M, outputscale, mesh, axes, panel_rows,
+                                       kernel_type, compute_dtype)
+        else:
+            s = torch.as_tensor(outputscale, dtype=torch.float32, device=M.device).reshape(())
+            out = ShardedMatmulFn.apply(Xs, M, s, mesh, axes, panel_rows, kernel_type)
+    return out[..., 0] if squeeze else out
+
+
+def sharded_kernel_matmul(kernel, X, M, mesh, axes=("data",), *, compute_dtype="float32"):
+    """Row-partitioned K(X, X) @ M over a mesh (prescales per call — the CG
+    loop goes through ``KernelOperator.prepare()``, which prescales once)."""
+    return sharded_kernel_matmul_prescaled(
+        prescale_inputs(X, kernel.lengthscale, compute_dtype), M, kernel.outputscale, mesh, axes,
+        kernel_type=stationary_kernel_type(kernel), compute_dtype=compute_dtype,
+    )
+
+
+def sharded_fused_cg_step_prescaled(
+    Xs, U, R, D, V, alpha, beta, gamma, outputscale, sigma2, mesh, axes=("data",), *,
+    panel_rows=None, kernel_type="rbf", compute_dtype="float32",
+):
+    """One fused CG iteration of K̂ = K(X, X) + σ²I with the rows sharded
+    over ``mesh`` — the sharded :data:`repro_torch.core.mbcg.CGStepFn`, the
+    reference's ``sharded_fused_cg_step_prescaled`` in the global view.
+
+    Every rank holds the full pre-update (U, R, D, V), so the column side B3
+    recomputes this iteration's direction from is the full (R, D, V) with
+    no gather.  The rank applies the pending (α, β, γ) update to its own
+    band inside B3 at the band's ``row_offset`` and forms the band's V′ and
+    partial reductions — one launch for the band (``panel_rows=None``), or
+    one per panel through :func:`_panel_fused_cg_step_bands`.  Then two
+    collectives: one all-gather of the four updated bands (4·n·t values),
+    and :func:`~repro_torch.distributed.sharding.ordered_psum` of the
+    (…, 4, t) partials (the reference: three gathers of n·t and one psum).
+    With one panel per band the fold is the single-device panel loop's, so
+    1-rank and S-rank panel-fused solves agree bit for bit."""
+    n = Xs.shape[0]
+    axes = tuple(axes)
+    start, stop = row_band(n, mesh, axes)
+    R, D, V = (x.to(torch.float32).contiguous() for x in (R, D, V))
+    Xs = Xs.contiguous()
+    bands = [x[..., start:stop, :] for x in (U, R, D, V)]
+    kw = dict(kernel_type=kernel_type, compute_dtype=compute_dtype)
+    with obs.annotation("cuda:sharded_fused_cg_step"):
+        if panel_rows is None:
+            *state, red = fused_cg_step(Xs[start:stop], Xs, *bands, R, D, V, alpha, beta,
+                                        gamma, outputscale, sigma2, start, **kw)
+        else:
+            *state, red = _panel_fused_cg_step_bands(
+                Xs[start:stop], Xs, *bands, R, D, V, alpha, beta, gamma, outputscale, sigma2,
+                start, panel_rows=panel_rows, **kw)
+        red = ordered_psum(torch.stack(red, dim=-2), mesh, axes)
+        full = all_gather_rows(torch.stack(state), mesh, axes)
+    Un, Rn, Dn, Vn = full.unbind(0)
+    return Un, Rn, Dn, Vn, tuple(red[..., k, :] for k in range(4))

@@ -10,7 +10,8 @@ attention kernel (``use_kernel=True``, the default; the reference's
 ``use_flash``); decode, masked by the active lengths, runs the plain path,
 as in the reference.  MLA, ``_sdpa_chunked`` and cross-attention are not
 ported yet (ROADMAP Queue A step 17); the reference's sharding hints are
-the identity on one device and are left out (step 16).
+the identity on one device and are left out (the LM sharding rules, step
+17).
 """
 
 from __future__ import annotations

@@ -38,6 +38,17 @@ from repro_torch.core import (
 )
 from repro_torch.gp import KernelOperator, RBFKernel
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 jax.config.update("jax_platform_name", "cpu")
 
 SOLVE_TOL = dict(rtol=1e-5, atol=1e-6)

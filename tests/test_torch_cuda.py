@@ -1188,3 +1188,36 @@ def test_low_rank_and_deep_models_launch_no_kernel(cuda_device):
         assert bool(torch.isfinite(mean).all() & (var > 0).all())
     torch.cuda.synchronize()
     assert all(v == 0 for v in km.launch_counts().values()), km.launch_counts()
+
+
+def _world1_product(rank, world, X, M):
+    """One rank's K̂·M through mode="cuda_sharded" on an NCCL world and
+    through mode="cuda"; the rank's B1 launches and all-gathers for the
+    sharded product."""
+    from repro_torch.distributed import collective_counts, make_mesh, use_mesh
+    from repro_torch.gp import KernelOperator, MaternKernel
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    X, M = X.to(dev), M.to(dev)
+    kern = MaternKernel(torch.tensor(0.6, device=dev), torch.tensor(1.1, device=dev), nu=2.5)
+    ref = KernelOperator(kern, X, mode="cuda").matmul(M)
+    km.reset_launch_counts()
+    with use_mesh(make_mesh((world,), ("data",))):
+        out = KernelOperator(kern, X, mode="cuda_sharded").matmul(M)
+    torch.cuda.synchronize()
+    return ref.cpu(), out.cpu(), km.launch_counts()["launches"], collective_counts()["all_gathers"]
+
+
+@pytest.mark.cuda
+def test_sharded_product_world1_nccl_matches_cuda(cuda_device):
+    """A world of one rank on NCCL (the collectives real at size 1):
+    mode="cuda_sharded"'s K̂·M is one B1 launch and one all-gather, and
+    equals mode="cuda"'s bit for bit (the band is every row)."""
+    from repro_torch.distributed import spawn_world
+
+    g = torch.Generator().manual_seed(0)
+    X, M = torch.randn((3000, 8), generator=g), torch.randn((3000, 9), generator=g)
+    ref, out, launches, gathers = spawn_world(_world1_product, 1, "nccl", args=(X, M),
+                                              timeout=300)[0]
+    assert (launches, gathers) == (1, 1)
+    assert torch.equal(out, ref)

@@ -29,6 +29,17 @@ from repro_torch import DKLExactGP, params_from_jax
 from repro_torch.core import BBMMSettings, replace_tensor_leaves, tensor_leaves
 from repro_torch.gp import DeepKernel, KernelOperator, mlp_apply, mlp_init
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 jax.config.update("jax_platform_name", "cpu")
 
 N, D = 100, 3

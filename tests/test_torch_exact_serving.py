@@ -44,6 +44,17 @@ from repro_torch.core import (
 from repro_torch.core import health
 from repro_torch.gp import GPModel, missing_protocol_methods
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 MEAN_TOL = dict(rtol=1e-3, atol=1e-4)
 VAR_TOL = dict(rtol=5e-3, atol=1e-4)
 N, D, S = 120, 3, 37

@@ -26,6 +26,17 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 

@@ -47,6 +47,17 @@ from repro_torch.gp import KernelOperator, MaternKernel, RBFKernel
 from repro_torch.kernels.kernel_matmul.ops import fused_cg_step, fused_cg_step_prescaled
 from repro_torch.kernels.kernel_matmul.ref import fused_cg_step_plain, kernel_matmul_plain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 STATE_TOL = dict(rtol=2e-4, atol=2e-4)
 RED_TOL = dict(rtol=2e-4, atol=2e-3)
 SOLVE_TOL = dict(rtol=1e-3, atol=1e-4)

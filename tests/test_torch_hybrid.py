@@ -30,6 +30,17 @@ from repro_torch.kernels.ssd_scan import ssd_scan as ssd_mod
 from repro_torch.launch import serve
 from repro_torch.models import build_model, hybrid, layers, make_prefill_step, ssm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 FWD_TOL = dict(rtol=1e-4, atol=1e-4)
 DECODE_TOL = dict(rtol=2e-2, atol=2e-2)
 BF16_REL = 5e-2

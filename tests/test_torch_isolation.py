@@ -39,8 +39,8 @@ def _imported_roots(path: Path):
 
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
-    assert {"kernel_matmul.py", "mbcg.py", "exact.py", "ski.py", "chip_smoke.py",
-            "torch_quickstart.py", "torch_large_scale_ski.py"} <= names
+    assert {"kernel_matmul.py", "mbcg.py", "exact.py", "ski.py", "sharding.py", "distributed.py",
+            "chip_smoke.py", "torch_quickstart.py", "torch_large_scale_ski.py"} <= names
     assert len(PORT_FILES) >= 20
 
 
@@ -65,10 +65,13 @@ def test_entry_points_default_to_cuda():
         assert resolve_device().type == "cuda"
         assert ExactGP().device.type == "cuda"
         assert SKI().device.type == "cuda"
+        assert ExactGP(mode="cuda_sharded").device.type == "cuda"
         assert params_from_jax(raw)["raw_noise"].is_cuda
         return
     with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
         ExactGP()
+    with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
+        ExactGP(mode="cuda_sharded")
     with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
         SKI(grid_size=16)
     assert SKI(device="cpu").device == torch.device("cpu")

@@ -35,6 +35,17 @@ from repro_torch.kernels.kernel_matmul import kernel_matmul as km
 from repro_torch.kernels.kernel_matmul.ops import fused_kernel_matmul
 from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_grad_plain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 REL = 2e-4
 NU = {"matern12": 0.5, "matern32": 1.5, "matern52": 2.5}
 

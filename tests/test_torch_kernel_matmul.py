@@ -31,6 +31,17 @@ from repro_torch.kernels.kernel_matmul.ops import (
 )
 from repro_torch.kernels.kernel_matmul.ref import kernel_matmul_plain, kernel_matmul_ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 KERNEL_TYPES = ["rbf", "matern12", "matern32", "matern52"]
 TOL = dict(rtol=2e-4, atol=2e-4)
 

@@ -27,6 +27,17 @@ from repro_torch.kernels.ssd_scan import ssd_scan as ssd_mod
 from repro_torch.models import attention, layers, ssm
 from repro_torch.models.hybrid import _attn_cfg
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
 BLOCK_TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -47,6 +47,17 @@ from repro_torch.core import (
 )
 from repro_torch.gp import build_woodbury_cache, woodbury_predict, woodbury_update
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 jax.config.update("jax_platform_name", "cpu")
 
 SOR_TOL = dict(rtol=2e-3, atol=2e-3)
@@ -179,11 +190,15 @@ def test_gaussian_kl_matches_dense_formula_and_reference(monkeypatch):
     mu2 = rng.standard_normal(n).astype(np.float32)
     expected = _dense_kl(mu1, S1, mu2, S2)
     kw = dict(num_probes=64, max_cg_iters=80, precond_rank=0, cg_tol=1e-9)
+    # the reference compiled once for the four keys (eager, each call
+    # compiles its loops anew: ~24 s against ~6; the same values)
+    ref_kl = jax.jit(lambda key: ref_gaussian_kl(
+        jnp.asarray(mu1), RefDense(jnp.asarray(S1)), jnp.asarray(mu2), RefDense(jnp.asarray(S2)),
+        key, RefSettings(**kw)))
     vals = []
     for i in range(4):
         key = jax.random.PRNGKey(10 + i)
-        ref = float(ref_gaussian_kl(jnp.asarray(mu1), RefDense(jnp.asarray(S1)), jnp.asarray(mu2),
-                                    RefDense(jnp.asarray(S2)), key, RefSettings(**kw)))
+        ref = float(ref_kl(key))
         queue = _replay(monkeypatch, _draws(key, 0, n, 64)
                         + _draws(jax.random.fold_in(key, 1), 0, n, 64))
         ours = float(gaussian_kl(torch.from_numpy(mu1), DenseOperator(torch.from_numpy(S1)),

@@ -26,6 +26,16 @@ from repro_torch.core import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _spd(seed, n, cond):
     """A fixed SPD matrix with a log-spaced spectrum of condition ``cond``."""
     rng = np.random.default_rng(seed)

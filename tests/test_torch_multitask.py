@@ -53,6 +53,17 @@ from repro_torch.gp import (
 )
 from repro_torch.serving import PosteriorSession, fingerprint
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 jax.config.update("jax_platform_name", "cpu")
 
 SET = BBMMSettings(num_probes=4, max_cg_iters=80, cg_tol=1e-7, precond_rank=0)
@@ -491,7 +502,7 @@ class TestMultitaskGPModel:
                 params, gp.prepare_inputs(Xl)).prepare()
 
     def test_structure_knobs(self):
-        Xl, _ = grid_problem(16, n=6, T=2)
+        Xl, yl = grid_problem(16, n=6, T=2)
         kron = _gp(num_tasks=2, structure="kronecker")
         assert kron.prepare_inputs(Xl).task_ids is None
         forced = _gp(num_tasks=2, structure="hadamard")
@@ -504,10 +515,14 @@ class TestMultitaskGPModel:
             _gp(num_tasks=2).prepare_inputs(np.array([[0.1, 0.2, 5.0]], np.float32))
         with pytest.raises(ValueError, match="structure"):
             _gp(num_tasks=2, structure="grid")
-        with pytest.raises(NotImplementedError, match="step 16"):
+        with pytest.raises(ValueError, match="mode must be one of"):
             _gp(num_tasks=2, mode="pallas_sharded")
         with pytest.raises(ValueError, match="mode must be one of"):
             _gp(num_tasks=2, mode="cuda_partitioned")
+        sharded = _gp(num_tasks=2, mode="cuda_sharded")  # the mesh is asked for at use
+        with pytest.raises(ValueError, match="needs a mesh"):
+            sharded.loss(sharded.init_params(Xl), sharded.prepare_inputs(Xl), yl,
+                         torch.Generator())
 
     def test_query_task_ids_validated(self):
         Xl, yl = grid_problem(24, n=6, T=2)

@@ -45,6 +45,17 @@ from repro_torch.launch import gp_top
 from repro_torch.launch.gp_serve import _health_payload, run_serve_chaos
 from repro_torch.serving import CircuitBreaker
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 jax.config.update("jax_platform_name", "cpu")
 
 pytestmark = pytest.mark.obs

@@ -45,6 +45,17 @@ from repro_torch.gp import (
     sq_dist,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 KTOL = dict(rtol=2e-4, atol=2e-4)
 PTOL = dict(rtol=1e-4, atol=1e-5)
 NUS = {"rbf": None, "matern12": 0.5, "matern32": 1.5, "matern52": 2.5}
@@ -187,11 +198,13 @@ def test_dense_diag_and_added_diag_operators():
 def test_unported_modes_and_precision_raise():
     X, _, ell = _data(7)
     k, _ = _kernels("rbf", ell)
-    with pytest.raises(NotImplementedError, match="step 16"):
-        KernelOperator(kernel=k, X=torch.from_numpy(X), mode="pallas_sharded")
+    # the sharded mode needs a mesh: none given and none ambient raises
+    with pytest.raises(ValueError, match="needs a mesh"):
+        KernelOperator(kernel=k, X=torch.from_numpy(X), mode="cuda_sharded").matmul(
+            torch.ones(X.shape[0], 2))
     # the port renames the reference's pallas modes: pallas → cuda,
-    # pallas_partitioned → cuda_partitioned
-    for mode in ("pallas", "pallas_partitioned"):
+    # pallas_partitioned → cuda_partitioned, pallas_sharded → cuda_sharded
+    for mode in ("pallas", "pallas_partitioned", "pallas_sharded"):
         with pytest.raises(ValueError, match="mode must be one of"):
             KernelOperator(kernel=k, X=torch.from_numpy(X), mode=mode)
     assert KernelOperator(kernel=k, X=torch.from_numpy(X), mode="cuda_partitioned").shape == (

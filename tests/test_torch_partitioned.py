@@ -49,6 +49,17 @@ from repro_torch.kernels.kernel_matmul.ops import (
     choose_panel_rows,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 jax.config.update("jax_platform_name", "cpu")
 pytestmark = pytest.mark.partitioned
 

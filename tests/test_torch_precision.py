@@ -67,6 +67,17 @@ from repro_torch.kernels.kernel_matmul import kernel_matmul as km
 from repro_torch.kernels.kernel_matmul.ops import prescale_inputs
 from repro_torch.kernels.kernel_matmul.ref import fused_cg_step_plain, kernel_matmul_plain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 pytestmark = pytest.mark.mixed_precision
 
 KERNEL_TYPES = ("rbf", "matern12", "matern32", "matern52")

@@ -8,8 +8,20 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core import SolveHealthWarning
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """720 points make small ops, which run fastest on one thread and spin
+    on eight under a parallel test run (alone: 117 s on eight threads,
+    65 s on one)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("precision", ["highest", "mixed"])

@@ -39,6 +39,17 @@ from repro_torch.kernels.kernel_matmul import kernel_matmul as km
 from repro_torch.launch import gp_serve
 from repro_torch.serving import PosteriorSession, fingerprint
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 jax.config.update("jax_platform_name", "cpu")
 
 MEAN_TOL = dict(rtol=1e-3, atol=1e-4)

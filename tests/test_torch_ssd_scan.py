@@ -30,6 +30,17 @@ from repro_torch.kernels.ssd_scan import (
 )
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = dict(rtol=2e-3, atol=2e-3)
 
 

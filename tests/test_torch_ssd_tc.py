@@ -37,6 +37,17 @@ from repro_torch.kernels.ssd_scan.ref import (
     ssd_tc_decays,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = dict(rtol=2e-3, atol=2e-3)
 SWEEP_TOL = dict(rtol=3e-3, atol=3e-3)
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)

@@ -36,6 +36,17 @@ from repro_torch.kernels.kernel_matmul.ref import (
     kernel_matmul_grad_sym_plain,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 REL = 2e-4
 STATE_TOL = dict(rtol=2e-4, atol=2e-4)
 RED_TOL = dict(rtol=2e-4, atol=2e-3)

@@ -37,6 +37,17 @@ from repro_torch.core import (
 )
 from repro_torch.gp import fit_gp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's small torch ops run fastest on one thread, and spin on
+    eight under a parallel test run (six workers on eight cores)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 N, D = 120, 3
 MLL_RTOL = 1e-4
 GRAD_RTOL = 1e-3
