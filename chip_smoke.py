@@ -5,8 +5,10 @@ serving and training slices (single- and multi-output, multi-restart, and
 partitioned to a million rows), streaming and threaded serving with the
 degradation ladder and the chaos drill, SGPR, BLR, DKL, the multitask GP,
 SKI / KISS-GP (no kernel of its own: ``torch.fft`` and indexing) and the
-multi-device path on worlds of one and two ranks, and zamba2-7b serving
-at full size through the kernels.
+multi-device path on worlds of one and two ranks, zamba2-7b serving
+at full size through the kernels, and every other LM family of the zoo
+(the dense and MoE transformer, MLA, mamba2-370m, whisper-large-v3) in
+f32 against an f64 witness and served in bf16.
 
     python3 chip_smoke.py [--seed 0] [--n 40000]
 
@@ -57,15 +59,21 @@ and the final line is then not printed):
                 bit-identical
      flash_kernel  B4 against ``gqa_attention_plain``: causal and not, GQA
                 8/2 heads, dh ∈ {32, 64, 112, 224}, ragged lengths, the
-                slice's (4, 32, 512, 224), bf16 on both routes (tensor
-                cores; dh = 40 on the CUDA cores); f32 rtol/atol 2e-4, bf16
-                3e-2
+                slice's (4, 32, 512, 224), the zoo's prefill shapes (llama
+                32/8 heads dh 64, qwen 64/8 and command-r 96/8 dh 128,
+                whisper's encoder 20
+                heads over 1,500 frames, non-causal, and its decode step's
+                cross-attention, one query over them), bf16 on both routes
+                (tensor cores; dh = 40 on the CUDA cores); f32 rtol/atol
+                2e-4, bf16 3e-2
      ssd_kernel    B5 against ``ssd_scan_chunked_ref`` and the step
                 recurrence, every case on both routes (the default, which
                 takes aligned bf16 with dh, ds, chunk multiples of 16 to the
                 tensor cores, and the CUDA-core kernel forced): chunk ∈ {32,
                 64, 128}, the reference's shape sweep, the slice's (4, 112,
-                512, 64, 64) in bf16, l = 4,096 in f32 and bf16; f32 2e-3,
+                512, 64, 64) in bf16, l = 4,096 in f32 and bf16, mamba2's
+                (4, 32, 512, 64, 128) in f32 and bf16 (its state sliced on
+                the CUDA-core route, zamba2's not); f32 2e-3,
                 bf16 5e-2; the slice on the model's strided views no further
                 from the f64 recurrence than 2 × the plain version, and two
                 runs bit-identical, on each route
@@ -77,7 +85,9 @@ and the final line is then not printed):
                 autograd through it for the gradient; B4:
                 scaled_dot_product_attention; B5: none) and the card's
                 bound, CUDA events around synchronised launches; B5 on both
-                routes in turns, the tensor cores faster or the phase fails
+                routes in turns, the tensor cores faster or the phase fails;
+                B4 at the zoo's prefill shapes beside SDPA, B5 at mamba2's
+                in bf16 and f32
   4. serve      ExactGP(matern52, mode="cuda") on n=40,000, d=8 synthetic
                 kin40k-shaped data: one posterior_cache build, eight
                 1,024-point predict_cached requests, one 256-point predict;
@@ -292,6 +302,36 @@ and the final line is then not printed):
                 one-ulp change of its embedding (at random weights the
                 bf16 model amplifies rounding to O(1)); a profile of one
                 prefill and one decode step
+ 16. lm_zoo_parity  every other family at full width in f32, depth cut,
+                batch 2, a 256-token prompt: llama3.2-1b (16 layers),
+                qwen1.5-110b (2), granite-moe-1b-a400m (4), minicpm3-4b (4),
+                deepseek-v2-236b (its dense layer + 1 MoE layer),
+                mamba2-370m (48), whisper-large-v3 (4 + 4): the kernel
+                forward against the plain one (1e-3), both against the f64
+                witness (the plain path in f64; an MoE model's witness and
+                plain runs take the kernel run's routing, ``moe_route``
+                replayed, its dispatch in their precision), every B4 / B5
+                call against its plain version in f64 (4 ×), the launches
+                (B4 per GQA layer, whisper's encoder + self + cross; B5 per
+                Mamba-2 block); decode stepped over the prompt against the
+                forward (2e-2; not for MoE: its decode routes each step
+                apart) and decode from ``prefill``'s cache against it
+ 17. lm_zoo_serve   bf16, weights from the seed on the card, 4 × 512-token
+                prompts, 32 greedy tokens, cache 1,024: llama3.2-1b,
+                granite-moe-1b-a400m, minicpm3-4b, mamba2-370m at full size,
+                qwen1.5-110b, command-r-plus-104b and internvl2-76b at full
+                width with 2 layers, deepseek-v2-236b with its dense layer
+                + 3 MoE layers; whisper-large-v3 at full size over 4 ×
+                1,500 frames and 384-token prompts, cache 448: one
+                make_prefill_step (launches counted: whisper 96), then 32
+                tokens through ``launch.serve.serve``, the CLI's loop: from
+                the prefill's cache (whisper: 32 B4 a step, the
+                cross-attention) or, for mamba2, decode stepped over the
+                prompt; prefill ms, decode ms per token, tokens/s, peak
+                memory (the weights' init apart), a profile; every B4 / B5
+                call of a prefill and of one decode step within 5e-2 of its
+                plain version, with its route; the last logits within 2 × the
+                plain path's one-ulp distance; two MoE prefills bit for bit
 
 The last line is ``{"ok": true, "device": {...}}``.  Run from a checkout of
 the repository; needs one CUDA device.
@@ -302,6 +342,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2910,6 +2951,14 @@ DECODE_TOL = dict(rtol=2e-2, atol=2e-2)  # tests/test_models_smoke.py:143-148
 LM_REL_BOUND = 5e-2  # the reference's bf16 SSD tolerance, per kernel call on the model's inputs
 ATTN_SLICE = (4, 32, 512, 224)  # batch, heads, positions, head dim of the shared block
 SSD_SLICE = (4, 112, 512, 64, 64, 128)  # batch, heads, positions, head dim, state, chunk
+#: B4 at the zoo's prefill shapes: (b, hq, hkv, sq, skv, dh, causal)
+ZOO_ATTN = {"llama3.2-1b": (4, 32, 8, 512, 512, 64, True),
+            "qwen1.5-110b": (4, 64, 8, 512, 512, 128, True),
+            "command-r-plus-104b": (4, 96, 8, 512, 512, 128, True),
+            "whisper-large-v3 encoder": (4, 20, 20, 1500, 1500, 64, False),
+            # one decode step's cross-attention: one query over the 1,500 frames
+            "whisper-large-v3 decode cross-attention": (4, 20, 20, 1, 1500, 64, False)}
+MAMBA_SSD = (4, 32, 512, 64, 128, 128)  # mamba2-370m: batch, heads, positions, head dim, state, chunk
 LM_BATCH, LM_PROMPT, LM_GEN, LM_CACHE = 4, 512, 32, 1024
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT = 13, 2, 256
 FULL_LAYERS = 81
@@ -2933,17 +2982,17 @@ def _product_ms(ops_bf16, ops_mixed, ops_f32):
             + ops_f32 / PEAK_F32_FLOPS) * 1e3
 
 
-def flash_bound(b, h, sq, skv, dh, causal, dtype):
-    """Least time for B4 on an H100: per head 2·sq·skv·dh operations for
-    q·kᵀ (both operands in the input dtype) and as many for P·v (P is f32),
-    halved under the causal mask, against q, k, v read once and o written
-    once."""
-    per_product = 2 * sq * skv * dh * b * h * (0.5 if causal else 1.0)
+def flash_bound(b, hq, hkv, sq, skv, dh, causal, dtype):
+    """Least time for B4 on an H100: per query head 2·sq·skv·dh operations
+    for q·kᵀ (both operands in the input dtype) and as many for P·v (P is
+    f32), halved under the causal mask, against q and o at hq heads and k
+    and v at hkv heads, each read or written once."""
+    per_product = 2 * sq * skv * dh * b * hq * (0.5 if causal else 1.0)
     if dtype == torch.bfloat16:
         t_ops = _product_ms(per_product, per_product, 0)
     else:
         t_ops = _product_ms(0, 0, 2 * per_product)
-    nbytes = dtype.itemsize * b * h * dh * (2 * sq + 2 * skv)
+    nbytes = dtype.itemsize * b * dh * (2 * hq * sq + 2 * hkv * skv)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -2994,6 +3043,7 @@ def phase_flash_kernel(rng, errs):
         (1, 2, 2, 128, 128, 64, True, bf16), (2, 8, 2, 200, 200, 224, True, bf16),
         (1, 4, 2, 130, 70, 40, True, bf16), (1, 4, 4, 65, 511, 128, False, bf16),
         (b, h, h, s, s, dh, True, bf16),
+        *[(*shape, dtype) for shape in ZOO_ATTN.values() for dtype in (f32, bf16)],
     ]
     cases = []
     for bb, hq, hkv, sq, skv, d, causal, dtype in shapes:
@@ -3056,6 +3106,7 @@ def phase_ssd_kernel(rng, errs):
         (2, 3, 128, 16, 8, 64, bf16), (*SSD_SLICE, bf16),
         (1, 4, 4096, 64, 64, 128, f32),
         *[(2, 3, 256, 32, 16, c, bf16) for c in (32, 64, 128)], (1, 4, 4096, 64, 64, 128, bf16),
+        (*MAMBA_SSD, f32), (*MAMBA_SSD, bf16),
     ]
     cases, routes = [], []
     for b, h, l, dh, ds, chunk, dtype in shapes:
@@ -3075,6 +3126,10 @@ def phase_ssd_kernel(rng, errs):
             del out
         del x, dt, A, B, C, chunked, recurrence
     check("tensor cores" in routes, "no B5 case took the tensor cores")
+    # mamba2-370m's state is sliced on the CUDA-core route, zamba2's is not
+    check(ssd.cuda_core_layout(*MAMBA_SSD[5:], *MAMBA_SSD[3:5])[0] < MAMBA_SSD[4]
+          and ssd.cuda_core_layout(*SSD_SLICE[5:], *SSD_SLICE[3:5])[0] == SSD_SLICE[4],
+          "B5's CUDA-core route: the state slicing is not where it belongs")
 
     # the slice on the model's strided views, against the f64 recurrence
     args = _ssd_model_views(rng, *SSD_SLICE[:5], dev)
@@ -3119,7 +3174,7 @@ def phase_lm_timing(rng):
     qkv = _normal(rng, (b, s, 3, h, dh), dev, torch.bfloat16)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    bound_ms, bound_by = flash_bound(b, h, s, s, dh, True, torch.bfloat16)
+    bound_ms, bound_by = flash_bound(b, h, h, s, s, dh, True, torch.bfloat16)
     rows["B4"] = {"shape": {"b": b, "heads": h, "sq": s, "skv": s, "dh": dh, "causal": True,
                             "dtype": "bfloat16"},
                   "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), reps=20),
@@ -3151,6 +3206,42 @@ def phase_lm_timing(rng):
     check(tc_ms < cc_ms, f"B5: the tensor-core route ({tc_ms:.4f} ms) is not faster than the "
           f"CUDA-core route ({cc_ms:.4f} ms)")
     del x, Bm, Cm, dt
+
+    # the zoo's shapes: B4 in bf16 on the model's (b, s, h, dh) views beside
+    # SDPA; B5 at mamba2-370m's on the model's views in bf16 (tensor cores)
+    # and in f32 (the CUDA-core route, the state sliced)
+    rows["B4"]["shapes"] = []
+    for arch, (b, hq, hkv, sq, skv, dh, causal) in ZOO_ATTN.items():
+        q = _normal(rng, (b, sq, hq, dh), dev, torch.bfloat16).transpose(1, 2)
+        k = _normal(rng, (b, skv, hkv, dh), dev, torch.bfloat16).transpose(1, 2)
+        v = _normal(rng, (b, skv, hkv, dh), dev, torch.bfloat16).transpose(1, 2)
+        bound_ms, bound_by = flash_bound(b, hq, hkv, sq, skv, dh, causal, torch.bfloat16)
+        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal), reps=20)
+        rows["B4"]["shapes"].append({
+            "model": arch, "shape": {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "skv": skv, "dh": dh,
+                                     "causal": causal, "dtype": "bfloat16"},
+            "route": b4_route(q, k, v), "ms": ms,
+            "plain_ms": time_ms(lambda: gqa_attention_plain(q, k, v, causal=causal), reps=3),
+            "library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=hq != hkv),
+                                  reps=20),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms})
+        del q, k, v
+    b, h, l, dh, ds, chunk = MAMBA_SSD
+    x, dt, A, Bm, Cm = _ssd_model_views(rng, b, h, l, dh, ds, dev)
+    f32_args = [t.float() for t in (x, dt, A, Bm, Cm)]
+    rows["B5"]["shapes"] = []
+    for dtype, args in ((torch.bfloat16, (x, dt, A, Bm, Cm)), (torch.float32, f32_args)):
+        bound_ms, bound_by = ssd_bound(b, h, l, dh, ds, chunk, dtype)
+        ms = time_ms(lambda: ssd.ssd_scan_cuda(*args, chunk=chunk), reps=20)
+        rows["B5"]["shapes"].append({
+            "model": "mamba2-370m", "shape": {"b": b, "heads": h, "l": l, "dh": dh, "ds": ds,
+                                              "chunk": chunk, "dtype": str(dtype)[6:]},
+            "route": ssd.b5_route(*args, chunk),
+            "ds_slice": ssd.cuda_core_layout(chunk, dh, ds)[0] if dtype == torch.float32 else ds,
+            "ms": ms,
+            "plain_ms": time_ms(lambda: ssd_scan_chunked_ref(*args, chunk=chunk), reps=3),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms})
+    del x, Bm, Cm, dt, f32_args
     torch.cuda.empty_cache()
     for key, row in rows.items():
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -3360,7 +3451,7 @@ def phase_lm_serve(seed):
     plain path's own distance under a one-ulp scaling of its embedding (at
     random weights the 81-layer bf16 model amplifies rounding: PERF.md
     §6); a profile of one prefill and one decode step."""
-    from repro_torch.launch.serve import build_server, make_prompts, serve_loop
+    from repro_torch.launch.serve import build_server, make_prompts, serve
     from repro_torch.models import hybrid, make_prefill_step
 
     dev = torch.device("cuda")
@@ -3406,7 +3497,7 @@ def phase_lm_serve(seed):
         _reset_lm_counts()
         torch.cuda.synchronize()
         clock[0] = t_loop = time.perf_counter()
-        generated = serve_loop(bundle, params, prompts, LM_GEN, LM_CACHE, on_step=on_step)
+        generated = serve(bundle, params, {"tokens": prompts}, LM_GEN, LM_CACHE, on_step=on_step)
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t_loop
         loop_counts = _lm_counts()
@@ -3482,6 +3573,369 @@ def phase_lm_serve(seed):
     del params
     torch.cuda.empty_cache()
     return result
+
+
+# --------------------------------------------------------------------------
+# every LM family of the zoo: parity at full width in f32, serving in bf16
+# --------------------------------------------------------------------------
+
+#: arch → (config overrides) for the f32 parity phase: full width, depth cut
+ZOO_PARITY = {
+    "llama3.2-1b": {},
+    "qwen1.5-110b": {"num_layers": 2},
+    "granite-moe-1b-a400m": {"num_layers": 4},
+    "minicpm3-4b": {"num_layers": 4},
+    "deepseek-v2-236b": {"num_layers": 2},  # the dense first layer + 1 MoE layer
+    "mamba2-370m": {},
+    "whisper-large-v3": {"num_layers": 4, "encoder_layers": 4},
+}
+#: arch → (config overrides) for the bf16 serving phase
+ZOO_SERVE = {
+    "llama3.2-1b": {},
+    "granite-moe-1b-a400m": {},
+    "minicpm3-4b": {},
+    "mamba2-370m": {},
+    "qwen1.5-110b": {"num_layers": 2},
+    "command-r-plus-104b": {"num_layers": 2},
+    "internvl2-76b": {"num_layers": 2},
+    "deepseek-v2-236b": {"num_layers": 4},  # the dense first layer + 3 MoE layers
+    "whisper-large-v3": {},
+}
+ZOO_DECODE_CHECK = 4  # decode steps from a prefill's cache held to decode stepped over the prompt
+WHISPER_PROMPT, WHISPER_CACHE = 384, 448  # whisper's published text context: 448 positions
+
+
+def _zoo_cfg(arch, overrides, dtype):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), dtype=dtype, **overrides)
+
+
+def _expected_launches(cfg):
+    """(B4, B5) launches of one prefill / forward: B4 per GQA attention
+    (whisper: encoder, decoder self- and cross-attention), B5 per Mamba-2
+    block; MLA runs no kernel."""
+    if cfg.family == "encdec":
+        return {"B4": cfg.encoder_layers + 2 * cfg.num_layers, "B5": 0}
+    if cfg.family == "ssm":
+        return {"B4": 0, "B5": cfg.num_layers}
+    return {"B4": cfg.num_layers if cfg.attn_type == "gqa" else 0, "B5": 0}
+
+
+def _expected_decode_launches(cfg):
+    """(B4, B5) launches of one decode step: decode attends over the cache
+    on the plain path (``_sdpa`` with ``kv_len``, ``ssd_decode_step``), but
+    whisper's cross-attention over the encoder's frames takes B4 in every
+    decoder layer."""
+    return {"B4": cfg.num_layers if cfg.family == "encdec" else 0, "B5": 0}
+
+
+@contextlib.contextmanager
+def moe_routing(replay=None):
+    """While open, every ``moe_route`` call of the model is recorded (no
+    ``replay``) or answered with the recorded routing of the same call
+    (``replay``, a list from an earlier run); yields {"routings": [...],
+    "flips": memberships that the replaying run's own routing would have
+    changed}."""
+    from repro_torch.models import moe
+
+    route = moe.moe_route
+    state = {"routings": [], "flips": 0}
+
+    def recording(p, cfg, x, **kw):
+        r = route(p, cfg, x, **kw)
+        state["routings"].append(r)
+        return r
+
+    def replaying(p, cfg, x, **kw):
+        own = route(p, cfg, x, **kw)
+        r = replay[len(state["routings"])]
+        state["routings"].append(r)
+        state["flips"] += int(((own.member > 0) != (r.member > 0)).sum())
+        return r
+
+    moe.moe_route = recording if replay is None else replaying
+    try:
+        yield state
+    finally:
+        moe.moe_route = route
+
+
+def _zoo_forward(cfg, params, batch, use_kernels=True):
+    """The model's full-sequence logits."""
+    from repro_torch.models import encdec, ssm_lm, transformer
+
+    if cfg.family == "encdec":
+        return encdec.forward(params, cfg, batch["frames"], batch["tokens"], use_kernels=use_kernels)
+    if cfg.family == "ssm":
+        return ssm_lm.forward(params, cfg, batch["tokens"], use_kernels=use_kernels)
+    return transformer.forward(params, cfg, batch["tokens"], use_kernels=use_kernels)[0]
+
+
+def _stepped_decode(bundle, params, tokens, cache, start=0):
+    """Logits of decode stepped over tokens[:, start:] at positions start …,
+    from ``cache``: (B, steps, V)."""
+    B = tokens.shape[0]
+    steps = []
+    for t in range(start, tokens.shape[1]):
+        lg, cache = bundle.decode(params, tokens[:, t], cache,
+                                  torch.full((B,), t, device=tokens.device))
+        steps.append(lg)
+    return torch.stack(steps, dim=1)
+
+
+def phase_lm_zoo_parity(seed):
+    """Each family at full width in f32 (ZOO_PARITY's depth), batch 2, a
+    256-token prompt (module docstring, phase 16)."""
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    rows = {}
+    for arch, overrides in ZOO_PARITY.items():
+        t_arch = time.perf_counter()
+        gc.collect()  # the last model's tensors may sit in reference cycles
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        cfg = _zoo_cfg(arch, overrides, "float32")
+        bundle = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = bundle.init(gen, max_seq=WHISPER_CACHE)
+        batch = make_batch(cfg, PARITY_BATCH, PARITY_PROMPT, seed=seed, device=dev)
+        tok = batch["tokens"]
+        moe = cfg.num_experts > 0
+        want = _expected_launches(cfg)
+        row = {"arch": arch, "layers": cfg.num_layers, "dtype": "float32", "batch": PARITY_BATCH,
+               "prompt": PARITY_PROMPT, "device_bytes_held_before": held}
+        if cfg.family == "encdec":
+            row["encoder_layers"] = cfg.encoder_layers
+        with torch.inference_mode():
+            _reset_lm_counts()
+            with shadowed_kernels(witness=True) as calls, moe_routing() as routed:
+                kern = _zoo_forward(cfg, params, batch)
+            torch.cuda.synchronize()
+            counts = _lm_counts()
+            with moe_routing(routed["routings"]) as replay_plain:
+                plain = _zoo_forward(cfg, params, batch, use_kernels=False)
+            torch.cuda.synchronize()
+            check(_lm_counts() == counts, f"{arch}: the plain forward launched a kernel")
+            check(counts == want, f"{arch}: forward launches {counts} != {want}")
+            decode = {}
+            if cfg.family == "encdec":
+                # the reference test's recipe: the first position from the
+                # forward, the cross caches from a one-token prefill
+                _, cache = bundle.prefill(params, {"frames": batch["frames"], "tokens": tok[:, :1]},
+                                          PARITY_PROMPT)
+                stepped = torch.cat([kern[:, :1], _stepped_decode(bundle, params, tok, cache, 1)], 1)
+            else:
+                stepped = _stepped_decode(bundle, params, tok,
+                                          bundle.init_cache(params, PARITY_BATCH, PARITY_PROMPT))
+            if not moe:
+                decode["stepped_vs_forward"] = rel_err(stepped, kern)
+            if cfg.family != "ssm":  # the ssm prefill returns a zero state (ROADMAP Queue C)
+                P = PARITY_PROMPT - ZOO_DECODE_CHECK
+                head = {k: v[:, :P] if k == "tokens" else v for k, v in batch.items()}
+                _, cache = bundle.prefill(params, head, PARITY_PROMPT)
+                from_prefill = _stepped_decode(bundle, params, tok, cache, P)
+                decode["prefill_cache_vs_stepped"] = rel_err(from_prefill, stepped[:, P:])
+            del stepped
+            with moe_routing(routed["routings"]) as replay_f64:
+                exact = _zoo_forward(cfg, _to_f64(params), batch, use_kernels=False)
+            check(exact.dtype == torch.float64, f"{arch}: the witness ran in {exact.dtype}")
+        k_abs, k_rel = rel_err(kern, plain)
+        kern_f64, plain_f64 = _err(kern, exact), _err(plain, exact)
+        row.update({
+            "launches": counts, "max_abs_logit": float(plain.abs().max()),
+            "kernel_vs_plain": {"max_abs_err": k_abs, "rel_err": k_rel, "tol": LM_PARITY_TOL},
+            "logits_from_f64": {"kernel": kern_f64, "plain": plain_f64},
+            "decode": {k: {"max_abs_err": v[0], "rel_err": v[1],
+                           "tol": "reported (MoE: per-step routing)" if moe else DECODE_TOL}
+                       for k, v in decode.items()},
+            "per_call_max": {key: {**{f: max(c[f] for c in recs) for f in ("rel", "kernel_f64", "plain_f64")},
+                                   "kernel_over_plain_f64": max(c["kernel_f64"] / c["plain_f64"] for c in recs)}
+                             for key, recs in calls.items() if recs},
+            "routes": {key: sorted({c["route"] for c in recs}) for key, recs in calls.items() if recs},
+            "witness_factor": WITNESS_FACTOR,
+        })
+        if moe:
+            row["moe"] = {"routings": len(routed["routings"]),
+                          "flips_plain": replay_plain["flips"], "flips_f64": replay_f64["flips"]}
+        row["seconds"] = time.perf_counter() - t_arch
+        emit({"phase": "lm_zoo_parity", **row})
+        rows[arch] = row
+        check(bool(torch.isfinite(kern).all()), f"{arch}: non-finite logits")
+        check(_within(kern, plain, LM_PARITY_TOL), f"{arch}: forward kernel vs plain: max |Δ| {k_abs:.3e}")
+        check(kern_f64 <= WITNESS_FACTOR * plain_f64,
+              f"{arch}: logits {kern_f64:.3e} from f64, the plain forward {plain_f64:.3e}")
+        check(len(calls["B4"]) == want["B4"] and len(calls["B5"]) == want["B5"],
+              f"{arch}: witnessed {len(calls['B4'])} B4 and {len(calls['B5'])} B5 calls")
+        for key, recs in calls.items():
+            for i, c in enumerate(recs):
+                check(c["kernel_f64"] <= WITNESS_FACTOR * c["plain_f64"],
+                      f"{arch} {key} call {i}: {c['kernel_f64']:.3e} from f64, the plain version "
+                      f"{c['plain_f64']:.3e}")
+        # an MoE decode step routes its B tokens as one group with its own
+        # capacity, and the prefill routes the prompt as one group: their
+        # caches differ by design (ROADMAP Queue C), so that distance is
+        # reported, not gated
+        for name, (d_abs, _) in decode.items():
+            if moe:
+                continue
+            check(d_abs <= DECODE_TOL["atol"] + DECODE_TOL["rtol"] * row["max_abs_logit"],
+                  f"{arch}: decode {name}: max |Δ| {d_abs:.3e}")
+        del params, kern, plain, exact, batch, tok
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_lm_zoo_serve(seed):
+    """Each family served in bf16 (ZOO_SERVE; module docstring, phase 17)."""
+    from repro_torch.launch.serve import PREFILL_CACHE_FAMILIES, make_batch, serve
+    from repro_torch.models import build_model, make_prefill_step
+
+    dev = torch.device("cuda")
+    rows = {}
+    for arch, overrides in ZOO_SERVE.items():
+        t_arch = time.perf_counter()
+        gc.collect()  # the last model's tensors may sit in reference cycles
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = _zoo_cfg(arch, overrides, "bfloat16")
+        encdec = cfg.family == "encdec"
+        prompt, cache_len = (WHISPER_PROMPT, WHISPER_CACHE) if encdec else (LM_PROMPT, LM_CACHE)
+        bundle = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = bundle.init(gen, max_seq=cache_len + 8)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t_arch
+        init_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()  # from here: what serving holds
+        param_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+        batch = make_batch(cfg, LM_BATCH, prompt, seed=seed, device=dev)
+        prefill_step = make_prefill_step(bundle, cache_len)
+        want, want_decode = _expected_launches(cfg), _expected_decode_launches(cfg)
+        from_prefill = cfg.family in PREFILL_CACHE_FAMILIES
+        row = {"arch": arch, "layers": cfg.num_layers, "dtype": cfg.dtype, "param_bytes": param_bytes,
+               "init_s": init_s, "init_peak_device_bytes": init_peak, "batch": LM_BATCH,
+               "prompt": prompt, "gen": LM_GEN,
+               "cache_len": cache_len}
+        if encdec:
+            row.update(encoder_layers=cfg.encoder_layers, frames=cfg.encoder_seq)
+        with torch.inference_mode():
+            # the main path, counted from 0
+            _reset_lm_counts()
+            (next_tok, cache), prefill_ms, prefill_dev_ms = timed(lambda: prefill_step(params, batch))
+            counts = _lm_counts()
+            del cache
+            warm = [timed(lambda: prefill_step(params, batch))[1:] for _ in range(2)]
+            check(counts == want, f"{arch}: prefill launches {counts} != {want}")
+            check(next_tok.shape == (LM_BATCH,)
+                  and bool(((next_tok >= 0) & (next_tok < cfg.padded_vocab)).all()),
+                  f"{arch}: prefill tokens {next_tok.tolist()}")
+
+            step_ms = {"prefill": [], "decode": []}
+            clock = [0.0]
+
+            def on_step(phase, t, out):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                step_ms[phase].append((now - clock[0]) * 1e3)
+                clock[0] = time.perf_counter()
+
+            _reset_lm_counts()
+            torch.cuda.synchronize()
+            clock[0] = t_loop = time.perf_counter()
+            generated = serve(bundle, params, batch, LM_GEN, cache_len, on_step=on_step)
+            # from a prefill: its launches and LM_GEN − 1 decode steps';
+            # else (mamba2) decode stepped over the prompt, then LM_GEN steps
+            want_loop = ({k: want[k] + want_decode[k] * (LM_GEN - 1) for k in want} if from_prefill
+                         else {k: want_decode[k] * (prompt - 1 + LM_GEN) for k in want})
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t_loop
+            loop_counts = _lm_counts()
+            peak = torch.cuda.max_memory_allocated()  # the serving path's, before the checks below
+            check(loop_counts == want_loop, f"{arch}: serve loop launches {loop_counts} != {want_loop}")
+            check(generated.shape == (LM_BATCH, LM_GEN)
+                  and bool(((generated >= 0) & (generated < cfg.padded_vocab)).all()),
+                  f"{arch}: generated tokens out of range")
+
+            # every kernel call of one prefill held to its plain version; the
+            # last logits beside the plain path's and beside the plain path's
+            # under its embedding scaled by 1 + 2⁻⁸ (one bf16 ulp)
+            with shadowed_kernels() as in_situ:
+                lk, _ = bundle.prefill(params, batch, cache_len)
+            lk = lk.float()
+            lp = bundle.prefill(params, batch, cache_len, use_kernels=False)[0].float()
+            # a bf16 table times a float scalar computes in f32 and rounds
+            # once, as lm_serve's f32 copy does, without an f32 copy of the
+            # table (command-r's is 12.6 GB)
+            nudged = {**params, "embed": {"table": params["embed"]["table"] * (1 + 2.0**-8)}}
+            ln = bundle.prefill(nudged, batch, cache_len, use_kernels=False)[0].float()
+            del nudged
+            agreement, self_sensitivity = rel_err(lk, lp), rel_err(ln, lp)
+            if cfg.num_experts:  # the deterministic combine: two prefills, the same bits
+                again = bundle.prefill(params, batch, cache_len)[0].float()
+                row["two_prefills_bit_identical"] = torch.equal(lk, again)
+                del again
+            prof_prefill = profile_lm(lambda: prefill_step(params, batch))
+            tok0, cache = prefill_step(params, batch)
+            pos = torch.full((LM_BATCH,), prompt, device=dev)
+            if not from_prefill:
+                cache = bundle.init_cache(params, LM_BATCH, cache_len)
+            # one served decode step, every kernel call held to its plain
+            # version (whisper's cross-attention: B4 at sq = 1)
+            with shadowed_kernels() as in_decode:
+                bundle.decode(params, tok0, cache, pos)
+            prof_decode = profile_lm(lambda: bundle.decode(params, tok0, cache, pos))
+            del cache
+        dec = step_ms["decode"]
+        if not from_prefill:
+            row["stepped_prefill_ms_per_step"] = sum(step_ms["prefill"]) / len(step_ms["prefill"])
+        warm_ms = [w[0] for w in warm]
+        row.update({
+            "launches": counts, "serve_loop_launches": loop_counts,
+            "prefill_ms": prefill_ms, "prefill_device_ms": prefill_dev_ms, "prefill_warm_ms": warm_ms,
+            "prefill_tokens_per_s": LM_BATCH * prompt / (min(warm_ms) / 1e3),
+            "decode_ms_per_token": sum(dec) / len(dec),
+            "decode_ms_first_last": [dec[0], dec[-1]],
+            "decode_tokens_per_s": LM_BATCH * len(dec) / (sum(dec) / 1e3),
+            "serve_loop_s": loop_s, "serve_loop": "from prefill" if from_prefill else "stepped prompt",
+            "peak_device_bytes": peak, "generated_sample": generated[0, :16].tolist(),
+            "kernel_vs_plain_last_logits": agreement, "plain_vs_plain_one_ulp_embedding": self_sensitivity,
+            "in_situ_kernel_vs_plain": {k: {"calls": len(v), "max_rel": max(c["rel"] for c in v),
+                                            "bound": LM_REL_BOUND} for k, v in in_situ.items() if v},
+            "routes": {k: {r: sum(c["route"] == r for c in v) for r in sorted({c["route"] for c in v})}
+                       for k, v in in_situ.items() if v},
+            "in_situ_decode_step": {k: {"calls": len(v), "max_rel": max(c["rel"] for c in v),
+                                        "bound": LM_REL_BOUND,
+                                        "routes": sorted({c["route"] for c in v})}
+                                    for k, v in in_decode.items() if v},
+            "profile": {"prefill": prof_prefill, "decode_step": prof_decode},
+            "seconds": time.perf_counter() - t_arch,
+        })
+        emit({"phase": "lm_zoo_serve", "card": CARD, **row})
+        rows[arch] = row
+        check(bool(torch.isfinite(lk).all()), f"{arch}: non-finite prefill logits")
+        check(len(in_situ["B4"]) == want["B4"] and len(in_situ["B5"]) == want["B5"],
+              f"{arch}: in situ {len(in_situ['B4'])} B4 and {len(in_situ['B5'])} B5 calls")
+        check(len(in_decode["B4"]) == want_decode["B4"] and len(in_decode["B5"]) == want_decode["B5"],
+              f"{arch}: decode step {len(in_decode['B4'])} B4 and {len(in_decode['B5'])} B5 calls")
+        for where, shadowed in (("prefill", in_situ), ("decode step", in_decode)):
+            for key, recs in shadowed.items():
+                for c in recs:
+                    check(c["rel"] <= LM_REL_BOUND,
+                          f"{arch} {where} {key} [{c['route']}] vs plain: {c['rel']:.3e}")
+        check(agreement[1] <= ROUNDING_FACTOR * self_sensitivity[1],
+              f"{arch}: last logits kernel vs plain {agreement[1]:.3e} of the largest, more than "
+              f"{ROUNDING_FACTOR} × the one-ulp distance {self_sensitivity[1]:.3e}")
+        if cfg.num_experts:
+            check(row["two_prefills_bit_identical"], f"{arch}: two prefills differ")
+        del params, batch, lk, lp, ln
+        torch.cuda.empty_cache()
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -5532,6 +5986,14 @@ def main() -> int:
         phase_lm_parity(args.seed, PARITY_LAYERS, tol=LM_PARITY_TOL, decode=True)
         phase_lm_parity(args.seed, FULL_LAYERS, tol=None, decode=False)
         lm = phase_lm_serve(args.seed)
+        zoo_lm_seconds = {}
+        t_phase = time.perf_counter()
+        zoo_parity = phase_lm_zoo_parity(args.seed)
+        zoo_lm_seconds["lm_zoo_parity"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        zoo_serve = phase_lm_zoo_serve(args.seed)
+        zoo_lm_seconds["lm_zoo_serve"] = time.perf_counter() - t_phase
+        emit({"phase_wall_s": "lm_zoo", "seconds": zoo_lm_seconds})
     except Exception:  # every phase failure ends the run non-zero
         traceback.print_exc()
         return 1
@@ -5576,7 +6038,15 @@ def main() -> int:
                          "peak_device_bytes": lm["peak_device_bytes"],
                          "b4_ms": timing["B4"]["ms"], "b5_ms": timing["B5"]["ms"],
                          "b5_ms_cuda_cores": timing["B5"]["ms_cuda_cores"]},
+          "lm_zoo_serving": {arch: {k: r[k] for k in ("prefill_warm_ms", "decode_ms_per_token",
+                                                      "decode_tokens_per_s", "peak_device_bytes")}
+                             for arch, r in zoo_serve.items()},
+          "lm_zoo_seconds": zoo_lm_seconds,
           "seconds": time.perf_counter() - t_start})
+    # the B4 / B5 launches of every LM serving main path: zamba2's prefill
+    # and the zoo's prefills and serve loops
+    zoo_launches = {key: sum(r["launches"][key] + r["serve_loop_launches"][key]
+                             for r in zoo_serve.values()) for key in ("B4", "B5")}
     kernels = []
     for name, key, source, replaces, count in (
         ("kernel_matmul (B1)", "B1", KERNEL_SOURCE,
@@ -5612,9 +6082,10 @@ def main() -> int:
          train_mixed["B3_bf16"] + multi["B3_bf16"] + train_part["B3_bf16"]
          + _streamed(streaming, "B3_bf16") + sharded.get("bf16_fused_launches", 0)),
         ("flash_attention (B4)", "B4", FLASH_SOURCE,
-         "src/repro/kernels/flash_attention/flash_attention.py:83", lm["launches"]["B4"]),
+         "src/repro/kernels/flash_attention/flash_attention.py:83",
+         lm["launches"]["B4"] + zoo_launches["B4"]),
         ("ssd_scan (B5, bf16 on the tensor-core route)", "B5", SSD_SOURCE,
-         "src/repro/kernels/ssd_scan/ssd_scan.py:91", lm["launches"]["B5"]),
+         "src/repro/kernels/ssd_scan/ssd_scan.py:91", lm["launches"]["B5"] + zoo_launches["B5"]),
     ):
         row = timing[key]
         kernels.append({
@@ -5623,6 +6094,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+        if "shapes" in row:  # the same kernel at the zoo's shapes
+            kernels[-1]["shapes"] = row["shapes"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

@@ -1,5 +1,6 @@
-"""Configs of the architectures the port runs (zamba2-7b so far)."""
+"""Configs of every architecture of the reference's zoo."""
 
+from .archs import ALL_ARCHS
 from .base import (
     SHAPES,
     ModelConfig,
@@ -12,6 +13,7 @@ from .base import (
 from .zamba2_7b import ZAMBA2_7B
 
 __all__ = [
+    "ALL_ARCHS",
     "SHAPES",
     "ZAMBA2_7B",
     "ModelConfig",

@@ -3,9 +3,8 @@
 A copy of ``repro.configs.base`` (the port imports nothing of the
 reference, not even its JAX-free modules): the same ``ModelConfig`` fields
 and defaults, ``reduced()`` and the shape cells, so that a config compares
-equal field by field with the reference's.  The registry holds only what
-the port runs; :func:`get_config` of another architecture of the reference
-raises and names the ROADMAP step that brings it.
+equal field by field with the reference's.  The registry holds every
+architecture of the reference's ``ALL_ARCHS`` (``configs/archs.py``).
 """
 
 from __future__ import annotations
@@ -150,23 +149,10 @@ SHAPES = {
 
 _REGISTRY: dict = {}
 
-#: the reference's other architectures and the ROADMAP step (Queue A,
-#: step 17) that ports them
-NOT_YET_PORTED = {
-    "llama3.2-1b": "the dense transformer",
-    "qwen1.5-110b": "the dense transformer",
-    "command-r-plus-104b": "the dense transformer",
-    "internvl2-76b": "the dense transformer",
-    "minicpm3-4b": "the dense transformer with MLA",
-    "deepseek-v2-236b": "the MoE transformer with MLA",
-    "granite-moe-1b-a400m": "the MoE transformer",
-    "mamba2-370m": "ssm_lm",
-    "whisper-large-v3": "encdec",
-}
-
-
 class NotPortedError(NotImplementedError):
-    """An architecture or family of the reference the port does not run yet."""
+    """A part of the reference the port does not run yet (every
+    architecture and family is ported; the name stays for callers that
+    catch it)."""
 
 
 def register(cfg: ModelConfig):
@@ -179,11 +165,6 @@ def get_config(name: str) -> ModelConfig:
 
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in NOT_YET_PORTED:
-        raise NotPortedError(
-            f"{name} ({NOT_YET_PORTED[name]}) is not ported yet: ROADMAP Queue A "
-            f"step 17 brings it; the port runs {sorted(_REGISTRY)}"
-        )
     raise KeyError(f"unknown architecture {name!r}; the port runs {sorted(_REGISTRY)}")
 
 

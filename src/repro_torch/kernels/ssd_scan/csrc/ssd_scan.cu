@@ -88,7 +88,17 @@
 //   y = M x + exp(cum) o (C H)  written to y,
 //   H = exp(total) H + (B^T o coef) x.
 // At c = 128, dh = ds = 64 that is 184 KB of dynamic shared memory, one
-// block an SM.
+// block an SM.  Where that layout does not fit a block (mamba2-370m's
+// ds = 128 needs 266,752 bytes at c = 128, dh = 64), ssd_scan_split_kernel
+// stages C and B^T in slices of the state dim, w columns (a multiple of 8)
+// at a time, the fewest slices that fit: both products over ds are sums of
+// the slices' products, added in slice order (G = C B^T into the c x c
+// tile, C H into a c x dh tile beside it), and the state update and C H are
+// separable over ds, so each slice updates its own rows of H after C H has
+// read them.  The decay then multiplies G in place, by the same direct
+// column sums.  At c = 128, dh = 64, ds = 128 that is three slices of 48,
+// 48 and 32 columns in 217,792 bytes; every layout that fits whole keeps
+// ssd_scan_kernel, so those calls give the bits they gave before.
 //
 // Launches go on the caller's stream and the entry point returns
 // cudaGetLastError().
@@ -373,6 +383,207 @@ __global__ void __launch_bounds__(NT, 1) ssd_scan_kernel(
   }
 }
 
+// The layout of ssd_scan_split_kernel, in floats: C and B^T of one slice
+// of w state columns, x, G (then M), H (all ds rows), the c x dh sum C H
+// and the four per-step vectors.
+struct SplitLayout {
+  int cp, dhp, dsp, w;
+  int lc, lbt, lx, lm, lh;
+  int oC, oBt, oX, oM, oH, oY, oDt, oCum, oE, oCoef, total;
+  __host__ __device__ SplitLayout(int chunk, int dh, int ds, int width) {
+    cp = round8(chunk);
+    dhp = round8(dh);
+    dsp = round8(ds);
+    w = width;
+    lc = w + 1;
+    lbt = cp + 1;
+    lx = dhp + 1;
+    lm = cp + 1;
+    lh = dhp + 1;
+    oC = 0;
+    oBt = oC + cp * lc;
+    oX = oBt + w * lbt;
+    oM = oX + cp * lx;
+    oH = oM + cp * lm;
+    oY = oH + dsp * lh;
+    oDt = oY + cp * lx;
+    oCum = oDt + cp;
+    oE = oCum + cp;
+    oCoef = oE + cp;
+    total = oCoef + cp;
+  }
+};
+
+// The state slice width of the CUDA-core route: ds where the whole-state
+// Layout fits a block, else the widest multiple of 8 that fits when ds is
+// cut into the fewest equal slices, or 0 if none does (exported as
+// ssd_scan_cuda_core_layout below).
+__host__ inline int ds_slice(int chunk, int dh, int ds) {
+  if (sizeof(float) * static_cast<size_t>(Layout(chunk, dh, ds).total) <= MAX_SMEM) return ds;
+  for (int ns = 2;; ++ns) {
+    const int w = round8((ds + ns - 1) / ns);
+    if (sizeof(float) * static_cast<size_t>(SplitLayout(chunk, dh, ds, w).total) <= MAX_SMEM) {
+      return w;
+    }
+    if (w == 8) return 0;
+  }
+}
+
+// ssd_scan_kernel with C and B^T staged w state columns at a time (the
+// header above): per chunk x and dt, the cumsum and the state coefficients
+// first; then per slice G += C_s B_s^T, Y += C_s H_s, and H_s's update;
+// then M = G o decay o dt by the column sums, and y = M x + exp(cum) o Y.
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) ssd_scan_split_kernel(
+    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+    const T* __restrict__ Bm, const T* __restrict__ Cm, T* __restrict__ y, Strides st,
+    int h, int l, int dh, int ds, int chunk, int width, int vec) {
+  extern __shared__ float smem[];
+  const SplitLayout L(chunk, dh, ds, width);
+  float* sC = smem + L.oC;      // cp x lc      C of the chunk, one slice
+  float* sBt = smem + L.oBt;    // w x lbt      B of the chunk, one slice, transposed
+  float* sX = smem + L.oX;      // cp x lx      x of the chunk
+  float* sM = smem + L.oM;      // cp x lm      G = C B^T, then the masked decay matrix
+  float* sH = smem + L.oH;      // dsp x lh     the state, transposed (s, p)
+  float* sY = smem + L.oY;      // cp x lx      C H, H the state before this chunk
+  float* sDt = smem + L.oDt;
+  float* sCum = smem + L.oCum;
+  float* sE = smem + L.oE;
+  float* sCoef = smem + L.oCoef;
+
+  const int tid = threadIdx.x;
+  const int bi = blockIdx.x / h, hi = blockIdx.x % h;
+  x += bi * st.xb + hi * st.xh;
+  dt += bi * st.db + hi * st.dh;
+  Bm += bi * st.Bb;
+  Cm += bi * st.Cb;
+  y += bi * st.yb + hi * st.yh;
+  const float a_h = A[hi];
+  const int cp = L.cp, dhp = L.dhp;
+
+  for (int i = tid; i < L.total; i += NT) smem[i] = 0.0f;
+
+  for (int c0 = 0; c0 < l; c0 += chunk) {
+    const int len = min(chunk, l - c0);
+    __syncthreads();
+    stage(sX, L.lx, 1, x + c0 * st.xl, st.xl, cp, len, dh, vec);
+    for (int r = tid; r < cp; r += NT) sDt[r] = r < len ? dt[(c0 + r) * st.dl] : 0.0f;
+    __syncthreads();
+    if (tid == NT - 1) {
+      float c = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < cp; ++r) {
+        c += sDt[r] * a_h;
+        sCum[r] = c;
+      }
+    }
+    // the carried state's coefficients, summed down the columns as below
+    for (int j = tid; j < cp; j += NT) {
+      float seg = 0.0f;
+      for (int i = j + 1; i < cp; ++i) seg += sDt[i] * a_h;
+      sCoef[j] = expf(seg) * sDt[j];
+    }
+    __syncthreads();
+    const float decay = expf(sCum[cp - 1]);
+    for (int r = tid; r < cp; r += NT) sE[r] = expf(sCum[r]);
+
+    for (int s0 = 0; s0 < ds; s0 += width) {
+      const int n = min(width, ds - s0);
+      const bool first = s0 == 0;
+      __syncthreads();  // the last slice's reads of sC / sBt are done
+      stage(sC, L.lc, 1, Cm + c0 * st.Cl + s0, st.Cl, cp, len, n, vec);
+      stage(sBt, 1, L.lbt, Bm + c0 * st.Bl + s0, st.Bl, cp, len, n, vec);
+      __syncthreads();
+      // G (+)= C_s B_s^T
+      {
+        const int rg = cp / RM, tiles = rg * (cp / RN);
+        for (int t = tid; t < tiles; t += NT) {
+          const int r0 = t % rg, cc = (t / rg) * RN;
+          float acc[RM][RN];
+          zero(acc);
+          tile_mm(acc, sC, L.lc, r0, rg, sBt, L.lbt, cc, n, nullptr);
+#pragma unroll
+          for (int a = 0; a < RM; ++a) {
+            float* mr = sM + (r0 + rg * a) * L.lm + cc;
+#pragma unroll
+            for (int b = 0; b < RN; ++b) mr[b] = first ? acc[a][b] : mr[b] + acc[a][b];
+          }
+        }
+      }
+      // Y (+)= C_s H_s
+      {
+        const int rg = cp / RM, tiles = rg * (dhp / RN);
+        for (int t = tid; t < tiles; t += NT) {
+          const int r0 = t % rg, cc = (t / rg) * RN;
+          float acc[RM][RN];
+          zero(acc);
+          tile_mm(acc, sC, L.lc, r0, rg, sH + s0 * L.lh, L.lh, cc, n, nullptr);
+#pragma unroll
+          for (int a = 0; a < RM; ++a) {
+            float* yr = sY + (r0 + rg * a) * L.lx + cc;
+#pragma unroll
+            for (int b = 0; b < RN; ++b) yr[b] = first ? acc[a][b] : yr[b] + acc[a][b];
+          }
+        }
+      }
+      __syncthreads();  // C_s H_s has read H_s
+      // H_s = exp(total) H_s + (B_s^T o coef) x, rows past n left alone
+      {
+        const int rg = (n + RM - 1) / RM, tiles = rg * (dhp / RN);
+        for (int t = tid; t < tiles; t += NT) {
+          const int r0 = t % rg, cc = (t / rg) * RN;
+          float acc[RM][RN];
+          zero(acc);
+          tile_mm(acc, sBt, L.lbt, r0, rg, sX, L.lx, cc, cp, sCoef);
+#pragma unroll
+          for (int a = 0; a < RM; ++a) {
+            const int r = r0 + rg * a;
+            if (r >= n) continue;
+            float* hr = sH + (s0 + r) * L.lh + cc;
+#pragma unroll
+            for (int b = 0; b < RN; ++b) hr[b] = decay * hr[b] + acc[a][b];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // M = G o exp(seg_ij) o dt_j on the lower triangle, 0 above it
+    for (int j = tid; j < cp; j += NT) {
+      const float dtj = sDt[j];
+      for (int i = 0; i < j; ++i) sM[i * L.lm + j] = 0.0f;
+      float seg = 0.0f;
+      sM[j * L.lm + j] *= dtj;
+      for (int i = j + 1; i < cp; ++i) {
+        seg += sDt[i] * a_h;
+        sM[i * L.lm + j] *= expf(seg) * dtj;
+      }
+    }
+    __syncthreads();
+    // y = M x + exp(cum) o Y
+    {
+      const int rg = cp / RM, tiles = rg * (dhp / RN);
+      for (int t = tid; t < tiles; t += NT) {
+        const int r0 = t % rg, cc = (t / rg) * RN;
+        float intra[RM][RN];
+        zero(intra);
+        tile_mm(intra, sM, L.lm, r0, rg, sX, L.lx, cc, cp, nullptr);
+#pragma unroll
+        for (int a = 0; a < RM; ++a) {
+          const int i = r0 + rg * a;
+          if (i >= len) continue;
+          T* yr = y + (c0 + i) * st.yl;
+          const float* ys = sY + i * L.lx + cc;
+#pragma unroll
+          for (int b = 0; b < RN; ++b) {
+            const int p = cc + b;
+            if (p < dh) yr[p] = from_f32<T>(intra[a][b] + sE[i] * ys[b]);
+          }
+        }
+      }
+    }
+  }
+}
+
 // 16-byte staging loads need 16-byte aligned bases and rows of x, B, C.
 template <typename T>
 bool vectorizable(const void* x, const void* B, const void* C, const Strides& st, int dh,
@@ -388,16 +599,28 @@ template <typename T>
 cudaError_t launch(const void* x, const float* dt, const float* A, const void* B,
                    const void* C, void* y, const Strides& st, int b, int h, int l, int dh,
                    int ds, int chunk, cudaStream_t stream) {
-  const Layout L(chunk, dh, ds);
-  const size_t smem = sizeof(float) * static_cast<size_t>(L.total);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  auto kern = ssd_scan_kernel<T>;
+  const int width = ds_slice(chunk, dh, ds);
+  if (width == 0) return cudaErrorInvalidValue;
+  const int vec = vectorizable<T>(x, B, C, st, dh, ds) ? 1 : 0;
+  const T* xt = static_cast<const T*>(x);
+  const T* Bt = static_cast<const T*>(B);
+  const T* Ct = static_cast<const T*>(C);
+  T* yt = static_cast<T*>(y);
+  if (width == ds) {
+    const size_t smem = sizeof(float) * static_cast<size_t>(Layout(chunk, dh, ds).total);
+    auto kern = ssd_scan_kernel<T>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kern<<<b * h, NT, smem, stream>>>(xt, dt, A, Bt, Ct, yt, st, h, l, dh, ds, chunk, vec);
+    return cudaGetLastError();
+  }
+  const size_t smem = sizeof(float) * static_cast<size_t>(SplitLayout(chunk, dh, ds, width).total);
+  auto kern = ssd_scan_split_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kern<<<b * h, NT, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(B), static_cast<const T*>(C),
-      static_cast<T*>(y), st, h, l, dh, ds, chunk, vectorizable<T>(x, B, C, st, dh, ds) ? 1 : 0);
+  kern<<<b * h, NT, smem, stream>>>(xt, dt, A, Bt, Ct, yt, st, h, l, dh, ds, chunk, width, vec);
   return cudaGetLastError();
 }
 
@@ -894,4 +1117,17 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const 
     err = launch<__nv_bfloat16>(x, dtf, Af, B, C, y, st, b, h, l, dh, ds, chunk, s);
   }
   return static_cast<int>(err);
+}
+
+// The CUDA-core kernel's plan for these shapes: returns ds_slice's width
+// (ds: the whole-state Layout; less: SplitLayout; 0: none fits a block) and
+// sets *smem_bytes to the layout's dynamic shared memory (at a width of 8
+// where none fits).
+extern "C" int ssd_scan_cuda_core_layout(int chunk, int dh, int ds, long long* smem_bytes) {
+  if (chunk < 1 || dh < 1 || ds < 1) return 0;
+  const int width = ds_slice(chunk, dh, ds);
+  const int total = width == ds ? Layout(chunk, dh, ds).total
+                                : SplitLayout(chunk, dh, ds, width == 0 ? 8 : width).total;
+  *smem_bytes = static_cast<long long>(sizeof(float)) * total;
+  return width;
 }

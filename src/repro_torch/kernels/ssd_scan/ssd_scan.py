@@ -42,14 +42,30 @@ def reset_launch_counts() -> None:
 
 
 def shared_bytes(chunk: int, dh: int, ds: int) -> int:
-    """The CUDA-core kernel's dynamic shared memory for one (batch, head)
+    """The CUDA-core kernel's whole-state layout for one (batch, head)
     block: C, Bᵀ, x, the c×c decay matrix and the transposed state, rows
     padded to multiples of 8 plus one, and four per-step vectors
-    (``Layout`` in the source)."""
+    (``Layout`` in the source).  Where it is more than a block may use, the
+    kernel stages the state in slices: :func:`cuda_core_layout`."""
     cp, dhp, dsp = (-(-n // 8) * 8 for n in (chunk, dh, ds))
     floats = cp * (dsp + 1) + dsp * (cp + 1) + cp * (dhp + 1) + cp * (cp + 1)
     floats += dsp * (dhp + 1) + 4 * cp
     return 4 * floats
+
+
+def cuda_core_layout(chunk: int, dh: int, ds: int) -> tuple[int, int]:
+    """(state columns staged at a time, shared bytes) of the CUDA-core
+    kernel for these shapes, from the built library (``ds_slice`` in the
+    source): ds where :func:`shared_bytes` fits a block, else the widest
+    multiple of 8 that fits when ds is cut into the fewest equal slices
+    (``ssd_scan_split_kernel``), or 0 if none does."""
+    lib = load_library("ssd_scan")
+    fn = lib.ssd_scan_cuda_core_layout
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    nbytes = ctypes.c_longlong(0)
+    width = fn(int(chunk), int(dh), int(ds), ctypes.byref(nbytes))
+    return width, nbytes.value
 
 
 def tc_shared_bytes(chunk: int, dh: int, ds: int) -> int:
@@ -141,12 +157,14 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk=128, _cuda_cores=False):
     b, h, l, dh = x.shape
     ds = B.shape[-1]
     route = "cuda cores" if _cuda_cores else b5_route(x, dt, A, B, C, chunk)
-    if route == "cuda cores" and shared_bytes(chunk, dh, ds) > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"ssd_scan: chunk {chunk}, head dim {dh} and state {ds} need "
-            f"{shared_bytes(chunk, dh, ds)} bytes of shared memory on the CUDA-core "
-            f"kernel, more than the {MAX_SHARED_BYTES} a block may use"
-        )
+    if route == "cuda cores":
+        width, nbytes = cuda_core_layout(chunk, dh, ds)
+        if width == 0:
+            raise ValueError(
+                f"ssd_scan: chunk {chunk}, head dim {dh} and state {ds} need "
+                f"{nbytes} bytes of shared memory on the CUDA-core kernel even with "
+                f"the state in slices of 8, more than the {MAX_SHARED_BYTES} a block may use"
+            )
     # (b, l, h, dh) storage, returned as the (b, h, l, dh) view: the model
     # folds the heads back into the features for free
     y = torch.empty((b, l, h, dh), dtype=x.dtype, device=x.device).transpose(1, 2)

@@ -1,5 +1,6 @@
-"""LM serving: the zamba2 hybrid (Mamba-2 + shared attention) with its
-layers, attention and Mamba-2 blocks."""
+"""LM serving for every family of the reference's zoo: the dense and MoE
+transformer (GQA and MLA), the Mamba-2 LM, the whisper encoder–decoder and
+the zamba2 hybrid, with their layers, attention, MoE and Mamba-2 blocks."""
 
 from .model import ModelBundle, build_model, make_prefill_step, make_serve_step
 

@@ -1,24 +1,26 @@
-"""Attention, the GQA part — the counterpart of ``repro.models.attention``.
+"""Attention: GQA (llama / qwen / command-r / whisper) and MLA (deepseek /
+minicpm3) — the counterpart of ``repro.models.attention``.
 
-Three entry modes, as in the reference:
-  * full     — a whole sequence (training / prefill forward);
+Every variant has the reference's three entry modes:
+  * full     — a whole sequence (training / encoder, bidirectional optional);
   * prefill  — a full pass that also returns the serving cache;
   * decode   — one new token against a fixed-capacity cache.
 
-On CUDA tensors the full and prefill passes run B4, the hand-written flash
-attention kernel (``use_kernel=True``, the default; the reference's
-``use_flash``); decode, masked by the active lengths, runs the plain path,
-as in the reference.  MLA, ``_sdpa_chunked`` and cross-attention are not
-ported yet (ROADMAP Queue A step 17); the reference's sharding hints are
-the identity on one device and are left out (the LM sharding rules, step
-17).
+On CUDA tensors the GQA full and prefill passes and cross-attention run B4,
+the hand-written flash attention kernel (``use_kernel=True``, the default;
+the reference's ``use_flash``); a ``chunked_attention`` config takes B4 too,
+since ``_sdpa_chunked`` is the same online-softmax algorithm and its chunk
+only a tiling.  Decode, masked by the active lengths, runs the plain path,
+as in the reference.  MLA is plain torch, as in the reference: its qk width
+(r_kv + r_rope, 288 or 576) is past B4's head dims and its value width
+differs from its key width.  The reference's sharding hints are the
+identity on one device and are left out.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..configs.base import NotPortedError
 from ..kernels.flash_attention.ops import flash_attention
 from .layers import apply_rope, at_least_f32, normal_init
 
@@ -53,14 +55,62 @@ def _sdpa(q, k, v, *, causal, kv_len=None, use_kernel=True):
     return out.reshape(B, S, H, hd)
 
 
-def _check_not_chunked(cfg, S):
-    """The reference takes ``_sdpa_chunked`` here, which is not ported."""
-    c = min(cfg.attn_chunk, S)
-    if cfg.chunked_attention and S > 1 and S % c == 0:
-        raise NotPortedError(
-            "chunked_attention (the reference's _sdpa_chunked) is not ported: "
-            "ROADMAP Queue A step 17"
-        )
+def _online_softmax_step(carry, s, vb, value_eq):
+    """One kv chunk of the online softmax: s the masked f32 scores (…, q, t),
+    vb the chunk's values; ``value_eq`` the einsum of P and vb."""
+    m, l, acc = carry
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    p = torch.where(s <= -1e29, 0.0, p)
+    alpha = torch.exp(m - m_new)
+    alpha = torch.where(m <= -1e29, 0.0, alpha)
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum(value_eq, p, vb)
+    return m_new, l, acc
+
+
+def _causal_block_mask(qi, ki, q_chunk, kv_chunk, device):
+    rows = qi * q_chunk + torch.arange(q_chunk, device=device)[:, None]
+    cols = ki * kv_chunk + torch.arange(kv_chunk, device=device)[None, :]
+    return rows >= cols
+
+
+def _sdpa_chunked(q, k, v, *, causal, q_chunk=1024, kv_chunk=1024, use_kernel=True):
+    """Flash-style attention over (q, kv) chunks with an online softmax: the
+    (S × T) score matrix is never formed.  On CUDA tensors with
+    ``use_kernel`` this is B4 (the same algorithm, tiled by the kernel);
+    otherwise the reference's plain double loop, f32 math."""
+    if use_kernel and q.is_cuda:
+        return _sdpa(q, k, v, causal=causal, use_kernel=True)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    group = H // KV
+    q_chunk = min(q_chunk, S)
+    kv_chunk = min(kv_chunk, T)
+    assert S % q_chunk == 0 and T % kv_chunk == 0
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qh = q.reshape(B, S, KV, group, hd) * hd**-0.5
+    outs = []
+    for qi in range(S // q_chunk):
+        qb = qh[:, qi * q_chunk : (qi + 1) * q_chunk].to(ct)  # (B, qc, KV, G, hd)
+        carry = (torch.full((B, KV, group, q_chunk), NEG_INF, dtype=ct, device=q.device),
+                 torch.zeros((B, KV, group, q_chunk), dtype=ct, device=q.device),
+                 torch.zeros((B, KV, group, q_chunk, hd), dtype=ct, device=q.device))
+        for ki in range(T // kv_chunk):
+            kb = k[:, ki * kv_chunk : (ki + 1) * kv_chunk].to(ct)  # (B, kc, KV, hd)
+            vb = v[:, ki * kv_chunk : (ki + 1) * kv_chunk].to(ct)
+            s = torch.einsum("bqkgh,btkh->bkgqt", qb, kb)
+            if causal:
+                s = torch.where(_causal_block_mask(qi, ki, q_chunk, kv_chunk, q.device), s, NEG_INF)
+            carry = _online_softmax_step(carry, s, vb, "bkgqt,btkh->bkgqh")
+        _, l, acc = carry
+        l = torch.where(l == 0.0, 1.0, l)
+        out = (acc / l[..., None]).to(q.dtype)  # (B, KV, G, qc, hd)
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (B, qc, KV, G, hd)
+    return torch.cat(outs, dim=1).reshape(B, S, H, hd)
+
+
+# ---------------------------------------------------------------- GQA --------
 
 
 def gqa_init(gen, cfg, dtype):
@@ -103,20 +153,32 @@ def _positions(B, S, device):
     return torch.arange(S, device=device).expand(B, S)
 
 
+def _chunk_ok(cfg, S):
+    c = min(cfg.attn_chunk, S)
+    return S % c == 0
+
+
+def _attend(cfg, q, k, v, S, causal, use_kernel):
+    """The reference's choice: ``_sdpa_chunked`` for a chunked config whose
+    length the chunk divides, else ``_sdpa``."""
+    if cfg.chunked_attention and S > 1 and _chunk_ok(cfg, S):
+        return _sdpa_chunked(q, k, v, causal=causal, q_chunk=cfg.attn_chunk,
+                             kv_chunk=cfg.attn_chunk, use_kernel=use_kernel)
+    return _sdpa(q, k, v, causal=causal, use_kernel=use_kernel)
+
+
 def gqa_full(p, cfg, x, *, causal=True, use_kernel=True):
     B, S, _ = x.shape
-    _check_not_chunked(cfg, S)
     q, k, v = _gqa_qkv(p, cfg, x, _positions(B, S, x.device))
-    out = _sdpa(q, k, v, causal=causal, use_kernel=use_kernel)
+    out = _attend(cfg, q, k, v, S, causal, use_kernel)
     return out.reshape(B, S, -1) @ p["wo"]
 
 
 def gqa_prefill(p, cfg, x, cache_len, *, use_kernel=True):
     """Returns (out, cache) with cache capacity == cache_len ≥ S."""
     B, S, _ = x.shape
-    _check_not_chunked(cfg, S)
     q, k, v = _gqa_qkv(p, cfg, x, _positions(B, S, x.device))
-    out = _sdpa(q, k, v, causal=True, use_kernel=use_kernel)
+    out = _attend(cfg, q, k, v, S, True, use_kernel)
     pad = cache_len - S
     cache = {
         "k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
@@ -143,3 +205,196 @@ def gqa_decode(p, cfg, x, cache, pos):
     v_cache = _masked_cache_update(cache["v"], v, pos)
     out = _sdpa(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
     return out.reshape(B, 1, -1) @ p["wo"], {"k": k_cache, "v": v_cache}
+
+
+def gqa_cross_init(gen, cfg, dtype):
+    """Cross-attention (whisper decoder): kv from encoder states."""
+    return gqa_init(gen, cfg, dtype)
+
+
+def gqa_cross(p, cfg, x, enc, enc_cache=None, *, use_kernel=True):
+    """x (B,S,d) queries; enc (B,T,d) encoder states (no causal mask): B4
+    on CUDA tensors with ``use_kernel``.
+
+    enc_cache: precomputed {k, v} to amortize projections during decode."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]) if not cfg.qkv_bias else (x @ p["wq"] + p["bq"])
+    q = q.reshape(B, S, H, hd)
+    if enc_cache is None:
+        k = enc @ p["wk"]
+        v = enc @ p["wv"]
+        if cfg.qkv_bias:
+            k, v = k + p["bk"], v + p["bv"]
+        k = k.reshape(B, -1, KV, hd)
+        v = v.reshape(B, -1, KV, hd)
+    else:
+        k, v = enc_cache["k"], enc_cache["v"]
+    out = _sdpa(q, k, v, causal=False, use_kernel=use_kernel)
+    return out.reshape(B, S, -1) @ p["wo"], {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------- MLA --------
+
+
+def mla_init(gen, cfg, dtype):
+    d = cfg.d_model
+    H = cfg.num_heads
+    hd = cfg.resolved_head_dim  # nope (non-positional) head dim
+    vhd = cfg.resolved_v_head_dim
+    r_kv, r_q, r_rope = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.rope_head_dim
+    s = d**-0.5
+    p = {
+        "w_dkv": normal_init(gen, (d, r_kv), s, dtype),
+        "w_kr": normal_init(gen, (d, r_rope), s, dtype),
+        "w_uk": normal_init(gen, (r_kv, H * hd), r_kv**-0.5, dtype),
+        "w_uv": normal_init(gen, (r_kv, H * vhd), r_kv**-0.5, dtype),
+        "wo": normal_init(gen, (H * vhd, d), s, dtype),
+        "kv_norm": torch.ones((r_kv,), dtype=dtype, device=gen.device),
+    }
+    if r_q:
+        p["w_dq"] = normal_init(gen, (d, r_q), s, dtype)
+        p["w_uq"] = normal_init(gen, (r_q, H * (hd + r_rope)), r_q**-0.5, dtype)
+        p["q_norm"] = torch.ones((r_q,), dtype=dtype, device=gen.device)
+    else:
+        p["wq"] = normal_init(gen, (d, H * (hd + r_rope)), s, dtype)
+    return p
+
+
+def _rms(x, scale, eps=1e-5):
+    """MLA's latent RMS norm, with its own eps (not the config's)."""
+    x32 = at_least_f32(x)
+    out = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (out * at_least_f32(scale)).to(x.dtype)
+
+
+def _mla_q(p, cfg, x):
+    B, S, _ = x.shape
+    H, hd, r_rope = cfg.num_heads, cfg.resolved_head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank:
+        q = _rms(x @ p["w_dq"], p["q_norm"]) @ p["w_uq"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, H, hd + r_rope)
+    return q[..., :hd], q[..., hd:]  # (nope, rope) parts
+
+
+def _mla_kv_latent(p, cfg, x, positions):
+    """Compressed cache entries: c_kv (B,S,r_kv), k_rope (B,S,r_rope)."""
+    c_kv = _rms(x @ p["w_dkv"], p["kv_norm"])
+    k_rope = x @ p["w_kr"]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_latent_q(p, cfg, q_nope, q_rope, positions_q):
+    """q_nope absorbed into the latent space (q_nope W_ukᵀ per head), and
+    q_rope rotated."""
+    H, hd = q_nope.shape[2], q_nope.shape[3]
+    r_kv = p["w_uk"].shape[0]
+    q_rope = apply_rope(q_rope, positions_q, cfg.rope_theta)
+    w_uk = p["w_uk"].reshape(r_kv, H, hd)
+    return torch.einsum("bshd,rhd->bshr", q_nope, w_uk), q_rope  # (B,S,H,r_kv)
+
+
+def _mla_out(p, cfg, lat):
+    """The value sum in latent space (B,S,H,r_kv) expanded per head and
+    projected out."""
+    B, S, H, r_kv = lat.shape
+    vhd = cfg.resolved_v_head_dim
+    w_uv = p["w_uv"].reshape(r_kv, H, vhd)
+    out = torch.einsum("bshr,rhv->bshv", lat, w_uv)
+    return out.reshape(B, S, H * vhd) @ p["wo"]
+
+
+def _mla_attend(p, cfg, q_nope, q_rope, positions_q, c_kv, k_rope, *, causal, kv_len=None):
+    """Attention in latent space (the 'absorbed' MLA formulation):
+
+    score_h(i,j) = (q_nope_i W_uk_hᵀ)·c_j + q_rope_i·k_rope_j
+    out_h(i)     = Σ_j p_ij (c_j W_uv_h)  — expand after the value sum.
+    """
+    S, hd = q_nope.shape[1], q_nope.shape[3]
+    r_rope = cfg.rope_head_dim
+    q_lat, q_rope = _mla_latent_q(p, cfg, q_nope, q_rope, positions_q)
+
+    scores = torch.einsum("bshr,btr->bhst", q_lat, c_kv)
+    scores = scores + torch.einsum("bshr,btr->bhst", q_rope, k_rope)
+    scores = at_least_f32(scores) * ((hd + r_rope) ** -0.5)
+
+    T = c_kv.shape[1]
+    dev = c_kv.device
+    if causal and S > 1:
+        mask = torch.arange(S, device=dev)[:, None] >= torch.arange(T, device=dev)[None, :]
+        scores = torch.where(mask, scores, NEG_INF)
+    if kv_len is not None:
+        valid = torch.arange(T, device=dev)[None, :] < kv_len[:, None]
+        scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+
+    lat_out = torch.einsum("bhst,btr->bshr", probs, c_kv)  # (B,S,H,r_kv)
+    return _mla_out(p, cfg, lat_out)
+
+
+def _mla_attend_chunked(p, cfg, q_nope, q_rope, positions_q, c_kv, k_rope, *, chunk=1024):
+    """Causal chunked (online-softmax) MLA attention in latent space."""
+    B, S, H, hd = q_nope.shape
+    r_kv = c_kv.shape[-1]
+    chunk = min(chunk, S)
+    assert S % chunk == 0
+    q_lat, q_rope = _mla_latent_q(p, cfg, q_nope, q_rope, positions_q)
+    scale = (hd + cfg.rope_head_dim) ** -0.5
+    ct = torch.promote_types(c_kv.dtype, torch.float32)
+    dev = c_kv.device
+    nq = S // chunk
+    lats = []
+    for qi in range(nq):
+        ql = q_lat[:, qi * chunk : (qi + 1) * chunk].to(ct)  # (B, chunk, H, r_kv)
+        qr = q_rope[:, qi * chunk : (qi + 1) * chunk].to(ct)
+        carry = (torch.full((B, H, chunk), NEG_INF, dtype=ct, device=dev),
+                 torch.zeros((B, H, chunk), dtype=ct, device=dev),
+                 torch.zeros((B, H, chunk, r_kv), dtype=ct, device=dev))
+        for ki in range(nq):
+            ck = c_kv[:, ki * chunk : (ki + 1) * chunk].to(ct)
+            kr = k_rope[:, ki * chunk : (ki + 1) * chunk].to(ct)
+            s = torch.einsum("bqhr,btr->bhqt", ql, ck) + torch.einsum("bqhr,btr->bhqt", qr, kr)
+            s = torch.where(_causal_block_mask(qi, ki, chunk, chunk, dev), s * scale, NEG_INF)
+            carry = _online_softmax_step(carry, s, ck, "bhqt,btr->bhqr")
+        _, l, acc = carry
+        l = torch.where(l == 0.0, 1.0, l)
+        lats.append((acc / l[..., None]).to(c_kv.dtype).transpose(1, 2))  # (B, chunk, H, r_kv)
+    return _mla_out(p, cfg, torch.cat(lats, dim=1))
+
+
+def mla_full(p, cfg, x, *, causal=True):
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    c_kv, k_rope = _mla_kv_latent(p, cfg, x, positions)
+    if cfg.chunked_attention and causal and S > 1 and _chunk_ok(cfg, S):
+        return _mla_attend_chunked(p, cfg, q_nope, q_rope, positions, c_kv, k_rope,
+                                   chunk=cfg.attn_chunk)
+    return _mla_attend(p, cfg, q_nope, q_rope, positions, c_kv, k_rope, causal=causal)
+
+
+def mla_prefill(p, cfg, x, cache_len):
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    c_kv, k_rope = _mla_kv_latent(p, cfg, x, positions)
+    out = _mla_attend(p, cfg, q_nope, q_rope, positions, c_kv, k_rope, causal=True)
+    pad = cache_len - S
+    cache = {
+        "c_kv": torch.nn.functional.pad(c_kv, (0, 0, 0, pad)),
+        "k_rope": torch.nn.functional.pad(k_rope, (0, 0, 0, pad)),
+    }
+    return out, cache
+
+
+def mla_decode(p, cfg, x, cache, pos):
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    c_new, kr_new = _mla_kv_latent(p, cfg, x, pos[:, None])
+    c_kv = _masked_cache_update(cache["c_kv"], c_new, pos)
+    k_rope = _masked_cache_update(cache["k_rope"], kr_new, pos)
+    out = _mla_attend(p, cfg, q_nope, q_rope, pos[:, None], c_kv, k_rope, causal=False,
+                      kv_len=pos + 1)
+    return out, {"c_kv": c_kv, "k_rope": k_rope}

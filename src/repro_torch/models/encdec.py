@@ -1,0 +1,174 @@
+"""Whisper-style encoder–decoder (audio frontend stubbed) — the
+counterpart of ``repro.models.encdec``, for serving (``loss_fn`` waits for
+LM training, ROADMAP Queue A step 17 item 5).
+
+The encoder takes precomputed frame embeddings (B, encoder_seq, d), as in
+the reference; the decoder is a causal transformer with cross-attention.
+Learned positions, pre-LayerNorm, GELU MLPs, QKV bias.  On CUDA tensors
+(``use_kernels=True``; the reference's ``use_flash``) B4 runs the
+encoder's attention (non-causal), the decoder's self-attention over a
+prompt (causal) and every cross-attention (non-causal, in decode too: one
+query position against the encoder's frames); decode's self-attention,
+masked by the active lengths, is plain.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import attention as attn
+from .layers import (
+    embed,
+    embedding_init,
+    make_norm,
+    mlp_apply,
+    mlp_init,
+    normal_init,
+    stacked_init,
+    tree_index,
+    tree_stack,
+)
+
+
+def _dtype(cfg):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _enc_block_init(gen, cfg, dtype):
+    norm_init, _ = make_norm(cfg)
+    dev = gen.device
+    return {
+        "attn_norm": norm_init(cfg.d_model, dtype, dev),
+        "attn": attn.gqa_init(gen, cfg, dtype),
+        "mlp_norm": norm_init(cfg.d_model, dtype, dev),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg, dtype),
+    }
+
+
+def _dec_block_init(gen, cfg, dtype):
+    norm_init, _ = make_norm(cfg)
+    dev = gen.device
+    return {
+        "attn_norm": norm_init(cfg.d_model, dtype, dev),
+        "attn": attn.gqa_init(gen, cfg, dtype),
+        "cross_norm": norm_init(cfg.d_model, dtype, dev),
+        "cross": attn.gqa_cross_init(gen, cfg, dtype),
+        "mlp_norm": norm_init(cfg.d_model, dtype, dev),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg, dtype),
+    }
+
+
+def init(cfg, gen, *, max_seq=4096):
+    """Parameters drawn from ``gen`` (a torch.Generator), on its device;
+    ``max_seq`` rows of learned decoder positions."""
+    dtype = _dtype(cfg)
+    norm_init, _ = make_norm(cfg)
+    dev = gen.device
+    return {
+        "embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model, dtype),
+        "enc_pos": {"pos_table": normal_init(gen, (cfg.encoder_seq, cfg.d_model), 0.01, dtype)},
+        "dec_pos": {"pos_table": normal_init(gen, (max_seq, cfg.d_model), 0.01, dtype)},
+        "encoder": stacked_init(cfg.encoder_layers, lambda: _enc_block_init(gen, cfg, dtype)),
+        "enc_final_norm": norm_init(cfg.d_model, dtype, dev),
+        "decoder": stacked_init(cfg.num_layers, lambda: _dec_block_init(gen, cfg, dtype)),
+        "final_norm": norm_init(cfg.d_model, dtype, dev),
+        "lm_head": normal_init(gen, (cfg.d_model, cfg.padded_vocab), cfg.d_model**-0.5, dtype),
+    }
+
+
+def encode(params, cfg, frames, *, use_kernels=True):
+    """frames (B, T, d) stub embeddings → encoder states."""
+    _, norm = make_norm(cfg)
+    T = frames.shape[1]
+    h = frames + params["enc_pos"]["pos_table"][:T][None]
+    for i in range(cfg.encoder_layers):
+        p = tree_index(params["encoder"], i)
+        h = h + attn.gqa_full(p["attn"], cfg, norm(p["attn_norm"], h), causal=False,
+                              use_kernel=use_kernels)
+        h = h + mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg)
+    return norm(params["enc_final_norm"], h)
+
+
+def _embed_tokens(params, tokens):
+    S = tokens.shape[1]
+    return embed(params["embed"], tokens) + params["dec_pos"]["pos_table"][:S][None]
+
+
+def forward(params, cfg, frames, tokens, *, use_kernels=True):
+    """(frames (B, T, d), tokens (B, S)) → logits (B, S, padded_vocab)."""
+    _, norm = make_norm(cfg)
+    enc = encode(params, cfg, frames, use_kernels=use_kernels)
+    h = _embed_tokens(params, tokens)
+    for i in range(cfg.num_layers):
+        p = tree_index(params["decoder"], i)
+        h = h + attn.gqa_full(p["attn"], cfg, norm(p["attn_norm"], h), causal=True,
+                              use_kernel=use_kernels)
+        c, _ = attn.gqa_cross(p["cross"], cfg, norm(p["cross_norm"], h), enc, use_kernel=use_kernels)
+        h = h + c
+        h = h + mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg)
+    h = norm(params["final_norm"], h)
+    return h @ params["lm_head"]
+
+
+# -- serving -------------------------------------------------------------------
+
+
+def init_cache(params, cfg, batch, cache_len):
+    dtype = _dtype(cfg)
+    dev = params["lm_head"].device
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    L = cfg.num_layers
+
+    def zeros(T):
+        return torch.zeros((L, batch, T, KV, hd), dtype=dtype, device=dev)
+
+    return {"self_k": zeros(cache_len), "self_v": zeros(cache_len),
+            "cross_k": zeros(cfg.encoder_seq), "cross_v": zeros(cfg.encoder_seq)}
+
+
+def prefill(params, cfg, frames, tokens, cache_len, *, use_kernels=True):
+    """Encode + run the decoder over the prompt; build the self- and
+    cross-attention caches.  → (last-token logits, cache)."""
+    _, norm = make_norm(cfg)
+    enc = encode(params, cfg, frames, use_kernels=use_kernels)
+    h = _embed_tokens(params, tokens)
+    self_caches, cross_caches = [], []
+    for i in range(cfg.num_layers):
+        p = tree_index(params["decoder"], i)
+        a, self_cache = attn.gqa_prefill(p["attn"], cfg, norm(p["attn_norm"], h), cache_len,
+                                         use_kernel=use_kernels)
+        h = h + a
+        c, cross_cache = attn.gqa_cross(p["cross"], cfg, norm(p["cross_norm"], h), enc,
+                                        use_kernel=use_kernels)
+        h = h + c
+        h = h + mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg)
+        self_caches.append(self_cache)
+        cross_caches.append(cross_cache)
+    h = norm(params["final_norm"], h[:, -1:])
+    selfs, crosses = tree_stack(self_caches), tree_stack(cross_caches)
+    cache = {"self_k": selfs["k"], "self_v": selfs["v"],
+             "cross_k": crosses["k"], "cross_v": crosses["v"]}
+    return (h @ params["lm_head"])[:, 0], cache
+
+
+def decode_step(params, cfg, token, cache, pos):
+    """token (B,), pos (B,) → (logits (B, padded_vocab), new cache); the
+    cross caches are read, never written (B4 on CUDA tensors, one query
+    position against the encoder's frames)."""
+    _, norm = make_norm(cfg)
+    h = embed(params["embed"], token[:, None]) + params["dec_pos"]["pos_table"][pos][:, None]
+    new_k, new_v = [], []
+    for i in range(cfg.num_layers):
+        p = tree_index(params["decoder"], i)
+        a, new_self = attn.gqa_decode(p["attn"], cfg, norm(p["attn_norm"], h),
+                                      {"k": cache["self_k"][i], "v": cache["self_v"][i]}, pos)
+        h = h + a
+        c, _ = attn.gqa_cross(p["cross"], cfg, norm(p["cross_norm"], h), None,
+                              enc_cache={"k": cache["cross_k"][i], "v": cache["cross_v"][i]})
+        h = h + c
+        h = h + mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg)
+        new_k.append(new_self["k"])
+        new_v.append(new_self["v"])
+    h = norm(params["final_norm"], h)
+    logits = (h @ params["lm_head"])[:, 0]
+    return logits, dict(cache, self_k=torch.stack(new_k), self_v=torch.stack(new_v))

@@ -35,6 +35,10 @@ from .layers import (
     mlp_init,
     normal_init,
 )
+from .layers import stacked_init as _stacked_init
+from .layers import tree_index as _index
+from .layers import tree_map as _tree_map
+from .layers import tree_stack as _stack
 from .ssm import mamba2_decode, mamba2_full, mamba2_init, mamba2_init_cache
 
 
@@ -58,34 +62,6 @@ def _group_shape(cfg):
     G = cfg.num_layers // P
     tail = cfg.num_layers - G * P
     return P, G, tail
-
-
-def _tree_map(fn, *trees):
-    """fn over the leaves of nested dicts with the same keys."""
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
-def _index(tree, i):
-    return _tree_map(lambda x: x[i], tree)
-
-
-def _stack(trees):
-    return _tree_map(lambda *xs: torch.stack(xs), *trees)
-
-
-def _stacked_init(n, make):
-    """``make()`` called n times, its trees stacked on a new leading axis:
-    the stacked tensors are allocated once and filled layer by layer, so
-    the peak is the stack plus one layer."""
-    first = make()
-    out = _tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
-    _tree_map(lambda o, x: o[0].copy_(x), out, first)
-    del first
-    for i in range(1, n):
-        _tree_map(lambda o, x: o[i].copy_(x), out, make())
-    return out
 
 
 def init(cfg, gen):

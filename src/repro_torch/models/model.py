@@ -1,10 +1,10 @@
 """One bundle per architecture family — the counterpart of
 ``repro.models.model``, for serving: init / prefill / decode / init_cache
-and the prefill and serve step builders.
+and the functions that make the prefill and serve steps, for every
+family (dense, moe, encdec, ssm, hybrid).
 
-Only the hybrid family (zamba2) is ported; the others raise and name the
-ROADMAP step that brings them.  The loss, the train step and the sharding
-specs wait for LM training and multi-device (Queue A steps 17 and 16).
+The loss, the train step and the sharding specs wait for LM training
+(ROADMAP Queue A step 17, items 5–7).
 """
 
 from __future__ import annotations
@@ -13,20 +13,13 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..configs.base import ModelConfig, NotPortedError
-from . import hybrid
-
-_LATER = {
-    "dense": "the dense transformer (ROADMAP Queue A step 17)",
-    "moe": "the MoE transformer (ROADMAP Queue A step 17)",
-    "ssm": "ssm_lm (ROADMAP Queue A step 17)",
-    "encdec": "encdec (ROADMAP Queue A step 17)",
-}
+from ..configs.base import ModelConfig
+from . import encdec, hybrid, ssm_lm, transformer
 
 
 class ModelBundle(NamedTuple):
     cfg: ModelConfig
-    init: Callable  # (generator) -> params, on the generator's device
+    init: Callable  # (generator, max_seq=…) -> params, on the generator's device
     prefill: Callable  # (params, batch, cache_len, use_kernels) -> (logits, cache)
     decode: Callable  # (params, token, cache, pos) -> (logits, cache)
     init_cache: Callable  # (params, batch_size, cache_len) -> cache
@@ -34,19 +27,56 @@ class ModelBundle(NamedTuple):
 
 def build_model(cfg: ModelConfig) -> ModelBundle:
     fam = cfg.family
+    if fam in ("dense", "moe"):
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda gen, **kw: transformer.init(cfg, gen),
+            prefill=lambda p, b, cache_len, use_kernels=True: transformer.prefill(
+                p, cfg, b["tokens"], cache_len, use_kernels=use_kernels
+            ),
+            decode=lambda p, tok, c, pos: transformer.decode_step(p, cfg, tok, c, pos),
+            init_cache=lambda p, bs, cl: transformer.init_cache(p, cfg, bs, cl),
+        )
+    if fam == "encdec":
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda gen, max_seq=4096, **kw: encdec.init(cfg, gen, max_seq=max_seq),
+            prefill=lambda p, b, cache_len, use_kernels=True: encdec.prefill(
+                p, cfg, b["frames"], b["tokens"], cache_len, use_kernels=use_kernels
+            ),
+            decode=lambda p, tok, c, pos: encdec.decode_step(p, cfg, tok, c, pos),
+            init_cache=lambda p, bs, cl: encdec.init_cache(p, cfg, bs, cl),
+        )
+    if fam == "ssm":
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda gen, **kw: ssm_lm.init(cfg, gen),
+            prefill=lambda p, b, cache_len, use_kernels=True: _ssm_prefill(
+                cfg, p, b, use_kernels
+            ),
+            decode=lambda p, tok, c, pos: ssm_lm.decode_step(p, cfg, tok, c, pos),
+            init_cache=lambda p, bs, cl: ssm_lm.init_cache(p, cfg, bs, cl),
+        )
     if fam == "hybrid":
         return ModelBundle(
             cfg=cfg,
-            init=lambda gen: hybrid.init(cfg, gen),
+            init=lambda gen, **kw: hybrid.init(cfg, gen),
             prefill=lambda p, b, cache_len, use_kernels=True: _hybrid_prefill(
                 cfg, p, b, cache_len, use_kernels
             ),
             decode=lambda p, tok, c, pos: hybrid.decode_step(p, cfg, tok, c, pos),
             init_cache=lambda p, bs, cl: hybrid.init_cache(p, cfg, bs, cl),
         )
-    if fam in _LATER:
-        raise NotPortedError(f"the {fam} family is not ported yet: {_LATER[fam]}")
     raise ValueError(fam)
+
+
+def _ssm_prefill(cfg, params, batch, use_kernels=True):
+    """The last position's logits and a ZERO state, as the reference's
+    ``_ssm_prefill`` returns (ROADMAP Queue C); a caller that decodes on
+    steps decode over the prompt first."""
+    logits = ssm_lm.forward(params, cfg, batch["tokens"], use_kernels=use_kernels)
+    cache = ssm_lm.init_cache(params, cfg, batch["tokens"].shape[0], 0)
+    return logits[:, -1], cache
 
 
 def _hybrid_prefill(cfg, params, batch, cache_len, use_kernels=True):

@@ -905,6 +905,109 @@ def test_ssd_scan_is_bit_identical_across_runs(cuda_device, route):
 
 
 @pytest.mark.cuda
+def test_ssd_scan_cuda_core_layout(cuda_device):
+    """The library's plan for the CUDA-core kernel: the whole state where
+    its layout fits a block (zamba2's ds = 64), else slices of a multiple
+    of 8 columns (mamba2-370m's ds = 128 at chunk 128: 48, 48, 32), and
+    none where even slices of 8 do not fit (a 256-step chunk's decay
+    matrix alone is past a block), which the wrapper refuses."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+
+    assert ssd.cuda_core_layout(128, 64, 64) == (64, ssd.shared_bytes(128, 64, 64))
+    assert ssd.cuda_core_layout(128, 64, 128) == (48, 217_792)
+    width, nbytes = ssd.cuda_core_layout(256, 64, 64)
+    assert width == 0 and nbytes > ssd.MAX_SHARED_BYTES
+    for chunk, dh, ds in ((64, 32, 16), (128, 64, 64), (128, 64, 128), (64, 128, 128), (64, 64, 256)):
+        width, nbytes = ssd.cuda_core_layout(chunk, dh, ds)
+        assert width == ds or (width % 8 == 0 and 0 < width < ds)
+        assert nbytes <= ssd.MAX_SHARED_BYTES
+    x, dt, A, B, C = _ssd_inputs(22, 1, 1, 256, 64, 64, cuda_device, torch.float32)
+    with pytest.raises(ValueError, match="slices of 8"):
+        ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_wide_state_on_the_cuda_cores(cuda_device, dtype):
+    """mamba2-370m's state width, ds = 128 at dh = 64 and chunk 128: the
+    whole-state layout does not fit a block, so the CUDA-core kernel stages
+    the state in slices (3 of 48, 48, 32 columns); against the plain
+    version and the recurrence, and two runs give the same bits."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
+
+    assert ssd.cuda_core_layout(128, 64, 128) == (48, 217_792)
+    x, dt, A, B, C = _ssd_inputs(21, 2, 4, 256, 64, 128, cuda_device, dtype)
+    before = ssd.launches
+    out = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=128, _cuda_cores=True)
+    again = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=128, _cuda_cores=True)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 2 and torch.equal(out, again)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(out.float(), ssd_scan_chunked_ref(x, dt, A, B, C, chunk=128).float(),
+                               **tol)
+    exact = ssd_scan_ref(*(t.double() for t in (x, dt, A, B, C)))
+    torch.testing.assert_close(out.double(), exact, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,skv,dh,causal",
+    [(2, 8, 4, 96, 96, 64, True), (2, 8, 2, 96, 96, 64, True), (2, 16, 2, 80, 80, 128, True),
+     (2, 24, 2, 80, 80, 128, True),
+     (2, 8, 4, 40, 300, 64, False), (2, 4, 4, 1, 300, 64, False), (1, 4, 4, 300, 300, 64, False)],
+)
+def test_flash_attention_at_the_zoo_shapes(cuda_device, dtype, b, hq, hkv, sq, skv, dh, causal):
+    """B4 at the zoo's head dims (64, 128), GQA groups of 2, 4, 8 and 12, and
+    non-causal with sq != skv (whisper's cross-attention, in prefill and at
+    one query in decode), in the model's (b, s, h, dh) views."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+
+    g = torch.Generator().manual_seed(b * hq + sq + skv + dh)
+    q = torch.randn((b, sq, hq, dh), generator=g).to(cuda_device, dtype).transpose(1, 2)
+    k = torch.randn((b, skv, hkv, dh), generator=g).to(cuda_device, dtype).transpose(1, 2)
+    v = torch.randn((b, skv, hkv, dh), generator=g).to(cuda_device, dtype).transpose(1, 2)
+    out = fa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = gqa_attention_plain(q, k, v, causal=causal)
+    tol = TOL if dtype == torch.float32 else dict(rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-1b-a400m", "mamba2-370m",
+                                  "whisper-large-v3"])
+def test_zoo_prefill_runs_the_kernels(cuda_device, arch):
+    """The reduced zoo models' prefill on the card: B4 in every GQA layer
+    (whisper: every encoder layer, decoder self- and cross-attention), B5
+    in every Mamba-2 block, and the same logits as the plain paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    bundle = build_model(cfg)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = bundle.init(gen, max_seq=64)
+    batch = make_batch(cfg, 2, 32, seed=0, device=cuda_device)
+    fa.reset_launch_counts()
+    ssd.reset_launch_counts()
+    out, _ = bundle.prefill(params, batch, 48)
+    torch.cuda.synchronize()
+    want = {"llama3.2-1b": (2, 0), "granite-moe-1b-a400m": (2, 0), "mamba2-370m": (0, 2),
+            "whisper-large-v3": (6, 0)}[arch]
+    assert (fa.launches, ssd.launches) == want
+    plain, _ = bundle.prefill(params, batch, 48, use_kernels=False)
+    assert (fa.launches, ssd.launches) == want
+    torch.testing.assert_close(out, plain, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
 def test_hybrid_forward_runs_the_kernels(cuda_device):
     """The reduced zamba2 forward on the card: B5 once per Mamba-2 block, B4
     once per shared-attention invocation, and the same logits as the plain

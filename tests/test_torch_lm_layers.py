@@ -15,13 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ALL_ARCHS as REF_ARCHS
 from repro.configs import get_config as ref_get_config
 from repro.models import attention as ref_attn
 from repro.models import layers as ref_layers
 from repro.models import ssm as ref_ssm
 from repro.models.hybrid import _attn_cfg as ref_attn_cfg
 from repro_torch import lm_params_from_jax
-from repro_torch.configs import NotPortedError, get_config, list_configs
+from repro_torch.configs import ALL_ARCHS, get_config, list_configs
 from repro_torch.kernels.flash_attention import flash_attention as fa_mod
 from repro_torch.kernels.ssd_scan import ssd_scan as ssd_mod
 from repro_torch.models import attention, layers, ssm
@@ -56,10 +57,11 @@ def _convert(params):
 
 
 def test_config_registry():
-    assert list_configs() == ["zamba2-7b"]
-    for name in ("llama3.2-1b", "mamba2-370m", "whisper-large-v3", "deepseek-v2-236b"):
-        with pytest.raises(NotPortedError, match="step 17"):
-            get_config(name)
+    """Every architecture of the reference's zoo is registered, field for
+    field; an unknown name raises KeyError."""
+    assert list_configs() == sorted(ALL_ARCHS) == sorted(REF_ARCHS)
+    for name in ALL_ARCHS:
+        assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(ref_get_config(name))
     with pytest.raises(KeyError):
         get_config("no-such-model")
 
@@ -210,8 +212,15 @@ def test_kernel_paths_launch_nothing_on_the_cpu(cfgs):
 
 
 def test_chunked_attention_is_not_ported(cfgs):
+    """The name is from before ``_sdpa_chunked`` was ported: a chunked
+    config's GQA forward now runs the online-softmax loop on CPU tensors
+    and matches the reference's chunked forward."""
+    rcfg = dataclasses.replace(ref_attn_cfg(cfgs[0]), chunked_attention=True, attn_chunk=4)
     cfg = dataclasses.replace(_attn_cfg(cfgs[1]), chunked_attention=True, attn_chunk=4)
-    gen = torch.Generator().manual_seed(0)
-    p = attention.gqa_init(gen, cfg, torch.float32)
-    with pytest.raises(NotPortedError, match="step 17"):
-        attention.gqa_full(p, cfg, torch.zeros((1, 8, cfg.d_model)))
+    rp = ref_attn.gqa_init(jax.random.PRNGKey(33), rcfg, jnp.float32)
+    x = _x(34, 1, 8, cfg.d_model)
+    ref = ref_attn.gqa_full(rp, rcfg, jnp.asarray(x))
+    before = fa_mod.launches
+    ours = attention.gqa_full(_convert(rp), cfg, torch.from_numpy(x))
+    assert fa_mod.launches == before
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **BLOCK_TOL)

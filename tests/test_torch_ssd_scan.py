@@ -173,3 +173,52 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
     B = torch.empty((1, 32, 4), device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         ssd_scan_cuda(x, dt, A, B, B, chunk=32)
+
+
+def test_cuda_core_layout_slices_only_wide_states():
+    """The CUDA-core kernel's whole-state layout fits a block at zamba2's
+    ds = 64 (so its calls keep ``ssd_scan_kernel``) and not at mamba2-370m's
+    ds = 128 at chunk 128, where the kernel stages the state in slices (the
+    library's widths and sizes: ``test_torch_cuda.py``)."""
+    assert ssd_mod.shared_bytes(128, 64, 64) == 184_320 <= ssd_mod.MAX_SHARED_BYTES
+    assert ssd_mod.shared_bytes(128, 64, 128) == 266_752 > ssd_mod.MAX_SHARED_BYTES
+    assert ssd_mod.shared_bytes(256, 64, 64) > ssd_mod.MAX_SHARED_BYTES
+
+
+def _sliced_scan(x, dt, A, B, C, *, chunk, width):
+    """The order of ``ssd_scan_split_kernel``'s work per chunk, in f64: the
+    coefficients, then per state slice G += C_s·B_sᵀ, Y += C_s·H_s (H
+    before the chunk) and H_s's update, then M = G ∘ decay ∘ dt and
+    y = M·x + exp(cum) ∘ Y."""
+    b, h, l, dh = x.shape
+    ds = B.shape[-1]
+    la = dt.double() * A.double()[None, :, None]
+    H = torch.zeros((b, h, ds, dh), dtype=torch.float64)
+    ys = []
+    for c0 in range(0, l, chunk):
+        xc, lac, dtc = x[:, :, c0 : c0 + chunk].double(), la[..., c0 : c0 + chunk], dt[..., c0 : c0 + chunk].double()
+        cum = torch.cumsum(lac, dim=-1)
+        below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool), diagonal=-1)
+        seg = torch.cumsum(torch.where(below, lac[..., :, None], 0.0), dim=-2)
+        coef = torch.exp(seg[..., -1, :]) * dtc
+        G = torch.zeros((b, chunk, chunk), dtype=torch.float64)
+        Y = torch.zeros((b, h, chunk, dh), dtype=torch.float64)
+        for s0 in range(0, ds, width):
+            Cs = C[:, c0 : c0 + chunk, s0 : s0 + width].double()
+            Bs = B[:, c0 : c0 + chunk, s0 : s0 + width].double()
+            G = G + Cs @ Bs.transpose(1, 2)
+            Y = Y + torch.einsum("bis,bhsp->bhip", Cs, H[:, :, s0 : s0 + width])
+            H[:, :, s0 : s0 + width] = (torch.exp(cum[..., -1])[..., None, None] * H[:, :, s0 : s0 + width]
+                                        + torch.einsum("bjs,bhj,bhjp->bhsp", Bs, coef, xc))
+        M = G[:, None] * torch.exp(seg) * torch.tril(torch.ones((chunk, chunk))) * dtc[..., None, :]
+        ys.append(M @ xc + torch.exp(cum)[..., None] * Y)
+    return torch.cat(ys, dim=2)
+
+
+def test_sliced_state_order_is_the_scan():
+    """The sliced kernel's order of work (above) gives the scan: against the
+    f64 recurrence, at three slices of a 40-wide state (16, 16, 8)."""
+    x, dt, A, B, C = _t(*ssd_inputs(9, 1, 2, 64, 8, 40))
+    out = _sliced_scan(x, dt, A, B, C, chunk=16, width=16)
+    exact = ssd_scan_ref(*(t.double() for t in (x, dt, A, B, C)))
+    np.testing.assert_allclose(out.numpy(), exact.numpy(), rtol=1e-10, atol=1e-10)
