@@ -8,7 +8,9 @@ SKI / KISS-GP (no kernel of its own: ``torch.fft`` and indexing) and the
 multi-device path on worlds of one and two ranks, zamba2-7b serving
 at full size through the kernels, and every other LM family of the zoo
 (the dense and MoE transformer, MLA, mamba2-370m, whisper-large-v3) in
-f32 against an f64 witness and served in bf16.
+f32 against an f64 witness and served in bf16, and LM training through
+the port's driver (``launch.train``: the loss, the train step, Adam, the
+checkpointer and the fault drill) for every family.
 
     python3 chip_smoke.py [--seed 0] [--n 40000]
 
@@ -332,6 +334,31 @@ and the final line is then not printed):
                 call of a prefill and of one decode step within 5e-2 of its
                 plain version, with its route; the last logits within 2 × the
                 plain path's one-ulp distance; two MoE prefills bit for bit
+
+ 18. lm_train   LM training through ``launch.train`` (no kernel: every
+                loss runs the plain paths, and B4 / B5 raise when asked to
+                differentiate; 0 launches counted): run_training on
+                llama3.2-1b at --preset full (16 layers, bf16, batch 8 ×
+                128, lr 3e-4, 10 steps; the CLI's 3e-3 run beside it,
+                reported): ms a step cold and warm
+                (synchronised by reading the loss), tokens/s, peak memory,
+                a profiled warm step's idle share, the loss finite and
+                falling; at full width cut to 2 layers in f32 the loss and
+                every leaf's gradient against f64 on the card (1e-3 of the
+                leaf's largest; none missing or all zero) and one Adam step
+                against the port's step on the CPU (batch 2); the
+                gradient twice, bit for bit, with the port's row gathers
+                (indexing: index_put's sorted backward; llama and
+                granite-moe at 2 layers, mamba2 reported) beside
+                torch.gather, a fixed-order segment sum and
+                torch.use_deterministic_algorithms, with ms; the fault drill (2 layers, bf16, --ckpt-every 3
+                --crash-at 5 through restart_loop: resumed from step 3, the
+                final params and moments the uninterrupted run's bits; a
+                save's and a restore's ms, the bytes); three bf16 steps on
+                TokenStream's batch 0 (2 × 128, lr 1e-4) of granite-moe,
+                mamba2-370m, whisper-large-v3 (1,500 frames), minicpm3-4b at full size
+                and zamba2-7b at 36 of 81 layers: a finite loss that falls,
+                every leaf reached, ms a step, peak memory
 
 The last line is ``{"ok": true, "device": {...}}``.  Run from a checkout of
 the repository; needs one CUDA device.
@@ -3939,6 +3966,486 @@ def phase_lm_zoo_serve(seed):
 
 
 # --------------------------------------------------------------------------
+# LM training (launch.train; no kernel: every loss runs the plain paths)
+# --------------------------------------------------------------------------
+
+LM_TRAIN_ARCH = "llama3.2-1b"
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 10, 8, 128  # the CLI's
+#: the CLI's default lr, 3e-3, is its cpu-small preset's: at full width
+#: Adam without warmup spikes there (reported, not gated: ROADMAP Queue C);
+#: the main path runs at 3e-4
+LM_TRAIN_LR, LM_CLI_LR = 3e-4, 3e-3
+GRAD_PARITY_LAYERS = 2
+GRAD_PARITY_REL = 1e-3  # per leaf: max |g_f32 − g_f64| / max |g_f64|
+LOSS_PARITY_RTOL = 1e-5
+CPU_STEP_BATCH = 2  # the card's Adam step against the port's on the CPU, same tokens
+FIRM_MU = 1e-3  # Adam entries whose first moment is ≥ this × the leaf's largest
+STEP_TOL = dict(rtol=1e-4, atol=1e-5)
+DRILL_LAYERS, DRILL_STEPS, DRILL_EVERY, DRILL_CRASH = 2, 8, 3, 5
+#: arch → config overrides for one bf16 train step of every other family;
+#: zamba2-7b (7.1 B parameters, 14 bytes each in training: bf16 params,
+#: grads and clipped grads, f32 moments) is cut to 6 groups of 6 to fit
+TRAIN_ZOO = {
+    "granite-moe-1b-a400m": {},
+    "mamba2-370m": {},
+    "whisper-large-v3": {},
+    "minicpm3-4b": {},
+    "zamba2-7b": {"num_layers": 36},
+}
+#: three steps on TokenStream's batch 0: at 256 tokens a batch, one
+#: batch's loss differs from the next's by more than three stable steps
+#: learn of the stream, so the gate retrains one batch
+TRAIN_ZOO_BATCH, TRAIN_ZOO_SEQ, TRAIN_ZOO_STEPS, TRAIN_ZOO_LR = 2, 128, 3, 1e-4
+
+
+@contextlib.contextmanager
+def _train_config(**overrides):
+    """While open, ``launch.train`` builds its config with ``overrides``
+    (the drill's depth cut): the driver takes an arch by name."""
+    from repro_torch.launch import train
+
+    real = train.get_config
+    train.get_config = lambda arch: dataclasses.replace(real(arch), **overrides)
+    try:
+        yield
+    finally:
+        train.get_config = real
+
+
+def _train_args(**kw):
+    from repro_torch.launch import train
+
+    argv = []
+    for k, v in kw.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    return train.parse_args(argv)
+
+
+def _fresh_peak():
+    gc.collect()  # the last model's tensors may sit in reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _lm_train_main(seed):
+    """The main path: ``run_training`` on llama3.2-1b at --preset full."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models import build_model, make_train_step
+
+    _fresh_peak()
+    args = _train_args(arch=LM_TRAIN_ARCH, preset="full", steps=LM_TRAIN_STEPS,
+                       batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, lr=LM_TRAIN_LR, seed=seed,
+                       log_every=1)
+    log = []
+    _reset_lm_counts()
+    t0 = time.perf_counter()
+    final = train.run_training(args, log=log)
+    wall = time.perf_counter() - t0
+    counts = _lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in log]
+    ms = [r["seconds"] * 1e3 for r in log]
+    warm = sorted(ms[1:])[len(ms[1:]) // 2]
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    row = {"arch": LM_TRAIN_ARCH, "preset": "full", "dtype": "bfloat16", "steps": LM_TRAIN_STEPS,
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "lr": LM_TRAIN_LR, "losses": losses,
+           "grad_norms": [r["grad_norm"] for r in log], "step_ms": ms, "cold_step_ms": ms[0],
+           "warm_step_ms_median": warm, "tokens_per_s_warm": tokens / (warm / 1e3),
+           "peak_device_bytes": peak, "run_training_wall_s": wall, "launches": counts}
+    check(final == LM_TRAIN_STEPS - 1 and len(log) == LM_TRAIN_STEPS, f"lm_train: {len(log)} steps")
+    check(all(math.isfinite(v) for v in losses), f"lm_train: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"lm_train: the loss did not fall {losses[0]} → {losses[-1]}")
+    check(counts == {"B4": 0, "B5": 0}, f"lm_train: training launched {counts}")
+
+    # the CLI's default lr on the same run, reported
+    _fresh_peak()
+    cli_log = []
+    train.run_training(_train_args(arch=LM_TRAIN_ARCH, preset="full", steps=LM_TRAIN_STEPS,
+                                   batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, lr=LM_CLI_LR,
+                                   seed=seed, log_every=LM_TRAIN_STEPS), log=cli_log)
+    row["cli_lr"] = {"lr": LM_CLI_LR, "losses": [r["loss"] for r in cli_log]}
+
+    # the device's idle share of one warm step, on the same model built anew
+    _fresh_peak()
+    dev = torch.device("cuda")
+    cfg = get_config(LM_TRAIN_ARCH)
+    bundle = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = bundle.init(gen, max_seq=LM_TRAIN_SEQ + 8)
+    step, init = make_train_step(bundle, lr=LM_TRAIN_LR)
+    opt = init(params)
+    stream = TokenStream(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=seed)
+    for s in range(2):
+        params, opt, m = step(params, opt, train.training_batch(cfg, stream, s, dev))
+        float(m["loss"])
+    batch = train.training_batch(cfg, stream, 2, dev)
+    row["profile_warm_step"] = profile_lm(lambda: step(params, opt, batch))
+    del params, opt
+    return row
+
+
+def _mu_firm(mu):
+    a = mu.abs()
+    return a >= FIRM_MU * a.max()
+
+
+def _lm_train_grad_parity(seed):
+    """llama3.2-1b at full width cut to 2 layers in f32: the loss and every
+    leaf's gradient against the same function in f64 on the card; one Adam
+    step on the card against the port's step on the CPU, same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models import build_model, loss_and_grads, make_train_step
+    from repro_torch.tree import tree_flatten_with_paths, tree_map
+
+    _fresh_peak()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH), num_layers=GRAD_PARITY_LAYERS,
+                              dtype="float32")
+    bundle = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = bundle.init(gen, max_seq=LM_TRAIN_SEQ + 8)
+    batch = train.training_batch(cfg, TokenStream(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                                  seed=seed), 0, dev)
+    _reset_lm_counts()
+    (loss32, g32), ms32, _ = timed(lambda: loss_and_grads(bundle, params, batch))
+    counts = _lm_counts()
+    p64 = tree_map(lambda x: x.double(), params)
+    (loss64, g64), ms64, _ = timed(lambda: loss_and_grads(bundle, p64, batch))
+    del p64
+    leaves = {}
+    for (path, a), b in zip(zip(*tree_flatten_with_paths(g32)), tree_flatten_with_paths(g64)[1]):
+        check(a is not None and b is not None, f"lm_train grad_parity: {path} has no gradient")
+        scale = float(b.abs().max())
+        leaves[path] = {"rel": float((a.double() - b).abs().max()) / max(scale, 1e-300),
+                        "scale": scale, "all_zero": not bool(a.any())}
+    del g32, g64
+    row = {"arch": LM_TRAIN_ARCH, "layers": GRAD_PARITY_LAYERS, "dtype": "float32",
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "loss_f32": float(loss32),
+           "loss_f64": float(loss64), "loss_rel": abs(float(loss32) - float(loss64)) / abs(float(loss64)),
+           "leaves": leaves, "worst_leaf_rel": max(v["rel"] for v in leaves.values()),
+           "tol": GRAD_PARITY_REL, "loss_and_grads_ms": {"f32": ms32, "f64": ms64},
+           "launches": counts}
+
+    # one Adam step on the card and on the CPU from the same params and tokens
+    small = train.training_batch(cfg, TokenStream(cfg.vocab_size, CPU_STEP_BATCH, LM_TRAIN_SEQ,
+                                                  seed=seed), 0, dev)
+    cpu_params = tree_map(lambda x: x.detach().to("cpu", copy=True), params)
+    step, init = make_train_step(bundle, lr=LM_TRAIN_LR)
+    opt = init(params)
+    params, opt, m = step(params, opt, small)
+    t_cpu = time.perf_counter()
+    cpu_opt = init(cpu_params)
+    cpu_params, cpu_opt, mc = step(cpu_params, cpu_opt, {k: v.cpu() for k, v in small.items()})
+    cpu_s = time.perf_counter() - t_cpu
+    worst_firm, flips, entries, worst_any = 0.0, 0, 0, 0.0
+    for (path, p), pc, mu in zip(zip(*tree_flatten_with_paths(params)), tree_flatten_with_paths(cpu_params)[1],
+                                 tree_flatten_with_paths(cpu_opt.mu)[1]):
+        p, firm = p.cpu(), _mu_firm(mu)
+        close = torch.isclose(p, pc, **STEP_TOL)
+        flips += int((~close).sum())
+        entries += p.numel()
+        worst_any = max(worst_any, float((p - pc).abs().max()))
+        if bool(firm.any()):
+            d = ((p - pc).abs() - STEP_TOL["atol"] - STEP_TOL["rtol"] * pc.abs())[firm]
+            worst_firm = max(worst_firm, float(d.max()))
+    row["adam_step_card_vs_cpu"] = {
+        "batch": CPU_STEP_BATCH, "loss": [float(m["loss"]), float(mc["loss"])],
+        "grad_norm": [float(m["grad_norm"]), float(mc["grad_norm"])],
+        "entries_outside_step_tol": flips, "entries": entries, "max_abs_diff": worst_any,
+        "firm_excess_over_tol": worst_firm, "cpu_step_s": cpu_s}
+    del params, opt, cpu_params, cpu_opt
+    emit({"phase": "lm_train", "part": "grad_parity", "card": CARD,
+          **{k: v for k, v in row.items() if k != "leaves"}})
+    check(row["launches"] == {"B4": 0, "B5": 0}, f"lm_train grad_parity: launched {counts}")
+    check(row["loss_rel"] <= LOSS_PARITY_RTOL, f"lm_train: f32 loss {row['loss_rel']:.3e} from f64")
+    for path, v in leaves.items():
+        check(not v["all_zero"], f"lm_train grad_parity: {path}'s gradient is all zero")
+        check(v["rel"] <= GRAD_PARITY_REL, f"lm_train grad_parity: {path} {v['rel']:.3e} from f64")
+    a = row["adam_step_card_vs_cpu"]
+    check(math.isclose(a["loss"][0], a["loss"][1], rel_tol=1e-5), f"lm_train: card vs CPU loss {a['loss']}")
+    check(math.isclose(a["grad_norm"][0], a["grad_norm"][1], rel_tol=1e-4),
+          f"lm_train: card vs CPU grad norm {a['grad_norm']}")
+    check(a["firm_excess_over_tol"] <= 0.0, f"lm_train: card vs CPU Adam step {a}")
+    check(a["max_abs_diff"] <= 2 * LM_TRAIN_LR + STEP_TOL["atol"], f"lm_train: card vs CPU Adam step {a}")
+    check(a["entries_outside_step_tol"] <= 1e-3 * a["entries"], f"lm_train: card vs CPU Adam step {a}")
+    return row
+
+
+class _SegmentSumRows(torch.autograd.Function):
+    """``table[idx]`` whose backward sums each row's gradients in a fixed
+    order by hand: the positions sorted by row, then one sequential sum per
+    row (``torch.segment_reduce``), in f32 — the port's own way, measured
+    beside PyTorch's."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        g = grad.reshape(flat.numel(), -1).float()
+        order = torch.argsort(flat, stable=True)
+        counts = torch.bincount(flat, minlength=ctx.rows)
+        offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+        sums = torch.segment_reduce(g[order], "sum", offsets=offsets, axis=0, unsafe=True,
+                                    initial=0.0)
+        return sums.to(grad.dtype).reshape((ctx.rows,) + tuple(grad.shape[idx.dim():])), None
+
+
+def _gather_rows(table, idx):
+    d = table.shape[1:]
+    flat = idx.reshape(-1, *([1] * len(d))).expand(-1, *d)
+    return torch.gather(table, 0, flat).reshape(*idx.shape, *d)
+
+
+#: how the embedding's and the MoE dispatch's row gathers are differentiated
+GATHER_WAYS = {
+    "index": None,  # the port's: table[idx], index_put's sorted backward
+    "gather": _gather_rows,  # torch.gather: scatter_add with atomics
+    "segment_sum": _SegmentSumRows.apply,  # a fixed-order sum by hand
+    "deterministic_algorithms": _gather_rows,  # torch.gather under use_deterministic_algorithms
+}
+
+
+@contextlib.contextmanager
+def _gather_backward(kind):
+    """While open, ``layers.take_rows`` (the embedding, the MoE dispatch)
+    is the way ``kind`` of GATHER_WAYS (``deterministic_algorithms``:
+    warn-only, as cuBLAS's workspace setting is fixed when CUDA starts)."""
+    from repro_torch.models import layers, moe
+
+    real = layers.take_rows
+    if GATHER_WAYS[kind] is not None:
+        layers.take_rows = moe.take_rows = GATHER_WAYS[kind]
+    before = torch.are_deterministic_algorithms_enabled()
+    if kind == "deterministic_algorithms":
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        layers.take_rows = moe.take_rows = real
+        torch.use_deterministic_algorithms(before)
+
+
+def _lm_train_determinism(seed):
+    """Which backward gathers accumulate in a different order every run on
+    the card, and what each deterministic way costs: llama3.2-1b,
+    granite-moe and mamba2-370m at full width, 2 layers, bf16, batch 8 ×
+    128; the gradient twice under each way of GATHER_WAYS, bit for bit, and
+    its ms (CUDA events, 3 reps).  The port's way must give the same bits
+    on llama and granite (the drill's claim); mamba2's plain scan sums by
+    ``torch.cumsum``, which PyTorch lists nondeterministic on CUDA floats,
+    is reported."""
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models import build_model, loss_and_grads
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    rows = {}
+    for arch in (LM_TRAIN_ARCH, "granite-moe-1b-a400m", "mamba2-370m"):
+        _fresh_peak()
+        cfg = dataclasses.replace(get_config(arch), num_layers=DRILL_LAYERS)
+        bundle = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = bundle.init(gen, max_seq=LM_TRAIN_SEQ + 8)
+        batch = train.training_batch(cfg, TokenStream(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                                      seed=seed), 0, dev)
+        row = {}
+        for kind in GATHER_WAYS:
+            with _gather_backward(kind), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                first = [g.clone() for g in tree_leaves(loss_and_grads(bundle, params, batch)[1])]
+                second = tree_leaves(loss_and_grads(bundle, params, batch)[1])
+                ms = time_ms(lambda: loss_and_grads(bundle, params, batch), reps=3)
+            differing = sum(not torch.equal(a, b) for a, b in zip(first, second))
+            row[kind] = {"bit_identical": differing == 0, "leaves_differing": differing,
+                         "loss_and_grads_ms": ms}
+            del first, second
+        rows[arch] = row
+        del params
+    emit({"phase": "lm_train", "part": "determinism", "card": CARD, "layers": DRILL_LAYERS,
+          "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "rows": rows})
+    for arch in (LM_TRAIN_ARCH, "granite-moe-1b-a400m"):
+        check(rows[arch]["index"]["bit_identical"], f"lm_train: {arch}'s gradient differs run to run")
+    return rows
+
+
+def _checkpoint_leaves(directory, step):
+    """The raw arrays of a checkpoint's leaf files, in leaf order."""
+    d = Path(directory) / f"step_{step}"
+    with open(d / "index.json") as f:
+        n = len(json.load(f)["leaves"])
+    return [np.load(d / f"leaf_{i}.npy") for i in range(n)]
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _lm_train_drill(seed):
+    """The fault drill: llama3.2-1b at full width, 2 layers, bf16, through
+    ``restart_loop``: an uninterrupted run and one that crashes at step 5
+    and resumes from step 3's checkpoint end on the same bits."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import restart_loop
+    from repro_torch.launch import train
+    from repro_torch.models import build_model, make_train_step
+
+    _fresh_peak()
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="lm_drill_")
+    common = dict(arch=LM_TRAIN_ARCH, preset="full", steps=DRILL_STEPS, batch=LM_TRAIN_BATCH,
+                  seq=LM_TRAIN_SEQ, lr=LM_TRAIN_LR, seed=seed, ckpt_every=DRILL_EVERY, log_every=1)
+    last = DRILL_STEPS - 1
+    row = {"arch": LM_TRAIN_ARCH, "layers": DRILL_LAYERS, "dtype": "bfloat16", **common,
+           "crash_at": DRILL_CRASH}
+    try:
+        with _train_config(num_layers=DRILL_LAYERS):
+            straight = os.path.join(tmp, "straight")
+            log_a = []
+            args = _train_args(**common, ckpt_dir=straight)
+            t0 = time.perf_counter()
+            restart_loop(lambda a: train.run_training(args, a, log=log_a), max_restarts=2)
+            row["uninterrupted_s"] = time.perf_counter() - t0
+            want = _checkpoint_leaves(straight, last)
+            row["checkpoint_bytes"] = _dir_bytes(os.path.join(straight, f"step_{last}"))
+            row["checkpoints_kept"] = Checkpointer(straight).all_steps()
+            # a save and a restore of that state, timed
+            cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH), num_layers=DRILL_LAYERS)
+            bundle = build_model(cfg)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            params = bundle.init(gen, max_seq=LM_TRAIN_SEQ + 8)
+            like = {"params": params, "opt": make_train_step(bundle)[1](params)}
+            ck = Checkpointer(straight, keep=4)
+            state, restore_ms, _ = timed(lambda: ck.restore(last, like))
+            _, save_ms, _ = timed(lambda: ck.save(last + 100, state))
+            t0 = time.perf_counter()
+            ck.save_async(last + 200, state)
+            row["save_async_return_ms"] = (time.perf_counter() - t0) * 1e3
+            ck.wait()
+            row.update(restore_ms=restore_ms, save_ms=save_ms)
+            del state, like, params
+            shutil.rmtree(straight)
+
+            log_b, restarts = [], []
+            args = _train_args(**common, ckpt_dir=os.path.join(tmp, "crashed"), crash_at=DRILL_CRASH)
+            t0 = time.perf_counter()
+            final = restart_loop(lambda a: train.run_training(args, a, log=log_b), max_restarts=2,
+                                 on_restart=lambda n, e: restarts.append(f"{type(e).__name__}: {e}"))
+            row["crashed_s"] = time.perf_counter() - t0
+            got = _checkpoint_leaves(os.path.join(tmp, "crashed"), last)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps_b = [r["step"] for r in log_b]
+    resumed_at = (DRILL_CRASH // DRILL_EVERY) * DRILL_EVERY + 1  # after the last checkpoint
+    same = [a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got, want)]
+    loss_a = {r["step"]: r["loss"] for r in log_a}
+    row.update(steps_run=steps_b, restarts=restarts, final_step=final,
+               leaves=len(want), leaves_bit_identical=sum(same),
+               losses_uninterrupted=[r["loss"] for r in log_a],
+               losses_after_resume=[r["loss"] for r in log_b[DRILL_CRASH + 1:]],
+               step_ms=[r["seconds"] * 1e3 for r in log_a])
+    emit({"phase": "lm_train", "part": "fault_drill", "card": CARD, **row})
+    check(restarts == ["RuntimeError: injected crash (fault-tolerance test)"],
+          f"lm_train drill: restarts {restarts}")
+    check(steps_b == list(range(DRILL_CRASH + 1)) + list(range(resumed_at, DRILL_STEPS)),
+          f"lm_train drill: steps run {steps_b}")
+    check(final == last and len(got) == len(want) and all(same),
+          f"lm_train drill: {sum(same)} of {len(want)} final leaves bit for bit")
+    check(all(r["loss"] == loss_a[r["step"]] for r in log_b),
+          "lm_train drill: a replayed step's loss differs from the uninterrupted run's")
+    return row
+
+
+def _lm_train_zoo(seed):
+    """One bf16 train step of every other family, three times on
+    TokenStream's batch 0 (TRAIN_ZOO): every leaf reached, a finite loss
+    that falls."""
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models import build_model, loss_and_grads, make_train_step
+    from repro_torch.tree import tree_flatten_with_paths
+
+    dev = torch.device("cuda")
+    rows = {}
+    for arch, overrides in TRAIN_ZOO.items():
+        t_arch = time.perf_counter()
+        _fresh_peak()
+        cfg = _zoo_cfg(arch, overrides, "bfloat16")
+        bundle = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = bundle.init(gen, max_seq=TRAIN_ZOO_SEQ + 8)
+        param_count = sum(x.numel() for x in _leaves(params))
+        stream = TokenStream(cfg.vocab_size, TRAIN_ZOO_BATCH, TRAIN_ZOO_SEQ, seed=seed)
+        batch = train.training_batch(cfg, stream, 0, dev)
+        _reset_lm_counts()
+        _, grads = loss_and_grads(bundle, params, batch)
+        missing = [p for p, g in zip(*tree_flatten_with_paths(grads)) if g is None or not bool(g.any())]
+        del grads
+        step, init = make_train_step(bundle, lr=TRAIN_ZOO_LR)
+        opt = init(params)
+        losses, ms = [], []
+        for _ in range(TRAIN_ZOO_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        row = {"arch": arch, "layers": cfg.num_layers,
+               "layers_published": _zoo_cfg(arch, {}, "bfloat16").num_layers,
+               "dtype": "bfloat16", "batch": TRAIN_ZOO_BATCH, "seq": TRAIN_ZOO_SEQ, "lr": TRAIN_ZOO_LR,
+               "params": param_count, "losses": losses, "step_ms": ms,
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "leaves_without_gradient": missing, "launches": _lm_counts(),
+               "seconds": time.perf_counter() - t_arch}
+        if cfg.family == "encdec":
+            row.update(encoder_layers=cfg.encoder_layers, frames=cfg.encoder_seq)
+        emit({"phase": "lm_train", "part": "zoo", "card": CARD, **row})
+        rows[arch] = row
+        check(all(math.isfinite(v) for v in losses), f"lm_train {arch}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"lm_train {arch}: the loss did not fall {losses}")
+        check(not missing, f"lm_train {arch}: no gradient reaches {missing}")
+        check(row["launches"] == {"B4": 0, "B5": 0}, f"lm_train {arch}: launched {row['launches']}")
+        del params, opt
+    return rows
+
+
+def phase_lm_train(seed):
+    """LM training on the card (module docstring, phase 18)."""
+    t0 = time.perf_counter()
+    out = {"main": _lm_train_main(seed)}
+    emit({"phase": "lm_train", "part": "main", "card": CARD, **out["main"]})
+    out["grad_parity"] = _lm_train_grad_parity(seed)
+    out["determinism"] = _lm_train_determinism(seed)
+    out["fault_drill"] = _lm_train_drill(seed)
+    out["zoo"] = _lm_train_zoo(seed)
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase_wall_s": "lm_train", "seconds": out["seconds"]})
+    return out
+
+
+# --------------------------------------------------------------------------
 # streaming serving, health and telemetry (gp_serve at the kin40k shape)
 # --------------------------------------------------------------------------
 
@@ -5994,6 +6501,7 @@ def main() -> int:
         zoo_serve = phase_lm_zoo_serve(args.seed)
         zoo_lm_seconds["lm_zoo_serve"] = time.perf_counter() - t_phase
         emit({"phase_wall_s": "lm_zoo", "seconds": zoo_lm_seconds})
+        lm_train = phase_lm_train(args.seed)
     except Exception:  # every phase failure ends the run non-zero
         traceback.print_exc()
         return 1
@@ -6042,6 +6550,23 @@ def main() -> int:
                                                       "decode_tokens_per_s", "peak_device_bytes")}
                              for arch, r in zoo_serve.items()},
           "lm_zoo_seconds": zoo_lm_seconds,
+          "lm_training": {
+              "arch": LM_TRAIN_ARCH, "card": CARD,
+              "cold_step_ms": lm_train["main"]["cold_step_ms"],
+              "warm_step_ms_median": lm_train["main"]["warm_step_ms_median"],
+              "tokens_per_s_warm": lm_train["main"]["tokens_per_s_warm"],
+              "peak_device_bytes": lm_train["main"]["peak_device_bytes"],
+              "device_idle_share_warm_step":
+                  lm_train["main"]["profile_warm_step"]["device_idle_share"],
+              "losses": lm_train["main"]["losses"],
+              "grad_parity_worst_leaf_rel": lm_train["grad_parity"]["worst_leaf_rel"],
+              "drill_save_ms": lm_train["fault_drill"]["save_ms"],
+              "drill_restore_ms": lm_train["fault_drill"]["restore_ms"],
+              "drill_checkpoint_bytes": lm_train["fault_drill"]["checkpoint_bytes"],
+              "zoo": {a: {"loss": r["losses"], "step_ms": r["step_ms"],
+                          "peak_device_bytes": r["peak_device_bytes"], "layers": r["layers"]}
+                      for a, r in lm_train["zoo"].items()},
+              "seconds": lm_train["seconds"]},
           "seconds": time.perf_counter() - t_start})
     # the B4 / B5 launches of every LM serving main path: zamba2's prefill
     # and the zoo's prefills and serve loops

@@ -1,7 +1,8 @@
-"""Synthetic regression data (counterpart of ``repro.data.pipeline``'s
-``RegressionStream``, its numpy generator copied: the port imports nothing
-of ``repro``)."""
+"""Deterministic data pipelines (counterpart of ``repro.data.pipeline``):
+the synthetic LM corpus ``TokenStream`` and the GP regression generator
+``RegressionStream``, both numpy from a seed (the port imports nothing of
+``repro``)."""
 
-from .pipeline import RegressionStream
+from .pipeline import RegressionStream, TokenStream
 
-__all__ = ["RegressionStream"]
+__all__ = ["RegressionStream", "TokenStream"]

@@ -1,8 +1,26 @@
-"""Synthetic GP regression tasks, generated with numpy from a seed.
+"""Deterministic data pipelines, generated with numpy from a seed.
 
-:class:`RegressionStream` is the reference's generator
-(``repro.data.pipeline.RegressionStream``) line for line; it returns
-numpy arrays, which every port entry point takes.
+Determinism by step is the fault-tolerance contract: ``batch_at(step)`` is
+a pure function of (seed, step, shard), so a restarted worker replays
+exactly the batch it crashed on — no data-loader state in checkpoints
+beyond the step count.
+
+* :class:`TokenStream` — the reference's synthetic LM corpus
+  (``repro.data.pipeline.TokenStream``): a Zipf-like marginal (u³ of a
+  uniform, scaled to the vocabulary and clipped into it) with learnable
+  bigram structure (each token flips, with probability ½, to
+  ``(previous · 2 + 1) % vocab`` of the unflipped stream rolled by one).
+  The construction is the reference's; the draws are not: it keys
+  ``jax.random`` (threefry, ``fold_in(seed, step)``, ``fold_in(shard)``),
+  which the port cannot import, and this stream keys a numpy generator on
+  (seed, step, shard).  So the tokens differ from the reference's bits
+  (ROADMAP Queue C); a test that holds training against the reference
+  feeds both packages the same numpy batches.  Tokens are int32 numpy
+  arrays on the host, the same on any machine; the driver moves them to
+  the device.
+* :class:`RegressionStream` — the reference's GP regression generator
+  line for line; it returns numpy arrays, which every port entry point
+  takes.
 """
 
 from __future__ import annotations
@@ -10,6 +28,36 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class TokenStream:
+    vocab_size: int
+    batch: int
+    seq_len: int
+    seed: int = 0
+    num_shards: int = 1
+    shard: int = 0
+
+    def batch_at(self, step: int) -> dict:
+        """{"tokens": int32 (batch // num_shards, seq_len + 1)} for ``step``
+        (this shard's slice of the global batch when num_shards > 1)."""
+        rng = np.random.default_rng([self.seed, step, self.shard])
+        b = self.batch // self.num_shards
+        # zipf-ish marginal via exponentiated uniforms, in f32 as the reference
+        u = rng.uniform(1e-6, 1.0, (b, self.seq_len + 1)).astype(np.float32)
+        toks = np.clip((self.vocab_size * (u**3)).astype(np.int32), 0, self.vocab_size - 1)
+        # inject learnable bigram structure: token 2i+1 follows 2i
+        flip = rng.random(toks.shape) < 0.5
+        prev = np.roll(toks, 1, axis=1)
+        structured = np.where(flip, (prev * 2 + 1) % self.vocab_size, toks)
+        return {"tokens": structured.astype(np.int32)}
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 @dataclasses.dataclass

@@ -1,7 +1,10 @@
 """Multi-device BBMM on ``torch.distributed`` (counterpart of the GP part of
 ``repro.distributed``): the mesh, the ambient-mesh context, row bands, the
-two collectives and a world launcher for tests.  See :mod:`.sharding`."""
+two collectives and a world launcher for tests (see :mod:`.sharding`); and
+the fault layer of LM training, :mod:`.fault` (preemption, the straggler
+watchdog, the restart loop)."""
 
+from .fault import PreemptionHandler, StragglerWatchdog, restart_loop
 from .sharding import (
     Mesh,
     all_gather,
@@ -23,6 +26,8 @@ from .sharding import (
 
 __all__ = [
     "Mesh",
+    "PreemptionHandler",
+    "StragglerWatchdog",
     "all_gather",
     "all_gather_rows",
     "batch_axes",
@@ -35,6 +40,7 @@ __all__ = [
     "ordered_psum",
     "rank_device",
     "reset_collective_counts",
+    "restart_loop",
     "row_band",
     "spawn_world",
     "use_mesh",

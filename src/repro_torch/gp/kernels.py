@@ -116,7 +116,7 @@ class DeepKernel:
 
     def __call__(self, X1, X2):
         Z1 = self.feature_fn(self.net_params, X1)
-        Z2 = self.feature_fn(self.net_params, X2)
+        Z2 = Z1 if X2 is X1 else self.feature_fn(self.net_params, X2)  # K(X, X): one pass
         return self.base(Z1, Z2)
 
     def diag(self, X):

@@ -76,9 +76,19 @@ def flash_attention_cuda(q, k, v, *, causal=True, scale=None):
     head h reads kv head h // (hq // hkv)); float32 or bfloat16, each with
     a contiguous head dim (the other strides are free, so a transposed view
     needs no copy); f32 math, output in q's dtype.  ``scale`` defaults to
-    dh^-½.  Any sq and skv: ragged tiles are masked in the kernel."""
+    dh^-½.  Any sq and skv: ragged tiles are masked in the kernel.
+
+    Forward only: on CUDA inputs that require grad (with grad mode on) it
+    raises rather than return an output autograd cannot differentiate."""
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return gqa_attention_plain(q, k, v, causal=causal, scale=scale)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda has no backward kernel (ROADMAP Queue B follow-up 15): "
+            "its output would carry no gradient to q, k or v.  Differentiate the plain "
+            "path instead (use_kernel=False; every loss_fn does), or call it under "
+            "torch.no_grad()"
+        )
     _check_cuda_args(q, k, v)
     global launches
     b, hq, sq, dh = q.shape

@@ -149,9 +149,19 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk=128, _cuda_cores=False):
     dt (b, h, l) and A (h,) float32.  l must be a multiple of ``chunk``, as
     in the reference.  ``_cuda_cores`` (private: for comparing the two
     routes; the model never passes it) sends bf16 inputs to the CUDA-core
-    kernel whatever :func:`b5_route` says."""
+    kernel whatever :func:`b5_route` says.
+
+    Forward only: on CUDA inputs that require grad (with grad mode on) it
+    raises rather than return an output autograd cannot differentiate."""
     if all(t.device.type == "cpu" for t in (x, dt, A, B, C)):
         return ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
+        raise RuntimeError(
+            "ssd_scan_cuda has no backward kernel (ROADMAP Queue B follow-up 15): its "
+            "output would carry no gradient to x, dt, A, B or C.  Differentiate the plain "
+            "chunked scan instead (use_kernel=False; every loss_fn does), or call it under "
+            "torch.no_grad()"
+        )
     _check_cuda_args(x, dt, A, B, C, chunk)
     global launches
     b, h, l, dh = x.shape

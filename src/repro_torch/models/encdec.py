@@ -1,6 +1,5 @@
 """Whisper-style encoder–decoder (audio frontend stubbed) — the
-counterpart of ``repro.models.encdec``, for serving (``loss_fn`` waits for
-LM training, ROADMAP Queue A step 17 item 5).
+counterpart of ``repro.models.encdec``: serving and the training loss.
 
 The encoder takes precomputed frame embeddings (B, encoder_seq, d), as in
 the reference; the decoder is a causal transformer with cross-attention.
@@ -9,7 +8,8 @@ Learned positions, pre-LayerNorm, GELU MLPs, QKV bias.  On CUDA tensors
 encoder's attention (non-causal), the decoder's self-attention over a
 prompt (causal) and every cross-attention (non-causal, in decode too: one
 query position against the encoder's frames); decode's self-attention,
-masked by the active lengths, is plain.
+masked by the active lengths, is plain.  :func:`loss_fn` runs the plain
+paths (the reference's ``use_flash=False``): B4 has no backward.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from . import attention as attn
 from .layers import (
+    cross_entropy,
     embed,
     embedding_init,
     make_norm,
@@ -27,6 +28,7 @@ from .layers import (
     stacked_init,
     tree_index,
     tree_stack,
+    tree_unbind,
 )
 
 
@@ -81,8 +83,7 @@ def encode(params, cfg, frames, *, use_kernels=True):
     _, norm = make_norm(cfg)
     T = frames.shape[1]
     h = frames + params["enc_pos"]["pos_table"][:T][None]
-    for i in range(cfg.encoder_layers):
-        p = tree_index(params["encoder"], i)
+    for p in tree_unbind(params["encoder"], cfg.encoder_layers):
         h = h + attn.gqa_full(p["attn"], cfg, norm(p["attn_norm"], h), causal=False,
                               use_kernel=use_kernels)
         h = h + mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg)
@@ -99,8 +100,7 @@ def forward(params, cfg, frames, tokens, *, use_kernels=True):
     _, norm = make_norm(cfg)
     enc = encode(params, cfg, frames, use_kernels=use_kernels)
     h = _embed_tokens(params, tokens)
-    for i in range(cfg.num_layers):
-        p = tree_index(params["decoder"], i)
+    for p in tree_unbind(params["decoder"], cfg.num_layers):
         h = h + attn.gqa_full(p["attn"], cfg, norm(p["attn_norm"], h), causal=True,
                               use_kernel=use_kernels)
         c, _ = attn.gqa_cross(p["cross"], cfg, norm(p["cross_norm"], h), enc, use_kernel=use_kernels)
@@ -108,6 +108,14 @@ def forward(params, cfg, frames, tokens, *, use_kernels=True):
         h = h + mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg)
     h = norm(params["final_norm"], h)
     return h @ params["lm_head"]
+
+
+def loss_fn(params, cfg, batch, *, use_kernels=False):
+    """Next-token CE over batch["tokens"] (B, S + 1) given batch["frames"]
+    (B, encoder_seq, d), on the plain paths."""
+    logits = forward(params, cfg, batch["frames"], batch["tokens"][:, :-1],
+                     use_kernels=use_kernels)
+    return cross_entropy(logits, batch["tokens"][:, 1:], cfg.vocab_size)
 
 
 # -- serving -------------------------------------------------------------------

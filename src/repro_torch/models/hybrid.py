@@ -1,6 +1,5 @@
 """Zamba2-style hybrid: a Mamba-2 backbone with a *shared* attention block —
-the counterpart of ``repro.models.hybrid`` (serving; ``loss_fn`` waits for
-LM training, ROADMAP Queue A step 17).
+the counterpart of ``repro.models.hybrid``: serving and the training loss.
 
 Structure (period P = cfg.shared_attn_period):
   * num_layers Mamba-2 blocks, organised as G = num_layers // P groups of
@@ -11,9 +10,11 @@ Structure (period P = cfg.shared_attn_period):
     with per-group input-norm gains.
 
 The reference's ``jax.lax.scan`` over the stacked parameters is a Python
-loop here, and ``jax.checkpoint`` has no role in a serving forward.  On
-CUDA tensors the forward runs B5 in every Mamba-2 block and B4 in every
-shared-attention invocation (``use_kernels=True``).
+loop here, and its ``jax.checkpoint`` is left out (autograd keeps the
+activations).  On CUDA tensors the forward runs B5 in every Mamba-2 block
+and B4 in every shared-attention invocation (``use_kernels=True``);
+:func:`loss_fn` runs the plain paths (the reference's ``use_pallas=False``
+/ ``use_flash=False``): B4 and B5 have no backward.
 
 Decode carries (mamba conv / SSD states per layer) + (one KV cache per
 shared-attention invocation, G of them).
@@ -28,6 +29,7 @@ import torch
 from . import attention as attn
 from .layers import (
     at_least_f32,
+    cross_entropy,
     embed,
     embedding_init,
     make_norm,
@@ -39,6 +41,7 @@ from .layers import stacked_init as _stacked_init
 from .layers import tree_index as _index
 from .layers import tree_map as _tree_map
 from .layers import tree_stack as _stack
+from .layers import tree_unbind as _unbind
 from .ssm import mamba2_decode, mamba2_full, mamba2_init, mamba2_init_cache
 
 
@@ -126,17 +129,23 @@ def forward(params, cfg, tokens, *, use_kernels=True):
         return h + mamba2_full(p["mamba"], cfg, norm(p["norm"], h), use_kernel=use_kernels)
 
     shared = params["shared_attn"]
-    for g in range(G):
-        gp = _index(params["groups"], g)
-        for j in range(P):
-            h = mamba_body(_index(gp, j), h)
-        h = _shared_attn_full(shared, acfg, cfg, h, h0, params["group_norms"][g],
-                              use_kernel=use_kernels)
-    for j in range(tail):
-        h = mamba_body(_index(params["tail"], j), h)
+    gains = list(torch.unbind(params["group_norms"], 0)) if G else []
+    for g, gp in enumerate(_unbind(params["groups"], G) if G else []):
+        for p in _unbind(gp, P):
+            h = mamba_body(p, h)
+        h = _shared_attn_full(shared, acfg, cfg, h, h0, gains[g], use_kernel=use_kernels)
+    for p in _unbind(params["tail"], tail) if tail else []:
+        h = mamba_body(p, h)
 
     h = norm(params["final_norm"], h)
     return h @ params["lm_head"]
+
+
+def loss_fn(params, cfg, batch, *, use_kernels=False):
+    """Next-token CE over batch["tokens"] (B, S + 1), on the plain paths."""
+    tokens = batch["tokens"]
+    logits = forward(params, cfg, tokens[:, :-1], use_kernels=use_kernels)
+    return cross_entropy(logits, tokens[:, 1:], cfg.vocab_size)
 
 
 def init_cache(params, cfg, batch, cache_len):

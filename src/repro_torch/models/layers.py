@@ -115,8 +115,32 @@ def embedding_init(gen, vocab, d, dtype):
     return {"table": normal_init(gen, (vocab, d), d**-0.5, dtype)}
 
 
+def take_rows(table, idx):
+    """``table[idx]`` (idx an integer tensor of any shape).  Its backward,
+    ``index_put_`` with accumulate, sorts the indices on CUDA and sums each
+    row's gradients in that order, so two backwards give the same bits
+    (PyTorch lists it deterministic; ``torch.gather``'s backward, a
+    scatter-add with atomics, is not) — the contract a resumed training run
+    needs to end on an uninterrupted run's bits."""
+    return table[idx]
+
+
 def embed(params, tokens):
-    return params["table"][tokens]
+    return take_rows(params["table"], tokens)
+
+
+def cross_entropy(logits, labels, vocab):
+    """Mean token CE in f32 (logits may be bf16; f64 stays f64) over the
+    padded logits, as the reference: the max is detached, and the gold
+    logit is picked by a masked sum over the vocabulary (the reference's
+    iota / where / sum, which stays shard-local under vocab sharding)."""
+    logits32 = at_least_f32(logits)
+    m = torch.amax(logits32, dim=-1, keepdim=True).detach()
+    shifted = logits32 - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    idx = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.sum(torch.where(idx == labels[..., None], shifted, 0.0), dim=-1)
+    return torch.mean(lse - gold)
 
 
 # -- stacked layer parameters ---------------------------------------------------
@@ -132,6 +156,17 @@ def tree_map(fn, *trees):
 def tree_index(tree, i):
     """Layer i of a tree of stacked tensors."""
     return tree_map(lambda x: x[i], tree)
+
+
+def tree_unbind(tree, n):
+    """The n layers of a tree of stacked tensors, as a list of trees of
+    views: one ``unbind`` per leaf, whose backward stacks the layers'
+    gradients once (``tree_index`` per layer would allocate a whole
+    stack's gradient for every layer)."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def tree_stack(trees):

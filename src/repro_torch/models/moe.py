@@ -18,7 +18,10 @@ The combine differs from the reference's scatter-add on purpose (ROADMAP
 Queue C): an atomic scatter sums in a different order on every run on the
 card.  Here each token gathers its own ≤ k expert outputs through the
 inverse of the selection map and adds them in a fixed order (its top-k
-order), so two runs give the same bits.  Slots that hold no member token
+order), so two runs give the same bits; for the same reason the
+dispatch gathers by indexing (``layers.take_rows``), whose backward sums
+in sorted order, not with ``torch.gather``, whose backward scatter-adds
+with atomics, so two training steps do too.  Slots that hold no member token
 (fewer than C picked the expert) are masked, as the reference's weights of
 0 make them.  The reference's sharding hints are the identity on one
 device and are left out.
@@ -31,7 +34,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import at_least_f32, normal_init
+from .layers import at_least_f32, normal_init, take_rows
 
 
 class Routing(NamedTuple):
@@ -116,8 +119,10 @@ def moe_dispatch(p, cfg, x, routing: Routing, *, group_size: int = 2048):
     sel_val, sel_idx = routing.sel_val, routing.sel_idx
     C = sel_idx.shape[-1]
 
-    gathered = torch.gather(tokens, 1, sel_idx.reshape(g, E * C, 1).expand(-1, -1, d))
-    gathered = gathered.reshape(g, E, C, d)
+    # the gather's backward adds up to k gradients into a token: in sorted
+    # order (take_rows), not by torch.gather's atomic scatter-add
+    rows = sel_idx + gs * torch.arange(g, device=x.device)[:, None, None]
+    gathered = take_rows(tokens.reshape(g * gs, d), rows)
     w = p["experts"]
     h = F.silu(torch.einsum("gecd,edf->gecf", gathered, w["w_gate"])) * torch.einsum(
         "gecd,edf->gecf", gathered, w["w_in"])

@@ -1,11 +1,11 @@
 """Mamba-2 language model (attention-free, sub-quadratic) — the
-counterpart of ``repro.models.ssm_lm``, for serving (``loss_fn`` waits for
-LM training, ROADMAP Queue A step 17 item 5).
+counterpart of ``repro.models.ssm_lm``: serving and the training loss.
 
 The forward runs B5 in every block on CUDA tensors (``use_kernels=True``;
 the reference's ``use_pallas``); decode is the O(1)-per-token recurrence
 of ``ssm.mamba2_decode``.  The reference's ``jax.lax.scan`` over the
-stacked blocks is a Python loop.
+stacked blocks is a Python loop.  :func:`loss_fn` runs the plain chunked
+scan (the reference's ``use_pallas=False``): B5 has no backward.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from .layers import (
+    cross_entropy,
     embed,
     embedding_init,
     make_norm,
@@ -21,6 +22,7 @@ from .layers import (
     tree_index,
     tree_map,
     tree_stack,
+    tree_unbind,
 )
 from .ssm import mamba2_decode, mamba2_full, mamba2_init, mamba2_init_cache
 
@@ -53,10 +55,16 @@ def forward(params, cfg, tokens, *, use_kernels=True):
     """tokens (B, S) → logits (B, S, padded_vocab)."""
     _, norm = make_norm(cfg)
     h = embed(params["embed"], tokens)
-    for i in range(cfg.num_layers):
-        p = tree_index(params["layers"], i)
+    for p in tree_unbind(params["layers"], cfg.num_layers):
         h = h + mamba2_full(p["mamba"], cfg, norm(p["norm"], h), use_kernel=use_kernels)
     return _unembed(params, cfg, norm(params["final_norm"], h))
+
+
+def loss_fn(params, cfg, batch, *, use_kernels=False):
+    """Next-token CE over batch["tokens"] (B, S + 1), on the plain paths."""
+    tokens = batch["tokens"]
+    logits = forward(params, cfg, tokens[:, :-1], use_kernels=use_kernels)
+    return cross_entropy(logits, tokens[:, 1:], cfg.vocab_size)
 
 
 def init_cache(params, cfg, batch, cache_len):

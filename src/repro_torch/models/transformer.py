@@ -1,14 +1,16 @@
 """Decoder-only transformer LM covering the dense / MoE / MLA families —
-the counterpart of ``repro.models.transformer``, for serving (``loss_fn``
-waits for LM training, ROADMAP Queue A step 17 item 5).
+the counterpart of ``repro.models.transformer``: serving and the training
+loss.
 
 Layers are stacked as in the reference: ``layers`` (L, ...) and, for an
 MoE config with ``first_dense_layers``, a dense ``prefix_layers`` stack
 before them.  The reference's ``jax.lax.scan`` over the stacks is a Python
-loop here, and ``jax.checkpoint`` has no role in a serving forward.  On
-CUDA tensors the GQA forward and prefill run B4 in every layer
-(``use_kernels=True``; the reference's ``use_flash``); MLA, MoE and decode
-are plain torch, as in the reference.
+loop here, and its ``jax.checkpoint`` (rematerialisation) is left out:
+autograd keeps every layer's activations.  On CUDA tensors the GQA
+forward and prefill run B4 in every layer (``use_kernels=True``; the
+reference's ``use_flash``); MLA, MoE and decode are plain torch, as in the
+reference.  :func:`loss_fn` runs the plain paths (``use_kernels=False``,
+the reference's ``use_flash=False``): B4 has no backward.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from . import attention as attn
 from .layers import (
     at_least_f32,
+    cross_entropy,
     embed,
     embedding_init,
     make_norm,
@@ -27,6 +30,7 @@ from .layers import (
     stacked_init,
     tree_index,
     tree_stack,
+    tree_unbind,
 )
 from .moe import moe_apply, moe_init
 
@@ -133,12 +137,21 @@ def forward(params, cfg, tokens, *, use_kernels=True):
     h = embed(params["embed"], tokens)
     aux_total = torch.zeros((), dtype=at_least_f32(h).dtype, device=h.device)
     for name, n, moe in _stacks(cfg):
-        for i in range(n):
-            h, aux = block_apply(tree_index(params[name], i), cfg, h, moe=moe, use_kernel=use_kernels)
+        for p in tree_unbind(params[name], n):
+            h, aux = block_apply(p, cfg, h, moe=moe, use_kernel=use_kernels)
             if aux is not None:
                 aux_total = aux_total + aux
     h = norm(params["final_norm"], h)
     return _unembed(params, cfg, h), aux_total
+
+
+def loss_fn(params, cfg, batch, *, use_kernels=False, aux_weight=0.01):
+    """Next-token CE over batch["tokens"] (B, S + 1) plus ``aux_weight`` ×
+    the MoE load-balance loss (0 for dense models), on the plain paths."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, cfg, tokens[:, :-1], use_kernels=use_kernels)
+    ce = cross_entropy(logits, tokens[:, 1:], cfg.vocab_size)
+    return ce + aux_weight * aux
 
 
 def init_cache(params, cfg, batch, cache_len):

@@ -1,0 +1,83 @@
+"""Pytrees of tensors in ``jax.tree_util``'s leaf order.
+
+The optimizers sum the gradient norm in leaf order and the checkpointer
+matches leaves by position, so both must see a tree's leaves in the order
+the reference's ``jax.tree_util`` gives them: dict keys sorted, NamedTuple
+fields and list / tuple items in order.  With that order a reference
+checkpoint restores into the port's trees, and the other way round.
+
+Paths are the reference checkpointer's strings: dict keys and list
+indices as they are, NamedTuple fields as ``.name`` (``opt/.mu/embed/table``).
+"""
+
+from __future__ import annotations
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def _children(node):
+    """(path components, children) of an inner node, or None for a leaf."""
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return [str(k) for k in keys], [node[k] for k in keys]
+    if _is_namedtuple(node):
+        return ["." + f for f in node._fields], list(node)
+    if isinstance(node, (list, tuple)):
+        return [str(i) for i in range(len(node))], list(node)
+    return None
+
+
+def tree_flatten_with_paths(tree):
+    """(paths, leaves) of ``tree`` in the reference's leaf order."""
+    paths, leaves = [], []
+
+    def walk(node, prefix):
+        kids = _children(node)
+        if kids is None:
+            paths.append("/".join(prefix))
+            leaves.append(node)
+            return
+        for name, child in zip(*kids):
+            walk(child, prefix + [name])
+
+    walk(tree, [])
+    return paths, leaves
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten_with_paths(tree)[1]
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` (in leaf order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            out = {k: None for k in node}  # keep the caller's key order
+            for k in sorted(node):
+                out[k] = build(node[k])
+            return out
+        if _is_namedtuple(node):
+            return type(node)(*(build(c) for c in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(c) for c in node)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the structure holds")
+    return out
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of trees of the same
+    structure, in leaf order; the result has ``tree``'s structure."""
+    leaves = tree_leaves(tree)
+    others = [tree_leaves(t) for t in rest]
+    for o in others:
+        if len(o) != len(leaves):
+            raise ValueError(f"tree_map: {len(o)} leaves against {len(leaves)}")
+    return tree_unflatten(tree, [fn(*xs) for xs in zip(leaves, *others)])

@@ -1324,3 +1324,94 @@ def test_sharded_product_world1_nccl_matches_cuda(cuda_device):
                                               timeout=300)[0]
     assert (launches, gathers) == (1, 1)
     assert torch.equal(out, ref)
+
+
+# -- LM training (no kernel: B4 / B5 have no backward) ----------------------------
+
+
+@pytest.mark.cuda
+def test_b4_and_b5_refuse_to_differentiate(cuda_device):
+    """On inputs that require grad the two forward-only kernels raise
+    (naming the missing backward) instead of returning an output that
+    carries no gradient; under no_grad they run."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((1, 2, 16, 32), generator=g, device=cuda_device, requires_grad=True)
+    k = torch.randn((1, 2, 16, 32), generator=g, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        fa.flash_attention_cuda(q, k, k)
+    with torch.no_grad():
+        assert fa.flash_attention_cuda(q, k, k).shape == q.shape
+    x = torch.randn((1, 2, 32, 16), generator=g, device=cuda_device)
+    dt = torch.rand((1, 2, 32), generator=g, device=cuda_device)
+    A = -torch.rand((2,), generator=g, device=cuda_device)
+    B = torch.randn((1, 32, 16), generator=g, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ssd.ssd_scan_cuda(x, dt, A, B, B.detach(), chunk=16)
+    with torch.no_grad():
+        assert ssd.ssd_scan_cuda(x, dt, A, B, B, chunk=16).shape == x.shape
+
+
+def _llama_2_layers(device, dtype="float32"):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(), num_layers=2, dtype=dtype)
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=device).manual_seed(0), max_seq=40)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 33), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    return cfg, bundle, params, {"tokens": tokens}
+
+
+@pytest.mark.cuda
+def test_llama_train_step_reaches_every_leaf_on_the_card(cuda_device):
+    """A 2-layer llama train step on the card, in f32: the loss runs the
+    plain paths (no B4 launch), every leaf gets a non-zero gradient, the
+    step moves every leaf (in bf16 the norm scales at 1.0 would keep an
+    update below half their ulp: ROADMAP Queue C item 25)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import loss_and_grads, make_train_step
+    from repro_torch.tree import tree_flatten_with_paths
+
+    cfg, bundle, params, batch = _llama_2_layers(cuda_device)
+    before = fa.launches
+    loss, grads = loss_and_grads(bundle, params, batch)
+    assert torch.isfinite(loss)
+    for path, g in zip(*tree_flatten_with_paths(grads)):
+        assert g is not None and bool(g.any()), path
+    start = [p.clone() for p in tree_flatten_with_paths(params)[1]]
+    step, init = make_train_step(bundle, lr=1e-3)
+    params, opt, m = step(params, init(params), batch)
+    assert fa.launches == before
+    assert all(not torch.equal(a, b) for a, b in zip(start, tree_flatten_with_paths(params)[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-1b-a400m"])
+def test_two_identical_train_steps_give_the_same_bits(cuda_device, arch):
+    """The embedding's and the MoE dispatch's row gathers are indexing,
+    whose backward sums in sorted order, so two bf16 steps from the same
+    state give the same bits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=cuda_device).manual_seed(0), max_seq=72)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 65), device=cuda_device,
+                                     generator=torch.Generator(device=cuda_device).manual_seed(1))}
+    step, init = make_train_step(bundle, lr=1e-3)
+    outs = []
+    for _ in range(2):
+        p = tree_map(torch.clone, params)
+        p, opt, m = step(p, init(p), batch)
+        outs.append(tree_leaves(p) + tree_leaves(opt.mu) + tree_leaves(opt.nu) + [m["loss"]])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))

@@ -40,7 +40,10 @@ def _imported_roots(path: Path):
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"kernel_matmul.py", "mbcg.py", "exact.py", "ski.py", "sharding.py", "distributed.py",
-            "chip_smoke.py", "torch_quickstart.py", "torch_large_scale_ski.py"} <= names
+            "chip_smoke.py", "torch_quickstart.py", "torch_large_scale_ski.py",
+            "adam.py", "adafactor.py", "clipping.py", "schedules.py", "compression.py",
+            "checkpointer.py", "fault.py", "train.py", "pipeline.py", "tree.py",
+            "torch_train_gp_e2e.py", "torch_deep_kernel_lm.py"} <= names
     assert len(PORT_FILES) >= 20
 
 
@@ -100,3 +103,27 @@ def test_lm_entry_points_default_to_cuda():
         build_server("zamba2-7b", "cpu-small")
     out = lm_params_from_jax(tree, device="cpu")
     assert out["embed"]["table"].device == torch.device("cpu")
+
+
+def test_lm_training_entry_point_defaults_to_cuda():
+    """``launch.train`` (``run_training`` and ``main``) and the two training
+    examples run on CUDA unless given ``--device cpu``, and raise without a
+    GPU."""
+    import importlib.util
+
+    from repro_torch.launch import train
+
+    argv = ["--preset", "cpu-small", "--steps", "1", "--batch", "2", "--seq", "8"]
+    if torch.cuda.is_available():
+        assert train.run_training(train.parse_args(argv)) == 0
+        return
+    with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
+        train.run_training(train.parse_args(argv))
+    with pytest.raises(NoCudaDeviceError):
+        train.main(argv)
+    for name in ("torch_train_gp_e2e", "torch_deep_kernel_lm"):
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(NoCudaDeviceError):
+            mod.run(n=32, steps=1)
