@@ -10,7 +10,9 @@ at full size through the kernels, and every other LM family of the zoo
 (the dense and MoE transformer, MLA, mamba2-370m, whisper-large-v3) in
 f32 against an f64 witness and served in bf16, and LM training through
 the port's driver (``launch.train``: the loss, the train step, Adam, the
-checkpointer and the fault drill) for every family.
+checkpointer and the fault drill) for every family, and the LM on a mesh
+(sharded train, prefill and decode on DTensor, expert parallelism, GPipe,
+elastic restore, the dry-run).
 
     python3 chip_smoke.py [--seed 0] [--n 40000]
 
@@ -359,6 +361,30 @@ and the final line is then not printed):
                 mamba2-370m, whisper-large-v3 (1,500 frames), minicpm3-4b at full size
                 and zamba2-7b at 36 of 81 layers: a finite loss that falls,
                 every leaf reached, ms a step, peak memory
+ 19. lm_mesh    the LM on a mesh (DTensor, the sharding rules), on a world
+                of two gloo ranks on this card and one NCCL rank: llama3.2-1b
+                at full width cut to 2 layers, f32, 8 × 128 tokens — on
+                (1, 1) the loss, every gradient and one Adam step the plain
+                step's bits; on (1, 2) (tensor parallel) and (2, 1) (data
+                parallel) the loss within 1e-5, every gradient within 1e-3
+                of its leaf's largest and the Adam step by Queue C item
+                29's rule, against the same rank's single-process step;
+                bf16 ms a step on (1, 1) and (1, 2); prefill 4 × 512 on
+                (1, 2) with B4 on each rank's 4 of 8 KV-head groups and 4
+                decode steps on the cache laid out by cache_shardings,
+                mamba2-370m's prefill with B5 on each rank's 16 of 32
+                heads: the logits within 1e-3 of the single-process run,
+                greedy tokens equal where the top-2 margin is firm, every
+                local launch against its plain version on the same local
+                operands, the launches per rank, and the prefill timed
+                again without the plain versions; granite-moe-1b-a400m (2 layers, experts over
+                "model"): every routing call the single-process run's, the
+                loss within 1e-5; pipeline_forward on 2 stages bit for bit
+                against the sequential loop; a checkpoint saved from
+                world 2's (1, 2) layout restored in world 1 bit for bit;
+                on the host, the dry-run cell llama3.2-1b train_4k on a
+                fake 16 × 16 mesh and the (1, 1) forecast of the train
+                step's memory beside its measured peak
 
 The last line is ``{"ok": true, "device": {...}}``.  Run from a checkout of
 the repository; needs one CUDA device.
@@ -377,6 +403,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -6362,6 +6389,503 @@ def phase_sharded(km, seed):
     return launches
 
 
+# --------------------------------------------------------------------------
+# the LM on a mesh (DTensor): sharded train / prefill / decode, expert
+# parallelism, GPipe, elastic restore, the dry-run
+# --------------------------------------------------------------------------
+
+LM_MESH_ARCH, LM_MESH_MOE, LM_MESH_SSM = "llama3.2-1b", "granite-moe-1b-a400m", "mamba2-370m"
+LM_MESH_LAYERS = 2  # full width, depth cut
+LM_MESH_BATCH, LM_MESH_SEQ = 8, 128  # the train step's tokens (lm_train's main path)
+LM_MESH_PREFILL = (4, 512)  # prompts × tokens
+LM_MESH_DECODE = 4
+LM_MESH_CACHE = 528
+LM_MESH_MOE_TOKENS = (4, 128)
+LM_MESH_LR = 3e-4
+LM_MESH_BF16_STEPS = 4  # the first one cold
+LM_MESH_BF16_MESHES = ((1, 1), (1, 2))
+LM_MESH_PIPE = (2, 8, 4, 256)  # stages, microbatches, microbatch rows, width
+#: world 2 first: it saves the checkpoint that world 1 restores
+LM_MESH_WORLDS = ((2, "gloo"), (1, "nccl"))
+LM_MESH_WORLD_TIMEOUT_S = 420.0
+LM_MESH_MESHES = {1: ((1, 1),), 2: ((1, 2), (2, 1))}
+LM_MESH_DRYRUN = ("llama3.2-1b", "train_4k")
+
+
+def _mesh_cfg(arch, dtype, **kw):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=LM_MESH_LAYERS, dtype=dtype, **kw)
+
+
+def _mesh_params(bundle, seed, dev, max_seq):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return bundle.init(gen, max_seq=max_seq)
+
+
+def _tokens(seed, shape, vocab, dev):
+    rng = np.random.default_rng([seed, 29, *shape])
+    return torch.from_numpy(rng.integers(0, vocab, shape)).to(dev)
+
+
+def _clone(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: x.detach().clone(), tree)
+
+
+def _leaf_rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) / max(float(b.double().abs().max()), 1e-30)
+
+
+@contextlib.contextmanager
+def local_kernel_shadow():
+    """While open, every launch of B4 / B5 on a rank's local shard (the
+    wrappers' DTensor branch calls the module-level kernel function on
+    ``to_local()`` operands) also runs the plain version on the same
+    local operands.  Yields {kernel: [per call: local shapes, max |kernel −
+    plain| / max |plain|]}."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref
+
+    calls = {"B4": [], "B5": []}
+    real_fa, real_ssd = fa.flash_attention_cuda, ssd.ssd_scan_cuda
+
+    def fa_shadow(q, k, v, *, causal=True, scale=None):
+        out = real_fa(q, k, v, causal=causal, scale=scale)
+        plain = gqa_attention_plain(q, k, v, causal=causal, scale=scale)
+        calls["B4"].append({"q": list(q.shape), "k": list(k.shape),
+                            "rel": rel_err(out.float(), plain.float())[1]})
+        return out
+
+    def ssd_shadow(x, dt, A, B, C, *, chunk=128, _cuda_cores=False):
+        out = real_ssd(x, dt, A, B, C, chunk=chunk, _cuda_cores=_cuda_cores)
+        plain = ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk)
+        calls["B5"].append({"x": list(x.shape), "rel": rel_err(out.float(), plain.float())[1]})
+        return out
+
+    fa.flash_attention_cuda, ssd.ssd_scan_cuda = fa_shadow, ssd_shadow
+    try:
+        yield calls
+    finally:
+        fa.flash_attention_cuda, ssd.ssd_scan_cuda = real_fa, real_ssd
+
+
+def _mesh_train(rep, seed, dev, meshes, lead):
+    """llama3.2-1b, 2 layers, f32: the loss, every gradient and one Adam
+    step on each mesh against this rank's single-process step (world 1:
+    bit for bit; world 2: the gradient parity and Queue C item 29's Adam
+    rule); the step's peak memory on (1, 1); bf16 ms a step on
+    LM_MESH_BF16_MESHES."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import build_model, loss_and_grads, make_train_step
+    from repro_torch.models.model import mesh_context
+    from repro_torch.tree import tree_flatten_with_paths, tree_leaves
+
+    cfg = _mesh_cfg(LM_MESH_ARCH, "float32")
+    bundle = build_model(cfg)
+    params = _mesh_params(bundle, seed, dev, LM_MESH_SEQ + 8)
+    tok = _tokens(seed, (LM_MESH_BATCH, LM_MESH_SEQ + 1), cfg.vocab_size, dev)
+    loss0, grads0 = loss_and_grads(bundle, params, {"tokens": tok})
+    step, init_opt = make_train_step(bundle, lr=LM_MESH_LR)
+    p_ref = _clone(params)
+    p_ref, o_ref, m_ref = step(p_ref, init_opt(p_ref), {"tokens": tok})
+    paths, g0 = tree_flatten_with_paths(grads0)
+    out = {}
+    for shape in meshes:
+        mesh = sh.make_mesh(shape, ("data", "model"))
+        name = "x".join(map(str, shape))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with sh.use_mesh(mesh):
+            dp = sh.distribute_tree(_clone(params), sh.named_shardings(
+                mesh, sh.params_shardings(params, bundle.stacked_paths)))
+            batch = {"tokens": sh.distribute(tok, sh.NamedSharding(mesh, sh.p_batch(None)))}
+            with mesh_context(dp):
+                loss, grads = loss_and_grads(bundle, dp, batch)
+            loss = float(loss.full_tensor())
+            worst = max(_leaf_rel(g.full_tensor(), r) for g, r in zip(tree_leaves(grads), g0))
+            exact = all(torch.equal(g.full_tensor(), r) for g, r in zip(tree_leaves(grads), g0))
+            del grads
+            opt = init_opt(dp)
+            torch.cuda.synchronize()
+            base_step = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            p2, o2, m = step(dp, opt, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base_step
+            full = [x.full_tensor() for x in tree_leaves(p2)]
+            mu = [x.full_tensor() for x in tree_leaves(o2.mu)]
+        row = {"loss": loss, "loss_single": float(loss0), "grad_worst_leaf_rel": worst,
+               "grads_bitwise": exact, "step_loss": float(m["loss"]),
+               "step_peak_bytes_above_inputs": peak, "allocated_before_bytes": base}
+        if lead:
+            p_bits = all(torch.equal(a, b) for a, b in zip(full, tree_leaves(p_ref)))
+            mu_bits = all(torch.equal(a, b) for a, b in zip(mu, tree_leaves(o_ref.mu)))
+            row.update(params_bitwise=p_bits, mu_bitwise=mu_bits)
+            if shape == (1, 1):
+                check(exact and p_bits and mu_bits and loss == float(loss0),
+                      "lm_mesh: the (1, 1) mesh step is not the plain step bit for bit")
+            else:
+                check(abs(loss - float(loss0)) <= LOSS_PARITY_RTOL * abs(float(loss0)),
+                      f"lm_mesh {name}: loss {loss} vs {float(loss0)}")
+                check(worst <= GRAD_PARITY_REL, f"lm_mesh {name}: gradient {worst} past "
+                      f"{GRAD_PARITY_REL} of its leaf")
+                for path, a, b, mu_ref in zip(paths, full, tree_leaves(p_ref),
+                                              tree_leaves(o_ref.mu)):
+                    firm = _mu_firm(mu_ref)
+                    d = (a - b).abs()
+                    check(float(d.max()) <= 2 * LM_MESH_LR + 1e-5, f"lm_mesh {name}: {path} moved")
+                    check(_within(a[firm], b[firm], STEP_TOL),
+                          f"lm_mesh {name}: {path} off the single-process step (firm entries)")
+        out[name] = row
+        del dp, opt, p2, o2, full, mu
+        torch.cuda.empty_cache()
+    rep["train_f32"] = out
+    del params, p_ref, o_ref, grads0, g0
+    torch.cuda.empty_cache()
+
+    # bf16: ms a step on (1, 1) and (1, 2) (synchronised by reading the
+    # loss); (2, 1) on two gloo ranks of one card would time the host's
+    # round trips of the data-parallel reduction, which no user runs
+    cfg = _mesh_cfg(LM_MESH_ARCH, "bfloat16")
+    bundle = build_model(cfg)
+    step, init_opt = make_train_step(bundle, lr=LM_MESH_LR)
+    params = _mesh_params(bundle, seed, dev, LM_MESH_SEQ + 8)
+    bf16 = {}
+    for shape in (m for m in meshes if m in LM_MESH_BF16_MESHES):
+        mesh = sh.make_mesh(shape, ("data", "model"))
+        with sh.use_mesh(mesh):
+            dp = sh.distribute_tree(_clone(params), sh.named_shardings(
+                mesh, sh.params_shardings(params, bundle.stacked_paths)))
+            opt = init_opt(dp)
+            batch = {"tokens": sh.distribute(tok, sh.NamedSharding(mesh, sh.p_batch(None)))}
+            ms, losses = [], []
+            for _ in range(LM_MESH_BF16_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dp, opt, m = step(dp, opt, batch)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(math.isfinite(v) for v in losses), f"lm_mesh bf16: non-finite loss {losses}")
+        bf16["x".join(map(str, shape))] = {"step_ms": ms, "warm_ms_median": sorted(ms[1:])[
+            len(ms[1:]) // 2], "losses": losses}
+        del dp, opt
+        torch.cuda.empty_cache()
+    rep["train_bf16"] = bf16
+    return params  # the bf16 params: what world 2 saves and world 1 restores
+
+
+def _serve_meshes(world):
+    return ((1, 1),) if world == 1 else ((1, 2),)
+
+
+def _mesh_serve(rep, seed, dev, world, lead):
+    """llama3.2-1b (2 layers, f32) prefill 4 × 512 through B4 on each rank's
+    KV-head groups, then decode on the cache laid out by cache_shardings;
+    mamba2-370m's prefill through B5 on each rank's heads: the logits
+    against this rank's single-process run, every local launch against
+    its plain version; the launches counted over the mesh runs only."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import build_model
+    from repro_torch.models.model import mesh_context, params_for_use
+
+    b, s = LM_MESH_PREFILL
+    rows = {}
+    for arch in (LM_MESH_ARCH, LM_MESH_SSM):
+        cfg = _mesh_cfg(arch, "float32")
+        bundle = build_model(cfg)
+        params = _mesh_params(bundle, seed, dev, LM_MESH_CACHE + 8)
+        tok = _tokens(seed, (b, s), cfg.vocab_size, dev)
+        nxt = _tokens(seed + 1, (b, LM_MESH_DECODE), cfg.vocab_size, dev)
+        decode = arch == LM_MESH_ARCH
+        with torch.no_grad():
+            logits, cache = bundle.prefill(params, {"tokens": tok}, LM_MESH_CACHE, True)
+            ref = [logits]
+            pos = torch.full((b,), s, device=dev)
+            for i in range(LM_MESH_DECODE if decode else 0):
+                logits, cache = bundle.decode(params, nxt[:, i], cache, pos + i)
+                ref.append(logits)
+        del cache
+        for shape in _serve_meshes(world):
+            mesh = sh.make_mesh(shape, ("data", "model"))
+            name = f"{arch}@" + "x".join(map(str, shape))
+            with sh.use_mesh(mesh), torch.no_grad():
+                dp = params_for_use(sh.distribute_tree(params, sh.named_shardings(
+                    mesh, sh.params_shardings(params, bundle.stacked_paths))))
+                tk = sh.distribute(tok, sh.NamedSharding(mesh, sh.p_batch(None)))
+                _reset_lm_counts()
+                with local_kernel_shadow() as calls, mesh_context(dp):
+                    logits, cache = bundle.prefill(dp, {"tokens": tk}, LM_MESH_CACHE, True)
+                    got = [logits.full_tensor()]
+                launches = _lm_counts()
+                with mesh_context(dp):
+                    placed = None
+                    if decode:  # mamba2's prefill returns a zero cache (the reference's)
+                        cache = sh.constrain_tree(cache, sh.cache_shardings(cache))
+                        placed = all(tuple(c.placements) == sh.placements(
+                            spec, mesh.axis_names, mesh.shape) for c, spec in zip(
+                            _tree_leaves(cache), _tree_leaves(sh.cache_shardings(cache))))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for i in range(LM_MESH_DECODE if decode else 0):
+                        logits, cache = bundle.decode(dp, nxt[:, i], cache, pos + i)
+                        got.append(logits.full_tensor())
+                    torch.cuda.synchronize()
+                    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_MESH_DECODE
+                    # the prefill timed again, warm and without the plain shadow
+                    t0 = time.perf_counter()
+                    again = bundle.prefill(dp, {"tokens": tk}, LM_MESH_CACHE, True)[0]
+                    again = again.full_tensor()
+                    prefill_ms = (time.perf_counter() - t0) * 1e3
+            errs = [_err(g, r) for g, r in zip(got, ref)]
+            firm_equal = True
+            for g, r in zip(got, ref):
+                top2 = torch.topk(r, 2, dim=-1).values
+                firm = (top2[:, 0] - top2[:, 1]) > 2 * LM_PARITY_TOL["atol"]
+                firm_equal &= bool((g.argmax(-1)[firm] == r.argmax(-1)[firm]).all())
+            key = "B4" if arch == LM_MESH_ARCH else "B5"
+            row = {"logit_max_abs_err": errs, "greedy_equal_where_firm": firm_equal,
+                   "launches": launches, "local_calls": calls[key], "prefill_ms": prefill_ms,
+                   "decode_ms_per_token": decode_ms if decode else None,
+                   "cache_placed_by_cache_shardings": placed}
+            rows[name] = row
+            check(all(_within(g, r, LM_PARITY_TOL) for g, r in zip(got, ref)),
+                  f"lm_mesh {name}: logits off the single-process run {errs}")
+            check(firm_equal, f"lm_mesh {name}: a greedy token differs where the margin is firm")
+            check(_within(again, ref[0], LM_PARITY_TOL), f"lm_mesh {name}: the timed "
+                  "prefill's logits are off the single-process run")
+            check(launches[key] == cfg.num_layers and len(calls[key]) == cfg.num_layers,
+                  f"lm_mesh {name}: {launches} launches on this rank, {cfg.num_layers} layers")
+            tol = (FLASH_TOL if key == "B4" else SSD_TOL)[torch.float32]["rtol"]
+            check(all(c["rel"] <= tol for c in calls[key]),
+                  f"lm_mesh {name}: a local {key} call off its plain version {calls[key]}")
+            check(not decode or placed, f"lm_mesh {name}: the cache is not where "
+                  "cache_shardings puts it")
+            del dp, cache, again
+            torch.cuda.empty_cache()
+        del params
+    rep["serve"] = rows
+
+
+def _tree_leaves(tree):
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _mesh_experts(rep, seed, dev, world):
+    """granite-moe-1b-a400m at full width, 2 layers, f32, experts over
+    "model": every routing call equal to this rank's single-process run,
+    the loss within LOSS_PARITY_RTOL."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.model import mesh_context, params_for_use
+
+    cfg = _mesh_cfg(LM_MESH_MOE, "float32")
+    bundle = build_model(cfg)
+    params = _mesh_params(bundle, seed, dev, LM_MESH_MOE_TOKENS[1] + 8)
+    tok = _tokens(seed, (LM_MESH_MOE_TOKENS[0], LM_MESH_MOE_TOKENS[1] + 1), cfg.vocab_size, dev)
+    routes = []
+    real = moe.route_gates
+    moe.route_gates = lambda *a: routes.append(real(*a)) or routes[-1]
+    try:
+        with torch.no_grad():
+            loss0 = float(bundle.loss(params, {"tokens": tok}))
+            single = list(routes)
+            routes.clear()
+            mesh = sh.make_mesh(_serve_meshes(world)[0], ("data", "model"))
+            with sh.use_mesh(mesh):
+                dp = params_for_use(sh.distribute_tree(params, sh.named_shardings(
+                    mesh, sh.params_shardings(params, bundle.stacked_paths))))
+                tk = sh.distribute(tok, sh.NamedSharding(mesh, sh.p_batch(None)))
+                with mesh_context(dp):
+                    loss = float(bundle.loss(dp, {"tokens": tk}).full_tensor())
+    finally:
+        moe.route_gates = real
+    same = len(routes) == len(single) and all(
+        torch.equal(a[1], b[1]) and torch.equal(a[3] > 0, b[3] > 0)
+        and torch.equal(a[4][a[3] > 0], b[4][b[3] > 0]) for a, b in zip(routes, single))
+    rep["experts"] = {"loss": loss, "loss_single": loss0, "routing_equal": same,
+                      "routing_calls": len(routes), "experts_per_rank":
+                      cfg.num_experts // mesh.axis_sizes["model"]}
+    check(same, "lm_mesh experts: the routing differs from the single-process run's")
+    check(abs(loss - loss0) <= LOSS_PARITY_RTOL * abs(loss0),
+          f"lm_mesh experts: loss {loss} vs {loss0}")
+    del params, dp
+    torch.cuda.empty_cache()
+
+
+def _mesh_pipeline(rep, seed, dev, world):
+    """pipeline_forward on a (stage,) mesh of the world's ranks against the
+    sequential loop on this rank, bit for bit."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.pipeline import pipeline_forward
+
+    S_max, M, mb, d = LM_MESH_PIPE
+    S = min(S_max, world)
+    stages = sh.make_mesh((S,), ("stage",))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ws = torch.randn((S, d, d), generator=g, device=dev) * d**-0.5
+    xs = torch.randn((M, mb, d), generator=g, device=dev)
+
+    def stage_fn(w, x):
+        return torch.tanh(x @ w)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipeline_forward(stage_fn, ws, xs, mesh=stages)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    seq = []
+    for m in range(M):
+        x = xs[m]
+        for i in range(S):
+            x = stage_fn(ws[i], x)
+        seq.append(x)
+    exact = torch.equal(out, torch.stack(seq))
+    rep["pipeline"] = {"stages": S, "microbatches": M, "bitwise": exact, "ms": ms}
+    check(exact, "lm_mesh: pipeline_forward is not the sequential loop bit for bit")
+
+
+def _rank_device():
+    """This rank's card, made current (DeviceMesh then takes it as given)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def _lm_mesh_rank(rank, world, seed, ckpt_dir):
+    """One rank of the ``lm_mesh`` phase (run by ``spawn_world``)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import warnings
+
+    warnings.filterwarnings("ignore")  # DTensor's notes on sequential collectives
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import sharding as sh
+
+    dev = _rank_device()
+    with contextlib.ExitStack() as stack:
+        if torch.distributed.get_backend() == "gloo" and dev.type == "cuda":
+            stack.enter_context(sh.sync_collectives())  # ROADMAP Queue C item 33
+        return _lm_mesh_rank_body(rank, world, seed, ckpt_dir, dev)
+
+
+def _lm_mesh_rank_body(rank, world, seed, ckpt_dir, dev):
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import sharding as sh
+
+    lead = rank == 0
+    rep = {"world": world, "rank": rank}
+    t0 = time.perf_counter()
+    params = _mesh_train(rep, seed, dev, LM_MESH_MESHES[world], lead)
+    rep["seconds_train"] = time.perf_counter() - t0
+    _mesh_serve(rep, seed, dev, world, lead)
+    _mesh_experts(rep, seed, dev, world)
+    _mesh_pipeline(rep, seed, dev, world)
+
+    # elastic restore: world 2 saves its (1, 2) layout, world 1 restores it
+    from repro_torch.models import build_model
+
+    bundle = build_model(_mesh_cfg(LM_MESH_ARCH, "bfloat16"))
+    ck = Checkpointer(ckpt_dir)
+    mesh = sh.make_mesh(_serve_meshes(world)[0], ("data", "model"))
+    specs = sh.params_shardings(params, bundle.stacked_paths)
+    with sh.use_mesh(mesh):
+        if world == 2:
+            t = time.perf_counter()
+            ck.save(0, sh.distribute_tree(params, sh.named_shardings(mesh, specs)))
+            torch.distributed.barrier()
+            rep["restore"] = {"save_ms": (time.perf_counter() - t) * 1e3}
+        else:
+            t = time.perf_counter()
+            back = ck.restore(0, params, shardings=sh.named_shardings(mesh, specs))
+            torch.cuda.synchronize()
+            exact = all(torch.equal(a.full_tensor(), b)
+                        for a, b in zip(_tree_leaves(back), _tree_leaves(params)))
+            rep["restore"] = {"restore_ms": (time.perf_counter() - t) * 1e3, "bitwise": exact}
+            check(exact, "lm_mesh: world 1's restore of world 2's checkpoint is not its init")
+    rep["seconds"] = time.perf_counter() - t0
+    return rep
+
+
+def _lm_mesh_dryrun(measured_peak):
+    """On the host, in this process: the dry-run cell llama3.2-1b train_4k
+    on the fake 16 × 16 mesh (status ok), and the (1, 1) cell of the train
+    step world 1 ran, its per-device forecast beside the measured peak."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    out = {}
+    with dryrun.fake_world(256):
+        cell = dryrun.analyze_cell(*LM_MESH_DRYRUN)
+    check(cell["per_device_bytes"] > 0, "lm_mesh: the dry-run cell counted no memory")
+    out["cell"] = {k: cell[k] for k in ("arch", "shape", "mesh", "per_device_gib",
+                                        "compile_seconds")}
+    out["cell"]["analysis"] = {k: cell["analysis"][k] for k in (
+        "t_compute", "t_memory", "t_collective", "bottleneck", "useful_ratio", "mfu_bound")}
+    out["cell"]["status"] = "ok"
+    step = ShapeConfig("mesh_step", LM_MESH_SEQ, LM_MESH_BATCH, "train")
+    with dryrun.fake_world(1):
+        one = dryrun.analyze_cell(LM_MESH_ARCH, step.name, cfg=_mesh_cfg(LM_MESH_ARCH, "float32"),
+                                  shape=step, mesh_shape=(1, 1))
+    out["forecast_1x1"] = {"per_device_bytes": one["per_device_bytes"],
+                           "argument_bytes": one["argument_bytes"],
+                           "above_inputs_bytes": one["per_device_bytes"] - one["argument_bytes"],
+                           "measured_step_peak_above_inputs_bytes": measured_peak}
+    return out
+
+
+def phase_lm_mesh(seed):
+    """The LM on a mesh, on worlds of two gloo ranks and one NCCL rank on
+    this card (``_lm_mesh_rank``), then the dry-run on the host.  Returns
+    the B4 / B5 launches of the sharded prefills, summed over every rank."""
+    from repro_torch.distributed import spawn_world
+
+    # the ranks are processes of their own: this one's cached blocks (the
+    # training phases' peaks) would leave them no memory on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_mesh", "parent_allocated_bytes": torch.cuda.memory_allocated(),
+          "parent_reserved_bytes": torch.cuda.memory_reserved()})
+    reports = {}
+    tmp = tempfile.mkdtemp(prefix="lm_mesh_ckpt_")
+    try:
+        for world, backend in LM_MESH_WORLDS:
+            t0 = time.perf_counter()
+            ranks = spawn_world(_lm_mesh_rank, world, backend, args=(seed, tmp),
+                                timeout=LM_MESH_WORLD_TIMEOUT_S)
+            for r in ranks[1:]:
+                for mesh, row in r["train_f32"].items():
+                    check(row["loss"] == ranks[0]["train_f32"][mesh]["loss"],
+                          f"lm_mesh world {world} {mesh}: the ranks' losses differ")
+            reports[world] = ranks
+            emit({"phase": "lm_mesh", "world": world, "backend": backend, "card": CARD,
+                  "seconds": time.perf_counter() - t0,
+                  **{k: ranks[0][k] for k in ("train_f32", "train_bf16", "serve", "experts",
+                                              "pipeline", "restore")},
+                  "launches_per_rank": [{n: row["launches"] for n, row in r["serve"].items()}
+                                        for r in ranks]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = reports[1][0]["train_f32"]["1x1"]["step_peak_bytes_above_inputs"]
+    dry = _lm_mesh_dryrun(peak)
+    emit({"phase": "lm_mesh", "dryrun": dry, "card": CARD})
+    launches = {"B4": 0, "B5": 0}
+    for ranks in reports.values():
+        for r in ranks:
+            for row in r["serve"].values():
+                for k in launches:
+                    launches[k] += row["launches"][k]
+    return launches
+
+
 def _streamed(streaming, key):
     """The new streaming / health phases' launches of one kernel."""
     return sum(r.get(key, 0) for r in streaming.values())
@@ -6502,6 +7026,10 @@ def main() -> int:
         zoo_lm_seconds["lm_zoo_serve"] = time.perf_counter() - t_phase
         emit({"phase_wall_s": "lm_zoo", "seconds": zoo_lm_seconds})
         lm_train = phase_lm_train(args.seed)
+        t_phase = time.perf_counter()
+        lm_mesh = phase_lm_mesh(args.seed)
+        lm_mesh_seconds = time.perf_counter() - t_phase
+        emit({"phase_wall_s": "lm_mesh", "seconds": lm_mesh_seconds})
     except Exception:  # every phase failure ends the run non-zero
         traceback.print_exc()
         return 1
@@ -6567,9 +7095,10 @@ def main() -> int:
                           "peak_device_bytes": r["peak_device_bytes"], "layers": r["layers"]}
                       for a, r in lm_train["zoo"].items()},
               "seconds": lm_train["seconds"]},
+          "lm_mesh": {"seconds": lm_mesh_seconds, "launches": lm_mesh},
           "seconds": time.perf_counter() - t_start})
-    # the B4 / B5 launches of every LM serving main path: zamba2's prefill
-    # and the zoo's prefills and serve loops
+    # the B4 / B5 launches of every LM serving main path: zamba2's prefill,
+    # the zoo's prefills and serve loops, and the sharded prefills of lm_mesh
     zoo_launches = {key: sum(r["launches"][key] + r["serve_loop_launches"][key]
                              for r in zoo_serve.values()) for key in ("B4", "B5")}
     kernels = []
@@ -6608,9 +7137,10 @@ def main() -> int:
          + _streamed(streaming, "B3_bf16") + sharded.get("bf16_fused_launches", 0)),
         ("flash_attention (B4)", "B4", FLASH_SOURCE,
          "src/repro/kernels/flash_attention/flash_attention.py:83",
-         lm["launches"]["B4"] + zoo_launches["B4"]),
+         lm["launches"]["B4"] + zoo_launches["B4"] + lm_mesh["B4"]),
         ("ssd_scan (B5, bf16 on the tensor-core route)", "B5", SSD_SOURCE,
-         "src/repro/kernels/ssd_scan/ssd_scan.py:91", lm["launches"]["B5"] + zoo_launches["B5"]),
+         "src/repro/kernels/ssd_scan/ssd_scan.py:91",
+         lm["launches"]["B5"] + zoo_launches["B5"] + lm_mesh["B5"]),
     ):
         row = timing[key]
         kernels.append({

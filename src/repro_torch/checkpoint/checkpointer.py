@@ -14,7 +14,11 @@ with ``"bfloat16"`` in the index (the reference's ``ml_dtypes`` view), and
 read back as a bf16 view of those bits — no ``ml_dtypes`` here.
 
 Leaves are stored whole on the host; ``restore`` places them on the
-device asked for, or on the device of the matching leaf of ``like``.
+device asked for, or on the device of the matching leaf of ``like``, or —
+elastic restore — laid out on a mesh by ``shardings`` (a checkpoint
+written from 4 ranks restores on 1, or on (2, 2) with other placements).
+A tree of DTensors is gathered leaf by leaf before it is written (a
+collective every rank enters) and rank 0 writes it.
 
 ``save_async`` copies every leaf to host memory before it returns (so the
 caller may update its tensors in place at once) and writes the files on a
@@ -32,8 +36,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..tree import tree_flatten_with_paths, tree_unflatten
+from ..distributed.sharding import distribute_tree, is_dtensor
+from ..tree import tree_flatten_with_paths, tree_leaves, tree_unflatten
 
 _TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16,
                  "float16": torch.float16, "int32": torch.int32, "int64": torch.int64,
@@ -42,7 +48,9 @@ _NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 
 
 def _to_host(leaf):
-    """(a host copy of the leaf, its dtype name)."""
+    """(a host copy of the leaf, its dtype name); a DTensor leaf whole."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype not in _NAMES:
             raise TypeError(f"Checkpointer: cannot store a {leaf.dtype} leaf")
@@ -69,18 +77,25 @@ class Checkpointer:
 
     # -- save ---------------------------------------------------------------
     def _snapshot(self, tree):
+        """(paths, host copies, whether this process writes): a tree
+        holding DTensors is written by rank 0 alone."""
         paths, leaves = tree_flatten_with_paths(tree)
-        return paths, [_to_host(leaf) for leaf in leaves]
+        writes = not any(is_dtensor(x) for x in leaves) or dist.get_rank() == 0
+        return paths, [_to_host(leaf) for leaf in leaves], writes
 
     def save(self, step: int, tree):
         self.wait()  # one writer at a time (the same step may be in flight)
-        self._write(step, *self._snapshot(tree))
+        paths, host, writes = self._snapshot(tree)
+        if writes:
+            self._write(step, paths, host)
 
     def save_async(self, step: int, tree):
         self.wait()  # one writer at a time
-        paths, host = self._snapshot(tree)
-        self._thread = threading.Thread(target=self._write, args=(step, paths, host), daemon=True)
-        self._thread.start()
+        paths, host, writes = self._snapshot(tree)
+        if writes:
+            self._thread = threading.Thread(target=self._write, args=(step, paths, host),
+                                            daemon=True)
+            self._thread.start()
 
     def wait(self):
         if self._thread is not None:
@@ -125,10 +140,13 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like, device=None):
+    def restore(self, step: int, like, device=None, shardings=None):
         """The checkpoint of ``step`` in the structure of ``like``, leaf by
         leaf in leaf order, each on ``device`` (default: the device of the
-        matching leaf of ``like``, the CPU where that is no tensor)."""
+        matching leaf of ``like``, the CPU where that is no tensor), and
+        with ``shardings`` (a tree of ``NamedSharding`` of ``like``'s
+        structure) laid out on their mesh as DTensors: elastic resharding,
+        each rank keeping its own shard of the whole leaf it read."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "index.json")) as f:
             index = json.load(f)
@@ -152,10 +170,12 @@ class Checkpointer:
             dev = device if device is not None else (
                 ref.device if isinstance(ref, torch.Tensor) else "cpu")
             leaves.append(t.to(dev))
+        if shardings is not None:
+            leaves = tree_leaves(distribute_tree(tree_unflatten(like, leaves), shardings))
         return tree_unflatten(like, leaves)
 
-    def restore_latest(self, like, device=None):
+    def restore_latest(self, like, device=None, shardings=None):
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, like, device)
+        return step, self.restore(step, like, device, shardings)

@@ -9,6 +9,7 @@ from .base import (
     get_config,
     list_configs,
     register,
+    runnable_shapes,
 )
 from .zamba2_7b import ZAMBA2_7B
 
@@ -22,4 +23,5 @@ __all__ = [
     "get_config",
     "list_configs",
     "register",
+    "runnable_shapes",
 ]

@@ -173,3 +173,11 @@ def list_configs():
 
     return sorted(_REGISTRY)
 
+
+def runnable_shapes(cfg: ModelConfig):
+    """The shape cells this architecture runs (long_500k only for
+    sub-quadratic token mixers), as the reference's."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        names.append("long_500k")
+    return [SHAPES[n] for n in names]

@@ -1,5 +1,6 @@
-"""The GP system's multi-device layer on ``torch.distributed`` (counterpart
-of the GP part of ``repro.distributed.sharding``).
+"""The multi-device layer on ``torch.distributed``: the GP system's row
+bands and collectives, and the LM's sharding rules on DTensor — the
+counterpart of ``repro.distributed.sharding``.
 
 Global view, sharded work: every rank of a world calls the same entry
 point with the same X, y, parameters and full right-hand side; each
@@ -30,6 +31,21 @@ runs unchanged, and identically, on every rank.
     ``chip_smoke.py``).  Users start worlds with ``torchrun`` and
     :func:`init_from_env`.
 
+The LM half (the reference's ``sharding.py:108-334``): the rules map a
+parameter's tree path, a cache leaf's name or an activation's role to a
+partition spec :class:`P` over the axes "pod", "data" and "model"
+(``params_shardings``, ``cache_shardings``, ``p_batch``,
+``shard_activations``, ``shard_cache_kv``, ``shard_q_like_cache``), and
+:func:`placements` turns a spec into DTensor placements on
+``Mesh.device_mesh()``.  Every rank runs the same program on the same
+global shapes; :func:`distribute` lays a tensor out (the reference's
+``device_put``) and :func:`constrain` redistributes one (its
+``with_sharding_constraint``), the identity on plain tensors or with no
+ambient mesh, so the models' hints cost nothing on one device.  An
+:class:`AbstractMesh` gives the rules a mesh's geometry with no world (the
+rules' tests).  DTensors on CUDA over gloo take their collectives through
+:func:`sync_collectives`, which the caller enters around the whole step.
+
 Both backends take the payload where it lies: NCCL gathers CUDA tensors
 on the device, gloo CPU tensors and — on torch 2.11 on an H100, checked for
 ``all_gather``, ``all_gather_into_tensor``, ``all_reduce``, ``broadcast``
@@ -42,6 +58,7 @@ from __future__ import annotations
 import itertools
 import os
 import queue
+import re
 import shutil
 import tempfile
 import threading
@@ -49,9 +66,12 @@ import time
 import traceback
 from contextlib import contextmanager
 from datetime import timedelta
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
+
+from ..tree import tree_flatten_with_paths, tree_leaves, tree_map, tree_unflatten
 
 #: the data-parallel axis names, in the order they compose
 BATCH_AXES = ("pod", "data")
@@ -137,8 +157,47 @@ class Mesh:
         all the axes (the default group)."""
         return self._groups[tuple(sorted(self._axis_index(axes)))]
 
+    def device_mesh(self, device_type: str | None = None):
+        """The ``torch.distributed`` ``DeviceMesh`` over the same ranks in
+        the same row-major order, with the same axis names: the mesh that
+        DTensors placed by :func:`named_shardings` live on.  Built once per
+        device type (collective: every rank calls it); ``device_type``
+        defaults to ``"cuda"`` under NCCL and ``"cpu"`` otherwise (a gloo
+        world whose tensors live on the card passes ``"cuda"``)."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if device_type is None:
+            device_type = "cuda" if self.backend == "nccl" else "cpu"
+        cache = self.__dict__.setdefault("_device_meshes", {})
+        if device_type not in cache:
+            cache[device_type] = DeviceMesh(
+                device_type, torch.arange(self.size).reshape(self.shape),
+                mesh_dim_names=self.axis_names)
+        return cache[device_type]
+
     def __repr__(self):
         return f"Mesh({self.shape}, {self.axis_names}, rank={self.rank}, {self.backend})"
+
+
+class AbstractMesh:
+    """A mesh's geometry with no world behind it: ``shape``, ``axis_names``
+    and ``axis_sizes`` (the reference's ``jax.sharding.AbstractMesh``).
+    Under :func:`use_mesh` it drives the sharding rules, which read only
+    the axis sizes, without a process group."""
+
+    def __init__(self, shape, axis_names):
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axis_names)
+        if len(self.shape) != len(self.axis_names):
+            raise ValueError(f"shape {self.shape} and axis_names {self.axis_names} "
+                             "differ in length")
+
+    @property
+    def axis_sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape}, {self.axis_names})"
 
 
 def make_mesh(shape, axis_names) -> Mesh:
@@ -185,6 +244,18 @@ def batch_axes() -> tuple:
     """The data-parallel axes present in the ambient mesh."""
     ax = mesh_axes()
     return tuple(a for a in BATCH_AXES if a in ax)
+
+
+def has_model_axis() -> bool:
+    return "model" in mesh_axes()
+
+
+def axis_size(name: str) -> int:
+    """The ambient mesh's size along ``name`` (1 without a mesh or axis)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    return mesh.axis_sizes.get(name, 1)
 
 
 def row_band(n: int, mesh: Mesh, axes=("data",)) -> tuple[int, int]:
@@ -248,6 +319,431 @@ def ordered_psum(x: torch.Tensor, mesh: Mesh, axes=("data",)) -> torch.Tensor:
     for part in all_gather(x, mesh, axes):
         total = total + part
     return total
+
+
+# --- the LM's sharding rules ----------------------------------------------
+#
+# The reference's logical-to-mesh rules (MaxText style), resolved against
+# the ambient mesh: a spec names, per tensor dimension, the mesh axes it is
+# sharded over (None: replicated), and an axis the mesh lacks resolves to
+# None, so on a one-device mesh every rule collapses to replication.  The
+# rules read only the axis sizes: under an AbstractMesh they run with no
+# world.  On tensors, a spec becomes DTensor placements (:func:`placements`):
+# axis a on dimension i is ``Shard(i)`` on mesh dimension a.
+
+
+class P(tuple):
+    """A partition spec: one entry per tensor dimension, each None, an axis
+    name or a tuple of axis names (sharded over their product, the first
+    major) — ``jax.sharding.PartitionSpec``'s values, as a tuple.  A
+    one-axis tuple is its axis, as the reference's spec normalises it."""
+
+    tree_leaf = True  # a leaf of the port's trees (repro_torch.tree)
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, (a[0] if isinstance(a, tuple) and len(a) == 1 else a
+                                     for a in axes))
+
+    def __repr__(self):
+        return "P(" + ", ".join(repr(a) for a in self) + ")"
+
+
+def p_batch(*rest) -> P:
+    """P(batch axes, *rest) resolved for the ambient mesh."""
+    ba = batch_axes()
+    return P(ba if ba else None, *rest)
+
+
+def placements(spec, axis_names, sizes=None) -> tuple:
+    """DTensor placements of ``spec`` on a mesh with ``axis_names``: per
+    mesh dimension, ``Shard(i)`` where tensor dimension i names the axis,
+    else ``Replicate()``.  A tensor dimension over several axes takes them
+    in mesh order (DTensor shards major first), the only order the rules
+    produce; any other raises.  Given the axis ``sizes``, an axis of size 1
+    is ``Replicate()``: one shard is the whole (and DTensor would carry the
+    trivial shard into strided layouts it cannot propagate)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate() for _ in axis_names]
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [axis_names.index(a) for a in names if a in axis_names]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: axes {names} of dimension {dim} are not in "
+                             f"mesh order {axis_names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec} names mesh axis {axis_names[i]!r} twice")
+            if sizes is None or sizes[i] > 1:
+                out[i] = Shard(dim)
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+class _Constrain(torch.autograd.Function):
+    """Redistribute to ``target`` forward, and the gradient to ``target``
+    backward (JAX transposes a sharding constraint onto the cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, target):
+        ctx.target = target
+        return x if tuple(x.placements) == target else x.redistribute(x.device_mesh, target)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.target:
+            g = g.redistribute(g.device_mesh, ctx.target)
+        return g, None
+
+
+def constrain(x, spec, *, grad: bool = False):
+    """The reference's ``jax.lax.with_sharding_constraint``: ``x``
+    redistributed to ``spec`` on its mesh.  The identity on a plain tensor
+    or with no ambient mesh, where the reference's constraint is the
+    identity too.  ``grad`` lays the gradient out by ``spec`` as well, as
+    JAX does; without it DTensor hands a backward op whatever layout the
+    op after it produced (a head-sharded gradient at a view that splits 8
+    KV heads over a model axis of 16).  It is asked for only there: DTensor
+    cannot lay a strided gradient out on fake tensors (the dry-run)."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    target = placements(spec, mesh.axis_names, mesh.shape)
+    if grad and torch.is_grad_enabled() and x.requires_grad:
+        return _Constrain.apply(x, target)
+    if tuple(x.placements) == target:
+        return x
+    return x.redistribute(x.device_mesh, target)
+
+
+def constrain_tree(tree, spec_tree):
+    """:func:`constrain` leaf by leaf (a cache to ``cache_shardings``)."""
+    return tree_map(constrain, tree, spec_tree)
+
+
+def shard_activations(x, *rest):
+    """Constrain (B, ...) activations: batch over the data axes; each named
+    rest axis is kept where the mesh has it and divides its dimension."""
+    if not batch_axes():
+        return x
+    live = set(mesh_axes())
+    clean = []
+    for dim, a in zip(x.shape[1:], rest):
+        if a is None or a not in live or dim % axis_size(a) != 0:
+            clean.append(None)
+        else:
+            clean.append(a)
+    return constrain(x, p_batch(*clean))
+
+
+def heads_spec(num_kv_heads: int, head_dim: int) -> P:
+    """The layout of a (B, S, heads, hd) query, key, value or KV-cache
+    tensor of a model with ``num_kv_heads`` KV heads: batch over data; the
+    heads over "model" where the model axis divides the KV heads (a query's
+    heads then split along their KV groups), else head_dim where it divides
+    that, else replicated — the fallbacks of :func:`shard_cache_kv`."""
+    m = axis_size("model")
+    if m > 1 and num_kv_heads % m == 0:
+        return p_batch(None, "model", None)
+    if m > 1 and head_dim % m == 0:
+        return p_batch(None, None, "model")
+    return p_batch(None, None, None)
+
+
+def split_heads(t, heads: int, head_dim: int, num_kv_heads: int):
+    """(B, S, heads · head_dim) → (B, S, heads, head_dim) in the
+    :func:`heads_spec` layout.  A projection's output is sharded over
+    "model" along its last dimension, contiguous chunks that are whole
+    heads only when the layout puts the heads over "model"; for the
+    head_dim and replicated fallbacks (llama3.2-1b's 8 KV heads on a model
+    axis of 16) the last dimension is gathered before the view and the
+    result re-sliced."""
+    B, S = t.shape[:2]
+    spec = heads_spec(num_kv_heads, head_dim)
+    if is_dtensor(t) and spec[2] is None:
+        t = constrain(t, p_batch(None, None))
+    return constrain(t.reshape(B, S, heads, head_dim), spec)
+
+
+def merge_heads(t):
+    """(B, S, heads, hd) → (B, S, heads · hd): a head_dim-sharded layout
+    is gathered over "model" first (a flattened dimension cannot keep a
+    shard of its inner factor)."""
+    B, S = t.shape[:2]
+    if is_dtensor(t) and any(pl.is_shard(3) for pl in t.placements):
+        t = constrain(t, p_batch(None, None, None))
+    return t.reshape(B, S, -1)
+
+
+def shard_cache_kv(cache_kv):
+    """KV cache (B, S, KV, hd): batch over data; KV heads over "model" when
+    divisible, else head_dim over "model", else replicated."""
+    if not mesh_axes():
+        return cache_kv
+    _, _, KV, hd = cache_kv.shape
+    return constrain(cache_kv, heads_spec(KV, hd))
+
+
+# matched against the '/'-joined tree path; first hit wins.  Axes are
+# logical: "model" = TP, "data" = FSDP (parameters gathered on use).
+_RULES = [
+    # embeddings / unembedding
+    (r"embed/table$", ("model", "data")),  # (V, D)
+    (r"lm_head$", ("data", "model")),  # (D, V)
+    (r"pos_table$", (None, "data")),
+    # attention (GQA)
+    (r"(wq|wk|wv)$", ("data", "model")),
+    (r"wo$", ("model", "data")),
+    (r"(bq|bk|bv)$", ("model",)),
+    # MLA
+    (r"w_dkv$", ("data", None)),
+    (r"w_kr$", ("data", None)),
+    (r"w_dq$", ("data", None)),
+    (r"(w_uk|w_uv|w_uq)$", (None, "model")),
+    (r"(kv_norm|q_norm)$", (None,)),
+    # MoE (leading expert dim) — must precede the generic MLP rules
+    (r"experts/(w_gate|w_in)$", ("model", "data", None)),
+    (r"experts/w_out$", ("model", None, "data")),
+    (r"router$", ("data", None)),
+    # MLPs
+    (r"(w_gate|w_in)$", ("data", "model")),
+    (r"w_out$", ("model", "data")),
+    (r"(b_in)$", ("model",)),
+    (r"(b_out)$", (None,)),
+    # Mamba2
+    (r"in_proj$", ("data", "model")),
+    (r"out_proj$", ("model", "data")),
+    (r"conv_w$", (None, "model")),
+    (r"conv_b$", ("model",)),
+    (r"(A_log|dt_bias|D)$", (None,)),
+    (r"out_norm$", ("model",)),
+    # norms & leftovers
+    (r"(scale|bias)$", (None,)),
+]
+
+
+def param_spec(path: str, ndim: int, stacked_dims: int = 0) -> P:
+    """The spec of a parameter at '/'-joined ``path``; ``stacked_dims``
+    leading layer-stacking dimensions stay unsharded before the rule."""
+    live = set(mesh_axes())
+    for pat, axes in _RULES:
+        if re.search(pat, path):
+            body_ndim = ndim - stacked_dims
+            resolved = [a if a is not None and a in live else None for a in axes[:body_ndim]]
+            resolved += [None] * (body_ndim - len(resolved))
+            return P(*([None] * stacked_dims), *resolved)
+    return P(*([None] * ndim))
+
+
+def _specs_by_path(tree, spec_of):
+    paths, leaves = tree_flatten_with_paths(tree)
+    return tree_unflatten(tree, [spec_of(p, x) for p, x in zip(paths, leaves)])
+
+
+def params_shardings(params, stacked_paths=()):
+    """A tree of specs matching ``params`` (tensors, meta tensors or
+    anything with ``ndim``).  ``stacked_paths``: regex → the number of
+    leading layer-stacking dimensions of the leaves it matches
+    (``ModelBundle.stacked_paths``)."""
+    stacked_paths = dict(stacked_paths)
+
+    def spec(path, leaf):
+        stacked = next((n for pat, n in stacked_paths.items() if re.search(pat, path)), 0)
+        return param_spec(path, getattr(leaf, "ndim", 0), stacked)
+
+    return _specs_by_path(params, spec)
+
+
+def shard_q_like_cache(q, num_kv_heads):
+    """Constrain decode-time q (B, S, H, hd) to the KV cache's model-axis
+    layout (KV heads over "model" when divisible, else head_dim), so that
+    attention reads the cache where it lies."""
+    if not mesh_axes():
+        return q
+    m = axis_size("model")
+    _, _, H, hd = q.shape
+    if m > 1 and num_kv_heads % m == 0 and H % m == 0:
+        spec = p_batch(None, "model", None)
+    elif m > 1 and hd % m == 0:
+        spec = p_batch(None, None, "model")
+    else:
+        return q
+    return constrain(q, spec)
+
+
+_CACHE_LAYOUTS = {
+    # trailing-dim layouts by leaf name
+    "k": ("B", "T", "KV", "hd"),
+    "v": ("B", "T", "KV", "hd"),
+    "self_k": ("B", "T", "KV", "hd"),
+    "self_v": ("B", "T", "KV", "hd"),
+    "cross_k": ("B", "T", "KV", "hd"),
+    "cross_v": ("B", "T", "KV", "hd"),
+    "attn_k": ("B", "T", "KV", "hd"),
+    "attn_v": ("B", "T", "KV", "hd"),
+    "c_kv": ("B", "T", "r"),
+    "k_rope": ("B", "T", "r"),
+    "conv": ("B", "w", "ch"),
+    "ssd": ("B", "H", "dh", "ds"),
+}
+
+
+def cache_shardings(cache):
+    """The spec tree of a decode cache (tensors or anything with
+    ``shape``): batch over the data axes when divisible, else — batch-1
+    long-context cells — a KV cache's sequence over "data"; KV heads (or
+    channels) over "model" when divisible, else head_dim."""
+    live = set(mesh_axes())
+    m = axis_size("model")
+    dsz = 1
+    for a in batch_axes():
+        dsz *= axis_size(a)
+
+    def spec(path, leaf):
+        shape = tuple(leaf.shape)
+        layout = _CACHE_LAYOUTS.get(path.split("/")[-1])
+        if layout is None or not live:
+            return P(*([None] * len(shape)))
+        lead = len(shape) - len(layout)
+        dims = shape[lead:]
+        out = [None] * len(layout)
+        batch_sharded = dims[layout.index("B")] % dsz == 0 and dsz > 1
+        if batch_sharded:
+            out[layout.index("B")] = batch_axes()
+        for i, (ax, size) in enumerate(zip(layout, dims)):
+            if ax == "T" and not batch_sharded and "data" in live and size % axis_size("data") == 0:
+                out[i] = "data"
+            if ax in ("KV", "H", "ch") and m > 1 and size % m == 0 and "model" in live:
+                out[i] = "model"
+            if ax == "hd" and out[layout.index("KV")] is None and m > 1 and size % m == 0:
+                out[i] = "model"
+        return P(*([None] * lead), *out)
+
+    return _specs_by_path(cache, spec)
+
+
+_REDUCE_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN", "product": "PRODUCT", "avg": "SUM"}
+_SYNC_OPS = ("wait_tensor", "all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor",
+             "broadcast", "all_to_all_single")
+
+
+def _sync_collective(func, args, kwargs):
+    """One of DTensor's functional collectives (``_c10d_functional``), run
+    through c10d's synchronous API on plain tensors: the result tensor."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    name = func._schema.name.split("::")[-1]
+    a = {arg.name: v for arg, v in zip(func._schema.arguments, args)}
+    a.update(kwargs)
+    if name == "wait_tensor":
+        return a["tensor"]
+    group = _resolve_process_group(a["group_name"])
+    n = dist.get_world_size(group)
+    me = dist.get_group_rank(group, dist.get_rank())
+    x = a["input"].contiguous()
+    if name in ("all_reduce", "reduce_scatter_tensor"):
+        out = x.clone()
+        dist.all_reduce(out, op=getattr(dist.ReduceOp, _REDUCE_OPS[a["reduce_op"]]), group=group)
+        if a["reduce_op"] == "avg":
+            out = out / n
+        if name == "reduce_scatter_tensor":
+            out = out.chunk(n, dim=0)[me].contiguous()
+        return out
+    if name == "all_gather_into_tensor":
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+    if name == "broadcast":
+        out = x.clone()
+        dist.broadcast(out, src=dist.get_global_rank(group, a["src"]), group=group)
+        return out
+    # all_to_all_single: every rank's splits and input gathered (the inputs
+    # padded to the longest), this rank's split of each kept
+    sizes = torch.tensor(list(a["input_split_sizes"]) or [x.shape[0] // n] * n, dtype=torch.int64)
+    every = [torch.empty_like(sizes) for _ in range(n)]
+    dist.all_gather(every, sizes, group=group)
+    every = [s.tolist() for s in every]
+    rows = max(sum(s) for s in every)
+    pad = x.new_zeros((rows,) + tuple(x.shape[1:]))
+    pad[:x.shape[0]] = x
+    parts = [torch.empty_like(pad) for _ in range(n)]
+    dist.all_gather(parts, pad, group=group)
+    return torch.cat([p[sum(s[:me]):sum(s[:me + 1])] for p, s in zip(parts, every)], dim=0)
+
+
+@contextmanager
+def sync_collectives():
+    """While open, DTensor's functional collectives run through c10d's
+    synchronous API (``all_reduce``, ``all_gather_into_tensor``,
+    ``broadcast``, ``all_gather``): on torch 2.11 a functional collective
+    on CUDA tensors over gloo crashes the process in its wait (ROADMAP
+    Queue C), while those calls take them.  Gloo has no average and no
+    all-to-all: the average is a sum divided by the group size, the
+    all-to-all an all-gather sliced, and the reduce-scatter an all-reduce
+    sliced — the same values, more bytes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(is_dtensor(a) for a in _flat_tensors((args, kwargs))):
+                return NotImplemented  # DTensor runs it; its local ops come back here
+            if func.namespace == "_c10d_functional":
+                name = func._schema.name.split("::")[-1]
+                if name in _SYNC_OPS:
+                    return _sync_collective(func, args, kwargs)
+                if name.endswith(("_coalesced", "_")) or "gather" in name or "reduce" in name:
+                    raise NotImplementedError(f"sync_collectives: {func} has no synchronous "
+                                              "form here")
+            return func(*args, **kwargs)
+
+    with _Mode():
+        yield
+
+
+def _flat_tensors(tree):
+    from torch.utils._pytree import tree_leaves
+
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+class NamedSharding(NamedTuple):
+    """A spec on a mesh (the reference's ``NamedSharding``)."""
+
+    mesh: Mesh
+    spec: P
+
+    tree_leaf = True
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh.axis_names, self.mesh.shape)
+
+
+def named_shardings(mesh, spec_tree):
+    return tree_map(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+def distribute(x: torch.Tensor, sharding: NamedSharding):
+    """``x`` (the same global tensor on every rank) as a DTensor laid out
+    by ``sharding``, each rank keeping its own shard (no communication):
+    the reference's ``jax.device_put(x, sharding)``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    dm = sharding.mesh.device_mesh(x.device.type)
+    return distribute_tensor(x, dm, sharding.placements, src_data_rank=None)
+
+
+def distribute_tree(tree, shardings):
+    """:func:`distribute` leaf by leaf over a tree and its sharding tree."""
+    return tree_map(distribute, tree, shardings)
 
 
 # --- worlds ----------------------------------------------------------------

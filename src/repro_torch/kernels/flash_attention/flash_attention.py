@@ -16,7 +16,9 @@ import ctypes
 
 import torch
 
+from ...distributed.sharding import is_dtensor
 from ..build import KernelLaunchError, load_library
+from ..shards import launch_on_shards
 from .ref import gqa_attention_plain
 
 #: B4 launches since the last reset
@@ -79,7 +81,17 @@ def flash_attention_cuda(q, k, v, *, causal=True, scale=None):
     dh^-½.  Any sq and skv: ragged tiles are masked in the kernel.
 
     Forward only: on CUDA inputs that require grad (with grad mode on) it
-    raises rather than return an output autograd cannot differentiate."""
+    raises rather than return an output autograd cannot differentiate.
+
+    DTensor operands sharded over the batch or the heads (q's and k/v's
+    heads each divisible by the shards, so a rank's q heads read its own
+    kv heads), or replicated, launch on each rank's shard
+    (``kernels.shards``); any other layout raises."""
+    if any(is_dtensor(x) for x in (q, k, v)):
+        return launch_on_shards(
+            flash_attention_cuda, "flash_attention", (q, k, v),
+            ({"batch": 0, "heads": 1},) * 3, 0, whole={"heads": [(0, 1), (1, 1)]},
+            causal=causal, scale=scale)
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return gqa_attention_plain(q, k, v, causal=causal, scale=scale)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):

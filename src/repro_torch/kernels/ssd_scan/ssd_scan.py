@@ -19,7 +19,9 @@ import ctypes
 
 import torch
 
+from ...distributed.sharding import is_dtensor
 from ..build import KernelLaunchError, load_library
+from ..shards import launch_on_shards
 from .ref import ssd_scan_chunked_ref
 
 #: B5 launches since the last reset
@@ -152,7 +154,16 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk=128, _cuda_cores=False):
     kernel whatever :func:`b5_route` says.
 
     Forward only: on CUDA inputs that require grad (with grad mode on) it
-    raises rather than return an output autograd cannot differentiate."""
+    raises rather than return an output autograd cannot differentiate.
+
+    DTensor operands sharded over the batch or the heads, or replicated,
+    launch on each rank's shard (``kernels.shards``); any other layout
+    raises."""
+    if any(is_dtensor(t) for t in (x, dt, A, B, C)):
+        return launch_on_shards(
+            ssd_scan_cuda, "ssd_scan", (x, dt, A, B, C),
+            ({"batch": 0, "heads": 1}, {"batch": 0, "heads": 1}, {"heads": 0}, {"batch": 0},
+             {"batch": 0}), 0, chunk=chunk, _cuda_cores=_cuda_cores)
     if all(t.device.type == "cpu" for t in (x, dt, A, B, C)):
         return ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):

@@ -5,12 +5,14 @@ training loss and the train step."""
 
 from .model import (
     ModelBundle,
+    batch_shardings,
     build_model,
+    input_specs,
     loss_and_grads,
     make_prefill_step,
     make_serve_step,
     make_train_step,
 )
 
-__all__ = ["ModelBundle", "build_model", "loss_and_grads", "make_prefill_step",
-           "make_serve_step", "make_train_step"]
+__all__ = ["ModelBundle", "batch_shardings", "build_model", "input_specs", "loss_and_grads",
+           "make_prefill_step", "make_serve_step", "make_train_step"]

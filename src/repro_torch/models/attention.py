@@ -13,18 +13,69 @@ since ``_sdpa_chunked`` is the same online-softmax algorithm and its chunk
 only a tiling.  Decode, masked by the active lengths, runs the plain path,
 as in the reference.  MLA is plain torch, as in the reference: its qk width
 (r_kv + r_rope, 288 or 576) is past B4's head dims and its value width
-differs from its key width.  The reference's sharding hints are the
-identity on one device and are left out.
+differs from its key width.
+
+On a mesh the heads are laid out by the sharding rules (``split_heads``:
+KV heads over "model" where it divides them, else head_dim, else
+replicated), decode's query follows its cache (``shard_q_like_cache``),
+and B4 takes batch- or head-sharded operands.  Where "model" does not
+divide the KV heads, a whole sequence's attention splits the q heads over
+"model" along their KV groups and gives each rank a copy of the KV head
+its q heads read, or else gathers q, k and v over "model"
+(``_whole_heads``).  Without a mesh every hint is the identity.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import (
+    axis_size,
+    constrain,
+    heads_spec,
+    merge_heads,
+    p_batch,
+    shard_q_like_cache,
+    split_heads,
+)
+from ..distributed.sharding import is_dtensor
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.shards import launch_on_shards
 from .layers import apply_rope, at_least_f32, normal_init
+from .layers import pad as zero_pad
 
 NEG_INF = -1e30
+
+
+def _whole_heads(q, k, v):
+    """The layout of a whole sequence's attention on a mesh whose model
+    axis m does not divide the KV heads: (q, k, v, the output's spec, or
+    None to leave the output as it comes).
+
+    Where the KV heads divide m and m divides the q heads (llama3.2-1b: 8
+    KV and 32 q heads on m = 16), each rank's H/m q heads lie in one KV
+    group: q goes to heads over "model", and each KV head, gathered over
+    "model", is repeated m/KV times and the m copies split over "model",
+    so that a rank attends its own q heads over the one KV head they read
+    — 1/m of the scores on each rank.  Otherwise q, k and v are gathered
+    over "model" and every rank attends over every head: a
+    head_dim-sharded contraction would all-reduce the (S × T) scores, and
+    B4 runs on batch and head shards only.  Decode keeps the cache's
+    layout (one query row of scores)."""
+    H, (B, T, KV, hd) = q.shape[2], k.shape
+    m = axis_size("model")
+    if not is_dtensor(k) or m == 1 or KV % m == 0:
+        return q, k, v, None
+    if m % KV == 0 and H % m == 0:
+        spec = p_batch(None, "model", None)
+        k, v = (constrain(constrain(t, p_batch(None, None, None))[:, :, :, None]
+                          .expand(B, T, KV, m // KV, hd).reshape(B, T, m, hd), spec)
+                for t in (k, v))
+        return constrain(q, spec), k, v, spec
+    if heads_spec(KV, hd)[3] is None:
+        return q, k, v, None
+    spec = p_batch(None, None, None)
+    return (*(constrain(t, spec) for t in (q, k, v)), spec)
 
 
 def _sdpa(q, k, v, *, causal, kv_len=None, use_kernel=True):
@@ -32,15 +83,47 @@ def _sdpa(q, k, v, *, causal, kv_len=None, use_kernel=True):
 
     kv_len: optional (B,) active lengths for decode masking.  Without it,
     ``use_kernel`` takes B4 (the plain flash version on CPU tensors)."""
-    B, S, H, hd = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    group = H // KV
+    out_spec = None
+    if kv_len is None:
+        q, k, v, out_spec = _whole_heads(q, k, v)
 
     if use_kernel and kv_len is None:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               causal=causal)
         return out.transpose(1, 2)
+    if is_dtensor(q) and not any(p.is_shard(3) for p in q.placements):
+        # batch and head shards: each rank attends over its own, locally
+        # (DTensor's einsum strategies differ between torch versions);
+        # decode's head_dim shards take DTensor's path (a partial sum)
+        out = _attend_on_shards(q, k, v, causal, kv_len)
+    else:
+        out = _sdpa_plain(q, k, v, causal, kv_len)
+    if out_spec is not None:  # its gradient too, for the head views
+        out = constrain(out, out_spec, grad=True)
+    return out
 
+
+def _attend_on_shards(q, k, v, causal, kv_len):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    operands, axes = [q, k, v], [{"batch": 0, "heads": 2}] * 3
+    if kv_len is not None:
+        dm = q.device_mesh
+        lengths = kv_len if is_dtensor(kv_len) else DTensor.from_local(
+            kv_len, dm, [Replicate()] * dm.ndim)
+        pl = [Shard(0) if p == Shard(0) else Replicate() for p in q.placements]
+        operands.append(lengths.redistribute(dm, pl))
+        axes.append({"batch": 0})
+    return launch_on_shards(lambda *t: _sdpa_plain(*t[:3], causal, t[3] if len(t) > 3 else None),
+                            "attention", tuple(operands), tuple(axes), 0,
+                            whole={"heads": [(0, 2), (1, 2)]})
+
+
+def _sdpa_plain(q, k, v, causal, kv_len):
+    """The plain attention: f32 scores, masks, softmax, the value sum."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    group = H // KV
     qg = q.reshape(B, S, KV, group, hd)
     scores = at_least_f32(torch.einsum("bskgh,btkh->bkgst", qg, k))
     scores = scores * (hd**-0.5)
@@ -51,8 +134,7 @@ def _sdpa(q, k, v, *, causal, kv_len=None, use_kernel=True):
         valid = torch.arange(T, device=q.device)[None, :] < kv_len[:, None]  # (B, T)
         scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
-    return out.reshape(B, S, H, hd)
+    return torch.einsum("bkgst,btkh->bskgh", probs, v).reshape(B, S, H, hd)
 
 
 def _online_softmax_step(carry, s, vb, value_eq):
@@ -82,6 +164,7 @@ def _sdpa_chunked(q, k, v, *, causal, q_chunk=1024, kv_chunk=1024, use_kernel=Tr
     otherwise the reference's plain double loop, f32 math."""
     if use_kernel and q.is_cuda:
         return _sdpa(q, k, v, causal=causal, use_kernel=True)
+    q, k, v, _ = _whole_heads(q, k, v)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     group = H // KV
@@ -140,9 +223,9 @@ def _gqa_qkv(p, cfg, x, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q = split_heads(q, H, hd, KV)
+    k = split_heads(k, KV, hd, KV)
+    v = split_heads(v, KV, hd, KV)
     if cfg.pos_embedding == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -171,7 +254,7 @@ def gqa_full(p, cfg, x, *, causal=True, use_kernel=True):
     B, S, _ = x.shape
     q, k, v = _gqa_qkv(p, cfg, x, _positions(B, S, x.device))
     out = _attend(cfg, q, k, v, S, causal, use_kernel)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 def gqa_prefill(p, cfg, x, cache_len, *, use_kernel=True):
@@ -181,10 +264,10 @@ def gqa_prefill(p, cfg, x, cache_len, *, use_kernel=True):
     out = _attend(cfg, q, k, v, S, True, use_kernel)
     pad = cache_len - S
     cache = {
-        "k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
-        "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)),
+        "k": zero_pad(k, (0, 0, 0, 0, 0, pad)),
+        "v": zero_pad(v, (0, 0, 0, 0, 0, pad)),
     }
-    return out.reshape(B, S, -1) @ p["wo"], cache
+    return merge_heads(out) @ p["wo"], cache
 
 
 def _masked_cache_update(cache, new, pos):
@@ -201,10 +284,11 @@ def gqa_decode(p, cfg, x, cache, pos):
     """x (B, 1, d); cache k/v (B, T, KV, hd); pos (B,) current lengths."""
     B = x.shape[0]
     q, k, v = _gqa_qkv(p, cfg, x, pos[:, None])
+    q = shard_q_like_cache(q, cfg.num_kv_heads)
     k_cache = _masked_cache_update(cache["k"], k, pos)
     v_cache = _masked_cache_update(cache["v"], v, pos)
     out = _sdpa(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
-    return out.reshape(B, 1, -1) @ p["wo"], {"k": k_cache, "v": v_cache}
+    return merge_heads(out) @ p["wo"], {"k": k_cache, "v": v_cache}
 
 
 def gqa_cross_init(gen, cfg, dtype):
@@ -220,18 +304,18 @@ def gqa_cross(p, cfg, x, enc, enc_cache=None, *, use_kernel=True):
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ p["wq"]) if not cfg.qkv_bias else (x @ p["wq"] + p["bq"])
-    q = q.reshape(B, S, H, hd)
+    q = split_heads(q, H, hd, KV)
     if enc_cache is None:
         k = enc @ p["wk"]
         v = enc @ p["wv"]
         if cfg.qkv_bias:
             k, v = k + p["bk"], v + p["bv"]
-        k = k.reshape(B, -1, KV, hd)
-        v = v.reshape(B, -1, KV, hd)
+        k = split_heads(k, KV, hd, KV)
+        v = split_heads(v, KV, hd, KV)
     else:
         k, v = enc_cache["k"], enc_cache["v"]
     out = _sdpa(q, k, v, causal=False, use_kernel=use_kernel)
-    return out.reshape(B, S, -1) @ p["wo"], {"k": k, "v": v}
+    return merge_heads(out) @ p["wo"], {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------- MLA --------
@@ -384,8 +468,8 @@ def mla_prefill(p, cfg, x, cache_len):
     out = _mla_attend(p, cfg, q_nope, q_rope, positions, c_kv, k_rope, causal=True)
     pad = cache_len - S
     cache = {
-        "c_kv": torch.nn.functional.pad(c_kv, (0, 0, 0, pad)),
-        "k_rope": torch.nn.functional.pad(k_rope, (0, 0, 0, pad)),
+        "c_kv": zero_pad(c_kv, (0, 0, 0, pad)),
+        "k_rope": zero_pad(k_rope, (0, 0, 0, pad)),
     }
     return out, cache
 

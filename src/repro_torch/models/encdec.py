@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import shard_activations
 from . import attention as attn
 from .layers import (
     cross_entropy,
@@ -82,7 +83,7 @@ def encode(params, cfg, frames, *, use_kernels=True):
     """frames (B, T, d) stub embeddings → encoder states."""
     _, norm = make_norm(cfg)
     T = frames.shape[1]
-    h = frames + params["enc_pos"]["pos_table"][:T][None]
+    h = shard_activations(frames + params["enc_pos"]["pos_table"][:T][None], None, None)
     for p in tree_unbind(params["encoder"], cfg.encoder_layers):
         h = h + attn.gqa_full(p["attn"], cfg, norm(p["attn_norm"], h), causal=False,
                               use_kernel=use_kernels)
@@ -99,7 +100,7 @@ def forward(params, cfg, frames, tokens, *, use_kernels=True):
     """(frames (B, T, d), tokens (B, S)) → logits (B, S, padded_vocab)."""
     _, norm = make_norm(cfg)
     enc = encode(params, cfg, frames, use_kernels=use_kernels)
-    h = _embed_tokens(params, tokens)
+    h = shard_activations(_embed_tokens(params, tokens), None, None)
     for p in tree_unbind(params["decoder"], cfg.num_layers):
         h = h + attn.gqa_full(p["attn"], cfg, norm(p["attn_norm"], h), causal=True,
                               use_kernel=use_kernels)
@@ -107,7 +108,7 @@ def forward(params, cfg, frames, tokens, *, use_kernels=True):
         h = h + c
         h = h + mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg)
     h = norm(params["final_norm"], h)
-    return h @ params["lm_head"]
+    return shard_activations(h @ params["lm_head"], None, "model")
 
 
 def loss_fn(params, cfg, batch, *, use_kernels=False):
@@ -156,7 +157,7 @@ def prefill(params, cfg, frames, tokens, cache_len, *, use_kernels=True):
     selfs, crosses = tree_stack(self_caches), tree_stack(cross_caches)
     cache = {"self_k": selfs["k"], "self_v": selfs["v"],
              "cross_k": crosses["k"], "cross_v": crosses["v"]}
-    return (h @ params["lm_head"])[:, 0], cache
+    return shard_activations((h @ params["lm_head"])[:, 0], "model"), cache
 
 
 def decode_step(params, cfg, token, cache, pos):
@@ -178,5 +179,5 @@ def decode_step(params, cfg, token, cache, pos):
         new_k.append(new_self["k"])
         new_v.append(new_self["v"])
     h = norm(params["final_norm"], h)
-    logits = (h @ params["lm_head"])[:, 0]
+    logits = shard_activations((h @ params["lm_head"])[:, 0], "model")
     return logits, dict(cache, self_k=torch.stack(new_k), self_v=torch.stack(new_v))

@@ -26,6 +26,7 @@ import dataclasses
 
 import torch
 
+from ..distributed.sharding import shard_activations
 from . import attention as attn
 from .layers import (
     at_least_f32,
@@ -123,7 +124,7 @@ def forward(params, cfg, tokens, *, use_kernels=True):
     P, G, tail = _group_shape(cfg)
     acfg = _attn_cfg(cfg)
     h0 = embed(params["embed"], tokens)
-    h = h0
+    h = shard_activations(h0, None, None)
 
     def mamba_body(p, h):
         return h + mamba2_full(p["mamba"], cfg, norm(p["norm"], h), use_kernel=use_kernels)
@@ -138,7 +139,7 @@ def forward(params, cfg, tokens, *, use_kernels=True):
         h = mamba_body(p, h)
 
     h = norm(params["final_norm"], h)
-    return h @ params["lm_head"]
+    return shard_activations(h @ params["lm_head"], None, "model")
 
 
 def loss_fn(params, cfg, batch, *, use_kernels=False):
@@ -202,7 +203,7 @@ def decode_step(params, cfg, token, cache, pos):
         new_tail = _stack(tail_caches)
 
     h = norm(params["final_norm"], h)
-    logits = (h @ params["lm_head"])[:, 0]
+    logits = shard_activations((h @ params["lm_head"])[:, 0], "model")
     new_cache = {"groups": _stack(new_groups), "tail": new_tail,
                  "attn_k": torch.stack(new_k), "attn_v": torch.stack(new_v)}
     return logits, new_cache

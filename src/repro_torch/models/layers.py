@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import is_dtensor
+
 
 def at_least_f32(x):
     """``x`` in f32, where the reference computes in f32; f64 stays f64, so
@@ -59,6 +61,25 @@ def make_norm(cfg):
     if cfg.norm == "rmsnorm":
         return rmsnorm_init, lambda p, x: rmsnorm(p, x, cfg.norm_eps)
     return layernorm_init, lambda p, x: layernorm(p, x, cfg.norm_eps)
+
+
+def pad(x, widths):
+    """``F.pad(x, widths)`` (zeros); on a DTensor on each rank's shard, the
+    padded dimensions unsharded (torch 2.11's DTensor cannot pad)."""
+    if not is_dtensor(x):
+        return F.pad(x, widths)
+    from torch.distributed.tensor import DTensor
+
+    shape = list(x.shape)
+    for i in range(len(widths) // 2):
+        dim = x.dim() - 1 - i
+        if widths[2 * i] or widths[2 * i + 1]:
+            if any(p.is_shard(dim) or p.is_partial() for p in x.placements):
+                raise ValueError(f"pad: dimension {dim} of {tuple(x.placements)} is sharded")
+            shape[dim] += widths[2 * i] + widths[2 * i + 1]
+    local = F.pad(x.to_local(), widths)
+    return DTensor.from_local(local.contiguous(), x.device_mesh, x.placements, shape=tuple(shape),
+                              stride=contiguous_stride(shape))
 
 
 # -- rotary position embedding ------------------------------------------------
@@ -126,7 +147,66 @@ def take_rows(table, idx):
 
 
 def embed(params, tokens):
-    return take_rows(params["table"], tokens)
+    table = params["table"]
+    if is_dtensor(table):
+        return _embed_on_shards(table, tokens)
+    return take_rows(table, tokens)
+
+
+def _embed_on_shards(table, tokens):
+    """The lookup on a mesh, on local shards (DTensor's index strategies
+    differ between torch versions, and torch 2.11's backward of a lookup
+    with batch-sharded indices fails): the table replicated over the axes
+    that shard the tokens' batch, its vocabulary rows sharded over others
+    (the vocab-parallel lookup: a rank looks up the ids in its rows, zeros
+    elsewhere, a pending sum over those axes — exact, one rank's row is
+    the only non-zero)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, dm, [Replicate()] * dm.ndim)
+    batch = [p == Shard(0) for p in tokens.placements]
+    want = [Replicate() if b else (p if p == Shard(0) else Replicate())
+            for b, p in zip(batch, table.placements)]
+    if list(table.placements) != want:
+        table = table.redistribute(dm, want)
+    vocab = [p == Shard(0) for p in want]
+    if any(v and not isinstance(p, Replicate) for v, p in zip(vocab, tokens.placements)):
+        tokens = tokens.redistribute(dm, [Replicate() if v else p
+                                          for v, p in zip(vocab, tokens.placements)])
+    grad = [Partial() if b else p for b, p in zip(batch, want)]
+    local = table.to_local(grad_placements=grad)
+    ids = tokens.to_local()
+    rows = local.shape[0]
+    shard = 0
+    for md, v in enumerate(vocab):  # this rank's block of rows, mesh dims major first
+        if v:
+            shard = shard * dm.size(md) + dm.get_local_rank(md)
+    start = shard * -(-table.shape[0] // max(1, _vocab_shards(dm, vocab)))
+    mine = (ids >= start) & (ids < start + rows)
+    out = take_rows(local, (ids - start).clamp(0, rows - 1))
+    out = torch.where(mine[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    placements = [Partial() if v else (Shard(0) if b else Replicate())
+                  for v, b in zip(vocab, batch)]
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    return DTensor.from_local(out.contiguous(), dm, placements, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def contiguous_stride(shape) -> tuple:
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return tuple(stride)
+
+
+def _vocab_shards(dm, vocab):
+    n = 1
+    for md, v in enumerate(vocab):
+        if v:
+            n *= dm.size(md)
+    return n
 
 
 def cross_entropy(logits, labels, vocab):

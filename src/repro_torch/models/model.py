@@ -5,17 +5,31 @@ functions that make the train, prefill and serve steps, for every family
 
 The loss runs each family's plain paths (the reference's ``use_flash=False``
 / ``use_pallas=False``): B4 and B5 have no backward, and their wrappers
-raise when asked to differentiate.  The sharding specs wait for ROADMAP
-Queue A step 17 item 7.
+raise when asked to differentiate.
+
+On a mesh (``repro_torch.distributed``) the same functions run on
+DTensors: ``stacked_paths`` tells the sharding rules which leading
+dimensions are layer stacks, :func:`input_specs` / :func:`batch_shardings`
+give each cell's inputs and their layouts, and the steps run under
+:func:`mesh_context`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
+from ..distributed.sharding import (
+    BATCH_AXES,
+    P,
+    axis_size,
+    batch_axes,
+    is_dtensor,
+    p_batch,
+)
 from ..optim import adam, clip_by_global_norm
 from ..tree import tree_leaves, tree_unflatten
 from . import encdec, hybrid, ssm_lm, transformer
@@ -28,6 +42,7 @@ class ModelBundle(NamedTuple):
     prefill: Callable  # (params, batch, cache_len, use_kernels) -> (logits, cache)
     decode: Callable  # (params, token, cache, pos) -> (logits, cache)
     init_cache: Callable  # (params, batch_size, cache_len) -> cache
+    stacked_paths: dict  # regex → leading layer-stacking dims (the sharding rules)
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:
@@ -42,6 +57,7 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
             ),
             decode=lambda p, tok, c, pos: transformer.decode_step(p, cfg, tok, c, pos),
             init_cache=lambda p, bs, cl: transformer.init_cache(p, cfg, bs, cl),
+            stacked_paths={r"^(prefix_)?layers/": 1},
         )
     if fam == "encdec":
         return ModelBundle(
@@ -53,6 +69,7 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
             ),
             decode=lambda p, tok, c, pos: encdec.decode_step(p, cfg, tok, c, pos),
             init_cache=lambda p, bs, cl: encdec.init_cache(p, cfg, bs, cl),
+            stacked_paths={r"^(encoder|decoder)/": 1},
         )
     if fam == "ssm":
         return ModelBundle(
@@ -64,6 +81,7 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
             ),
             decode=lambda p, tok, c, pos: ssm_lm.decode_step(p, cfg, tok, c, pos),
             init_cache=lambda p, bs, cl: ssm_lm.init_cache(p, cfg, bs, cl),
+            stacked_paths={r"^layers/": 1},
         )
     if fam == "hybrid":
         return ModelBundle(
@@ -75,6 +93,7 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
             ),
             decode=lambda p, tok, c, pos: hybrid.decode_step(p, cfg, tok, c, pos),
             init_cache=lambda p, bs, cl: hybrid.init_cache(p, cfg, bs, cl),
+            stacked_paths={r"^groups/": 2, r"^(tail|layers)/": 1},
         )
     raise ValueError(fam)
 
@@ -97,6 +116,78 @@ def _hybrid_prefill(cfg, params, batch, cache_len, use_kernels=True):
     return logits[:, -1], cache
 
 
+# -- input specs (the dry-run's stand-ins and the batch layouts) -------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """Meta tensors (shape and dtype, no storage: the reference's
+    ``ShapeDtypeStruct``) for every model input of this cell.  Tokens are
+    int64, the port's index dtype (the reference's are int32)."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": meta((B, S + 1 if shape.kind == "train" else S), torch.int64)}
+        if cfg.family == "encdec":
+            batch["frames"] = meta((B, cfg.encoder_seq, cfg.d_model), dt)
+        return batch
+    # decode: one token against a seq_len cache
+    return {"token": meta((B,), torch.int64), "pos": meta((B,), torch.int64)}
+
+
+def batch_shardings(cfg: ModelConfig, shape: ShapeConfig):
+    """The specs of :func:`input_specs`: batch over the data axes where
+    they divide it, else replicated."""
+    dsz = 1
+    for a in batch_axes():
+        dsz *= axis_size(a)
+    divisible = shape.global_batch % max(dsz, 1) == 0
+    bspec = p_batch if divisible else (lambda *rest: P(None, *rest))
+    if shape.kind in ("train", "prefill"):
+        spec = {"tokens": bspec(None)}
+        if cfg.family == "encdec":
+            spec["frames"] = bspec(None, None)
+        return spec
+    return {"token": bspec(), "pos": bspec()}
+
+
+@contextlib.contextmanager
+def mesh_context(tree):
+    """``implicit_replication()`` where ``tree`` holds a DTensor, else
+    nothing.  The models make fresh plain tensors (positions, RoPE tables,
+    masks, zeros); under a mesh these enter DTensor ops as replicated,
+    which they are: every rank makes the same ones."""
+    if not any(is_dtensor(x) for x in tree_leaves(tree)):
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with implicit_replication():
+        yield
+
+
+def params_for_use(params):
+    """The parameters as the layers use them: a DTensor leaf sharded over
+    the data axes (the rules' "data" = FSDP) all-gathered over them,
+    keeping its "model" shards — the reference's "parameters gathered on
+    use".  Its backward reduce-scatters the gradient back onto the data
+    shards, which is the data-parallel reduction.  Plain leaves as they
+    are."""
+    from torch.distributed.tensor import Replicate
+
+    def use(x):
+        if not is_dtensor(x):
+            return x
+        names = x.device_mesh.mesh_dim_names
+        target = [Replicate() if a in BATCH_AXES else pl for a, pl in zip(names, x.placements)]
+        return x if list(x.placements) == target else x.redistribute(x.device_mesh, target)
+
+    return tree_unflatten(params, [use(x) for x in tree_leaves(params)])
+
+
 def loss_and_grads(bundle: ModelBundle, params, batch):
     """(loss, gradients): ``bundle.loss`` and its gradient with respect to
     every leaf of ``params`` (a tree of the params' structure, each leaf in
@@ -106,7 +197,7 @@ def loss_and_grads(bundle: ModelBundle, params, batch):
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_() for p in leaves]
     with torch.enable_grad():
-        loss = bundle.loss(tree_unflatten(params, live), batch)
+        loss = bundle.loss(params_for_use(tree_unflatten(params, live)), batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     return loss.detach(), tree_unflatten(params, list(grads))
 
@@ -126,31 +217,52 @@ def make_train_step(bundle: ModelBundle, *, lr=3e-4, grad_clip=1.0):
     reduce_dtype = getattr(bundle.cfg, "grad_reduce_dtype", "float32")
 
     def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(bundle, params, batch)
-        grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
-                                        for g, p in zip(tree_leaves(grads), tree_leaves(params))])
-        if reduce_dtype == "bfloat16":
-            # halve the DP gradient-reduction bytes; Adam still accumulates
-            # its moments in f32
-            grads = tree_unflatten(params, [g.to(torch.bfloat16) for g in tree_leaves(grads)])
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
-        params, opt_state = update(grads, opt_state, params)
-        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+        with mesh_context(params):
+            loss, grads = loss_and_grads(bundle, params, batch)
+            grads = tree_unflatten(params, [_like_param(g, p) for g, p in
+                                            zip(tree_leaves(grads), tree_leaves(params))])
+            if reduce_dtype == "bfloat16":
+                # the reference's cast, to halve its DP reduction; under
+                # DTensor that reduction ran inside the backward, in the
+                # compute dtype (ROADMAP Queue C)
+                grads = tree_unflatten(params, [g.to(torch.bfloat16) for g in tree_leaves(grads)])
+            grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            params, opt_state = update(grads, opt_state, params)
+        return params, opt_state, {"loss": _replicated(loss), "grad_norm": _replicated(gnorm)}
 
     return train_step, init_opt
 
 
+def _like_param(g, p):
+    """A leaf's gradient laid out as its parameter (zeros where the loss
+    does not reach it): on a mesh, a DTensor gradient of another layout
+    (a pending sum) is redistributed, which is the data-parallel
+    reduction."""
+    if g is None:
+        return torch.zeros_like(p)
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _replicated(x):
+    """A replicated DTensor scalar as the plain tensor every rank holds."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def make_prefill_step(bundle: ModelBundle, cache_len, *, use_kernels=True):
     def prefill_step(params, batch):
-        logits, cache = bundle.prefill(params, batch, cache_len, use_kernels)
-        return torch.argmax(logits, dim=-1), cache
+        with mesh_context(params):
+            logits, cache = bundle.prefill(params_for_use(params), batch, cache_len, use_kernels)
+            return torch.argmax(logits, dim=-1), cache
 
     return prefill_step
 
 
 def make_serve_step(bundle: ModelBundle):
     def serve_step(params, token, cache, pos):
-        logits, cache = bundle.decode(params, token, cache, pos)
-        return torch.argmax(logits, dim=-1), cache
+        with mesh_context(params):
+            logits, cache = bundle.decode(params_for_use(params), token, cache, pos)
+            return torch.argmax(logits, dim=-1), cache
 
     return serve_step

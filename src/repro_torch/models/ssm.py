@@ -7,7 +7,8 @@ kernel, on CUDA tensors (``use_kernel=True``, the default; the reference's
 O(1)-per-token recurrence carrying (conv window, SSD state) caches, in
 plain torch as in the reference.  Every dtype cast is where the reference
 has it: dt, A and D in f32, the f32 D-skip cast to the model dtype, the
-f32 SSD state.
+f32 SSD state.  On a mesh the scan's operands are laid out for the
+kernel first (batch over data, heads over "model"; ``_scan_layout``).
 """
 
 from __future__ import annotations
@@ -15,8 +16,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import P, axis_size, constrain, is_dtensor, p_batch
+from ..kernels.shards import launch_on_shards
 from ..kernels.ssd_scan.ops import ssd_decode_step, ssd_scan
 from .layers import at_least_f32, normal_init
+from .layers import pad as zero_pad
 
 
 def mamba2_init(gen, cfg, dtype):
@@ -52,7 +56,7 @@ def _causal_conv(xBC, w, b):
     """Depthwise causal conv over time. xBC (B, S, ch), w (conv, ch)."""
     conv = w.shape[0]
     S = xBC.shape[1]
-    pad = F.pad(xBC, (0, 0, conv - 1, 0))
+    pad = zero_pad(xBC, (0, 0, conv - 1, 0))
     out = sum(pad[:, i : i + S, :] * w[i][None, None, :] for i in range(conv))
     return F.silu(out + b)
 
@@ -77,8 +81,22 @@ def _mixer_inputs(p, cfg, xBC, dt_raw):
     return xh, dt.transpose(1, 2), A, Bmat, Cmat
 
 
+def _scan_layout(cfg, xh, dth, A, Bmat, Cmat):
+    """On a mesh, the scan's operands in one layout the kernel takes: batch
+    over the data axes, the heads over "model" where it divides them
+    (else replicated), B and C replicated over "model"."""
+    if not is_dtensor(xh):
+        return xh, dth, A, Bmat, Cmat
+    m = axis_size("model")
+    h = "model" if m > 1 and cfg.ssm_heads % m == 0 else None
+    return (constrain(xh, p_batch(h, None, None)), constrain(dth, p_batch(h, None)),
+            constrain(A, P(h)), constrain(Bmat, p_batch(None, None)),
+            constrain(Cmat, p_batch(None, None)))
+
+
 def _mix(p, cfg, x, z, xh, dth, A, Bmat, Cmat, use_kernel):
     Bsz, S, _ = x.shape
+    xh, dth, A, Bmat, Cmat = _scan_layout(cfg, xh, dth, A, Bmat, Cmat)
     y = ssd_scan(xh, dth, A, Bmat, Cmat, chunk=min(cfg.ssm_chunk, S), use_kernel=use_kernel)
     y = (y + p["D"][None, :, None, None] * xh).to(x.dtype)  # f32 D-skip → model dtype
     y = y.transpose(1, 2).reshape(Bsz, S, cfg.ssm_d_inner)
@@ -101,6 +119,15 @@ def mamba2_init_cache(cfg, batch, dtype, device=None):
     }
 
 
+def _final_state(xh, dth, A, Bmat):
+    """The SSD state after the last position, in closed form from the
+    chunked math (f32)."""
+    la = dth * A[None, :, None]  # (B,H,S)
+    cum = torch.cumsum(la, dim=-1)
+    coef = torch.exp(cum[..., -1:] - cum) * dth  # (B,H,S)
+    return torch.einsum("bhsd,bsn,bhs->bhdn", xh.float(), Bmat.float(), coef)
+
+
 def mamba2_prefill(p, cfg, x, *, use_kernel=True):
     """Full pass + terminal cache (conv tail + final SSD state), the final
     state in closed form from the chunked math, as in the reference."""
@@ -111,10 +138,14 @@ def mamba2_prefill(p, cfg, x, *, use_kernel=True):
     out = _mix(p, cfg, x, z, xh, dth, A, Bmat, Cmat, use_kernel)
 
     # terminal SSD state: h = Σ_j exp(Σ_{k>j} la_k)·Δ_j·(x_j ⊗ B_j)
-    la = dth * A[None, :, None]  # (B,H,S)
-    cum = torch.cumsum(la, dim=-1)
-    coef = torch.exp(cum[..., -1:] - cum) * dth  # (B,H,S)
-    state = torch.einsum("bhsd,bsn,bhs->bhdn", xh.float(), Bmat.float(), coef)
+    if is_dtensor(xh):  # each rank's batch and head shards, locally
+        xh, dth, A, Bmat, Cmat = _scan_layout(cfg, xh, dth, A, Bmat, Cmat)
+        state = launch_on_shards(
+            _final_state, "ssd_state", (xh, dth, A, Bmat),
+            ({"batch": 0, "heads": 1}, {"batch": 0, "heads": 1}, {"heads": 0}, {"batch": 0}), 0,
+            shape=(xh.shape[0], xh.shape[1], xh.shape[3], Bmat.shape[2]))
+    else:
+        state = _final_state(xh, dth, A, Bmat)
     cache = {
         "conv": xBC[:, S - (cfg.ssm_conv - 1) :, :],
         "ssd": state.float(),

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import shard_activations
 from .layers import (
     cross_entropy,
     embed,
@@ -47,14 +48,16 @@ def init(cfg, gen):
 
 def _unembed(params, cfg, h):
     if cfg.tie_embeddings:
-        return h @ params["embed"]["table"].T
-    return h @ params["lm_head"]
+        logits = h @ params["embed"]["table"].T
+    else:
+        logits = h @ params["lm_head"]
+    return shard_activations(logits, *([None] * (logits.dim() - 2)), "model")
 
 
 def forward(params, cfg, tokens, *, use_kernels=True):
     """tokens (B, S) → logits (B, S, padded_vocab)."""
     _, norm = make_norm(cfg)
-    h = embed(params["embed"], tokens)
+    h = shard_activations(embed(params["embed"], tokens), None, None)
     for p in tree_unbind(params["layers"], cfg.num_layers):
         h = h + mamba2_full(p["mamba"], cfg, norm(p["norm"], h), use_kernel=use_kernels)
     return _unembed(params, cfg, norm(params["final_norm"], h))

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import shard_activations, shard_cache_kv
 from . import attention as attn
 from .layers import (
     at_least_f32,
@@ -67,12 +68,24 @@ def _ffn(p, cfg, x, moe):
 
 def block_apply(p, cfg, h, *, moe: bool, use_kernel=True):
     _, norm = make_norm(cfg)
+    # SP: the residual stream lives sequence-sharded over "model", and
+    # the norms and residual adds work on it; attention and the MLP take
+    # the whole sequence (gathered after the norm, reduce-scattered back at
+    # the residual add), where the reference leaves both moves to XLA
+    sp = ("model", None) if cfg.use_sp else (None, None)
+    h = shard_activations(h, *sp)
     x = norm(p["attn_norm"], h)
+    if cfg.use_sp:
+        x = shard_activations(x, None, None)
     a = attn.mla_full(p["attn"], cfg, x) if cfg.attn_type == "mla" \
         else attn.gqa_full(p["attn"], cfg, x, use_kernel=use_kernel)
-    h = h + a
-    y, aux = _ffn(p, cfg, norm(p["mlp_norm"], h), moe)
-    return h + y, aux
+    h = h + shard_activations(a, *sp)
+    h = shard_activations(h, *sp)
+    x = norm(p["mlp_norm"], h)
+    if cfg.use_sp:
+        x = shard_activations(x, None, None)
+    y, aux = _ffn(p, cfg, x, moe)
+    return h + shard_activations(y, *sp), aux
 
 
 def block_prefill(p, cfg, h, cache_len, *, moe: bool, use_kernel=True):
@@ -125,8 +138,11 @@ def init(cfg, gen):
 
 def _unembed(params, cfg, h):
     if cfg.tie_embeddings:
-        return h @ params["embed"]["table"].T
-    return h @ params["lm_head"]
+        logits = h @ params["embed"]["table"].T
+    else:
+        logits = h @ params["lm_head"]
+    # vocab-shard the logits (they dominate activation memory otherwise)
+    return shard_activations(logits, *([None] * (logits.dim() - 2)), "model")
 
 
 def forward(params, cfg, tokens, *, use_kernels=True):
@@ -134,7 +150,7 @@ def forward(params, cfg, tokens, *, use_kernels=True):
     layer on CUDA tensors with ``use_kernels`` (the plain versions on CPU
     tensors; False takes the plain paths on any device)."""
     _, norm = make_norm(cfg)
-    h = embed(params["embed"], tokens)
+    h = shard_activations(embed(params["embed"], tokens), None, None)
     aux_total = torch.zeros((), dtype=at_least_f32(h).dtype, device=h.device)
     for name, n, moe in _stacks(cfg):
         for p in tree_unbind(params[name], n):
@@ -142,6 +158,8 @@ def forward(params, cfg, tokens, *, use_kernels=True):
             if aux is not None:
                 aux_total = aux_total + aux
     h = norm(params["final_norm"], h)
+    if cfg.use_sp:  # the unembedding takes the whole sequence
+        h = shard_activations(h, None, None)
     return _unembed(params, cfg, h), aux_total
 
 
@@ -175,6 +193,14 @@ def init_cache(params, cfg, batch, cache_len):
     return {name: one(n) for name, n, _ in _stacks(cfg)}
 
 
+def _shard_cache(cfg, cache):
+    """A GQA layer's k / v laid out as ``shard_cache_kv`` says (the MLA
+    latent cache follows its activations)."""
+    if cfg.attn_type == "mla":
+        return cache
+    return {"k": shard_cache_kv(cache["k"]), "v": shard_cache_kv(cache["v"])}
+
+
 def decode_step(params, cfg, token, cache, pos):
     """token (B,), pos (B,) → (logits (B, padded_vocab), new cache)."""
     _, norm = make_norm(cfg)
@@ -195,14 +221,14 @@ def prefill(params, cfg, tokens, cache_len, *, use_kernels=True):
     """tokens (B, S) → (last-token logits, serving cache of capacity
     ``cache_len``, the prompt's entries at positions 0 … S − 1)."""
     _, norm = make_norm(cfg)
-    h = embed(params["embed"], tokens)
+    h = shard_activations(embed(params["embed"], tokens), None, None)
     new_cache = {}
     for name, n, moe in _stacks(cfg):
         outs = []
         for i in range(n):
             h, c = block_prefill(tree_index(params[name], i), cfg, h, cache_len, moe=moe,
                                  use_kernel=use_kernels)
-            outs.append(c)
+            outs.append(_shard_cache(cfg, c))
         new_cache[name] = tree_stack(outs)
     h = norm(params["final_norm"], h[:, -1:])
     return _unembed(params, cfg, h)[:, 0], new_cache

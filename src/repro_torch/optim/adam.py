@@ -31,8 +31,9 @@ def _schedule(lr):
 
 def _init(params, state_dtype):
     leaves = tree_leaves(params)
-    mu = tree_map(lambda p: torch.zeros(p.shape, dtype=state_dtype, device=p.device), params)
-    nu = tree_map(lambda p: torch.zeros(p.shape, dtype=state_dtype, device=p.device), params)
+    # zeros_like: a DTensor parameter's moments are DTensors of its layout
+    mu = tree_map(lambda p: torch.zeros_like(p, dtype=state_dtype), params)
+    nu = tree_map(lambda p: torch.zeros_like(p, dtype=state_dtype), params)
     step = torch.zeros((), dtype=torch.int32, device=leaves[0].device if leaves else None)
     return AdamState(step, mu, nu)
 
@@ -74,8 +75,11 @@ def _update(grads, state, params, *, sched, b1, b2, eps, weight_decay, state_dty
     kw = dict(lr_t=lr_t, c1=c1, c2=c2, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
               state_dtype=state_dtype)
     with torch.no_grad():
-        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu),
-                              tree_leaves(params)):
+        for leaves in zip(tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu),
+                          tree_leaves(params)):
+            # the update is elementwise: a DTensor leaf updates its local
+            # shard (the caller lays its gradient out as its parameter)
+            g, m, v, p = (x.to_local() if hasattr(x, "to_local") else x for x in leaves)
             if p.dim() == 0 or p.numel() <= SLICE_ELEMS:
                 _update_leaf(g, m, v, p, **kw)
                 continue

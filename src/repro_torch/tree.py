@@ -17,8 +17,16 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
+def _is_leaf(node) -> bool:
+    """A tensor, a scalar, None, or a tuple type that declares itself a
+    leaf (``tree_leaf``: the sharding rules' partition specs)."""
+    return getattr(type(node), "tree_leaf", False)
+
+
 def _children(node):
     """(path components, children) of an inner node, or None for a leaf."""
+    if _is_leaf(node):
+        return None
     if isinstance(node, dict):
         keys = sorted(node)
         return [str(k) for k in keys], [node[k] for k in keys]
@@ -55,6 +63,8 @@ def tree_unflatten(like, leaves):
     it = iter(leaves)
 
     def build(node):
+        if _is_leaf(node):
+            return next(it)
         if isinstance(node, dict):
             out = {k: None for k in node}  # keep the caller's key order
             for k in sorted(node):

@@ -1415,3 +1415,90 @@ def test_two_identical_train_steps_give_the_same_bits(cuda_device, arch):
         p, opt, m = step(p, init(p), batch)
         outs.append(tree_leaves(p) + tree_leaves(opt.mu) + tree_leaves(opt.nu) + [m["loss"]])
     assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+# -- the LM on a mesh (DTensor) ---------------------------------------------------
+
+
+def _world1_mesh(rank, world):
+    """On a world of one NCCL rank: B4 and B5 through their wrappers on
+    head-sharded DTensors (a mesh dimension of size 1: the shard is the
+    whole) against their plain versions, and the (1, 1) mesh train step
+    of a 2-layer llama against the plain step."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref
+    from repro_torch.models import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dm = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("model",))
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((2, 8, 128, 64), generator=g, device=dev)
+    k, v = (torch.randn((2, 4, 128, 64), generator=g, device=dev) for _ in range(2))
+    heads = [Shard(1)]
+    before = fa.launches
+    out = fa.flash_attention_cuda(*(DTensor.from_local(t, dm, heads) for t in (q, k, v)))
+    res = {"b4_launches": fa.launches - before, "b4_placements": tuple(out.placements),
+           "b4_err": float((out.to_local() - gqa_attention_plain(q, k, v)).abs().max())}
+    x = torch.randn((2, 8, 128, 64), generator=g, device=dev)
+    dt = torch.rand((2, 8, 128), generator=g, device=dev) * 0.1
+    A = -torch.rand((8,), generator=g, device=dev)
+    B, C = (torch.randn((2, 128, 32), generator=g, device=dev) for _ in range(2))
+    before = ssd.launches
+    out = ssd.ssd_scan_cuda(DTensor.from_local(x, dm, heads), DTensor.from_local(dt, dm, heads),
+                            DTensor.from_local(A, dm, [Shard(0)]),
+                            *(DTensor.from_local(t, dm, [Replicate()]) for t in (B, C)),
+                            chunk=64)
+    res.update(b5_launches=ssd.launches - before, b5_placements=tuple(out.placements),
+               b5_err=float((out.to_local() - ssd_scan_chunked_ref(x, dt, A, B, C, chunk=64))
+                            .abs().max()))
+
+    _, bundle, params, batch = _llama_2_layers(dev)
+    step, init = make_train_step(bundle, lr=1e-3)
+    p = tree_map(torch.clone, params)
+    p, opt, m = step(p, init(p), batch)
+    mesh = sh.make_mesh((1, 1), ("data", "model"))
+    with sh.use_mesh(mesh):
+        dp = sh.distribute_tree(tree_map(torch.clone, params), sh.named_shardings(
+            mesh, sh.params_shardings(params, bundle.stacked_paths)))
+        db = {"tokens": sh.distribute(batch["tokens"], sh.NamedSharding(mesh, sh.p_batch(None)))}
+        dp, dopt, dm_ = step(dp, init(dp), db)
+        res["step_bitwise"] = bool(torch.equal(m["loss"], dm_["loss"]) and all(
+            torch.equal(a.full_tensor(), b) for a, b in zip(
+                tree_leaves(dp) + tree_leaves(dopt.mu) + tree_leaves(dopt.nu),
+                tree_leaves(p) + tree_leaves(opt.mu) + tree_leaves(opt.nu))))
+    return res
+
+
+@pytest.fixture(scope="module")
+def world1_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.distributed import spawn_world
+
+    return spawn_world(_world1_mesh, 1, "nccl", timeout=300)[0]
+
+
+@pytest.mark.cuda
+def test_b4_and_b5_on_head_sharded_dtensors_match_plain(world1_mesh):
+    """The wrappers' DTensor branch launches each kernel once on the rank's
+    shard and wraps the result with the operands' placements."""
+    from torch.distributed.tensor import Shard
+
+    r = world1_mesh
+    assert (r["b4_launches"], r["b4_placements"]) == (1, (Shard(1),))
+    assert (r["b5_launches"], r["b5_placements"]) == (1, (Shard(1),))
+    assert r["b4_err"] <= 2e-4 and r["b5_err"] <= 2e-3  # tests/test_flash_ssd_pallas.py's f32
+
+
+@pytest.mark.cuda
+def test_world1_mesh_train_step_is_the_plain_step(world1_mesh):
+    """On a (1, 1) mesh of one NCCL rank every placement is replicated and
+    the step is the plain single-process step, bit for bit."""
+    assert world1_mesh["step_bitwise"]
