@@ -342,10 +342,13 @@ and the final line is then not printed):
                 differentiate; 0 launches counted): run_training on
                 llama3.2-1b at --preset full (16 layers, bf16, batch 8 ×
                 128, lr 3e-4, 10 steps; the CLI's 3e-3 run beside it,
-                reported): ms a step cold and warm
+                reported; every layer rematerialised as the reference
+                does): ms a step cold and warm
                 (synchronised by reading the loss), tokens/s, peak memory,
                 a profiled warm step's idle share, the loss finite and
-                falling; at full width cut to 2 layers in f32 the loss and
+                falling; the same warm step with the remat helper patched
+                out beside it (ms, tokens/s, peak; one batch's gradients
+                both ways, bit for bit, reported); at full width cut to 2 layers in f32 the loss and
                 every leaf's gradient against f64 on the card (1e-3 of the
                 leaf's largest; none missing or all zero) and one Adam step
                 against the port's step on the CPU (batch 2); the
@@ -4111,8 +4114,48 @@ def _lm_train_main(seed):
         float(m["loss"])
     batch = train.training_batch(cfg, stream, 2, dev)
     row["profile_warm_step"] = profile_lm(lambda: step(params, opt, batch))
+    row["rematerialised"] = True
+    row["remat_vs_plain"] = _remat_vs_plain(bundle, step, params, opt, batch)
     del params, opt
     return row
+
+
+def _remat_vs_plain(bundle, step, params, opt, batch, reps=3):
+    """The model's rematerialisation (``models.layers.remat``, the
+    reference's ``jax.checkpoint`` sites) against the same step with the
+    helper patched out: the gradients of one batch bit for bit, then the
+    warm step's ms (median of ``reps``, synchronised), tokens/s and the
+    peak of allocated memory over those steps, each way."""
+    from repro_torch.models import layers, loss_and_grads
+    from repro_torch.tree import tree_leaves
+
+    real, plain = layers.remat, (lambda fn, *args: fn(*args))
+    ways = (("remat", real), ("plain", plain))
+    grads = {}
+    try:
+        for kind, fn in ways:
+            layers.remat = fn
+            grads[kind] = [g.clone() for g in tree_leaves(loss_and_grads(bundle, params, batch)[1])]
+        out = {"grads_bit_identical": all(torch.equal(a, b) for a, b in
+                                          zip(grads["remat"], grads["plain"]))}
+        del grads
+        tokens = batch["tokens"].shape[0] * (batch["tokens"].shape[1] - 1)
+        for kind, fn in ways:
+            layers.remat = fn
+            _fresh_peak()
+            ms = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                float(m["loss"])
+                ms.append((time.perf_counter() - t0) * 1e3)
+            med = sorted(ms)[reps // 2]
+            out[kind] = {"warm_step_ms_median": med, "step_ms": ms,
+                         "tokens_per_s": tokens / (med / 1e3),
+                         "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    finally:
+        layers.remat = real
+    return out
 
 
 def _mu_firm(mu):
@@ -4463,6 +4506,12 @@ def phase_lm_train(seed):
     t0 = time.perf_counter()
     out = {"main": _lm_train_main(seed)}
     emit({"phase": "lm_train", "part": "main", "card": CARD, **out["main"]})
+    main = out["main"]
+    emit({"phase": "lm_train", "part": "summary", "card": CARD, "arch": LM_TRAIN_ARCH,
+          "rematerialised": main["rematerialised"], "warm_step_ms": main["warm_step_ms_median"],
+          "tokens_per_s": main["tokens_per_s_warm"],
+          "device_idle_share": main["profile_warm_step"]["device_idle_share"],
+          "peak_device_bytes": main["peak_device_bytes"], "remat_vs_plain": main["remat_vs_plain"]})
     out["grad_parity"] = _lm_train_grad_parity(seed)
     out["determinism"] = _lm_train_determinism(seed)
     out["fault_drill"] = _lm_train_drill(seed)

@@ -41,7 +41,11 @@ partition spec :class:`P` over the axes "pod", "data" and "model"
 global shapes; :func:`distribute` lays a tensor out (the reference's
 ``device_put``) and :func:`constrain` redistributes one (its
 ``with_sharding_constraint``), the identity on plain tensors or with no
-ambient mesh, so the models' hints cost nothing on one device.  An
+ambient mesh, so the models' hints cost nothing on one device
+(:func:`split_head_weight`, :func:`gather_dim` and :func:`reduce_partial`
+lay an operand out before the op that could not take its layout).
+:func:`params_for_use` gathers FSDP parameters on use, a training
+forward's layer stacks a layer at a time.  An
 :class:`AbstractMesh` gives the rules a mesh's geometry with no world (the
 rules' tests).  DTensors on CUDA over gloo take their collectives through
 :func:`sync_collectives`, which the caller enters around the whole step.
@@ -423,14 +427,38 @@ def constrain(x, spec, *, grad: bool = False):
     return x.redistribute(x.device_mesh, target)
 
 
+def gather_dim(x, dim: int):
+    """``x`` with the shards of tensor dimension ``dim`` gathered, every
+    other placement kept (the identity on a plain tensor)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    dim %= x.dim()
+    target = [Replicate() if p.is_shard(dim) else p for p in x.placements]
+    return x if target == list(x.placements) else x.redistribute(x.device_mesh, target)
+
+
+def reduce_partial(x):
+    """``x`` with every pending sum reduced, its shards kept (the identity
+    on a plain tensor)."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in x.placements])
+
+
 def constrain_tree(tree, spec_tree):
     """:func:`constrain` leaf by leaf (a cache to ``cache_shardings``)."""
     return tree_map(constrain, tree, spec_tree)
 
 
-def shard_activations(x, *rest):
+def shard_activations(x, *rest, grad: bool = False):
     """Constrain (B, ...) activations: batch over the data axes; each named
-    rest axis is kept where the mesh has it and divides its dimension."""
+    rest axis is kept where the mesh has it and divides its dimension
+    (``grad``: the gradient too, :func:`constrain`)."""
     if not batch_axes():
         return x
     live = set(mesh_axes())
@@ -440,7 +468,7 @@ def shard_activations(x, *rest):
             clean.append(None)
         else:
             clean.append(a)
-    return constrain(x, p_batch(*clean))
+    return constrain(x, p_batch(*clean), grad=grad)
 
 
 def heads_spec(num_kv_heads: int, head_dim: int) -> P:
@@ -470,6 +498,28 @@ def split_heads(t, heads: int, head_dim: int, num_kv_heads: int):
     if is_dtensor(t) and spec[2] is None:
         t = constrain(t, p_batch(None, None))
     return constrain(t.reshape(B, S, heads, head_dim), spec)
+
+
+def split_head_weight(w, heads: int, head_dim: int):
+    """A projection weight (r, heads · head_dim) → (r, heads, head_dim)
+    for a per-head product (MLA's up-projections): the heads over "model"
+    where the model axis divides them, else head_dim where it divides that,
+    else replicated — :func:`split_heads`' rule, with no batch dimension.
+    The rules shard the flat last dimension over "model", contiguous
+    chunks that are whole heads only in the first case; otherwise it is
+    gathered before the view and the view re-sliced.  The gradient is laid
+    out by the view's layout in the first case and gathered in the others:
+    the product's backward would leave it in a strided layout (a flattened
+    head_dim shard, a batch reduction scattered over the heads) that the
+    data-parallel reduction cannot redistribute."""
+    r = w.shape[0]
+    if not is_dtensor(w):
+        return w.reshape(r, heads, head_dim)
+    m = axis_size("model")
+    if m > 1 and heads % m == 0:
+        return constrain(w.reshape(r, heads, head_dim), P(None, "model", None), grad=True)
+    w = constrain(w, P(None, None), grad=True).reshape(r, heads, head_dim)
+    return constrain(w, P(None, None, "model" if m > 1 and head_dim % m == 0 else None))
 
 
 def merge_heads(t):
@@ -559,6 +609,28 @@ def params_shardings(params, stacked_paths=()):
         return param_spec(path, getattr(leaf, "ndim", 0), stacked)
 
     return _specs_by_path(params, spec)
+
+
+def params_for_use(params, stacked_paths=()):
+    """The parameters as the layers use them: a DTensor leaf sharded over
+    the data axes (the rules' "data" = FSDP) all-gathered over them,
+    keeping its "model" shards — the reference's "parameters gathered on
+    use".  Its backward reduce-scatters the gradient back onto the data
+    shards, which is the data-parallel reduction.  Plain leaves as they
+    are.  Leaves whose '/'-joined path matches a regex of ``stacked_paths``
+    (``ModelBundle.stacked_paths``) are left sharded: a training forward
+    gathers each layer of a stack inside its body, as the reference's
+    scan body does."""
+    from torch.distributed.tensor import Replicate
+
+    def use(path, x):
+        if not is_dtensor(x) or any(re.search(pat, path) for pat in stacked_paths):
+            return x
+        names = x.device_mesh.mesh_dim_names
+        target = [Replicate() if a in BATCH_AXES else pl for a, pl in zip(names, x.placements)]
+        return x if list(x.placements) == target else x.redistribute(x.device_mesh, target)
+
+    return _specs_by_path(params, use)
 
 
 def shard_q_like_cache(q, num_kv_heads):

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ...distributed.sharding import is_dtensor
+from ..shards import launch_on_shards
 from .ref import ssd_scan_chunked_ref
 from .ssd_scan import ssd_scan_cuda
 
@@ -12,9 +14,17 @@ from .ssd_scan import ssd_scan_cuda
 def ssd_scan(x, dt, A, B, C, *, chunk=128, use_kernel=True):
     """The chunked SSD scan: B5 on CUDA tensors (the plain chunked version on
     CPU tensors) when ``use_kernel``, else the plain chunked version on any
-    device — the same math (the reference's ``use_pallas`` switch)."""
+    device — the same math (the reference's ``use_pallas`` switch).  On
+    DTensor operands both run on each rank's batch and head shards
+    (``kernels.shards``): DTensor's own einsums would fold the sharded batch
+    and heads into one strided dimension."""
     if use_kernel:
         return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+    if any(is_dtensor(t) for t in (x, dt, A, B, C)):
+        return launch_on_shards(
+            ssd_scan_chunked_ref, "ssd_scan", (x, dt, A, B, C),
+            ({"batch": 0, "heads": 1}, {"batch": 0, "heads": 1}, {"heads": 0}, {"batch": 0},
+             {"batch": 0}), 0, chunk=chunk)
     return ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk)
 
 

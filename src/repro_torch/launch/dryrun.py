@@ -20,7 +20,12 @@ reference's compile); a counting dispatch mode records, for rank 0:
     it is issued (the reference parses them from the HLO).
 
 The port's layers are a Python loop, so the whole depth is counted as it
-runs: the reference's L = 1 / L = 2 extrapolation is not needed.  The GP
+runs: the reference's L = 1 / L = 2 extrapolation is not needed.  A train
+cell's backward re-runs each rematerialised block's forward inside the
+counting mode (``models.layers.remat``), so the recompute's FLOPs and its
+parameter regathers are counted, and the peak holds only the blocks'
+inputs.  A cell that raises keeps the port's innermost frames in its
+artifact (``port_frames``).  The GP
 cells are analytic, as the reference's are (``gp_cell``).
 
 Usage (host only, no GPU):
@@ -368,6 +373,18 @@ def gp_cell(arch: str, *, multi_pod: bool = False, opts: str = "") -> dict:
 # --------------------------------------------------------------------------
 
 
+def port_frames(tb, limit: int = 12) -> list:
+    """The innermost ``limit`` frames of ``tb`` that lie in this package,
+    innermost last, as "repro_torch/path.py:line in function: code" — the
+    port's lines that a deep DTensor error's traceback tail leaves out."""
+    out = []
+    for f in traceback.extract_tb(tb):
+        parts = f.filename.replace(os.sep, "/").split("/repro_torch/")
+        if len(parts) > 1:
+            out.append(f"repro_torch/{parts[-1]}:{f.lineno} in {f.name}: {f.line}")
+    return out[-limit:]
+
+
 def run_one(arch, shape_name, multi_pod, outdir, opts=""):
     tag = f"{arch}_{shape_name}_{'2x16x16' if multi_pod else '16x16'}"
     if opts:
@@ -384,6 +401,7 @@ def run_one(arch, shape_name, multi_pod, outdir, opts=""):
             "arch": arch, "shape": shape_name, "mesh": "2x16x16" if multi_pod else "16x16",
             "status": "error", "error": f"{type(e).__name__}: {e}",
             "traceback": traceback.format_exc()[-4000:],
+            "port_frames": port_frames(e.__traceback__),
         }
     os.makedirs(outdir, exist_ok=True)
     with open(path, "w") as f:

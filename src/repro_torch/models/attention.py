@@ -17,8 +17,12 @@ differs from its key width.
 
 On a mesh the heads are laid out by the sharding rules (``split_heads``:
 KV heads over "model" where it divides them, else head_dim, else
-replicated), decode's query follows its cache (``shard_q_like_cache``),
-and B4 takes batch- or head-sharded operands.  Where "model" does not
+replicated; MLA's heads and up-projections by the same rule, and its
+attention over the heads where "model" divides them, else replicated),
+decode's query follows its cache (``shard_q_like_cache``), a decode over
+a cache whose sequence lies over "data" combines the ranks' slices by
+log-sum-exp (``_attend_sequence_shards``), and B4 takes batch- or
+head-sharded operands.  Where "model" does not
 divide the KV heads, a whole sequence's attention splits the q heads over
 "model" along their KV groups and gives each rank a copy of the KV head
 its q heads read, or else gathers q, k and v over "model"
@@ -35,12 +39,15 @@ from ..distributed.sharding import (
     heads_spec,
     merge_heads,
     p_batch,
+    reduce_partial,
     shard_q_like_cache,
+    split_head_weight,
     split_heads,
 )
 from ..distributed.sharding import is_dtensor
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.shards import launch_on_shards
+from . import layers
 from .layers import apply_rope, at_least_f32, normal_init
 from .layers import pad as zero_pad
 
@@ -91,7 +98,9 @@ def _sdpa(q, k, v, *, causal, kv_len=None, use_kernel=True):
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               causal=causal)
         return out.transpose(1, 2)
-    if is_dtensor(q) and not any(p.is_shard(3) for p in q.placements):
+    if kv_len is not None and is_dtensor(k) and any(p.is_shard(1) for p in k.placements):
+        out = _attend_sequence_shards(q, k, v, kv_len)
+    elif is_dtensor(q) and not any(p.is_shard(3) for p in q.placements):
         # batch and head shards: each rank attends over its own, locally
         # (DTensor's einsum strategies differ between torch versions);
         # decode's head_dim shards take DTensor's path (a partial sum)
@@ -119,13 +128,63 @@ def _attend_on_shards(q, k, v, causal, kv_len):
                             whole={"heads": [(0, 2), (1, 2)]})
 
 
+def _attend_sequence_shards(q, k, v, kv_len):
+    """Decode attention over a KV cache whose sequence is sharded over the
+    data axes (``cache_shardings``' layout of a batch-1 long-context cache):
+    each rank attends the query over its slice of the cache, and the
+    slices' softmax statistics — the maximum, the sum of exponentials and
+    the weighted values — are combined over those axes by the log-sum-exp
+    rule, which is how GSPMD partitions the reference's softmax there.  The
+    cache is never gathered.  The heads keep the cache's "model" layout
+    (heads over "model", or replicated); a head_dim shard raises."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = k.device_mesh
+    if any(p.is_shard(3) for p in k.placements) or k.placements != v.placements:
+        raise ValueError(f"attention over sequence shards: cannot attend a cache laid out "
+                         f"{tuple(k.placements)} / {tuple(v.placements)}")
+    seq = [p.is_shard(1) for p in k.placements]
+    heads = [p.is_shard(2) for p in k.placements]
+    q = q.redistribute(dm, [Shard(2) if h else Replicate() for h in heads])
+    lengths = kv_len.full_tensor() if is_dtensor(kv_len) else kv_len
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    B, S, H, hd = ql.shape
+    T, KV = kl.shape[1], kl.shape[2]
+    shard = 0
+    for md, sharded in enumerate(seq):  # this rank's slice of the cache, mesh dims major first
+        if sharded:
+            shard = shard * dm.size(md) + dm.get_local_rank(md)
+    pos = shard * T + torch.arange(T, device=kl.device)
+    scores = torch.einsum("bskgh,btkh->bkgst", at_least_f32(ql.reshape(B, S, KV, H // KV, hd)),
+                          at_least_f32(kl)) * hd**-0.5
+    scores = torch.where((pos[None, :] < lengths[:, None])[:, None, None, None], scores, NEG_INF)
+    m = scores.amax(dim=-1)  # (B, KV, G, S)
+    p = torch.where(scores <= -1e29, 0.0, torch.exp(scores - m[..., None]))
+
+    def combine(x, op):  # x (B, KV, ...): reduced over the sequence shards
+        partial = [Partial(op) if sq else (Shard(1) if h else Replicate())
+                   for sq, h in zip(seq, heads)]
+        reduced = [Replicate() if sq else pl for sq, pl in zip(seq, partial)]
+        return DTensor.from_local(x, dm, partial).redistribute(dm, reduced).to_local()
+
+    m_all = combine(m, "max")
+    alpha = torch.where(m <= -1e29, 0.0, torch.exp(m - m_all))
+    l = combine(p.sum(dim=-1) * alpha, "sum")  # (B, KV, G, S)
+    acc = combine(torch.einsum("bkgst,btkh->bkgsh", p * alpha[..., None], at_least_f32(vl)), "sum")
+    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(ql.dtype)
+    return DTensor.from_local(out, dm, q.placements, shape=q.shape, stride=q.stride())
+
+
 def _sdpa_plain(q, k, v, causal, kv_len):
     """The plain attention: f32 scores, masks, softmax, the value sum."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     group = H // KV
     qg = q.reshape(B, S, KV, group, hd)
-    scores = at_least_f32(torch.einsum("bskgh,btkh->bkgst", qg, k))
+    # a head_dim-sharded decode (DTensor's path) sums the scores over
+    # "model" here: DTensor would otherwise scatter the pending sum over
+    # heads that "model" does not divide, which the value product cannot fold
+    scores = reduce_partial(at_least_f32(torch.einsum("bskgh,btkh->bkgst", qg, k)))
     scores = scores * (hd**-0.5)
     if causal and S > 1:
         mask = torch.arange(S, device=q.device)[:, None] >= torch.arange(T, device=q.device)[None, :]
@@ -164,7 +223,20 @@ def _sdpa_chunked(q, k, v, *, causal, q_chunk=1024, kv_chunk=1024, use_kernel=Tr
     otherwise the reference's plain double loop, f32 math."""
     if use_kernel and q.is_cuda:
         return _sdpa(q, k, v, causal=causal, use_kernel=True)
-    q, k, v, _ = _whole_heads(q, k, v)
+    q, k, v, out_spec = _whole_heads(q, k, v)
+    if not is_dtensor(q):
+        return _chunked_plain(q, k, v, causal, q_chunk, kv_chunk)
+    # on a mesh each rank runs the loop over its batch and head shards, as
+    # the plain attention does (DTensor's einsums would fold the sharded
+    # batch and heads into one strided dimension)
+    out = launch_on_shards(lambda *t: _chunked_plain(*t, causal, q_chunk, kv_chunk), "attention",
+                           (q, k, v), ({"batch": 0, "heads": 2},) * 3, 0,
+                           whole={"heads": [(0, 2), (1, 2)]})
+    return out if out_spec is None else constrain(out, out_spec, grad=True)
+
+
+def _chunked_plain(q, k, v, causal, q_chunk, kv_chunk):
+    """``_sdpa_chunked``'s double loop on plain tensors."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     group = H // KV
@@ -173,9 +245,9 @@ def _sdpa_chunked(q, k, v, *, causal, q_chunk=1024, kv_chunk=1024, use_kernel=Tr
     assert S % q_chunk == 0 and T % kv_chunk == 0
     ct = torch.promote_types(q.dtype, torch.float32)
     qh = q.reshape(B, S, KV, group, hd) * hd**-0.5
-    outs = []
-    for qi in range(S // q_chunk):
-        qb = qh[:, qi * q_chunk : (qi + 1) * q_chunk].to(ct)  # (B, qc, KV, G, hd)
+
+    def one_q_chunk(qi, qb):  # qb (B, qc, KV, G, hd)
+        qb = qb.to(ct)
         carry = (torch.full((B, KV, group, q_chunk), NEG_INF, dtype=ct, device=q.device),
                  torch.zeros((B, KV, group, q_chunk), dtype=ct, device=q.device),
                  torch.zeros((B, KV, group, q_chunk, hd), dtype=ct, device=q.device))
@@ -189,7 +261,12 @@ def _sdpa_chunked(q, k, v, *, causal, q_chunk=1024, kv_chunk=1024, use_kernel=Tr
         _, l, acc = carry
         l = torch.where(l == 0.0, 1.0, l)
         out = (acc / l[..., None]).to(q.dtype)  # (B, KV, G, qc, hd)
-        outs.append(out.permute(0, 3, 1, 2, 4))  # (B, qc, KV, G, hd)
+        return out.permute(0, 3, 1, 2, 4)  # (B, qc, KV, G, hd)
+
+    # each q chunk rematerialised, as the reference's: the backward keeps
+    # O(S·hd), not the chunks' (q × T) probabilities
+    outs = [layers.remat(one_q_chunk, qi, qh[:, qi * q_chunk : (qi + 1) * q_chunk])
+            for qi in range(S // q_chunk)]
     return torch.cat(outs, dim=1).reshape(B, S, H, hd)
 
 
@@ -359,7 +436,7 @@ def _mla_q(p, cfg, x):
         q = _rms(x @ p["w_dq"], p["q_norm"]) @ p["w_uq"]
     else:
         q = x @ p["wq"]
-    q = q.reshape(B, S, H, hd + r_rope)
+    q = split_heads(q, H, hd + r_rope, H)
     return q[..., :hd], q[..., hd:]  # (nope, rope) parts
 
 
@@ -375,20 +452,28 @@ def _mla_latent_q(p, cfg, q_nope, q_rope, positions_q):
     """q_nope absorbed into the latent space (q_nope W_ukᵀ per head), and
     q_rope rotated."""
     H, hd = q_nope.shape[2], q_nope.shape[3]
-    r_kv = p["w_uk"].shape[0]
     q_rope = apply_rope(q_rope, positions_q, cfg.rope_theta)
-    w_uk = p["w_uk"].reshape(r_kv, H, hd)
-    return torch.einsum("bshd,rhd->bshr", q_nope, w_uk), q_rope  # (B,S,H,r_kv)
+    w_uk = split_head_weight(p["w_uk"], H, hd)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)  # (B,S,H,r_kv)
+    return constrain(q_lat, _mla_heads(H)), q_rope
+
+
+def _mla_heads(H):
+    """The layout of MLA's per-head latent activations (B, S, H, r): the
+    heads over "model" where it divides them, else replicated — every rank
+    then attends over every head, as ``_whole_heads`` does for GQA (a
+    latent-sharded contraction would all-reduce the (S × T) scores)."""
+    m = axis_size("model")
+    return p_batch(None, "model" if m > 1 and H % m == 0 else None, None)
 
 
 def _mla_out(p, cfg, lat):
     """The value sum in latent space (B,S,H,r_kv) expanded per head and
     projected out."""
-    B, S, H, r_kv = lat.shape
-    vhd = cfg.resolved_v_head_dim
-    w_uv = p["w_uv"].reshape(r_kv, H, vhd)
+    H = lat.shape[2]
+    w_uv = split_head_weight(p["w_uv"], H, cfg.resolved_v_head_dim)
     out = torch.einsum("bshr,rhv->bshv", lat, w_uv)
-    return out.reshape(B, S, H * vhd) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 def _mla_attend(p, cfg, q_nope, q_rope, positions_q, c_kv, k_rope, *, causal, kv_len=None):
@@ -415,25 +500,38 @@ def _mla_attend(p, cfg, q_nope, q_rope, positions_q, c_kv, k_rope, *, causal, kv
         scores = torch.where(valid[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
 
-    lat_out = torch.einsum("bhst,btr->bshr", probs, c_kv)  # (B,S,H,r_kv)
-    return _mla_out(p, cfg, lat_out)
+    # (B,H,S,r_kv) in the scores' order, then the view: an einsum straight
+    # to (B,S,H,r_kv) folds (s, h) with a head shard inside it
+    lat_out = torch.einsum("bhst,btr->bhsr", probs, c_kv).transpose(1, 2)
+    return _mla_out(p, cfg, constrain(lat_out, _mla_heads(lat_out.shape[2]), grad=True))
 
 
 def _mla_attend_chunked(p, cfg, q_nope, q_rope, positions_q, c_kv, k_rope, *, chunk=1024):
-    """Causal chunked (online-softmax) MLA attention in latent space."""
-    B, S, H, hd = q_nope.shape
-    r_kv = c_kv.shape[-1]
-    chunk = min(chunk, S)
-    assert S % chunk == 0
+    """Causal chunked (online-softmax) MLA attention in latent space; on a
+    mesh on each rank's batch and head shards, as ``_sdpa_chunked``."""
+    hd = q_nope.shape[3]
+    chunk = min(chunk, q_nope.shape[1])
     q_lat, q_rope = _mla_latent_q(p, cfg, q_nope, q_rope, positions_q)
     scale = (hd + cfg.rope_head_dim) ** -0.5
+    if not is_dtensor(q_lat):
+        return _mla_out(p, cfg, _mla_chunked_plain(q_lat, q_rope, c_kv, k_rope, chunk, scale))
+    lat = launch_on_shards(lambda *t: _mla_chunked_plain(*t, chunk, scale), "attention",
+                           (q_lat, constrain(q_rope, _mla_heads(q_lat.shape[2])), c_kv, k_rope),
+                           ({"batch": 0, "heads": 2},) * 2 + ({"batch": 0},) * 2, 0)
+    return _mla_out(p, cfg, constrain(lat, _mla_heads(lat.shape[2]), grad=True))
+
+
+def _mla_chunked_plain(q_lat, q_rope, c_kv, k_rope, chunk, scale):
+    """``_mla_attend_chunked``'s double loop on plain tensors: the latent
+    output (B, S, H, r_kv)."""
+    B, S, H, r_kv = q_lat.shape
+    assert S % chunk == 0
     ct = torch.promote_types(c_kv.dtype, torch.float32)
     dev = c_kv.device
     nq = S // chunk
-    lats = []
-    for qi in range(nq):
-        ql = q_lat[:, qi * chunk : (qi + 1) * chunk].to(ct)  # (B, chunk, H, r_kv)
-        qr = q_rope[:, qi * chunk : (qi + 1) * chunk].to(ct)
+
+    def one_q_chunk(qi, ql, qr):  # ql (B, chunk, H, r_kv), qr (B, chunk, H, r_rope)
+        ql, qr = ql.to(ct), qr.to(ct)
         carry = (torch.full((B, H, chunk), NEG_INF, dtype=ct, device=dev),
                  torch.zeros((B, H, chunk), dtype=ct, device=dev),
                  torch.zeros((B, H, chunk, r_kv), dtype=ct, device=dev))
@@ -445,8 +543,11 @@ def _mla_attend_chunked(p, cfg, q_nope, q_rope, positions_q, c_kv, k_rope, *, ch
             carry = _online_softmax_step(carry, s, ck, "bhqt,btr->bhqr")
         _, l, acc = carry
         l = torch.where(l == 0.0, 1.0, l)
-        lats.append((acc / l[..., None]).to(c_kv.dtype).transpose(1, 2))  # (B, chunk, H, r_kv)
-    return _mla_out(p, cfg, torch.cat(lats, dim=1))
+        return (acc / l[..., None]).to(c_kv.dtype).transpose(1, 2)  # (B, chunk, H, r_kv)
+
+    lats = [layers.remat(one_q_chunk, qi, q_lat[:, qi * chunk : (qi + 1) * chunk],
+                         q_rope[:, qi * chunk : (qi + 1) * chunk]) for qi in range(nq)]
+    return torch.cat(lats, dim=1)
 
 
 def mla_full(p, cfg, x, *, causal=True):

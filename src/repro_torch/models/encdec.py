@@ -8,7 +8,10 @@ Learned positions, pre-LayerNorm, GELU MLPs, QKV bias.  On CUDA tensors
 encoder's attention (non-causal), the decoder's self-attention over a
 prompt (causal) and every cross-attention (non-causal, in decode too: one
 query position against the encoder's frames); decode's self-attention,
-masked by the active lengths, is plain.  :func:`loss_fn` runs the plain
+masked by the active lengths, is plain.  Every encoder and decoder block
+of a forward is rematerialised, as the reference's ``jax.checkpoint``
+does it (``layers.remat``; on a mesh a block gathers its parameters
+inside).  :func:`loss_fn` runs the plain
 paths (the reference's ``use_flash=False``): B4 has no backward.
 """
 
@@ -16,8 +19,9 @@ from __future__ import annotations
 
 import torch
 
-from ..distributed.sharding import shard_activations
+from ..distributed.sharding import params_for_use, shard_activations
 from . import attention as attn
+from . import layers
 from .layers import (
     cross_entropy,
     embed,
@@ -84,10 +88,16 @@ def encode(params, cfg, frames, *, use_kernels=True):
     _, norm = make_norm(cfg)
     T = frames.shape[1]
     h = shard_activations(frames + params["enc_pos"]["pos_table"][:T][None], None, None)
+
+    def body(p, h):
+        p = params_for_use(p)
+        a = attn.gqa_full(p["attn"], cfg, norm(p["attn_norm"], h), causal=False,
+                          use_kernel=use_kernels)
+        h = h + shard_activations(a, None, None)
+        return h + shard_activations(mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg), None, None)
+
     for p in tree_unbind(params["encoder"], cfg.encoder_layers):
-        h = h + attn.gqa_full(p["attn"], cfg, norm(p["attn_norm"], h), causal=False,
-                              use_kernel=use_kernels)
-        h = h + mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg)
+        h = layers.remat(body, p, h)
     return norm(params["enc_final_norm"], h)
 
 
@@ -101,14 +111,20 @@ def forward(params, cfg, frames, tokens, *, use_kernels=True):
     _, norm = make_norm(cfg)
     enc = encode(params, cfg, frames, use_kernels=use_kernels)
     h = shard_activations(_embed_tokens(params, tokens), None, None)
-    for p in tree_unbind(params["decoder"], cfg.num_layers):
-        h = h + attn.gqa_full(p["attn"], cfg, norm(p["attn_norm"], h), causal=True,
-                              use_kernel=use_kernels)
+
+    def body(p, h, enc):
+        p = params_for_use(p)
+        a = attn.gqa_full(p["attn"], cfg, norm(p["attn_norm"], h), causal=True,
+                          use_kernel=use_kernels)
+        h = h + shard_activations(a, None, None)
         c, _ = attn.gqa_cross(p["cross"], cfg, norm(p["cross_norm"], h), enc, use_kernel=use_kernels)
-        h = h + c
-        h = h + mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg)
+        h = h + shard_activations(c, None, None)
+        return h + shard_activations(mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg), None, None)
+
+    for p in tree_unbind(params["decoder"], cfg.num_layers):
+        h = layers.remat(body, p, h, enc)
     h = norm(params["final_norm"], h)
-    return shard_activations(h @ params["lm_head"], None, "model")
+    return shard_activations(h @ params["lm_head"], None, "model", grad=True)
 
 
 def loss_fn(params, cfg, batch, *, use_kernels=False):
@@ -146,11 +162,11 @@ def prefill(params, cfg, frames, tokens, cache_len, *, use_kernels=True):
         p = tree_index(params["decoder"], i)
         a, self_cache = attn.gqa_prefill(p["attn"], cfg, norm(p["attn_norm"], h), cache_len,
                                          use_kernel=use_kernels)
-        h = h + a
+        h = h + shard_activations(a, None, None)
         c, cross_cache = attn.gqa_cross(p["cross"], cfg, norm(p["cross_norm"], h), enc,
                                         use_kernel=use_kernels)
-        h = h + c
-        h = h + mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg)
+        h = h + shard_activations(c, None, None)
+        h = h + shard_activations(mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg), None, None)
         self_caches.append(self_cache)
         cross_caches.append(cross_cache)
     h = norm(params["final_norm"], h[:, -1:])
@@ -171,11 +187,11 @@ def decode_step(params, cfg, token, cache, pos):
         p = tree_index(params["decoder"], i)
         a, new_self = attn.gqa_decode(p["attn"], cfg, norm(p["attn_norm"], h),
                                       {"k": cache["self_k"][i], "v": cache["self_v"][i]}, pos)
-        h = h + a
+        h = h + shard_activations(a, None, None)
         c, _ = attn.gqa_cross(p["cross"], cfg, norm(p["cross_norm"], h), None,
                               enc_cache={"k": cache["cross_k"][i], "v": cache["cross_v"][i]})
-        h = h + c
-        h = h + mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg)
+        h = h + shard_activations(c, None, None)
+        h = h + shard_activations(mlp_apply(p["mlp"], norm(p["mlp_norm"], h), cfg), None, None)
         new_k.append(new_self["k"])
         new_v.append(new_self["v"])
     h = norm(params["final_norm"], h)

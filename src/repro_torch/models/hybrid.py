@@ -10,9 +10,11 @@ Structure (period P = cfg.shared_attn_period):
     with per-group input-norm gains.
 
 The reference's ``jax.lax.scan`` over the stacked parameters is a Python
-loop here, and its ``jax.checkpoint`` is left out (autograd keeps the
-activations).  On CUDA tensors the forward runs B5 in every Mamba-2 block
-and B4 in every shared-attention invocation (``use_kernels=True``);
+loop here.  Its ``jax.checkpoint`` is kept where it stands: each Mamba-2
+block (groups and tail) and each call of the shared attention block is
+rematerialised (``layers.remat``; on a mesh a block gathers its
+parameters inside).  On CUDA tensors the forward runs B5 in every Mamba-2
+block and B4 in every shared-attention invocation (``use_kernels=True``);
 :func:`loss_fn` runs the plain paths (the reference's ``use_pallas=False``
 / ``use_flash=False``): B4 and B5 have no backward.
 
@@ -26,8 +28,9 @@ import dataclasses
 
 import torch
 
-from ..distributed.sharding import shard_activations
+from ..distributed.sharding import params_for_use, shard_activations
 from . import attention as attn
+from . import layers
 from .layers import (
     at_least_f32,
     cross_entropy,
@@ -110,9 +113,12 @@ def _rms_gain(x, scale, eps=1e-5):
 def _shared_attn_full(sp, acfg, cfg, h, h0, gain, *, use_kernel=True):
     x = torch.cat([h, h0], dim=-1)
     x = _rms_gain(x, gain)
-    a = attn.gqa_full(sp["attn"], acfg, x, causal=True, use_kernel=use_kernel)
-    a = a + mlp_apply(sp["mlp"], _rms_gain(a, sp["mlp_norm"]["scale"]), acfg)
-    return h + a @ sp["down"]
+    # each branch's pending sum reduced before its add, as in the blocks
+    a = shard_activations(attn.gqa_full(sp["attn"], acfg, x, causal=True, use_kernel=use_kernel),
+                          None, None)
+    a = a + shard_activations(mlp_apply(sp["mlp"], _rms_gain(a, sp["mlp_norm"]["scale"]), acfg),
+                              None, None)
+    return h + shard_activations(a @ sp["down"], None, None)
 
 
 def forward(params, cfg, tokens, *, use_kernels=True):
@@ -127,19 +133,24 @@ def forward(params, cfg, tokens, *, use_kernels=True):
     h = shard_activations(h0, None, None)
 
     def mamba_body(p, h):
-        return h + mamba2_full(p["mamba"], cfg, norm(p["norm"], h), use_kernel=use_kernels)
+        p = params_for_use(p)
+        out = mamba2_full(p["mamba"], cfg, norm(p["norm"], h), use_kernel=use_kernels)
+        return h + shard_activations(out, None, None)
+
+    def shared_body(sp, h, h0, gain):
+        return _shared_attn_full(sp, acfg, cfg, h, h0, gain, use_kernel=use_kernels)
 
     shared = params["shared_attn"]
     gains = list(torch.unbind(params["group_norms"], 0)) if G else []
     for g, gp in enumerate(_unbind(params["groups"], G) if G else []):
         for p in _unbind(gp, P):
-            h = mamba_body(p, h)
-        h = _shared_attn_full(shared, acfg, cfg, h, h0, gains[g], use_kernel=use_kernels)
+            h = layers.remat(mamba_body, p, h)
+        h = layers.remat(shared_body, shared, h, h0, gains[g])
     for p in _unbind(params["tail"], tail) if tail else []:
-        h = mamba_body(p, h)
+        h = layers.remat(mamba_body, p, h)
 
     h = norm(params["final_norm"], h)
-    return shard_activations(h @ params["lm_head"], None, "model")
+    return shard_activations(h @ params["lm_head"], None, "model", grad=True)
 
 
 def loss_fn(params, cfg, batch, *, use_kernels=False):
@@ -175,7 +186,7 @@ def decode_step(params, cfg, token, cache, pos):
 
     def mamba_step(h, p, c):
         out, c2 = mamba2_decode(p["mamba"], cfg, norm(p["norm"], h), c, pos)
-        return h + out, c2
+        return h + shard_activations(out, None, None), c2
 
     new_groups, new_k, new_v = [], [], []
     for g in range(G):
@@ -189,8 +200,10 @@ def decode_step(params, cfg, token, cache, pos):
         x = _rms_gain(x, params["group_norms"][g])
         a, kv = attn.gqa_decode(shared["attn"], acfg, x,
                                 {"k": cache["attn_k"][g], "v": cache["attn_v"][g]}, pos)
-        a = a + mlp_apply(shared["mlp"], _rms_gain(a, shared["mlp_norm"]["scale"]), acfg)
-        h = h + a @ shared["down"]
+        a = shard_activations(a, None, None)
+        a = a + shard_activations(
+            mlp_apply(shared["mlp"], _rms_gain(a, shared["mlp_norm"]["scale"]), acfg), None, None)
+        h = h + shard_activations(a @ shared["down"], None, None)
         new_k.append(kv["k"])
         new_v.append(kv["v"])
 

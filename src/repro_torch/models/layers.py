@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..distributed.sharding import is_dtensor
 
@@ -80,6 +81,17 @@ def pad(x, widths):
     local = F.pad(x.to_local(), widths)
     return DTensor.from_local(local.contiguous(), x.device_mesh, x.placements, shape=tuple(shape),
                               stride=contiguous_stride(shape))
+
+
+def remat(fn, *args):
+    """``fn(*args)`` rematerialised, the reference's ``jax.checkpoint``:
+    under autograd only its inputs are kept, and the backward runs ``fn``
+    again for the rest.  The models draw no random numbers (no dropout),
+    so the recompute gives the forward's bits without the RNG state being
+    saved.  With grad disabled (serving) it is the plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 # -- rotary position embedding ------------------------------------------------

@@ -23,12 +23,13 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..distributed.sharding import (
-    BATCH_AXES,
     P,
     axis_size,
     batch_axes,
+    gather_dim,
     is_dtensor,
     p_batch,
+    params_for_use,
 )
 from ..optim import adam, clip_by_global_norm
 from ..tree import tree_leaves, tree_unflatten
@@ -169,35 +170,20 @@ def mesh_context(tree):
         yield
 
 
-def params_for_use(params):
-    """The parameters as the layers use them: a DTensor leaf sharded over
-    the data axes (the rules' "data" = FSDP) all-gathered over them,
-    keeping its "model" shards — the reference's "parameters gathered on
-    use".  Its backward reduce-scatters the gradient back onto the data
-    shards, which is the data-parallel reduction.  Plain leaves as they
-    are."""
-    from torch.distributed.tensor import Replicate
-
-    def use(x):
-        if not is_dtensor(x):
-            return x
-        names = x.device_mesh.mesh_dim_names
-        target = [Replicate() if a in BATCH_AXES else pl for a, pl in zip(names, x.placements)]
-        return x if list(x.placements) == target else x.redistribute(x.device_mesh, target)
-
-    return tree_unflatten(params, [use(x) for x in tree_leaves(params)])
-
-
 def loss_and_grads(bundle: ModelBundle, params, batch):
     """(loss, gradients): ``bundle.loss`` and its gradient with respect to
     every leaf of ``params`` (a tree of the params' structure, each leaf in
     its parameter's dtype, as ``jax.grad`` gives them; None for a leaf the
     loss does not reach).  The caller's tensors are not touched: autograd
-    runs on detached aliases."""
+    runs on detached aliases.  The layer stacks are gathered layer by
+    layer inside each rematerialised body (``params_for_use``'s
+    ``stacked_paths``), so the backward's recompute gathers them again,
+    as the reference's remat does."""
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_() for p in leaves]
     with torch.enable_grad():
-        loss = bundle.loss(params_for_use(tree_unflatten(params, live)), batch)
+        loss = bundle.loss(params_for_use(tree_unflatten(params, live), bundle.stacked_paths),
+                           batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     return loss.detach(), tree_unflatten(params, list(grads))
 
@@ -250,11 +236,20 @@ def _replicated(x):
     return x.full_tensor() if is_dtensor(x) else x
 
 
+def greedy(logits):
+    """The greedy token, argmax over the last (vocabulary) dimension.  On a
+    mesh the vocabulary's shards are gathered first: DTensor's argmax over
+    a sharded dimension takes each shard's offset from a tensor it reads
+    on the host (``.item()``), which the dry-run's fake tensors cannot
+    give."""
+    return torch.argmax(gather_dim(logits, -1), dim=-1)
+
+
 def make_prefill_step(bundle: ModelBundle, cache_len, *, use_kernels=True):
     def prefill_step(params, batch):
         with mesh_context(params):
             logits, cache = bundle.prefill(params_for_use(params), batch, cache_len, use_kernels)
-            return torch.argmax(logits, dim=-1), cache
+            return greedy(logits), cache
 
     return prefill_step
 
@@ -263,6 +258,6 @@ def make_serve_step(bundle: ModelBundle):
     def serve_step(params, token, cache, pos):
         with mesh_context(params):
             logits, cache = bundle.decode(params_for_use(params), token, cache, pos)
-            return torch.argmax(logits, dim=-1), cache
+            return greedy(logits), cache
 
     return serve_step

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import P, axis_size, constrain, is_dtensor, p_batch
+from ..distributed.sharding import P, axis_size, constrain, is_dtensor, p_batch, shard_activations
 from ..kernels.shards import launch_on_shards
 from ..kernels.ssd_scan.ops import ssd_decode_step, ssd_scan
 from .layers import at_least_f32, normal_init
@@ -45,6 +45,12 @@ def mamba2_init(gen, cfg, dtype):
 
 
 def _split_proj(cfg, proj):
+    # on a mesh the projection is gathered over "model" (its three parts
+    # split the width where the shards do not), its gradient as well: the
+    # conv's backward would otherwise leave it sequence-sharded, which the
+    # weight gradient's product over the flattened (batch, sequence)
+    # cannot take
+    proj = shard_activations(proj, *([None] * (proj.dim() - 1)), grad=True)
     di, ds = cfg.ssm_d_inner, cfg.ssm_state
     z = proj[..., :di]
     xBC = proj[..., di : di + di + 2 * ds]
@@ -84,12 +90,16 @@ def _mixer_inputs(p, cfg, xBC, dt_raw):
 def _scan_layout(cfg, xh, dth, A, Bmat, Cmat):
     """On a mesh, the scan's operands in one layout the kernel takes: batch
     over the data axes, the heads over "model" where it divides them
-    (else replicated), B and C replicated over "model"."""
+    (else replicated), B and C replicated over "model".  x's gradient is
+    returned in that layout too: gathered back by the redistribute's
+    backward, its local shards come out contiguous under the transposed
+    view's strides, and the backward's view of ``_mixer_inputs``' head
+    split then fails."""
     if not is_dtensor(xh):
         return xh, dth, A, Bmat, Cmat
     m = axis_size("model")
     h = "model" if m > 1 and cfg.ssm_heads % m == 0 else None
-    return (constrain(xh, p_batch(h, None, None)), constrain(dth, p_batch(h, None)),
+    return (constrain(xh, p_batch(h, None, None), grad=True), constrain(dth, p_batch(h, None)),
             constrain(A, P(h)), constrain(Bmat, p_batch(None, None)),
             constrain(Cmat, p_batch(None, None)))
 
@@ -100,6 +110,10 @@ def _mix(p, cfg, x, z, xh, dth, A, Bmat, Cmat, use_kernel):
     y = ssd_scan(xh, dth, A, Bmat, Cmat, chunk=min(cfg.ssm_chunk, S), use_kernel=use_kernel)
     y = (y + p["D"][None, :, None, None] * xh).to(x.dtype)  # f32 D-skip → model dtype
     y = y.transpose(1, 2).reshape(Bsz, S, cfg.ssm_d_inner)
+    if is_dtensor(y):  # the gradient back in the scan's head layout (no all-to-all)
+        m = axis_size("model")
+        y = constrain(y, p_batch(None, "model" if m > 1 and cfg.ssm_heads % m == 0 else None),
+                      grad=True)
     return _gated_norm(y, z, p["out_norm"]) @ p["out_proj"]
 
 

@@ -4,7 +4,9 @@ counterpart of ``repro.models.ssm_lm``: serving and the training loss.
 The forward runs B5 in every block on CUDA tensors (``use_kernels=True``;
 the reference's ``use_pallas``); decode is the O(1)-per-token recurrence
 of ``ssm.mamba2_decode``.  The reference's ``jax.lax.scan`` over the
-stacked blocks is a Python loop.  :func:`loss_fn` runs the plain chunked
+stacked blocks is a Python loop, each block rematerialised as the
+reference's ``jax.checkpoint`` does it (``layers.remat``; on a mesh the
+block gathers its parameters inside).  :func:`loss_fn` runs the plain chunked
 scan (the reference's ``use_pallas=False``): B5 has no backward.
 """
 
@@ -12,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from ..distributed.sharding import shard_activations
+from ..distributed.sharding import params_for_use, shard_activations
+from . import layers
 from .layers import (
     cross_entropy,
     embed,
@@ -51,15 +54,21 @@ def _unembed(params, cfg, h):
         logits = h @ params["embed"]["table"].T
     else:
         logits = h @ params["lm_head"]
-    return shard_activations(logits, *([None] * (logits.dim() - 2)), "model")
+    return shard_activations(logits, *([None] * (logits.dim() - 2)), "model", grad=True)
 
 
 def forward(params, cfg, tokens, *, use_kernels=True):
     """tokens (B, S) → logits (B, S, padded_vocab)."""
     _, norm = make_norm(cfg)
     h = shard_activations(embed(params["embed"], tokens), None, None)
+
+    def body(p, h):
+        p = params_for_use(p)
+        out = mamba2_full(p["mamba"], cfg, norm(p["norm"], h), use_kernel=use_kernels)
+        return h + shard_activations(out, None, None)
+
     for p in tree_unbind(params["layers"], cfg.num_layers):
-        h = h + mamba2_full(p["mamba"], cfg, norm(p["norm"], h), use_kernel=use_kernels)
+        h = layers.remat(body, p, h)
     return _unembed(params, cfg, norm(params["final_norm"], h))
 
 
@@ -85,7 +94,7 @@ def decode_step(params, cfg, token, cache, pos):
     for i in range(cfg.num_layers):
         p = tree_index(params["layers"], i)
         out, c = mamba2_decode(p["mamba"], cfg, norm(p["norm"], h), tree_index(cache, i), pos)
-        h = h + out
+        h = h + shard_activations(out, None, None)
         outs.append(c)
     h = norm(params["final_norm"], h)
     return _unembed(params, cfg, h)[:, 0], tree_stack(outs)

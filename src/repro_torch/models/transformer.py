@@ -5,9 +5,11 @@ loss.
 Layers are stacked as in the reference: ``layers`` (L, ...) and, for an
 MoE config with ``first_dense_layers``, a dense ``prefix_layers`` stack
 before them.  The reference's ``jax.lax.scan`` over the stacks is a Python
-loop here, and its ``jax.checkpoint`` (rematerialisation) is left out:
-autograd keeps every layer's activations.  On CUDA tensors the GQA
-forward and prefill run B4 in every layer (``use_kernels=True``; the
+loop here.  Its ``jax.checkpoint`` is kept where it stands: every block of
+the main ``layers`` stack is rematerialised (``layers.remat``), the dense
+prefix is not, and each block gathers its own parameters over the data
+axes on a mesh, so the backward's recompute gathers them again.  On CUDA
+tensors the GQA forward and prefill run B4 in every layer (``use_kernels=True``; the
 reference's ``use_flash``); MLA, MoE and decode are plain torch, as in the
 reference.  :func:`loss_fn` runs the plain paths (``use_kernels=False``,
 the reference's ``use_flash=False``): B4 has no backward.
@@ -17,8 +19,9 @@ from __future__ import annotations
 
 import torch
 
-from ..distributed.sharding import shard_activations, shard_cache_kv
+from ..distributed.sharding import params_for_use, shard_activations, shard_cache_kv
 from . import attention as attn
+from . import layers
 from .layers import (
     at_least_f32,
     cross_entropy,
@@ -95,9 +98,12 @@ def block_prefill(p, cfg, h, cache_len, *, moe: bool, use_kernel=True):
         a, cache = attn.mla_prefill(p["attn"], cfg, x, cache_len)
     else:
         a, cache = attn.gqa_prefill(p["attn"], cfg, x, cache_len, use_kernel=use_kernel)
-    h = h + a
+    # the residual stream stays batch-sharded and whole over "model" (the
+    # reference's scan carry keeps its first layout): each branch's
+    # pending sum is reduced before the add
+    h = h + shard_activations(a, None, None)
     y, _ = _ffn(p, cfg, norm(p["mlp_norm"], h), moe)
-    return h + y, cache
+    return h + shard_activations(y, None, None), cache
 
 
 def block_decode(p, cfg, h, cache, pos, *, moe: bool):
@@ -107,9 +113,9 @@ def block_decode(p, cfg, h, cache, pos, *, moe: bool):
         a, cache = attn.mla_decode(p["attn"], cfg, x, cache, pos)
     else:
         a, cache = attn.gqa_decode(p["attn"], cfg, x, cache, pos)
-    h = h + a
+    h = h + shard_activations(a, None, None)
     y, _ = _ffn(p, cfg, norm(p["mlp_norm"], h), moe)
-    return h + y, cache
+    return h + shard_activations(y, None, None), cache
 
 
 def _n_prefix(cfg):
@@ -141,8 +147,11 @@ def _unembed(params, cfg, h):
         logits = h @ params["embed"]["table"].T
     else:
         logits = h @ params["lm_head"]
-    # vocab-shard the logits (they dominate activation memory otherwise)
-    return shard_activations(logits, *([None] * (logits.dim() - 2)), "model")
+    # vocab-shard the logits (they dominate activation memory otherwise),
+    # and their gradient: the loss's backward leaves it sequence-sharded
+    # over "model", which the unembedding's weight gradient, a product over
+    # the flattened (batch, sequence), cannot take
+    return shard_activations(logits, *([None] * (logits.dim() - 2)), "model", grad=True)
 
 
 def forward(params, cfg, tokens, *, use_kernels=True):
@@ -152,9 +161,14 @@ def forward(params, cfg, tokens, *, use_kernels=True):
     _, norm = make_norm(cfg)
     h = shard_activations(embed(params["embed"], tokens), None, None)
     aux_total = torch.zeros((), dtype=at_least_f32(h).dtype, device=h.device)
+
+    def body(p, h, moe):
+        return block_apply(params_for_use(p), cfg, h, moe=moe, use_kernel=use_kernels)
+
     for name, n, moe in _stacks(cfg):
         for p in tree_unbind(params[name], n):
-            h, aux = block_apply(p, cfg, h, moe=moe, use_kernel=use_kernels)
+            # the reference rematerialises the main stack, not the dense prefix
+            h, aux = layers.remat(body, p, h, moe) if name == "layers" else body(p, h, moe)
             if aux is not None:
                 aux_total = aux_total + aux
     h = norm(params["final_norm"], h)

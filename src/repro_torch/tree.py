@@ -37,20 +37,23 @@ def _children(node):
     return None
 
 
+def _walk(node, prefix, paths, leaves):
+    kids = _children(node)
+    if kids is None:
+        paths.append("/".join(prefix))
+        leaves.append(node)
+        return
+    for name, child in zip(*kids):
+        _walk(child, prefix + [name], paths, leaves)
+
+
 def tree_flatten_with_paths(tree):
-    """(paths, leaves) of ``tree`` in the reference's leaf order."""
+    """(paths, leaves) of ``tree`` in the reference's leaf order.  The
+    recursion is a module function, not a closure: a recursive closure
+    refers to itself through its cell, a reference cycle that would keep
+    the leaves (device memory) alive until the garbage collector runs."""
     paths, leaves = [], []
-
-    def walk(node, prefix):
-        kids = _children(node)
-        if kids is None:
-            paths.append("/".join(prefix))
-            leaves.append(node)
-            return
-        for name, child in zip(*kids):
-            walk(child, prefix + [name])
-
-    walk(tree, [])
+    _walk(tree, [], paths, leaves)
     return paths, leaves
 
 
@@ -58,25 +61,26 @@ def tree_leaves(tree) -> list:
     return tree_flatten_with_paths(tree)[1]
 
 
-def tree_unflatten(like, leaves):
-    """A tree of ``like``'s structure holding ``leaves`` (in leaf order)."""
-    it = iter(leaves)
-
-    def build(node):
-        if _is_leaf(node):
-            return next(it)
-        if isinstance(node, dict):
-            out = {k: None for k in node}  # keep the caller's key order
-            for k in sorted(node):
-                out[k] = build(node[k])
-            return out
-        if _is_namedtuple(node):
-            return type(node)(*(build(c) for c in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
+def _build(node, it):
+    if _is_leaf(node):
         return next(it)
+    if isinstance(node, dict):
+        out = {k: None for k in node}  # keep the caller's key order
+        for k in sorted(node):
+            out[k] = _build(node[k], it)
+        return out
+    if _is_namedtuple(node):
+        return type(node)(*(_build(c, it) for c in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(c, it) for c in node)
+    return next(it)
 
-    out = build(like)
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` (in leaf order);
+    a module-level recursion, as :func:`tree_flatten_with_paths`'."""
+    it = iter(leaves)
+    out = _build(like, it)
     if next(it, None) is not None:
         raise ValueError("tree_unflatten: more leaves than the structure holds")
     return out

@@ -1417,6 +1417,34 @@ def test_two_identical_train_steps_give_the_same_bits(cuda_device, arch):
     assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
+@pytest.mark.cuda
+def test_rematerialised_train_step_gives_the_plain_steps_bits(cuda_device, monkeypatch):
+    """A bf16 llama train step with the layers rematerialised
+    (``models.layers.remat``) and with the helper patched out: the
+    recompute runs the forward's kernels on the same inputs, so the loss,
+    the gradient norm, the parameters and both moments keep their bits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, layers, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(), dtype="bfloat16")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=cuda_device).manual_seed(0), max_seq=72)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 65), device=cuda_device,
+                                     generator=torch.Generator(device=cuda_device).manual_seed(1))}
+    step, init = make_train_step(bundle, lr=1e-3)
+    outs = []
+    for remat in (layers.remat, lambda fn, *args: fn(*args)):
+        monkeypatch.setattr(layers, "remat", remat)
+        p = tree_map(torch.clone, params)
+        p, opt, m = step(p, init(p), batch)
+        outs.append(tree_leaves(p) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
+                    + [m["loss"], m["grad_norm"]])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
 # -- the LM on a mesh (DTensor) ---------------------------------------------------
 
 

@@ -43,7 +43,7 @@ def test_port_files_were_found():
             "chip_smoke.py", "torch_quickstart.py", "torch_large_scale_ski.py",
             "adam.py", "adafactor.py", "clipping.py", "schedules.py", "compression.py",
             "checkpointer.py", "fault.py", "train.py", "pipeline.py", "tree.py",
-            "torch_train_gp_e2e.py", "torch_deep_kernel_lm.py"} <= names
+            "torch_train_gp_e2e.py", "torch_deep_kernel_lm.py", "torch_posterior_serving.py"} <= names
     assert len(PORT_FILES) >= 20
 
 

@@ -243,6 +243,15 @@ def test_sharded_prefill_and_decode_match_one_process(run):
         np.testing.assert_array_equal(got.argmax(-1)[firm], want.argmax(-1)[firm])
 
 
+def test_decode_over_a_sequence_sharded_cache_combines_the_slices(run):
+    """The long-context decode's attention on a cache sharded over "data"
+    along its sequence: each rank's slice attended locally and the slices'
+    softmax statistics combined (log-sum-exp) equal the plain attention
+    over the whole cache, whichever slices the active length reaches."""
+    for got, want in run["world"][0]["sequence_decode"]:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
 def test_pipeline_matches_the_sequential_loop(run):
     for rank_out in run["world"]:
         piped, seq = rank_out["pipe"]

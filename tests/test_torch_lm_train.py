@@ -135,8 +135,14 @@ def test_loss_and_every_gradient_match_the_reference(case, monkeypatch):
 
     if arch in MOE_ARCHS:  # the routing is the reference's, call by call
         ref_calls = _reference_routing(case["rcfg"], case["rparams"], batch["tokens"][:, :-1])
-        assert routings and len(ref_calls) == 2 * len(routings)
-        for i, r in enumerate(routings):
+        # the backward's recompute (the layers' remat) routes every MoE
+        # layer again, the last first: on the forward's bits
+        n = len(ref_calls) // 2
+        assert routings and len(routings) == 2 * n
+        for r, again in zip(routings[:n], reversed(routings[n:])):
+            for a, b in zip(r, again):
+                assert torch.equal(a, b)
+        for i, r in enumerate(routings[:n]):
             (_, ref_topk), (ref_sel_val, ref_sel) = ref_calls[2 * i], ref_calls[2 * i + 1]
             np.testing.assert_array_equal(r.topk_idx.numpy(), ref_topk)
             live = ref_sel_val > 0

@@ -259,6 +259,32 @@ def test_bf16_params_cross_over_bit_for_bit(tmp_path):
 # -- the fault layer --------------------------------------------------------------
 
 
+def test_tree_walks_leave_no_reference_cycle():
+    """Flattening and rebuilding a tree frees its leaves as soon as the
+    caller drops them, without the garbage collector: the models walk
+    each layer's parameters in every forward (``params_for_use``), and a
+    cycle there kept a whole f32 stack alive on the card through an f64
+    conversion of an 81-layer model."""
+    import gc
+    import weakref
+
+    from repro_torch.tree import tree_unflatten
+
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        t = torch.zeros(4)
+        ref = weakref.ref(t)
+        tree = {"b": [t, (1.0, None)], "a": {"c": t}}
+        rebuilt = tree_unflatten(tree, tree_leaves(tree))
+        assert rebuilt["b"][0] is t and list(rebuilt) == ["b", "a"]
+        del t, tree, rebuilt
+        assert ref() is None
+    finally:
+        if was:
+            gc.enable()
+
+
 def test_preemption_flag():
     before = signal.getsignal(signal.SIGTERM)
     with PreemptionHandler() as h:

@@ -121,6 +121,7 @@ def run_world(rank, world, inputs):
                         "want": [tuple(sh.placements(s, mesh.axis_names))
                                  for s in tree_leaves(sh.cache_shardings(cache))]}
 
+    out["sequence_decode"] = _sequence_sharded_decode(mesh)
     out["kernel_layouts"] = _kernel_layouts(mesh, inputs["kernels"])
     out["sync_collectives"] = _sync_collectives_agree(mesh)
 
@@ -142,6 +143,31 @@ def run_world(rank, world, inputs):
     out["restore"] = (back.full_tensor().numpy(), tuple(back.placements),
                       back.to_local().numpy(), mesh.coords(rank))
     return out
+
+
+def _sequence_sharded_decode(mesh):
+    """Decode attention at batch 1 over a cache whose sequence lies over
+    "data" (KV heads over "model"), as ``cache_shardings`` lays out a
+    long-context cache: the log-sum-exp combine of the ranks' slices
+    against the plain attention over the whole cache, for active lengths
+    that end in the second slice, at its start (that slice all masked
+    but its first position) and in the first (the second slice empty)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.attention import _sdpa, _sdpa_plain
+
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((1, 1, 4, 8), generator=g)
+    k, v = (torch.randn((1, 16, 2, 8), generator=g) for _ in range(2))
+    dk, dv = (sh.distribute(t, sh.NamedSharding(mesh, sh.P(None, "data", "model", None)))
+              for t in (k, v))
+    dq = sh.distribute(q, sh.NamedSharding(mesh, sh.P(None, None, "model", None)))
+    res = []
+    with torch.no_grad():
+        for n in (11, 9, 5):
+            kv_len = torch.tensor([n])
+            got = _sdpa(dq, dk, dv, causal=False, kv_len=kv_len).full_tensor()
+            res.append((got.numpy(), _sdpa_plain(q, k, v, False, kv_len).numpy()))
+    return res
 
 
 def _kernel_layouts(mesh, arrays):
