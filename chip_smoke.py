@@ -25,7 +25,7 @@ and the final line is then not printed):
                 B5) each function's
                 registers, shared memory and spills (ptxas; none allowed but
                 in B1) and its HMMA / HGMMA count in the SASS (cuobjdump),
-                which must not be 0
+                which must not be 0 (bf16 B1/B2, B3 and B4: HGMMA, wgmma)
   2. kernel     B1 (2-D M) and B2 (3-D M) against ``kernel_matmul_plain``
                 for rbf / matern12/32/52 at odd n, ARD, t ∈ {1, 9, 17, 234,
                 256, 512}; the multitask widths (n = 10,000 and 30,000 at
@@ -60,7 +60,11 @@ and the final line is then not printed):
                 product of the bf16-rounded factors and, on row slices, to
                 a float64 product of the kernel's own rounded entries (no
                 further from it than the plain version); two runs
-                bit-identical
+                bit-identical; bf16 B1's entries of a 256-row slice
+                (identity columns) the same bits at 16 and 256 columns a
+                launch, and within one bf16 ulp of the entry formula
+                (``kernel_entries_bf16_plain``), the entries that flip
+                counted
      flash_kernel  B4 against ``gqa_attention_plain``: causal and not, GQA
                 8/2 heads, dh ∈ {32, 64, 112, 224}, ragged lengths, the
                 slice's (4, 32, 512, 224), the zoo's prefill shapes (llama
@@ -84,7 +88,9 @@ and the final line is then not printed):
   3. timing     the kernels at the slices' shapes beside the plain version,
                 (B1's bound prices its product as three TF32 products; bf16
                 B1 at t = 9 / 234 / 256, B2 and B3 at t = 9 as one bf16
-                product, beside the f32 kernel's time),
+                product and the distance's inner product on the tensor
+                cores, beside the f32 kernel's time; each B1-B3 row with
+                the SFU's floor for the kernel map, ``sfu_ms``),
                 a library yardstick (torch.cdist → kernel map → torch.matmul,
                 autograd through it for the gradient; B4:
                 scaled_dot_product_attention; B5: none) and the card's
@@ -519,40 +525,90 @@ def _padded(t: int) -> int:
     return -(-t // 8) * 8
 
 
-def kernel_bound(rows: int, cols: int, d: int, t: int, batch: int = 1, bf16: bool = False):
-    """Least time for (K + σ²I)·M on an H100: the kernel tile (2d + 1 f32
-    flops per entry on the CUDA cores, 67 TFLOP/s, needed once whatever the
-    batch; plus one exp per entry on the SFU, counted in ``exps`` and not
-    priced) and the product, 2t flops per entry per batch element, at f32
-    accuracy on the tensor cores: three TF32 products (the 3xTF32 split) at
-    495 TFLOP/s; with bf16 operands (``bf16``) one bf16 product at 989
-    TFLOP/s.  Each input read and output written once, at the width the
-    kernel reads it (bf16: M as bf16 rows of ⌈t/8⌉·8).  Returns (bound_ms,
-    bound_by, exps)."""
-    tile_ops = rows * cols * (2 * d + 1)
+#: f32 operations of the kernel map per entry, counted from
+#: ``stationary<KT>`` (csrc/common.cuh) as the bf16 kernels run it: the
+#: floor's max, r² · rsqrt, the scalings, the polynomial, exp's log2 e scale
+#: and the outputscale; and the MUFU (SFU) operations beside them: ex2, and
+#: rsqrt for Matérn
+MAP_FLOPS = {"rbf": 3, "matern12": 4, "matern32": 7, "matern52": 10}
+MAP_MUFU = {"rbf": 1, "matern12": 2, "matern32": 2, "matern52": 2}
+#: f32 operations per entry of the bf16 kernels' distance from S and the
+#: norms: n1 + n2, the fma with −2S (2), the clamp
+COMBINE_FLOPS = 4
+_SM_CLOCK_MHZ = []
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    if not _SM_CLOCK_MHZ:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                             check=True).stdout
+        _SM_CLOCK_MHZ.append(float(out.split()[0]))
+    return _SM_CLOCK_MHZ[0]
+
+
+def sfu_ms(entries: int, kernel_type: str = "matern52") -> float:
+    """The SFU's floor for the kernel map of ``entries`` entries: its MUFU
+    operations (RBF 1, Matérn 2 an entry) at 16 a clock an SM on 132 SMs,
+    at the card's maximum SM clock."""
+    return entries * MAP_MUFU[kernel_type] / (16 * 132 * sm_clock_mhz() * 1e6) * 1e3
+
+
+def kernel_bound(rows: int, cols: int, d: int, t: int, batch: int = 1, bf16: bool = False,
+                 kernel_type: str = "matern52"):
+    """Least time for (K + σ²I)·M on an H100: the kernel tile, needed once
+    whatever the batch, and the product, 2t flops per entry per batch
+    element.  In f32 the tile is 2d + 1 f32 flops per entry on the CUDA
+    cores (67 TFLOP/s; the exp on the SFU counted in ``exps``, not priced)
+    and the product at f32 accuracy three TF32 products (the 3xTF32 split)
+    at 495 TFLOP/s.  With bf16 operands (``bf16``), as the bf16 kernels run
+    it: the distance's inner product a bf16 tensor-core product (2d flops
+    an entry at 989 TFLOP/s), the norm combination and the kernel map on
+    the CUDA cores (COMBINE_FLOPS + MAP_FLOPS an entry at 67), and the
+    product one bf16 product at 989.  Each input read and output written
+    once, at the width the kernel reads it (bf16: X as bf16 rows of
+    ⌈d/16⌉·16, M as bf16 rows of ⌈t/8⌉·8).  Returns (bound_ms, bound_by,
+    exps)."""
     product_ops = 2 * rows * cols * t * batch * (1 if bf16 else 3)
-    m_bytes = 2 * cols * _padded(t) if bf16 else 4 * cols * t
-    nbytes = 4 * (rows * d + cols * d + batch * rows * t) + batch * m_bytes
-    peak = PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS
-    t_ops = (tile_ops / PEAK_F32_FLOPS + product_ops / peak) * 1e3
+    if bf16:
+        tile_ops = rows * cols * (COMBINE_FLOPS + MAP_FLOPS[kernel_type])
+        tc_ops = 2 * rows * cols * d + product_ops
+        x_bytes = 2 * (rows + cols) * (-(-d // 16) * 16)
+        m_bytes = 2 * cols * _padded(t)
+        t_ops = (tile_ops / PEAK_F32_FLOPS + tc_ops / PEAK_BF16_FLOPS) * 1e3
+    else:
+        tile_ops = rows * cols * (2 * d + 1)
+        x_bytes = 4 * (rows + cols) * d
+        m_bytes = 4 * cols * t
+        t_ops = (tile_ops / PEAK_F32_FLOPS + product_ops / PEAK_TF32_FLOPS) * 1e3
+    nbytes = x_bytes + 4 * batch * rows * t + batch * m_bytes
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
             rows * cols)
 
 
-def fused_bound(n: int, d: int, t: int, batch: int = 1, bf16: bool = False):
-    """Least time for one fused CG step (B3) on an H100, priced as B1:
-    the kernel tile (2d + 1 flops per entry, f32 at 67 TFLOP/s, once
-    whatever the batch) and the product K̂·D′ (2t flops per entry per batch
-    element, three TF32 products at 495 TFLOP/s, or with ``bf16`` one bf16
-    product at 989), plus the prologue and the four reductions (~14 f32
-    flops per state element), against X read once, the state U, R, D, V and
-    α, β, γ read once and U′, R′, D′, V′ and the reductions written once."""
-    f32_ops = n * n * (2 * d + 1) + 14 * n * t * batch
+def fused_bound(n: int, d: int, t: int, batch: int = 1, bf16: bool = False,
+                kernel_type: str = "matern52"):
+    """Least time for one fused CG step (B3) on an H100, priced as B1
+    (``kernel_bound``: in f32 the tile 2d + 1 flops an entry at 67 TFLOP/s
+    and the product K̂·D′ three TF32 products at 495; with ``bf16`` the
+    distance's inner product and the product on the bf16 tensor cores and
+    the norm combination and the map on the CUDA cores), plus the prologue
+    and the four reductions (~14 f32 flops per state element), against X
+    read once (bf16: staged, ⌈d/16⌉·16 wide), the state U, R, D, V and α,
+    β, γ read once and U′, R′, D′, V′ and the reductions written once."""
     product_ops = 2 * n * n * t * batch * (1 if bf16 else 3)
-    nbytes = 4 * (n * d + 8 * batch * n * t + 7 * batch * t)
-    peak = PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS
-    t_ops = (f32_ops / PEAK_F32_FLOPS + product_ops / peak) * 1e3
+    state_ops = 14 * n * t * batch
+    if bf16:
+        f32_ops = n * n * (COMBINE_FLOPS + MAP_FLOPS[kernel_type]) + state_ops
+        t_ops = (f32_ops / PEAK_F32_FLOPS + (2 * n * n * d + product_ops) / PEAK_BF16_FLOPS) * 1e3
+        x_bytes = 2 * n * (-(-d // 16) * 16)
+    else:
+        f32_ops = n * n * (2 * d + 1) + state_ops
+        t_ops = (f32_ops / PEAK_F32_FLOPS + product_ops / PEAK_TF32_FLOPS) * 1e3
+        x_bytes = 4 * n * d
+    nbytes = x_bytes + 4 * (8 * batch * n * t + 7 * batch * t)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -585,8 +641,8 @@ def grad_bound(n: int, d: int, t: int):
 #: bytes, off the main path)
 TENSOR_CORE_KERNELS = {"kernel_matmul": ("kernel_matmul_kernel", "HMMA", False),
                        "fused_cg_step": ("fused_cg_product_kernel", "HMMA", True),
-                       "kernel_matmul_bf16": ("kernel_matmul_bf16_kernel", "HMMA", True),
-                       "fused_cg_step_bf16": ("fused_cg_product_bf16_kernel", "HMMA", True),
+                       "kernel_matmul_bf16": ("kernel_matmul_bf16_kernel", "HGMMA", True),
+                       "fused_cg_step_bf16": ("fused_cg_product_bf16_kernel", "HGMMA", True),
                        "kernel_matmul_grad": ("kernel_matmul_grad_kernel", "HMMA", True),
                        "flash_attention": ("flash_fwd_tc_kernel", "HGMMA", True),
                        "ssd_scan": ("ssd_scan_tc_kernel", "HMMA", True)}
@@ -1026,9 +1082,9 @@ def fused_step_f64_bf16(Xs, state, scalars, kernel_type, outputscale, sigma2, D_
 def kernel_entries_bf16(km, X1, X2, kernel_type, outputscale, sigma2, row_offset, chunk=16):
     """The bf16 kernel's own rounded entries of (K + σ²I)[rows, :], in
     float64: bf16 B1 with M the identity's columns, ``chunk`` at a time
-    (16: the column block B3 runs at t = 9, so the same instantiation of
-    the entry code); each output is one bf16 entry times 1, summed with
-    zeros, so it is that entry exactly."""
+    (16: the column block B3 runs at t = 9; the entries do not depend on
+    it, which phase ``fused_kernel_bf16`` checks at 256); each output is one
+    bf16 entry times 1, summed with zeros, so it is that entry exactly."""
     cols = X2.shape[0]
     out = torch.empty((X1.shape[0], cols), dtype=torch.float64, device=X1.device)
     eye = torch.eye(chunk, device=X1.device)
@@ -1053,7 +1109,7 @@ def phase_fused_kernel_bf16(km, rng, errs):
     float64 product of the kernel's own rounded entries, no further from it
     than the plain version; two runs bit-identical."""
     from repro_torch.kernels.kernel_matmul.ops import prescale_inputs
-    from repro_torch.kernels.kernel_matmul.ref import fused_cg_step_plain
+    from repro_torch.kernels.kernel_matmul.ref import fused_cg_step_plain, kernel_entries_bf16_plain
 
     dev = torch.device("cuda")
     d = 8
@@ -1188,6 +1244,27 @@ def phase_fused_kernel_bf16(km, rng, errs):
               f"{name}: V′ rows {lo}: further from float64 of its entries than the plain version {own[lo]}")
         del Kb, v64
     witness["V_rows_vs_f64_of_own_entries"] = own
+    # One device function forms bf16 B1's, B2's and B3's entries, whatever
+    # the column block: a 256-row slice read through identity columns 16
+    # and 256 at a time gives the same bits.  And the entries are the
+    # formula's (ref.kernel_entries_bf16_plain: S and the norms from bf16
+    # operands with f32 sums, d² = 0 at coincident points) to one bf16 ulp:
+    # the kernel's f32 sums run in another order than torch's and its map
+    # uses the SFU's exp, so an entry near a rounding boundary may land on
+    # the neighbouring bf16 value; those flips are counted
+    lo = 20_000
+    X1 = Xs[lo : lo + 256].contiguous()
+    e16 = kernel_entries_bf16(km, X1, Xs, "matern52", 1.0, 0.1, lo)
+    e256 = kernel_entries_bf16(km, X1, Xs, "matern52", 1.0, 0.1, lo, chunk=256)
+    check(torch.equal(e16, e256), f"{name}: bf16 B1's entries differ between 16 and 256 columns")
+    formula = kernel_entries_bf16_plain(X1, Xs, 1.0, 0.1, lo, kernel_type="matern52")
+    steps = (e16.float().to(torch.bfloat16).view(torch.int16).int()
+             - formula.to(torch.bfloat16).view(torch.int16).int()).abs()
+    witness["entries_vs_formula"] = {"entries": steps.numel(), "flips": int((steps > 0).sum()),
+                                     "max_bf16_steps": int(steps.max())}
+    check(int(steps.max()) <= 1,
+          f"{name}: bf16 entries {int(steps.max())} bf16 steps from the entry formula")
+    del e16, e256, formula, steps
     again = km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.0, 0.1,
                                   kernel_type="matern52", compute_dtype="bfloat16")
     check(all(torch.equal(a, b) for a, b in zip(out, again)), "bf16 B3: two runs differ")
@@ -1353,7 +1430,7 @@ def phase_timing(km, plain, rng, n, t_gram):
             "n": n, "d": d, "t": t, "batch": batch or 1, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "exps": exps,
-            "bound_share": bound_ms / ms,
+            "sfu_ms": sfu_ms(exps), "bound_share": bound_ms / ms,
         }
         emit({"phase": "timing", "kernel": label, **rows[label]})
         del M
@@ -1382,7 +1459,7 @@ def phase_timing(km, plain, rng, n, t_gram):
             "n": n, "d": d, "t": t, "batch": batch or 1, "ms": ms, "f32_kernel_ms": rows[f32_label]["ms"],
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "exps": exps,
-            "bound_share": bound_ms / ms,
+            "sfu_ms": sfu_ms(exps), "bound_share": bound_ms / ms,
         }
         emit({"phase": "timing", "kernel": label, **rows[label]})
         del M
@@ -1433,7 +1510,7 @@ def time_fused_step(km, rng, Xs, n, d, t=9, bf16=False):
     bound_ms, bound_by = fused_bound(n, d, t, bf16=bf16)
     row = {"n": n, "d": d, "t": t, "batch": 1, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "bound_share": bound_ms / ms}
+           "sfu_ms": sfu_ms(n * n), "bound_share": bound_ms / ms}
     emit({"phase": "timing", "kernel": "B3_bf16" if bf16 else "B3", **row})
     torch.cuda.empty_cache()
     return row
@@ -6179,15 +6256,18 @@ def _sharded_rank(rank, world, seed):
               f"sharded {name}: {g}, one all-gather of the output expected")
         rep["digests"][name] = _digest(out)
     if lead:
+        # the bf16 operator's X/ℓ: rounded to bf16, the values the bf16
+        # kernels take
+        Xb = op.with_compute_dtype("bfloat16").Xs
         for name, out in prods.items():
             bf16 = name.endswith("bf16")
             rhs = Mb if name.startswith("B2") else M
-            stream = ops.panel_matmul_prescaled(Xs, rhs, s, SHARD_ENGINE_PANEL,
+            stream = ops.panel_matmul_prescaled(Xb if bf16 else Xs, rhs, s, SHARD_ENGINE_PANEL,
                                                 kernel_type="matern52",
                                                 compute_dtype="bfloat16" if bf16 else "float32")
             rep["digests"][name + "_stream"] = _digest(stream)
             if bf16:
-                plain = kernel_matmul_plain(Xs[rows], Xs, rhs, s, 0.0, kernel_type="matern52",
+                plain = kernel_matmul_plain(Xb[rows], Xb, rhs, s, 0.0, kernel_type="matern52",
                                             compute_dtype="bfloat16")
                 rep["errs"][name + "_plain"] = _rel_max(out[..., rows, :], plain)
                 check(rep["errs"][name + "_plain"] <= SHARD_BF16_REL,
@@ -6228,8 +6308,9 @@ def _sharded_rank(rank, world, seed):
         check(g["all_gathers"] == 2, f"sharded {name} step: {g}, two all-gathers expected")
         rep["digests"][name] = _digest(torch.stack(got[:4]))
         if lead:
-            ref = ops.fused_cg_step_prescaled(Xs, *state, *scalars, s, sigma2,
-                                              kernel_type="matern52", compute_dtype=dtype)
+            ref = ops.fused_cg_step_prescaled(Xs if dtype == "float32" else Xb, *state, *scalars,
+                                              s, sigma2, kernel_type="matern52",
+                                              compute_dtype=dtype)
             st_tol, red_tol = ((FUSED_STATE_TOL, FUSED_RED_TOL) if dtype == "float32" else
                                (dict(rtol=SHARD_BF16_REL, atol=SHARD_BF16_REL),) * 2)
             for a, b in zip(got[:4], ref[:4]):
@@ -7198,6 +7279,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+        if "sfu_ms" in row:  # B1-B3: the SFU's floor for the kernel map
+            kernels[-1]["sfu_ms"] = row["sfu_ms"]
         if "shapes" in row:  # the same kernel at the zoo's shapes
             kernels[-1]["shapes"] = row["shapes"]
     emit({"kernels": kernels})

@@ -15,7 +15,7 @@ Two policies, named from the user-facing end down to the kernel:
     operands to TF32's 10-bit mantissa behind the policy's back.
   * ``precision="mixed"``   → ``compute_dtype="bfloat16"``: kernel tiles
     and the tile × RHS product take bf16 operands with f32 accumulation
-    (on the GPU the bf16 kernels, ``mma.sync`` bf16 on the tensor cores).
+    (on the GPU the bf16 kernels, ``wgmma`` bf16 on the tensor cores).
     CG keeps its tolerance through a periodic f32 residual refresh inside
     mBCG (:mod:`repro_torch.core.mbcg`).
 

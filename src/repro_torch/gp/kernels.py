@@ -259,6 +259,20 @@ class KernelOperator(LinearOperator):
         return self.kernel.diag(self.X)
 
 
+def _prepared_with_compute_dtype(op, compute_dtype):
+    """A prepared kernel operator at another ``compute_dtype``.  Switching
+    to bf16 rounds Xs to bf16, as ``prescale_inputs`` stores X/ℓ at that
+    dtype (the bf16 kernels take bf16 values); switching back keeps the
+    rounded values, which cannot regain their f32 bits."""
+    from repro_torch.kernels.kernel_matmul.ops import round_prescaled
+
+    compute_dtype = normalize_compute_dtype(compute_dtype)
+    Xs = op.Xs
+    if is_reduced(compute_dtype) and not is_reduced(op.compute_dtype):
+        Xs = round_prescaled(Xs)
+    return dataclasses.replace(op, compute_dtype=compute_dtype, Xs=Xs)
+
+
 @dataclasses.dataclass(frozen=True)
 class PreparedKernelOperator(LinearOperator):
     """KernelOperator(mode='cuda') after ``prepare()``: X is already divided
@@ -301,9 +315,7 @@ class PreparedKernelOperator(LinearOperator):
         )
 
     def with_compute_dtype(self, compute_dtype):
-        # Xs keeps its stored values (bf16-rounded values cannot regain f32
-        # bits); the kernel takes operands at the requested compute_dtype
-        return dataclasses.replace(self, compute_dtype=normalize_compute_dtype(compute_dtype))
+        return _prepared_with_compute_dtype(self, compute_dtype)
 
     def fused_cg_step_fn(self, sigma2=None):
         """One-launch CG iteration (B3): the state update, V = (K + σ²I)·D and
@@ -371,7 +383,7 @@ class PreparedShardedKernelOperator(LinearOperator):
         )
 
     def with_compute_dtype(self, compute_dtype):
-        return dataclasses.replace(self, compute_dtype=normalize_compute_dtype(compute_dtype))
+        return _prepared_with_compute_dtype(self, compute_dtype)
 
     def fused_cg_step_fn(self, sigma2=None):
         """The row-sharded one-launch CG iteration: B3 on this rank's band,

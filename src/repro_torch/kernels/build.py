@@ -13,11 +13,19 @@ loaded with ctypes:
   * ``flash_attention/csrc/flash_attention.cu``  — B4, flash attention;
   * ``ssd_scan/csrc/ssd_scan.cu``                — B5, the Mamba-2 SSD scan.
 
-The kernel-matrix sources include ``kernel_matmul/csrc/tf32_tile.cuh``
-(B1's tensor-core tile loop and its helpers) and ``common.cuh``; B1's and
-B3's, in f32 and bf16, also ``epilogues.cuh`` (their stores), and the two
-bf16 ones ``bf16_tile.cuh`` (the bf16 tile loop), so those headers are
-compiled into several libraries.
+The headers are compiled into several libraries:
+
+  * ``kernel_matmul/csrc/common.cuh`` — the kernel map, the CG advance and
+    the fold, in every kernel-matrix library;
+  * ``kernel_matmul/csrc/tf32_tile.cuh`` — the f32 kernels' 3xTF32 tile loop
+    and its helpers (B1, B3, the gradient);
+  * ``kernel_matmul/csrc/epilogues.cuh`` — the f32 B1's and B3's stores;
+  * ``kernel_matmul/csrc/bf16_tile.cuh`` — the bf16 B1/B2 and B3 tile loop
+    (the distance and the norms on wgmma, the entries in the product's
+    register operand, the product on wgmma, TMA);
+  * ``hopper/csrc/hopper.cuh`` — TMA, mbarriers, wgmma descriptors and
+    instructions, the driver's tensor-map encoder: in the two bf16
+    kernel-matrix libraries and in B4's.
 
 The build happens at first use, into ``_build/`` beside this file
 (gitignored), one ``nvcc`` process per source, all started together.  Each
@@ -64,13 +72,13 @@ ENTRY_POINTS = {
     # X1, X2, A, B, scal, G, partial, gsum; rows, cols, d, t, kernel_type;
     # stream
     "kernel_matmul_grad": ("kernel_matmul_grad_f32", [_P] * 8 + [_I] * 5 + [_P]),
-    # X1, X2, Mb (bf16), scal, out; rows, cols, d, t, tp, batch, row_offset,
-    # kernel_type; stream
-    "kernel_matmul_bf16": ("kernel_matmul_bf16", [_P] * 5 + [_I] * 8 + [_P]),
-    # X1, X2, U, R, D, V, Rc, Dc, Vc, abg, scal, Uo, Ro, Do, Vo, partial,
-    # Db (bf16), red; rows, cols, d, t, tp, batch, row_offset, kernel_type;
-    # stream
-    "fused_cg_step_bf16": ("fused_cg_step_bf16", [_P] * 18 + [_I] * 8 + [_P]),
+    # X1, X2 (staged bf16), Mb (bf16), scal, scratch, out; rows, cols, dp,
+    # t, tp, batch, row_offset, kernel_type; stream
+    "kernel_matmul_bf16": ("kernel_matmul_bf16", [_P] * 6 + [_I] * 8 + [_P]),
+    # X1, X2 (staged bf16), U, R, D, V, Rc, Dc, Vc, abg, scal, Uo, Ro, Do,
+    # Vo, partial, Db (bf16), scratch, red; rows, cols, dp, t, tp, batch,
+    # row_offset, kernel_type; stream
+    "fused_cg_step_bf16": ("fused_cg_step_bf16", [_P] * 19 + [_I] * 8 + [_P]),
     # q, k, v, o, strides (host int64[12]); dtype, b, hq, hkv, sq, skv, dh;
     # scale; causal; stream
     "flash_attention": ("flash_attention_fwd", [_P] * 5 + [_I] * 7 + [_F, _I, _P]),

@@ -71,6 +71,8 @@
 
 #include <cstdint>
 
+#include "../../hopper/csrc/hopper.cuh"  // TMA, mbarriers, wgmma
+
 namespace {
 
 constexpr int BQ = 64;          // query rows per block
@@ -399,118 +401,15 @@ struct Maps {
   CUtensorMap q, k, v;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(1) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spin until the barrier's phase of this parity completes.  A phase that
-// never completes (a wrong byte count) traps after ~10 s instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done = 0;
-  do {
-    if (clock64() - start > (1LL << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
+// TMA, mbarriers and wgmma: ../../hopper/csrc/hopper.cuh
+using namespace hopper;
 
 // One tile of a (8, rows, dh / 8, heads, batch) tensor map: box
 // (8, box rows, dh / 8, 1, 1), which lands as [dh / 8][box rows][8] in
 // shared memory.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
                                          int row, int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(0), "r"(head), "r"(batch),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, no swizzle (layout type 0): start
-// address, leading-dimension and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keep the compiler from moving accesses of a wgmma accumulator across
-// the asynchronous instructions that own it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 64, f32) = (acc ? d : 0) + A (64 x 16) B (16 x 64), both bf16 from
-// shared memory, K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (64 x 32, f32) += A (64 x 16, bf16 in registers) B (16 x 32, bf16 from
-// shared memory, MN-major: transposed).
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// The same for 16 output columns: the first 8 registers of an n32 tile.
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  tma_load_5d(dst, map, bar, 0, row, 0, head, batch);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -621,7 +520,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
         }
       }
       wgmma_commit();
-      wgmma_wait();
+      wgmma_wait_group<0>();
       fence_regs(s);
 
       // ---- mask, scale and the online softmax in registers ----
@@ -691,16 +590,18 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
         for (int c = 0; c < NC; ++c) {
           const uint64_t dv = desc(v_addr + j * 2 * CORE + c * 4 * BK * 16, CORE, BK * 16);
           if (c < full) {
-            wgmma_rs_n32(acc[c], p_lo[j], dv);
-            wgmma_rs_n32(acc[c], p_hi[j], dv);
+            wgmma_rs<32>(acc[c], p_lo[j], dv);
+            wgmma_rs<32>(acc[c], p_hi[j], dv);
           } else if (c == full && tail) {
-            wgmma_rs_n16(acc[c], p_lo[j], dv);
-            wgmma_rs_n16(acc[c], p_hi[j], dv);
+            // the first 8 registers of the 32-column tile
+            float(&lo)[8] = *reinterpret_cast<float(*)[8]>(&acc[c][0]);
+            wgmma_rs<16>(lo, p_lo[j], dv);
+            wgmma_rs<16>(lo, p_hi[j], dv);
           }
         }
       }
       wgmma_commit();
-      wgmma_wait();
+      wgmma_wait_group<0>();
 #pragma unroll
       for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
     }
@@ -735,21 +636,6 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
       }
     }
   }
-}
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled of the CUDA driver API, looked up once in
-// libcuda.so.1, which the process has already loaded (no link-time
-// dependency on libcuda).
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
 }
 
 // (8, rows, dh / 8, heads, batch) view of a bf16 tensor with element strides

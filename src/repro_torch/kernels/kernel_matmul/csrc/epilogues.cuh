@@ -1,6 +1,6 @@
-// The ends of the kernel-matrix tile loops (tile_kernel in tf32_tile.cuh,
-// tile_kernel_bf16 in bf16_tile.cuh), shared by the f32 and the bf16
-// kernels: the two k-halves of a block meet through shared memory (the
+// The ends of the f32 kernel-matrix tile loop (tile_kernel in
+// tf32_tile.cuh), shared by f32 B1 and B3: the two k-halves of a block
+// meet through shared memory (the
 // second half's warps leave their sums in `red`, BN x TB, the first half's
 // add them in that fixed order), then B1 stores its outputs and B3 stores
 // V' and one partial per row block of its four reductions.  Each .cu file

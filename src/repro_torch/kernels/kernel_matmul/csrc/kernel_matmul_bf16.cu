@@ -3,117 +3,148 @@
 //
 //     out = (K(X1, X2) + sigma2 * [row_offset + i == j]) @ M
 //
-// with each kernel entry formed in f32 and rounded to bf16, M rounded to
-// bf16, and their product summed in f32.  X1 (rows, d) and X2 (cols, d) are
-// prescaled (under the mixed policy their values are already bf16-rounded;
-// the kernel reads them as f32, as the f32 kernel does); M comes as a bf16
-// copy of shape (batch, cols, tp), rows padded to tp, a multiple of 8.
+// with the distance's inner product taken on the tensor cores from bf16
+// X/l, each kernel entry rounded to bf16, M rounded to bf16, and their
+// product summed in f32.  X1 (rows, dp) and X2 (cols, dp) come as the
+// staged bf16 copies of the prescaled inputs (kernel_matmul.stage_bf16: bf16
+// values, rows padded with zeros to dp, a multiple of 16 features); M as a
+// bf16 copy of shape (batch, cols, tp), rows padded to tp, a multiple of 8.
 //
 // Replaces the TPU kernel kernel_matmul_pallas with compute_dtype="bfloat16"
 // (src/repro/kernels/kernel_matmul/kernel_matmul.py:298), bodies
 // _kernel_matmul_kernel (:166, 2-D M) and _kernel_matmul_batched_kernel
-// (:199, 3-D M, here the blockIdx.z axis); the stages _masked_kernel_tile
-// (:119) and _tile_rhs_product (:154).  There the distance's inner product
-// and the tile x M product take bf16 operands on the MXU; here the distance
-// stays an f32 fmaf chain (the operands are bf16-rounded values, whose
-// products f32 holds exactly), so coincident points keep d2 = 0 exactly.
+// (:199, 3-D M, here the blockIdx.z axis; its entry point :331); the stages
+// _masked_kernel_tile (:119) and _tile_rhs_product (:154).  As there, the
+// distance's inner product takes bf16 operands with f32 accumulation and
+// the norms stay f32.
 //
-// What bounds it on an H100: operations.  The kernel entries are the f32
-// kernel's (2d + 1 f32 flops and one exp each on the CUDA cores and the SFU);
-// the product is one bf16 product, 2 * rows * cols * t * batch flops at
-// 989 TFLOP/s, where the f32 kernel runs three TF32 products at 495.  At
-// t = 9 the entries are the limit either way; at t = 256 the product's
-// tensor-core instructions fall six-fold (one m16n8k16 per k16 step and n8
-// tile against three m16n8k8 per k8 step).  The design is tf32_tile.cuh's,
-// with the bf16 product of bf16_tile.cuh and the f32 kernel's epilogue
-// (epilogues.cuh: the two k-halves meet through shared memory and each
-// output is written once); this file adds only the launch.  No atomics.  The launch goes on
-// the caller's stream and the entry point returns cudaGetLastError().
+// What bounds it on an H100: operations.  At narrow t (an mBCG iteration,
+// t = 9) the kernel map on the SFU (Matern: one rsqrt and one ex2 an entry,
+// 16 a clock an SM: 0.77 ms at n = 40,000); at wide t (the cache's Gram
+// product, predict's 256 columns) the product on the tensor cores, 2 t
+// flops an entry at 989 TFLOP/s, with the map beside it.  The design
+// (bf16_tile.cuh) keeps everything but the map off the CUDA cores: the
+// distance and the norms on wgmma, the entries formed in registers
+// straight into the product's register A operand, the product on wgmma,
+// the tiles brought by TMA, each warpgroup's tiles software-pipelined.
+// Launches: the norms pass, the product (column blocks of 16 .. 128
+// right-hand-side columns, t > 128 taking several, each forming the
+// entries again; a block forms each entry once for up to 64 / TB batch
+// elements, B2; up to 32 columns one block a chunk of a row tile's
+// columns), and then the fold of the chunks' sums.  No atomics.  The launches go
+// on the caller's stream and the entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
-#include "bf16_tile.cuh"  // the bf16 tile loop and its helpers
-#include "epilogues.cuh"  // the end: the two k-halves meet, the stores
+#include "bf16_tile.cuh"  // the bf16 tile loop, its layouts and tensor maps
 
 namespace {
 
-// At 16 columns three blocks fit an SM's registers, two where d > 8 (its
-// build spills 8 bytes at three).
-template <int KT, int TB, bool D8>
-__global__ void __launch_bounds__(NT, TB == 16 ? (D8 ? 3 : 2) : 1) kernel_matmul_bf16_kernel(
-    const float* __restrict__ X1, const float* __restrict__ X2, const uint16_t* __restrict__ Mb,
-    const float* __restrict__ scal, float* __restrict__ out, int rows, int cols, int d, int t,
-    int tp, int row_offset, int xvec) {
-  constexpr int NCH = TB / 8;
-  tile_kernel_bf16<KT, TB, D8>(
-      X1, X2, Mb, scal, out, rows, cols, d, t, tp, row_offset, xvec != 0,
-      [&](float (&acc)[NCH][4], float* red, int kh, int ra, int c, int nch, int i0, int t0,
-          long long, float* out) {
-        store_product<TB>(acc, red, kh, ra, c, nch, i0, t0, out, rows, t);
+// B1 / B2: each thread stores its sums into out (batch, rows, t), or
+// (chunked) its chunk's into the chunks' sums for fold_chunks_kernel.
+template <int KT, int TB, int NB>
+__global__ void __launch_bounds__(WG_THREADS * warpgroups(TB), min_blocks<TB, NB>())
+    kernel_matmul_bf16_kernel(const __grid_constant__ Maps maps, const float* __restrict__ n1,
+                              const float* __restrict__ scal, float* __restrict__ chunks,
+                              float* __restrict__ out, int rows, int cols, int dp, int t,
+                              int batch, int row_offset, int stages) {
+  tile_loop_bf16<KT, TB, NB>(
+      maps, n1, scal, rows, cols, dp, batch, row_offset, stages,
+      [&](float (&acc)[NB][TB / 2], unsigned char*, int wg, int r0, int c, int i0, int t0,
+          int b0, int nb) {
+        float* o = chunked(TB) ? chunks + static_cast<long long>(blockIdx.y) * batch * rows * t
+                               : out;
+        store_acc<TB, NB>(acc, o, i0 + TILE * wg, r0, c, t0, b0, nb, rows, t);
       });
 }
 
-template <int TB, bool D8>
-cudaError_t launch_tb(int kernel_type, int d, dim3 grid, cudaStream_t stream, const float* X1,
-                      const float* X2, const uint16_t* Mb, const float* scal, float* out,
-                      int rows, int cols, int t, int tp, int row_offset, int xvec) {
-  auto kern = kernel_matmul_bf16_kernel<MATERN52, TB, D8>;
+// One launch of the product at column block TB and NB batch elements a
+// block (chunked: one block a chunk of a row tile, then the fold).
+template <int TB, int NB>
+cudaError_t launch_tb(int kernel_type, const Maps& maps, dim3 grid, int stages,
+                      cudaStream_t stream, const float* n1, const float* scal, float* chunks,
+                      float* out, int rows, int cols, int dp, int t, int batch, int row_offset) {
+  auto kern = kernel_matmul_bf16_kernel<MATERN52, TB, NB>;
   switch (kernel_type) {
-    case RBF: kern = kernel_matmul_bf16_kernel<RBF, TB, D8>; break;
-    case MATERN12: kern = kernel_matmul_bf16_kernel<MATERN12, TB, D8>; break;
-    case MATERN32: kern = kernel_matmul_bf16_kernel<MATERN32, TB, D8>; break;
+    case RBF: kern = kernel_matmul_bf16_kernel<RBF, TB, NB>; break;
+    case MATERN12: kern = kernel_matmul_bf16_kernel<MATERN12, TB, NB>; break;
+    case MATERN32: kern = kernel_matmul_bf16_kernel<MATERN32, TB, NB>; break;
     default: break;
   }
-  const size_t smem = smem_bytes_bf16(TB, d, D8);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const int smem = smem_layout(TB, NB, dp, stages).total;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, NT, smem, stream>>>(X1, X2, Mb, scal, out, rows, cols, d, t, tp, row_offset, xvec);
-  return cudaGetLastError();
+  const int nchunks = chunk_count(cols);
+  if (chunked(TB)) grid.y = nchunks > 0 ? nchunks : 1;
+  kern<<<grid, WG_THREADS * warpgroups(TB), smem, stream>>>(maps, n1, scal, chunks, out, rows,
+                                                            cols, dp, t, batch, row_offset,
+                                                            stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !chunked(TB)) return err;
+  return launch_fold_chunks(chunks, out, static_cast<long long>(batch) * rows * t, nchunks,
+                            stream);
 }
 
-template <bool D8>
-cudaError_t launch(int tb, int kernel_type, int d, dim3 grid, cudaStream_t stream,
-                   const float* X1, const float* X2, const uint16_t* Mb, const float* scal,
-                   float* out, int rows, int cols, int t, int tp, int row_offset, int xvec) {
-  switch (tb) {
-    case 16: return launch_tb<16, D8>(kernel_type, d, grid, stream, X1, X2, Mb, scal, out, rows, cols, t, tp, row_offset, xvec);
-    case 32: return launch_tb<32, D8>(kernel_type, d, grid, stream, X1, X2, Mb, scal, out, rows, cols, t, tp, row_offset, xvec);
-    case 64: return launch_tb<64, D8>(kernel_type, d, grid, stream, X1, X2, Mb, scal, out, rows, cols, t, tp, row_offset, xvec);
-    case 128: return launch_tb<128, D8>(kernel_type, d, grid, stream, X1, X2, Mb, scal, out, rows, cols, t, tp, row_offset, xvec);
-    default: return launch_tb<256, D8>(kernel_type, d, grid, stream, X1, X2, Mb, scal, out, rows, cols, t, tp, row_offset, xvec);
+// One right-hand side (NB = 1), or batch_block(TB) of several a block.
+template <int TB>
+cudaError_t launch_nb(bool several, int kernel_type, const Maps& maps, dim3 grid, int stages,
+                      cudaStream_t stream, const float* n1, const float* scal, float* chunks,
+                      float* out, int rows, int cols, int dp, int t, int batch, int row_offset) {
+  if (several) {
+    return launch_tb<TB, batch_block(TB)>(kernel_type, maps, grid, stages, stream, n1, scal,
+                                          chunks, out, rows, cols, dp, t, batch, row_offset);
   }
+  return launch_tb<TB, 1>(kernel_type, maps, grid, stages, stream, n1, scal, chunks, out, rows,
+                          cols, dp, t, batch, row_offset);
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  X1, X2, scal and out are device
-// pointers to contiguous f32 arrays, Mb to a contiguous bf16 array: X1
-// (rows, d), X2 (cols, d), Mb (batch, cols, tp) with tp a multiple of 8 and
-// at least t (columns t .. tp - 1 are never read into an output), out
-// (batch, rows, t); scal holds [outputscale, sigma2] on the device.
-// Returns cudaGetLastError() after the launch (0 = ok), or
-// cudaErrorInvalidValue for arguments the kernel does not take (tp, an Mb
-// that is not 16-byte aligned, d past what shared memory holds).
-extern "C" int kernel_matmul_bf16(const float* X1, const float* X2,
-                                  const void* Mb, const float* scal,
-                                  float* out, int rows, int cols, int d,
-                                  int t, int tp, int batch, int row_offset,
+// Plain C entry point (bound with ctypes).  scal, scratch and out are
+// device pointers to contiguous f32 arrays, X1, X2 and Mb to contiguous
+// bf16 arrays, each 16-byte aligned: X1 (rows, dp) and X2 (cols, dp), the
+// staged X/l (bf16 values, dp a multiple of 16, features past d zero); Mb
+// (batch, cols, tp) with tp a multiple of 8 and at least t (columns t ..
+// tp - 1 are never read into an output); scratch norms_floats(rows, cols)
+// floats, plus max(chunk_count(cols), 1) * batch * rows * t when t <= 32 (the
+// chunks' sums); out (batch, rows, t); scal holds [outputscale, sigma2] on
+// the device.  Returns cudaGetLastError() after the launches (0 = ok), or
+// cudaErrorInvalidValue for arguments the kernel does not take (tp, dp,
+// alignment, dp past what shared memory holds, a tensor map the driver
+// refuses).
+extern "C" int kernel_matmul_bf16(const void* X1, const void* X2, const void* Mb,
+                                  const float* scal, float* scratch, float* out, int rows,
+                                  int cols, int dp, int t, int tp, int batch, int row_offset,
                                   int kernel_type, void* stream) {
-  if (rows <= 0 || cols < 0 || d <= 0 || t <= 0 || batch <= 0 ||
-      batch > 65535 || kernel_type < RBF || kernel_type > MATERN52 ||
-      tp < t || tp % 8 != 0 || reinterpret_cast<uintptr_t>(Mb) % 16 != 0) {
+  bool ok = rows > 0 && cols >= 0 && dp > 0 && dp % 16 == 0 && t > 0 && batch > 0 &&
+            kernel_type >= RBF && kernel_type <= MATERN52 && tp >= t && tp % 8 == 0;
+  for (const void* p : {X1, X2, Mb, static_cast<const void*>(scratch)}) {
+    ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int tb = column_block_bf16(t, 128);
+  const int nb = batch == 1 ? 1 : batch_block(tb);
+  const int stages = ring_stages(tb, nb, dp, 0);
+  Maps maps;
+  if (stages == 0 ||
+      !encode_maps(&maps, X1, X2, Mb, scratch, rows, cols, dp, tp, batch, tb, nb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool d8 = d <= 8;
-  const int tb = column_block_bf16(d, t, 256);
-  if (tb == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((rows + BN - 1) / BN, (t + tb - 1) / tb, batch);
-  const int xvec = d == 8 && reinterpret_cast<uintptr_t>(X2) % 16 == 0;
-  const uint16_t* M = static_cast<const uint16_t*>(Mb);
+  const int nbb = (batch + nb - 1) / nb;
+  if (nbb > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      d8 ? launch<true>(tb, kernel_type, d, grid, s, X1, X2, M, scal, out, rows, cols, t, tp, row_offset, xvec)
-         : launch<false>(tb, kernel_type, d, grid, s, X1, X2, M, scal, out, rows, cols, t, tp, row_offset, xvec);
+  const float* n1 = nullptr;
+  cudaError_t err = launch_all_norms(X1, X2, scratch, rows, cols, dp, s, &n1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* chunks = scratch + norms_floats(rows, cols);
+  const dim3 grid((rows + TILE * warpgroups(tb) - 1) / (TILE * warpgroups(tb)), (t + tb - 1) / tb,
+                  nbb);
+  const bool several = nb > 1;
+  switch (tb) {
+    case 16: err = launch_nb<16>(several, kernel_type, maps, grid, stages, s, n1, scal, chunks, out, rows, cols, dp, t, batch, row_offset); break;
+    case 32: err = launch_nb<32>(several, kernel_type, maps, grid, stages, s, n1, scal, chunks, out, rows, cols, dp, t, batch, row_offset); break;
+    case 64: err = launch_tb<64, 1>(kernel_type, maps, grid, stages, s, n1, scal, chunks, out, rows, cols, dp, t, batch, row_offset); break;
+    default: err = launch_tb<128, 1>(kernel_type, maps, grid, stages, s, n1, scal, chunks, out, rows, cols, dp, t, batch, row_offset); break;
+  }
   return static_cast<int>(err);
 }

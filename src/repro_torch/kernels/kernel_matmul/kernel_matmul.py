@@ -24,10 +24,14 @@
 B1/B2 and B3 take ``compute_dtype``: "float32" (``precision="highest"``)
 launches the 3xTF32 kernels above, "bfloat16" (``precision="mixed"``) their
 bf16-operand counterparts (``csrc/kernel_matmul_bf16.cu``,
-``csrc/fused_cg_step_bf16.cu``): the kernel entries formed in f32 and
-rounded to bf16, the right-hand side rounded to bf16, the product summed
-in f32.  The gradient kernel is f32 only: the MLL's backward runs through
-the f32 operator, as the reference's VJP does.
+``csrc/fused_cg_step_bf16.cu``): the distance's inner product and the norms
+on the tensor cores from bf16 X/ℓ, the kernel entries rounded to bf16, the
+right-hand side rounded to bf16, the product summed in f32.  They read X/ℓ
+as :func:`stage_bf16` lays it out (bf16, rows padded to a multiple of 16
+features), so bf16 mode requires X to hold bf16 values (the mixed policy's
+``prescale_inputs`` rounds it, and stages it once a solve).  The gradient
+kernel is f32 only: the MLL's backward runs through the f32 operator, as
+the reference's VJP does.
 
 Each kernel is bound with ctypes.  On CUDA tensors a wrapper launches its
 kernel; on CPU tensors it runs the plain PyTorch version from :mod:`.ref`.
@@ -138,6 +142,67 @@ def _count(name: str, k: int = 1, *, panel: bool = False) -> None:
         col.add_instant("launch", {"counter": name, "count": k, "panel": panel})
 
 
+#: features of a staged bf16 X are padded to a multiple of this (one
+#: tensor-core k-step)
+BF16_FEATURE_ALIGN = 16
+
+
+def stage_bf16(X: torch.Tensor) -> torch.Tensor:
+    """X (n, d) as the bf16 kernels read it: bf16, contiguous, each row padded
+    with zeros to a multiple of 16 features (zero features change no
+    distance).  The kernels take X's values as bf16, so X must hold bf16
+    values (the mixed policy's ``prescale_inputs`` rounds them); others are
+    rounded here.
+
+    The copy is made once per tensor: it is kept on X (on the tensor X is a
+    row slice of, when it is one, so a row panel or band reads its rows of
+    the base's copy) until X is written in place."""
+    base = X._base if X._base is not None else X
+    off = 0
+    if base is not X:
+        d = X.shape[-1]
+        if (base.dim() != 2 or X.dim() != 2 or base.shape[1] != d or not base.is_contiguous()
+                or not X.is_contiguous() or (X.storage_offset() - base.storage_offset()) % d):
+            return _stage_copy(X)
+        off = (X.storage_offset() - base.storage_offset()) // d
+    # an inference tensor keeps no version counter
+    version = -1 if base.is_inference() else base._version
+    cached = getattr(base, "_bf16_stage", None)
+    if cached is None or cached[0] != version or cached[1].device != base.device:
+        cached = (version, _stage_copy(base))
+        base._bf16_stage = cached
+    return cached[1][off : off + X.shape[0]]
+
+
+def _stage_copy(X: torch.Tensor) -> torch.Tensor:
+    n, d = X.shape
+    dp = -(-max(d, 1) // BF16_FEATURE_ALIGN) * BF16_FEATURE_ALIGN
+    out = torch.zeros((n, dp), dtype=torch.bfloat16, device=X.device)
+    with torch.no_grad():
+        out[:, :d] = X
+    return out
+
+
+#: the bf16 kernels' chunks (``csrc/bf16_tile.cuh``: MAX_CHUNKS, chunk_tiles,
+#: chunk_count): up to this many right-hand-side columns each row tile's
+#: sum is taken in at most 16 chunks of at least 32 column tiles
+_CHUNKED_WIDTH = 32
+
+
+def _bf16_scratch(rows: int, cols: int, t: int, batch: int, device) -> torch.Tensor:
+    """The bf16 kernels' scratch, laid out as ``csrc/bf16_tile.cuh``'s
+    ``norms_floats`` and ``chunk_count`` say: the norms of the columns and
+    rows (rounded up to 4 floats), then, at up to 32 columns, the chunks'
+    sums (at least one chunk, batch, rows, t)."""
+    norms = -(-(rows + cols) // 4) * 4
+    chunks = 0
+    if t <= _CHUNKED_WIDTH:
+        tiles = -(-cols // 64)
+        per_chunk = max(32, -(-tiles // 16))
+        chunks = max(1, -(-tiles // per_chunk))
+    return torch.empty(norms + chunks * batch * rows * t, dtype=torch.float32, device=device)
+
+
 def _padded_width(t: int) -> int:
     """Columns of a bf16 right-hand side as the bf16 kernels read it: t
     rounded up to a multiple of 8, so that every row stages by 16-byte
@@ -211,8 +276,9 @@ def kernel_matmul_cuda(
     (cols, t) or (b, cols, t); all f32 and contiguous.  ``outputscale`` and
     ``sigma2`` are floats or 0-d tensors; ``row_offset`` is the global row
     index of X1[0] (a host int).  The output is f32.  Under a bf16
-    ``compute_dtype`` the bf16 kernel runs on a bf16 copy of M, its rows
-    padded to a multiple of 8 columns (one cast here).
+    ``compute_dtype`` the bf16 kernel runs on X1 and X2 as
+    :func:`stage_bf16` stages them (X must hold bf16 values) and on a bf16
+    copy of M, its rows padded to a multiple of 8 columns (one cast here).
     """
     reduced = is_reduced(compute_dtype)
     if all(x.device.type == "cpu" for x in (X1, X2, M)):
@@ -238,10 +304,12 @@ def kernel_matmul_cuda(
             symbol = "kernel_matmul_bf16"
             tp = _padded_width(t)
             Mb = torch.nn.functional.pad(M.to(torch.bfloat16), (0, tp - t)).contiguous()
+            X1b, X2b = stage_bf16(X1), stage_bf16(X2)
+            scratch = _bf16_scratch(rows, cols, t, batch, M.device)
             err = load_library(symbol).kernel_matmul_bf16(
-                X1.data_ptr(), X2.data_ptr(), Mb.data_ptr(), scal.data_ptr(),
-                out.data_ptr(), rows, cols, d, t, tp, batch, int(row_offset),
-                KERNEL_TYPE_CODES[kernel_type], stream,
+                X1b.data_ptr(), X2b.data_ptr(), Mb.data_ptr(), scal.data_ptr(),
+                scratch.data_ptr(), out.data_ptr(), rows, cols, X1b.shape[1], t, tp, batch,
+                int(row_offset), KERNEL_TYPE_CODES[kernel_type], stream,
             )
         else:
             symbol = "kernel_matmul_f32"
@@ -307,7 +375,8 @@ def fused_cg_step_cuda(
     never written: the caller's next call takes the outputs (ping-pong).
     All f32 and contiguous; the scalars may be floats or 0-d tensors.  Under
     a bf16 ``compute_dtype`` the product takes bf16 operands (the bf16 B3;
-    the state and the reductions stay f32)."""
+    the state and the reductions stay f32; X as :func:`stage_bf16` stages
+    it)."""
     reduced = is_reduced(compute_dtype)
     tensors = (Xs_rows, Xs_cols, U, R, D, V, R_cols, D_cols, V_cols, alpha, beta, gamma)
     if all(x.device.type == "cpu" for x in tensors):
@@ -339,6 +408,9 @@ def fused_cg_step_cuda(
     )
     abg = torch.stack([alpha, beta, gamma])
     scal = torch.stack([_device_scalar(outputscale, dev), _device_scalar(sigma2, dev)])
+    if reduced:
+        Xs_rows, Xs_cols = stage_bf16(Xs_rows), stage_bf16(Xs_cols)
+        d = Xs_cols.shape[1]
     head = (Xs_rows.data_ptr(), Xs_cols.data_ptr(), U.data_ptr(), R.data_ptr(),
             D.data_ptr(), V.data_ptr(), R_cols.data_ptr(), D_cols.data_ptr(),
             V_cols.data_ptr(), abg.data_ptr(), scal.data_ptr(), Uo.data_ptr(),
@@ -349,9 +421,10 @@ def fused_cg_step_cuda(
             symbol = "fused_cg_step_bf16"
             tp = _padded_width(t)
             Db = torch.empty((b, cols, tp), dtype=torch.bfloat16, device=dev)
+            scratch = _bf16_scratch(rows, cols, t, b, dev)
             err = load_library(symbol).fused_cg_step_bf16(
-                *head, Db.data_ptr(), red.data_ptr(), rows, cols, d, t, tp, b,
-                int(row_offset), KERNEL_TYPE_CODES[kernel_type], stream,
+                *head, Db.data_ptr(), scratch.data_ptr(), red.data_ptr(), rows, cols, d, t, tp,
+                b, int(row_offset), KERNEL_TYPE_CODES[kernel_type], stream,
             )
         else:
             symbol = "fused_cg_step_f32"

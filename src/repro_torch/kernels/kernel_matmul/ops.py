@@ -40,9 +40,9 @@ kernel (CUDA) or the plain version (CPU), and the kernel's tiles are fixed.
 Every entry point takes the reference's ``compute_dtype`` ('float32' |
 'bfloat16', or the 'highest' / 'mixed' precision aliases).  Under bf16 the
 prescaled X is rounded to bf16, as the reference stores it at
-``compute_dtype`` (the kernels read those values widened to f32: the same
-numbers, and the distance stays one f32 fmaf chain), and the product
-launches the bf16 kernels.  The bf16 product carries no gradient: the
+``compute_dtype``, and staged once as the bf16 kernels read it (bf16, rows
+padded to 16 features: the distance's inner product and the norms on the
+tensor cores), and the product launches the bf16 kernels.  The bf16 product carries no gradient: the
 MLL's backward differentiates the f32 operator, as the reference's VJP
 does.
 
@@ -71,6 +71,7 @@ from .kernel_matmul import (
     fused_cg_step_cuda,
     kernel_matmul_cuda,
     kernel_matmul_grad_rows_cuda,
+    stage_bf16,
 )
 
 #: The reference's default working-set budget for one streamed row-panel
@@ -117,11 +118,20 @@ def prescale_inputs(X: torch.Tensor, lengthscale, compute_dtype="float32") -> to
     """X/ℓ in f32, contiguous — everything about X the kernel needs that
     does not change across CG iterations; call once per solve.  Under a
     bf16 ``compute_dtype`` the quotient (taken in f32) is rounded to bf16
-    and kept as f32 values."""
+    and kept as f32 values, and on the card the bf16 kernels' padded copy
+    of it is staged here, once (:func:`.kernel_matmul.stage_bf16`)."""
     Xs = (X / lengthscale).to(torch.float32)
-    if is_reduced(compute_dtype):
-        Xs = Xs.to(torch.bfloat16).to(torch.float32)
-    return Xs.contiguous()
+    return round_prescaled(Xs) if is_reduced(compute_dtype) else Xs.contiguous()
+
+
+def round_prescaled(Xs: torch.Tensor) -> torch.Tensor:
+    """Prescaled X as a bf16 ``compute_dtype`` stores it: rounded to bf16,
+    kept as f32 values, contiguous, and on the card staged once as the bf16
+    kernels read it (:func:`.kernel_matmul.stage_bf16`)."""
+    Xs = Xs.to(torch.bfloat16).to(torch.float32).contiguous()
+    if Xs.device.type == "cuda":
+        stage_bf16(Xs)
+    return Xs
 
 
 def fused_kernel_matmul_prescaled(

@@ -19,6 +19,11 @@ as in f32, the tile (σ² diagonal included) rounded to bf16, the
 right-hand side rounded to bf16, and their product summed in f32.  The
 state, the prologue and the reductions of B3 stay f32.
 
+``kernel_entries_bf16_plain`` is the entry formula of the bf16 kernels
+themselves (the distance's inner product from bf16 operands with f32
+accumulation, f32 norms, d² = 0 at coincident points), which
+``chip_smoke.py`` holds their extracted entries to.
+
 The wrappers in :mod:`.kernel_matmul` run them for CPU tensors, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
 ``kernel_matmul_ref`` mirrors the reference oracle
@@ -115,6 +120,48 @@ def kernel_matmul_plain(
         K.copy_(K.to(torch.bfloat16))
         M = M.to(torch.bfloat16).float()
     return _matmul_rhs(K, M)
+
+
+def kernel_entries_bf16_plain(
+    X1: torch.Tensor,
+    X2: torch.Tensor,
+    outputscale,
+    sigma2,
+    row_offset: int = 0,
+    *,
+    kernel_type: str = "rbf",
+) -> torch.Tensor:
+    """The bf16 kernels' entries of K(X1, X2) + σ²·[row_offset + i == j],
+    (rows, cols) f32 holding bf16 values, by their formula:
+
+      * X rounded to bf16 (the kernels take its values as bf16);
+      * S = X1·X2ᵀ from those values in f32 (every product exact, the sums
+        rounded in f32), the norms n = Σ x² the same way;
+      * d² = max(n1 + n2 − 2S, 0), and exactly 0 where the two points are
+        equal (the kernels take the norms with the instructions that take S,
+        so equal points give equal sums);
+      * the stationary map, 0 where its exp falls below 2⁻¹²⁶ (the kernels'
+        SFU exp flushes subnormal results, as XLA's does), σ² on the global
+        diagonal, rounded to bf16 to nearest.
+
+    The reference's mixed tile (``_masked_kernel_tile`` with a bf16
+    ``mxu_dtype``) is the same but for the coincident points, where its
+    rounded norms leave a small d²."""
+    X1b = X1.to(torch.bfloat16).float()
+    X2b = X2.to(torch.bfloat16).float()
+    n1 = (X1b * X1b).sum(-1)
+    n2 = (X2b * X2b).sum(-1)
+    d2 = (n1[:, None] + n2[None, :] - 2.0 * (X1b @ X2b.T)).clamp_(min=0.0)
+    d2[_sq_dist(X1b, X2b) == 0] = 0.0
+    if kernel_type == "rbf":
+        flushed = 0.5 * d2 > 126.0 * math.log(2.0)
+    else:
+        c = {"matern12": 1.0, "matern32": 3.0, "matern52": 5.0}[kernel_type]
+        flushed = math.sqrt(c) * d2.clamp(min=1e-20).sqrt() > 126.0 * math.log(2.0)
+    K = apply_stationary(kernel_type, d2, outputscale)
+    K[flushed] = 0.0
+    K.diagonal(int(row_offset)).add_(sigma2)
+    return K.to(torch.bfloat16).float()
 
 
 def _matmul_rhs(K: torch.Tensor, M: torch.Tensor) -> torch.Tensor:

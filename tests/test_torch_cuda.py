@@ -519,10 +519,11 @@ def _bf16_counts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
-@pytest.mark.parametrize("d", [1, 3, 8, 17])
+@pytest.mark.parametrize("d", [1, 3, 8, 16, 17, 33])
 @pytest.mark.parametrize("t,batch", [(1, 0), (9, 0), (17, 0), (234, 0), (256, 0), (512, 0), (9, 4)])
 def test_bf16_kernel_matches_plain(cuda_device, kernel_type, d, t, batch):
-    """bf16 B1 (2-D M) and B2 (b = 4): every column block, odd n, ARD."""
+    """bf16 B1 (2-D M) and B2 (b = 4): every column block, odd n, ARD; d past
+    16 takes more than one tensor-core k-step."""
     n = 1001
     shape = (batch, n, t) if batch else (n, t)
     Xs, M = _inputs(n + t + d, n, d, shape, cuda_device)
@@ -557,17 +558,69 @@ def test_bf16_kernel_row_offset_slices_reassemble(cuda_device, t):
 
 
 @pytest.mark.cuda
-def test_bf16_kernel_matern12_coincident_points_are_exact(cuda_device):
-    """The distance stays one f32 fmaf chain: duplicated rows give k(0) = 1
+@pytest.mark.parametrize("d", [8, 33])
+def test_bf16_kernel_matern12_coincident_points_are_exact(cuda_device, d):
+    """The norms are the diagonals of the product that gives the inner
+    products, so duplicated rows off the diagonal (in other row and column
+    tiles, and, at d = 33, over three k-steps) give d² = 0 and k(0) = 1
     exactly, which bf16 holds exactly, as the plain version does."""
     n = 777
-    Xs, _ = _inputs(12, n, 8, (1,), cuda_device)
+    Xs, _ = _inputs(12, n, d, (1,), cuda_device)
     Xs = Xs.to(torch.bfloat16).float()
     Xs[100] = Xs[7]
+    Xs[700] = Xs[7]
     E = torch.zeros((n, 16), device=cuda_device)
-    E[7, 0] = E[100, 1] = 1.0
+    E[7, 0] = E[100, 1] = E[700, 2] = 1.0
     out = km.kernel_matmul_cuda(Xs, Xs, E, 1.0, 0.0, kernel_type="matern12", compute_dtype="mixed")
-    assert float(out[100, 0]) == 1.0 and float(out[7, 1]) == 1.0 and float(out[7, 0]) == 1.0
+    for i in (7, 100, 700):
+        assert [float(v) for v in out[i, :3]] == [1.0, 1.0, 1.0], i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [0, 37, 100])
+def test_bf16_kernel_diagonal_at_a_row_offset(cuda_device, off):
+    """σ² lands on the global diagonal row_offset + i == j, also where a row
+    tile straddles two column tiles (row_offset not a multiple of 64): the
+    entries against identity columns are the plain version's, σ² and k(0)
+    exact there."""
+    n, rows = 300, 150
+    Xs, _ = _inputs(13, n, 8, (1,), cuda_device)
+    Xs = Xs.to(torch.bfloat16).float()
+    X1 = Xs[off : off + rows].contiguous()
+    eye = torch.eye(n, device=cuda_device)
+    out = km.kernel_matmul_cuda(X1, Xs, eye, 0.75, 0.5, off, kernel_type="matern52",
+                                compute_dtype="mixed")
+    idx = torch.arange(rows, device=cuda_device)
+    assert bool((out[idx, idx + off] == 1.25).all())
+    plain = kernel_matmul_plain(X1, Xs, eye, 0.75, 0.5, off, kernel_type="matern52",
+                                compute_dtype="mixed")
+    assert _rel(out, plain) <= BF16_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [9, 40])
+def test_bf16_b2_is_four_b1_launches_bit_for_bit(cuda_device, t):
+    n = 1001
+    Xs, M = _inputs(14, n, 8, (4, n, t), cuda_device)
+    Xs = Xs.to(torch.bfloat16).float()
+    out = km.kernel_matmul_cuda(Xs, Xs, M, 1.0, 0.1, kernel_type="matern32", compute_dtype="mixed")
+    for i in range(4):
+        one = km.kernel_matmul_cuda(Xs, Xs, M[i], 1.0, 0.1, kernel_type="matern32",
+                                    compute_dtype="mixed")
+        assert torch.equal(out[i], one), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4])
+def test_bf16_fused_step_two_runs_are_bit_identical(cuda_device, b):
+    n, t = 2049, 9
+    Xs, _ = _inputs(15, n, 8, (1,), cuda_device)
+    Xs = Xs.to(torch.bfloat16).float()
+    state, scalars = _state(16, b, n, t, cuda_device)
+    runs = [km.fused_cg_step_cuda(Xs, Xs, *state, *state[1:], *scalars, 1.1, 0.1,
+                                  kernel_type="matern52", compute_dtype="mixed")
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.cuda
