@@ -20,11 +20,14 @@
 //
 // What bounds it on an H100.  Per head it does 4 sq skv dh flops (halved
 // under the causal mask) against (2 sq + 2 skv) dh elements of traffic; at
-// the serving slice (b = 4, 32 heads, sq = skv = 512, dh = 224, bf16)
-// 15 GFLOP for 117 MB.  On the bf16 tensor cores (q k^T at 989 TFLOP/s,
-// P v as two bf16 products to keep P's f32 precision) the bytes bound it,
-// 0.035 ms; on the CUDA cores in f32 the operations do, 0.22 ms.  So the
-// bf16 path runs both products on the tensor cores:
+// the serving slice (b = 4, 32 heads, sq = skv = 512, dh = 224) 15 GFLOP
+// for 117 MB in bf16, 235 MB in f32.  Three routes, chosen by the entry
+// point from the dtype, the head dim and the alignment alone
+// (flash_attention.py's b4_route mirrors the choice):
+//
+// bf16 on the tensor cores (tc::, dh a multiple of 16, 16-byte aligned
+// bases and strides: TMA needs both).  q k^T at 989 TFLOP/s and P v as two
+// bf16 products to keep P's f32 precision: the bytes bound it, 0.035 ms:
 //
 //   * one block of two warpgroups (256 threads) owns 128 query rows of one
 //     (batch, head), 64 rows a warpgroup; its Q tile stays in shared
@@ -55,11 +58,46 @@
 //     (up to 128 a thread); at dh = 224 the Q tile and the K / V ring take
 //     169 KB of shared memory, one block an SM.
 //
-// The f32 path, and bf16 whose head dim is not a multiple of 16 or whose
-// rows are not 16-byte aligned (TMA needs both), keep the CUDA-core kernel
-// of the port's first version: one block of 256 threads per 64 query
+// f32 on the tensor cores (tf::, dh a multiple of 8 up to 256, 16-byte
+// aligned bases and strides).  "Highest" is f32 accuracy, so both products
+// are 3xTF32 (../../hopper/csrc/tf32_mma.cuh): each f32 operand split into
+// TF32 halves hi = tf32(x), lo = tf32(x - hi), rounded as cvt.rna rounds,
+// and a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi; one-pass TF32 misses the
+// 2e-4 tolerance.  Three TF32 products at 495 TFLOP/s bound the slice at
+// 0.091 ms (0.224 ms at the CUDA cores' 67):
+//
+//   * one block of 8 warps owns 128 query rows, 16 a warp; heaviest
+//     causal tiles first; a warp whose rows lie past sq or wholly above a
+//     causal tile skips it;
+//   * Q (128 rows) and a two-stage ring of K / V tiles of 32 rows arrive
+//     by cp.async (rows past sq / skv and columns past dh zero-filled) in
+//     f32, rows of dh rounded up to 32 floats with element (r, c) at
+//     column c ^ 4 (r % 8): every fragment load meets 32 distinct banks
+//     with no padding, so dh = 224 fits Q and two stages in 229,376 bytes
+//     (dh 232-256: one stage, 196,608);
+//   * S = Q K^T is mma.sync m16n8k8 TF32, three a k-step, with the split
+//     done in registers as the fragments load (the shared tiles stay f32:
+//     hi and lo copies of Q, K and V would not fit); the tensor cores add
+//     into their accumulator by truncation, so each 4 k-steps (12 mma) go
+//     into a zeroed fragment added to S in IEEE f32;
+//   * the online softmax runs on S's accumulator fragments in registers;
+//     P's fragments serve as P V's A fragments unchanged, V's rows read in
+//     the matching permuted order (tf32_mma.cuh), so P never goes to
+//     shared memory;
+//   * each kv tile's P V (4 k-steps, 12 mma) goes into a zeroed fragment,
+//     then O = alpha O + P V in IEEE f32 (whisper's encoder sums 1,500 kv
+//     rows); every product loop runs in guard-free groups of 4 independent
+//     chains (32 columns; the zero-filled columns past dh add 0);
+//   * what remains is instruction throughput and latency: mma.sync
+//     reaches a fraction of the TF32 peak, every warp splits its own copy
+//     of each K / V fragment (a few integer instructions a value, where
+//     cvt.rna's longer sequence cost much of the time), and one block of 8
+//     warps an SM at dh = 224 (PERF.md section 6).
+//
+// Everything else (f32 or bf16 that neither route takes) runs the CUDA-core
+// kernel of the port's first version: one block of 256 threads per 64 query
 // rows, f32 tiles staged into ~188 KB of shared memory, both products as
-// scalar f32 FMAs.  The dtype and the strides choose the path.
+// scalar f32 FMAs.
 //
 // The launch goes on the caller's stream and the entry point returns
 // cudaGetLastError().
@@ -71,7 +109,8 @@
 
 #include <cstdint>
 
-#include "../../hopper/csrc/hopper.cuh"  // TMA, mbarriers, wgmma
+#include "../../hopper/csrc/hopper.cuh"    // TMA, mbarriers, wgmma
+#include "../../hopper/csrc/tf32_mma.cuh"  // 3xTF32 mma.sync, cp.async
 
 namespace {
 
@@ -81,6 +120,7 @@ constexpr int NT = 256;         // threads per block
 constexpr int PS = BK + 4;      // row stride of the P tile
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_DH = 256;
+constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory a block may use
 
 struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
@@ -704,10 +744,291 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// The f32 tensor-core path: 3xTF32 mma.sync m16n8k8, cp.async, swizzled tiles
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+constexpr int BQ = 128;  // query rows per block: 8 warps of 16
+constexpr int BK = 32;   // kv rows per tile: 4 n8 tiles of S, 4 k-steps of P V
+constexpr int NT = 256;  // threads per block
+constexpr int KG = 4;    // k-steps of S summed into one zeroed partial (12 mma)
+
+// Row stride (floats) of every tile: dh rounded up to 32, so that the
+// swizzle below stays within a row.
+__host__ __device__ inline int row_stride(int dh) { return (dh + 31) & ~31; }
+
+// Q, then `stages` pairs of K and V tiles.
+inline size_t smem_bytes(int dh, int stages) {
+  return sizeof(float) * row_stride(dh) * static_cast<size_t>(BQ + 2 * BK * stages);
+}
+
+// Two stages where they fit (dh <= 224), else one.
+inline int stages(int dh) { return smem_bytes(dh, 2) <= MAX_SMEM ? 2 : 1; }
+
+// split, mma3, split_a, cp.async: ../../hopper/csrc/tf32_mma.cuh
+using namespace tf32;
+
+// Tiles are stored row-major at row_stride(dh) floats with element (r, c)
+// at column c ^ 4 (r % 8): the 16-byte pieces of a row stay whole, and
+// each fragment load below (8 rows x 4 columns of Q or K, 4 row pairs x 8
+// columns of V) meets 32 distinct banks.  P's accumulator fragments serve
+// as P V's A fragments with V's rows read in the permuted order of
+// tf32_mma.cuh.
+template <int DHMAX>
+__global__ void __launch_bounds__(NT, DHMAX <= 64 ? 2 : 1) flash_fwd_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, Strides st, int hq, int group, int sq, int skv, int dh, float scale,
+    int causal, int stages) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = row_stride(dh);
+  float* sQ = smem;  // BQ x ld, then the K / V stages
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const int b = blockIdx.x / hq, h = blockIdx.x % hq, hk = h / group;
+  q += b * st.qb + h * st.qh;
+  k += b * st.kb + hk * st.kh;
+  v += b * st.vb + hk * st.vh;
+  o += b * st.ob + h * st.oh;
+  const int q_last = min(q0 + BQ, sq) - 1;
+  const int kv_end = causal ? min(skv, q_last + 1) : skv;
+  const int tiles = (kv_end + BK - 1) / BK;
+  const int wq0 = q0 + 16 * warp;  // this warp's first row
+  const int wq_last = min(wq0 + 16, sq) - 1;
+  const int nd = dh / 8;  // k-steps of S, n8 tiles of O
+  const int pieces = ld / 4;
+
+  // rows [0, rows) of src into dst, swizzled; rows >= valid and the
+  // columns past dh zero-filled, so that the products run in whole groups
+  // of 4 k-steps or n8 tiles (32 columns) with no guard inside a group
+  auto stage = [&](float* dst, const float* src, long long stride, int rows, int valid) {
+    for (int i = tid; i < rows * pieces; i += NT) {
+      const int r = i / pieces, c = 4 * (i - r * pieces);
+      const bool ok = r < valid && c < dh;
+      cp_async16(dst + r * ld + (c ^ ((r & 7) << 2)), src + (ok ? r * stride + c : 0),
+                 ok ? 16 : 0);
+    }
+  };
+  auto sK = [&](int s) { return smem + (BQ + 2 * BK * s) * ld; };
+  auto load_tile = [&](int it, int s) {
+    if (it < tiles) {
+      const int k0 = it * BK;
+      stage(sK(s), k + k0 * st.ks, st.ks, BK, skv - k0);
+      stage(sK(s) + BK * ld, v + k0 * st.vs, st.vs, BK, skv - k0);
+    }
+    cp_async_commit();  // one group a tile, empty past the last
+  };
+  stage(sQ, q + q0 * st.qs, st.qs, BQ, sq - q0);
+  load_tile(0, 0);
+  if (stages == 2) load_tile(1, 1);
+
+  // Q / K columns: 32 (kk / 4) + qsw[2 (kk % 4) + half] + t for rows = g mod 8
+  int qsw[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) qsw[j] = 4 * (j ^ g);
+  // V columns of n8 tile n for rows 2t, 2t + 1 mod 8: 32 (n / 4) + vsw[n % 4]
+  // + g, resp. + (g ^ 4)
+  int vsw[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) vsw[m] = 8 * (m ^ t);
+
+  constexpr int ND = DHMAX / 8;
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.0f, 0.0f};  // this thread's columns' share
+  const float* qa = sQ + (16 * warp + g) * ld;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int s_ = stages == 2 ? it & 1 : 0;
+    if (stages == 2) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = it * BK;
+    // a warp whose rows all lie past sq, or (causal) above this whole
+    // tile, has nothing to add
+    if (wq0 < sq && !(causal && k0 > wq_last)) {
+      const float* kt = sK(s_);
+      const float* vt = kt + BK * ld;
+
+      // ---- S = Q K^T, in partials of KG k-steps ----
+      float s[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+      for (int kg = 0; kg < ND; kg += KG) {
+        if (kg < nd) {
+          float part[4][4];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.0f;
+#pragma unroll
+          for (int kk = kg; kk < kg + KG; ++kk) {
+            const int c0 = 32 * (kk / 4) + qsw[2 * (kk % 4)] + t;
+            const int c1 = 32 * (kk / 4) + qsw[2 * (kk % 4) + 1] + t;
+            uint32_t ah[4], al[4];
+            split_a(ah, al, qa[c0], qa[8 * ld + c0], qa[c1], qa[8 * ld + c1]);
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              const float* kr = kt + (8 * n + g) * ld;
+              mma3(part[n], ah, al, kr[c0], kr[c1]);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
+          }
+        }
+      }
+
+      // ---- mask, scale and the online softmax in registers ----
+      float alpha[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = wq0 + g + 8 * hr;
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + 8 * n + 2 * t + e;
+            const bool ok = col < skv && (!causal || row >= col);
+            float& x = s[n][2 * hr + e];
+            x = ok ? x * scale : NEG_INF;
+            mx = fmaxf(mx, x);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[hr], mx);
+        float sum = 0.0f;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[n][2 * hr + e];
+            x = x <= 0.5f * NEG_INF ? 0.0f : __expf(x - m_new);
+            sum += x;
+          }
+        }
+        alpha[hr] = m_run[hr] <= 0.5f * NEG_INF ? 0.0f : __expf(m_run[hr] - m_new);
+        m_run[hr] = m_new;
+        l_run[hr] = l_run[hr] * alpha[hr] + sum;
+      }
+
+      // ---- P as A fragments (k-step j = S's n8 tile j, columns permuted) ----
+      uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split_a(ph[j], pl[j], s[j][0], s[j][2], s[j][1], s[j][3]);
+
+      // ---- O = alpha O + P V, each n8 tile's P V in a zeroed fragment,
+      // four n8 tiles (32 columns) at a time ----
+      const float* v0 = vt + 2 * t * ld;  // kv rows 2t and 2t + 1 of each k-step
+#pragma unroll
+      for (int n0 = 0; n0 < ND; n0 += 4) {
+        if (n0 < nd) {
+          float pv[4][4];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              const int col = 32 * (n0 / 4) + vsw[n];
+              mma3(pv[n], ph[j], pl[j], v0[8 * j * ld + col + g],
+                   v0[(8 * j + 1) * ld + col + (g ^ 4)]);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            float* a = acc[n0 + n];
+            a[0] = a[0] * alpha[0] + pv[n][0];
+            a[1] = a[1] * alpha[0] + pv[n][1];
+            a[2] = a[2] * alpha[1] + pv[n][2];
+            a[3] = a[3] * alpha[1] + pv[n][3];
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage's K and V
+    load_tile(it + stages, s_);
+  }
+  cp_async_wait<0>();
+
+  // ---- o = acc / l (l = 0: a fully masked row gives 0) ----
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = l_run[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = l == 0.0f ? 0.0f : 1.0f / l;
+    const int row = wq0 + g + 8 * hr;
+    if (row >= sq) continue;
+    float* orow = o + static_cast<long long>(row) * st.os;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      if (n < nd) {
+        *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
+            make_float2(acc[n][2 * hr] * inv, acc[n][2 * hr + 1] * inv);
+      }
+    }
+  }
+}
+
+// The route: f32 (checked by the caller) with dh a multiple of 8, and
+// 16-byte aligned bases and (batch, head, row) strides of q, k and v (a
+// size-1 dimension's stride is never stepped).  flash_attention.py's
+// b4_route mirrors it.
+bool takes(const void* q, const void* k, const void* v, const Strides& st, int b, int hq,
+           int hkv, int sq, int skv, int dh) {
+  bool ok = dh % 8 == 0;
+  for (const void* p : {q, k, v}) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const long long strides[] = {st.qb, st.qh, st.qs, st.kb, st.kh, st.ks, st.vb, st.vh, st.vs};
+  const int sizes[] = {b, hq, sq, b, hkv, skv, b, hkv, skv};
+  for (int i = 0; i < 9; ++i) ok = ok && (sizes[i] == 1 || (strides[i] > 0 && strides[i] % 4 == 0));
+  return ok;
+}
+
+template <int DHMAX>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Strides& st,
+                   int b, int hq, int hkv, int sq, int skv, int dh, float scale, int causal,
+                   cudaStream_t stream) {
+  const int ns = stages(dh);
+  const size_t smem = smem_bytes(dh, ns);
+  auto kern = flash_fwd_tf32_kernel<DHMAX>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * hq, (sq + BQ - 1) / BQ);
+  kern<<<grid, NT, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                   static_cast<const float*>(v), static_cast<float*>(o), st, hq,
+                                   hq / hkv, sq, skv, dh, scale, causal, ns);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const Strides& st,
+                     int b, int hq, int hkv, int sq, int skv, int dh, float scale, int causal,
+                     cudaStream_t stream) {
+  if (dh <= 64) return launch<64>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, stream);
+  if (dh <= 128) return launch<128>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, stream);
+  return launch<256>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, stream);
+}
+
+}  // namespace tf
+
 }  // namespace
 
 // strides: 12 element strides (batch, head, sequence) of q, k, v and o, in
-// that order; the head dimension is contiguous.  dtype: 0 f32, 1 bf16.
+// that order; the head dimension is contiguous.  dtype: 0 f32, 1 bf16, each
+// on its tensor-core route where tf::takes / tc::takes, else on the
+// CUDA-core kernel.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, const long long* strides, int dtype, int b, int hq, int hkv, int sq, int skv, int dh, float scale, int causal, void* stream) {
   if (dh < 1 || dh > MAX_DH || hkv < 1 || hq % hkv != 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -717,7 +1038,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                    strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) {
+  if (dtype == 0 && tf::takes(q, k, v, st, b, hq, hkv, sq, skv, dh)) {
+    err = tf::dispatch(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, s);
+  } else if (dtype == 0) {
     err = dispatch<float>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, s);
   } else if (tc::takes(q, k, v, st, b, hq, hkv, sq, skv, dh)) {
     err = tc::dispatch(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, s);
@@ -725,4 +1048,35 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     err = dispatch<__nv_bfloat16>(q, k, v, o, st, b, hq, hkv, sq, skv, dh, scale, causal, s);
   }
   return static_cast<int>(err);
+}
+
+namespace {
+
+// For each of n f32 bit patterns x, four words: the 3xTF32 split's hi and
+// lo (tf32_mma.cuh), and cvt.rna.tf32.f32 of x and of x - hi.
+__global__ void tf32_split_check_kernel(const uint32_t* in, uint32_t* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float x = __uint_as_float(in[i]);
+  uint32_t hi, lo, cvt_hi, cvt_lo;
+  tf32::split(x, hi, lo);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(cvt_hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(cvt_lo) : "f"(x - __uint_as_float(hi)));
+  out[4 * i] = hi;
+  out[4 * i + 1] = lo;
+  out[4 * i + 2] = cvt_hi;
+  out[4 * i + 3] = cvt_lo;
+}
+
+}  // namespace
+
+// A test hook beside the entry point: out (4 n words) gets the split and
+// cvt.rna's rounding of n uint32 bit patterns, so that a test holds the
+// 3xTF32 split to cvt.rna.
+extern "C" int tf32_split_check(const void* in, void* out, int n, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  tf32_split_check_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -4,10 +4,14 @@
 
 On CUDA tensors it launches the kernel; on CPU tensors it runs the plain
 PyTorch version from :mod:`.ref`.  There is no fallback between the two: a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises.  The kernel has three routes,
+which the C entry point chooses by shape, dtype and alignment alone and
+:func:`b4_route` mirrors: bf16 on wgmma, f32 on 3xTF32 ``mma.sync``, and
+the CUDA-core kernel for what neither takes.
 
 The module-level counter ``launches`` counts kernel launches, so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel; ``route_launches`` splits
+them by route.
 """
 
 from __future__ import annotations
@@ -29,10 +33,41 @@ MAX_HEAD_DIM = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: the routes of :func:`b4_route`
+TENSOR_CORES, TF32_TENSOR_CORES, CUDA_CORES = "tensor cores", "tf32 tensor cores", "cuda cores"
+
+#: B4 launches since the last reset, by route
+route_launches = {TENSOR_CORES: 0, TF32_TENSOR_CORES: 0, CUDA_CORES: 0}
+
 
 def reset_launch_counts() -> None:
     global launches
     launches = 0
+    for route in route_launches:
+        route_launches[route] = 0
+
+
+def _aligned(x) -> bool:
+    """16-byte aligned base, and 16-byte aligned (batch, head, row) strides
+    (a size-1 dim's stride is never stepped)."""
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or (st > 0 and st * x.element_size() % 16 == 0)
+        for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def b4_route(q, k, v) -> str:
+    """The kernel B4's entry point runs for these inputs (``tc::takes`` and
+    ``tf::takes`` in the source): "tensor cores" for bf16 with a head dim
+    that is a multiple of 16, kv rows, and 16-byte aligned bases and
+    strides; "tf32 tensor cores" for f32 with a head dim that is a multiple
+    of 8 and the same alignment; else "cuda cores"."""
+    dh, skv = q.shape[-1], k.shape[2]
+    aligned = all(_aligned(x) for x in (q, k, v))
+    if q.dtype == torch.bfloat16 and dh % 16 == 0 and skv > 0 and aligned:
+        return TENSOR_CORES
+    if q.dtype == torch.float32 and dh % 8 == 0 and aligned:
+        return TF32_TENSOR_CORES
+    return CUDA_CORES
 
 
 def _check_cuda_args(q, k, v):
@@ -103,6 +138,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, scale=None):
         )
     _check_cuda_args(q, k, v)
     global launches
+    route = b4_route(q, k, v)
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if scale is None:
@@ -129,4 +165,5 @@ def flash_attention_cuda(q, k, v, *, causal=True, scale=None):
             f"(b={b}, hq={hq}, hkv={hkv}, sq={sq}, skv={skv}, dh={dh})"
         )
     launches += 1
+    route_launches[route] += 1
     return out

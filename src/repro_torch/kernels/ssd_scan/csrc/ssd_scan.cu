@@ -16,17 +16,20 @@
 // never the TPU kernel's cum_i - cum_j: cumulative sums reach -10^3 within
 // a chunk at the model's decays, and their difference keeps only ~1e-4
 // absolute of a segment's sum, which the exp turns into a relative error of
-// each decay.  Both routes below sum segments directly (all terms <= 0).
+// each decay.  Every route below sums segments directly (all terms <= 0).
 //
 // Work: per chunk 2 c^2 ds flops for C B^T, the same for every head, and
 // per chunk and head 2 c^2 dh + 4 c dh ds, against x and y of (c dh)
 // elements and B, C of (c ds): at the serving slice (b = 4, 112 heads,
 // l = 512, dh = ds = 64, chunk 128, bf16) 7.5 GFLOP for 60 MB.  At the
 // card's rates for these types (bf16 tensor cores, the products with an
-// f32 operand as two bf16 products: 15 us) the bytes bound it, 18 us.
+// f32 operand as two bf16 products: 15 us) the bytes bound it, 18 us; in
+// f32 (120 MB) the operations do, as three TF32 products 46 us (113 us
+// at the CUDA cores' 67 TFLOP/s).
 //
-// Two routes, chosen by the entry point (tc::takes; ssd_scan.py's
-// b5_route mirrors it):
+// Three routes, chosen by the entry point from the dtype, the widths and
+// the alignment alone (tc::takes, tf::takes; ssd_scan.py's b5_route
+// mirrors them):
 //
 // bf16 on the tensor cores (bf16, dh and ds multiples of 16 up to 128, the
 // chunk a multiple of 16, 16-byte aligned bases and strides), kernel
@@ -74,8 +77,38 @@
 //   memory and 107 registers a thread, two blocks (16 warps) an SM: 448
 //   blocks, 1.7 waves.
 //
-// Everything else (f32, and bf16 that the route does not take) runs the
-// port's first kernel, ssd_scan_kernel, all f32 on the CUDA cores: one
+// f32 on the tensor cores (f32, the same widths, chunks and alignment as
+// bf16), kernel ssd_scan_tf32_kernel: the bf16 route's design with every
+// product 3xTF32 mma.sync m16n8k8 (../../hopper/csrc/tf32_mma.cuh: each f32
+// operand split into TF32 halves hi = tf32(x), lo = tf32(x - hi), rounded
+// as cvt.rna rounds; a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi):
+//   * the same blocks, warps, chunk walk, decays (blocked_decays) and
+//     balanced causal slabs; no atomics, one fixed order;
+//   * x, B and C arrive by cp.async as f32 at padded widths (dh rounded up
+//     to 32, 64 or 128, ds to 64 or 128, the columns past them zero), rows
+//     padded by 4 floats: B and C read 8 rows x 4 columns, x and B read 4
+//     row pairs x 8 columns, 32 distinct banks either way; H^T is f32 with
+//     rows padded by 8 (read 4 rows x 8 columns).  ldmatrix moves 16-bit
+//     elements, so fragments load as plain 32-bit reads and are split in
+//     registers.  At mamba2-370m's ds = 128 (c = 128, dh = 64) that is
+//     219,392 bytes: the whole state fits one block (the CUDA-core route
+//     cuts it into three slices);
+//   * C's A fragments for a row tile are split once and held; G = C B^T,
+//     C H^T, M x (G decayed in registers and turned straight into the A
+//     fragment: its accumulator fragment serves unchanged with x's rows
+//     read in the permuted order of tf32_mma.cuh) and the state update
+//     (coef o B)^T x (the chunk's steps summed in that same order) each
+//     sum 16 of their index (6 mma) into a zeroed fragment added in IEEE
+//     f32: the tensor cores add by truncation, and the padded widths
+//     leave no guard inside a product loop, so the chains of a slab run
+//     side by side;
+//   * at the slice 243 registers a thread and one block (8 warps) an SM;
+//     at mamba2's ds = 128 the held C fragments push it to 255 and spills.
+//     Instruction throughput and latency bound it, not the tensor cores
+//     (PERF.md section 6).
+//
+// Everything else (f32 and bf16 that neither route takes) runs the port's
+// first kernel, ssd_scan_kernel, all f32 on the CUDA cores: one
 // block of 256 threads owns one (batch, head) and walks its chunks in
 // order, the (dh x ds) f32 state in shared memory, transposed.  Per chunk
 // it stages x, C and B^T in shared memory as f32 (zero beyond the chunk,
@@ -107,6 +140,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "../../hopper/csrc/tf32_mma.cuh"  // 3xTF32 mma.sync, cp.async
 
 namespace {
 
@@ -624,6 +659,72 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
   return cudaGetLastError();
 }
 
+// The per-step shared vectors of one chunk's decays on the tensor-core
+// routes, and the tables built from them.
+struct Decays {
+  const float *dt, *la;  // dt and dt A of the chunk's steps
+  float *pre, *suf;      // in-tile inclusive prefix / exclusive suffix sums of dt A
+  float *erow, *rowf, *colf, *coef;  // exp(cum_i), exp(pre_i), exp(suf_j) dt_j, exp(seg_last,j) dt_j
+  float *tilef;  // [J][I] exp(tot_{J+1} + ... + tot_{I-1}), 0 for J >= I
+  float *diag;   // [I][a][b] exp(seg) dt of the diagonal 16 x 16 tiles, 0 above
+};
+
+// The decays of one chunk for the tensor-core routes (the header above),
+// by a block of NTH threads, from dc.dt and dc.la; ends with a barrier.
+template <int NTH>
+__device__ __forceinline__ void blocked_decays(const Decays& dc, int chunk) {
+  const int nrt = chunk / 16;
+  // the decays from direct sums of dt A (all terms <= 0, never a
+  // difference): within each 16-step tile the inclusive prefix and the
+  // exclusive suffix of every step, summed in step order
+  for (int p = static_cast<int>(threadIdx.x); p < 2 * chunk; p += NTH) {
+    const int k = p % chunk, t0 = k & ~15;
+    float s = 0.0f;
+    if (p < chunk) {
+      for (int m = t0; m <= k; ++m) s += dc.la[m];
+      dc.pre[k] = s;
+    } else {
+      for (int m = k + 1; m < t0 + 16; ++m) s += dc.la[m];
+      dc.suf[k] = s;
+    }
+  }
+  __syncthreads();
+  // tile sums tot_K = pre of a tile's last step; cum_i = (tot_0 + ... +
+  // tot_{I-1}) + pre_i; the carried state's seg_last,j = suf_j + (tot_{J+1}
+  // + ... + tot_{nrt-1}); the diagonal tiles' column b walks its rows
+  // with seg summed in order; the tile-to-tile factors
+  for (int p = static_cast<int>(threadIdx.x); p < 2 * chunk + nrt * nrt; p += NTH) {
+    if (p < chunk) {
+      const int I = p / 16;
+      float before = 0.0f, after = 0.0f;
+      for (int K = 0; K < I; ++K) before += dc.pre[16 * K + 15];
+      for (int K = I + 1; K < nrt; ++K) after += dc.pre[16 * K + 15];
+      const float d = dc.dt[p];
+      dc.erow[p] = expf(before + dc.pre[p]);
+      dc.rowf[p] = expf(dc.pre[p]);
+      dc.colf[p] = expf(dc.suf[p]) * d;
+      dc.coef[p] = expf(dc.suf[p] + after) * d;
+    } else if (p < 2 * chunk) {
+      const int q = p - chunk, I = q / 16, b = q % 16;
+      float* D = dc.diag + 256 * I;
+      const float d = dc.dt[q];
+      for (int a = 0; a < b; ++a) D[16 * a + b] = 0.0f;
+      D[17 * b] = d;
+      float s = 0.0f;
+      for (int a = b + 1; a < 16; ++a) {
+        s += dc.la[16 * I + a];
+        D[16 * a + b] = expf(s) * d;
+      }
+    } else {
+      const int q = p - 2 * chunk, J = q / nrt, I = q % nrt;
+      float s = 0.0f;
+      for (int K = J + 1; K < I; ++K) s += dc.pre[16 * K + 15];
+      dc.tilef[q] = J < I ? expf(s) : 0.0f;
+    }
+  }
+  __syncthreads();
+}
+
 // --------------------------------------------------------------------------
 // The bf16 tensor-core route: mma.sync m16n8k16, every product on the
 // tensor cores, the decay matrix never in shared memory
@@ -899,6 +1000,7 @@ __global__ void __launch_bounds__(NT) ssd_scan_tc_kernel(
   float* sCoef = reinterpret_cast<float*>(smem + L.oCoef);  // exp(seg_last,j) dt_j
   float* sTilef = reinterpret_cast<float*>(smem + L.oTilef);  // [J][I] exp(tiles J+1..I-1)
   float* sDiag = reinterpret_cast<float*>(smem + L.oDiag);    // [I][a][b] exp(seg) dt, a >= b
+  const Decays dec{sDt, sLa, sPre, sSuf, sErow, sRowf, sColf, sCoef, sTilef, sDiag};
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int quad = warp % 4, half = warp / 4;
@@ -933,55 +1035,7 @@ __global__ void __launch_bounds__(NT) ssd_scan_tc_kernel(
     cp_async_wait_all();
     __syncthreads();
 
-    // the decays from direct sums of dt A (all terms <= 0, never a
-    // difference): within each 16-step tile the inclusive prefix and the
-    // exclusive suffix of every step, summed in step order
-    for (int p = tid; p < 2 * chunk; p += NT) {
-      const int k = p % chunk, t0 = k & ~15;
-      float s = 0.0f;
-      if (p < chunk) {
-        for (int m = t0; m <= k; ++m) s += sLa[m];
-        sPre[k] = s;
-      } else {
-        for (int m = k + 1; m < t0 + 16; ++m) s += sLa[m];
-        sSuf[k] = s;
-      }
-    }
-    __syncthreads();
-    // tile sums tot_K = pre of a tile's last step; cum_i = (tot_0 + ... +
-    // tot_{I-1}) + pre_i; the carried state's seg_last,j = suf_j + (tot_{J+1}
-    // + ... + tot_{nrt-1}); the diagonal tiles' column b walks its rows
-    // with seg summed in order; the tile-to-tile factors
-    for (int p = tid; p < 2 * chunk + nrt * nrt; p += NT) {
-      if (p < chunk) {
-        const int I = p / 16;
-        float before = 0.0f, after = 0.0f;
-        for (int K = 0; K < I; ++K) before += sPre[16 * K + 15];
-        for (int K = I + 1; K < nrt; ++K) after += sPre[16 * K + 15];
-        const float d = sDt[p];
-        sErow[p] = expf(before + sPre[p]);
-        sRowf[p] = expf(sPre[p]);
-        sColf[p] = expf(sSuf[p]) * d;
-        sCoef[p] = expf(sSuf[p] + after) * d;
-      } else if (p < 2 * chunk) {
-        const int q = p - chunk, I = q / 16, b = q % 16;
-        float* D = sDiag + 256 * I;
-        const float d = sDt[q];
-        for (int a = 0; a < b; ++a) D[16 * a + b] = 0.0f;
-        D[17 * b] = d;
-        float s = 0.0f;
-        for (int a = b + 1; a < 16; ++a) {
-          s += sLa[16 * I + a];
-          D[16 * a + b] = expf(s) * d;
-        }
-      } else {
-        const int q = p - 2 * chunk, J = q / nrt, I = q % nrt;
-        float s = 0.0f;
-        for (int K = J + 1; K < I; ++K) s += sPre[16 * K + 15];
-        sTilef[q] = J < I ? expf(s) : 0.0f;
-      }
-    }
-    __syncthreads();
+    blocked_decays<NT>(dec, chunk);
 
     // y: quad q takes row tiles q and nrt - 1 - q (then q + 4, ...), so
     // the causal slabs balance across quads
@@ -1089,16 +1143,400 @@ cudaError_t dispatch(const void* x, const float* dt, const float* A, const void*
 
 }  // namespace tc
 
+// --------------------------------------------------------------------------
+// The f32 tensor-core route: 3xTF32 mma.sync m16n8k8, every product on the
+// tensor cores, the decay matrix never in shared memory
+// --------------------------------------------------------------------------
+
+namespace tf {
+
+// split, split_a, mma3, cp.async: ../../hopper/csrc/tf32_mma.cuh
+using namespace tf32;
+using tc::take;
+
+constexpr int NW = 8;        // warps per block: two quads of 4
+constexpr int NT = 32 * NW;  // threads per block
+
+// The widths the kernel is built for: the head dim rounded up to 32, 64 or
+// 128 (each warp half owns half of it), the state dim to 64 or 128; the
+// columns past dh and ds are zero, so every product loop has a fixed count.
+__host__ __device__ inline int padded_dh(int dh) { return dh <= 32 ? 32 : dh <= 64 ? 64 : 128; }
+__host__ __device__ inline int padded_ds(int ds) { return ds <= 64 ? 64 : 128; }
+
+// The shared-memory layout in bytes (ssd_scan.py's tf32_shared_bytes
+// mirrors it): x, B and C of the chunk in f32 at the padded widths, rows
+// padded by 4 floats more (B and C read 8 rows x 4 columns, x and B read 4
+// row pairs x 8 columns: 32 distinct banks either way); the state H^T
+// (padded ds x padded dh) in f32, rows padded by 8 (read 4 rows x 8
+// columns); eight per-step vectors; the (nrt x nrt) tile-to-tile decays
+// and the (16 x 16) decay tables of the diagonal tiles.
+struct Layout {
+  int ldx, ldb, ldh, nrt;
+  int oX, oB, oC, oH, oDt, oLa, oPre, oSuf, oErow, oRowf, oColf, oCoef, oTilef, oDiag, total;
+  __host__ __device__ Layout(int chunk, int dh, int ds) {
+    ldx = padded_dh(dh) + 4;
+    ldb = padded_ds(ds) + 4;
+    ldh = padded_dh(dh) + 8;
+    nrt = chunk / 16;
+    int at = 0;
+    oX = take(at, chunk * ldx * 4);
+    oB = take(at, chunk * ldb * 4);
+    oC = take(at, chunk * ldb * 4);
+    oH = take(at, padded_ds(ds) * ldh * 4);
+    oDt = take(at, chunk * 4);
+    oLa = take(at, chunk * 4);
+    oPre = take(at, chunk * 4);
+    oSuf = take(at, chunk * 4);
+    oErow = take(at, chunk * 4);
+    oRowf = take(at, chunk * 4);
+    oColf = take(at, chunk * 4);
+    oCoef = take(at, chunk * 4);
+    oTilef = take(at, nrt * nrt * 4);
+    oDiag = take(at, chunk * 16 * 4);
+    total = at;
+  }
+};
+
+// rows x w f32 (w a multiple of 4) into dst (row stride ld) from src (row
+// stride `stride`), 16 bytes a copy, the columns past n zero-filled
+__device__ __forceinline__ void copy_tile(float* dst, int ld, const float* __restrict__ src,
+                                          long long stride, int rows, int n, int w) {
+  const int per_row = w / 4;
+  for (int i = threadIdx.x; i < rows * per_row; i += NT) {
+    const int r = i / per_row, c = (i - r * per_row) * 4;
+    const bool ok = c < n;
+    cp_async16(dst + r * ld + c, src + (ok ? r * stride + c : 0), ok ? 16 : 0);
+  }
+}
+
+// What one warp needs of the block's shared memory, and the first of the
+// head-dim pairs (16 columns each) it owns.  Every product below sums 16 of
+// its index (two k-steps) into a zeroed fragment, then adds it in IEEE f32:
+// chains of 6 mma, and no guard in a product loop.
+struct Warp {
+  const Layout& L;
+  const float *sX, *sB, *sC, *sH;
+  const float *sErow, *sRowf, *sColf, *sTilef, *sDiag;
+  int g, t, np0;
+};
+
+// C's A fragments for rows 16 I + g and 16 I + g + 8 over the state dim,
+// split into TF32 halves once per row tile
+template <int DSP>
+__device__ __forceinline__ void c_frags(uint32_t (&ch)[DSP / 8][4], uint32_t (&cl)[DSP / 8][4],
+                                        const Warp& w, int I) {
+  const float* c0 = w.sC + (16 * I + w.g) * w.L.ldb + w.t;
+  const float* c1 = c0 + 8 * w.L.ldb;
+#pragma unroll
+  for (int kk = 0; kk < DSP / 8; ++kk) {
+    split_a(ch[kk], cl[kk], c0[8 * kk], c1[8 * kk], c0[8 * kk + 4], c1[8 * kk + 4]);
+  }
+}
+
+// G = C B^T for this warp's 16 rows and the 16 columns of tile J (two
+// n-tiles of 8), summed over the state 16 at a time
+template <int DSP>
+__device__ __forceinline__ void gram(float (&gs)[2][4], const uint32_t (&ch)[DSP / 8][4],
+                                     const uint32_t (&cl)[DSP / 8][4], const Warp& w, int J) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) gs[n][0] = gs[n][1] = gs[n][2] = gs[n][3] = 0.0f;
+#pragma unroll
+  for (int kp = 0; kp < DSP / 16; ++kp) {
+    float part[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.0f;
+#pragma unroll
+    for (int kk = 2 * kp; kk < 2 * kp + 2; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* br = w.sB + (16 * J + 8 * nt + w.g) * w.L.ldb + 8 * kk + w.t;
+        mma3(part[nt], ch[kk], cl[kk], br[0], br[4]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gs[n][e] += part[n][e];
+    }
+  }
+}
+
+// y rows of row tile I, this warp's NP head-dim pairs (those past dh are
+// computed on zero columns and not stored): acc = exp(cum_i) (C H^T)_i,
+// then + M_iJ x_J slab by slab (J = 0 .. I, each slab's product in a
+// zeroed fragment), M = (C B^T) o decay formed in registers; the next
+// slab's C B^T is started before this slab's M x
+template <int DSP, int NP>
+__device__ __forceinline__ void row_tile(const Warp& w, int I, bool inter, float* y,
+                                         long long yl, int dh) {
+  const int g = w.g, t = w.t;
+  uint32_t ch[DSP / 8][4], cl[DSP / 8][4];
+  c_frags<DSP>(ch, cl, w, I);
+  float acc[2 * NP][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NP; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  if (inter) {
+    // C H^T (B operand: k = state, n = head dim), 16 states at a time
+#pragma unroll
+    for (int kp = 0; kp < DSP / 16; ++kp) {
+      float part[2 * NP][4];
+#pragma unroll
+      for (int n = 0; n < 2 * NP; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.0f;
+#pragma unroll
+      for (int kk = 2 * kp; kk < 2 * kp + 2; ++kk) {
+        const float* h0 = w.sH + (8 * kk + t) * w.L.ldh + 16 * w.np0 + g;
+        const float* h1 = h0 + 4 * w.L.ldh;
+#pragma unroll
+        for (int n = 0; n < 2 * NP; ++n) mma3(part[n], ch[kk], cl[kk], h0[8 * n], h1[8 * n]);
+      }
+#pragma unroll
+      for (int n = 0; n < 2 * NP; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+      }
+    }
+    const float e0 = w.sErow[16 * I + g], e1 = w.sErow[16 * I + g + 8];
+#pragma unroll
+    for (int n = 0; n < 2 * NP; ++n) {
+      acc[n][0] *= e0, acc[n][1] *= e0, acc[n][2] *= e1, acc[n][3] *= e1;
+    }
+  }
+
+  const float rf0 = w.sRowf[16 * I + g], rf1 = w.sRowf[16 * I + g + 8];
+  float gs[2][4];
+  gram<DSP>(gs, ch, cl, w, 0);
+  for (int J = 0; J <= I; ++J) {
+    // M = G o decay, as on the bf16 route
+    float m[2][4];
+    if (J < I) {
+      const float tf = w.sTilef[J * w.L.nrt + I];
+      const float r0 = rf0 * tf, r1 = rf1 * tf;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int j = 16 * J + 8 * nt + 2 * t;
+        const float c0 = w.sColf[j], c1 = w.sColf[j + 1];
+        m[nt][0] = gs[nt][0] * (r0 * c0);
+        m[nt][1] = gs[nt][1] * (r0 * c1);
+        m[nt][2] = gs[nt][2] * (r1 * c0);
+        m[nt][3] = gs[nt][3] * (r1 * c1);
+      }
+    } else {
+      const float* D = w.sDiag + 256 * I;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int bcol = 8 * nt + 2 * t;
+        m[nt][0] = gs[nt][0] * D[16 * g + bcol];
+        m[nt][1] = gs[nt][1] * D[16 * g + bcol + 1];
+        m[nt][2] = gs[nt][2] * D[16 * (g + 8) + bcol];
+        m[nt][3] = gs[nt][3] * D[16 * (g + 8) + bcol + 1];
+      }
+    }
+    if (J < I) gram<DSP>(gs, ch, cl, w, J + 1);
+    // each n-tile's accumulator fragment is the A fragment of one k-step,
+    // x's rows read in the matching order (tf32_mma.cuh)
+    uint32_t mh[2][4], ml[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) split_a(mh[nt], ml[nt], m[nt][0], m[nt][2], m[nt][1], m[nt][3]);
+    float pv[2 * NP][4];
+#pragma unroll
+    for (int n = 0; n < 2 * NP; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float* x0 = w.sX + (16 * J + 8 * nt + 2 * t) * w.L.ldx + 16 * w.np0 + g;
+      const float* x1 = x0 + w.L.ldx;
+#pragma unroll
+      for (int n = 0; n < 2 * NP; ++n) mma3(pv[n], mh[nt], ml[nt], x0[8 * n], x1[8 * n]);
+    }
+#pragma unroll
+    for (int n = 0; n < 2 * NP; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += pv[n][e];
+    }
+  }
+
+  float* y0 = y + (16 * I + g) * yl;
+  float* y1 = y0 + 8 * yl;
+#pragma unroll
+  for (int n = 0; n < 2 * NP; ++n) {
+    if (16 * w.np0 + 8 * n >= dh) break;
+    const int p = 16 * w.np0 + 8 * n + 2 * t;
+    *reinterpret_cast<float2*>(y0 + p) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(y1 + p) = make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// Warp quad w % 4 owns row tiles (and state rows), half w / 4 its half of
+// the head dim (DHP = padded_dh(dh), DSP = padded_ds(ds)), as on the bf16
+// route
+template <int DHP, int DSP>
+__global__ void __launch_bounds__(NT, 1) ssd_scan_tf32_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+    const float* __restrict__ Bm, const float* __restrict__ Cm, float* __restrict__ y,
+    Strides st, int h, int l, int dh, int ds, int chunk) {
+  constexpr int NP = DHP / 32;  // 16-column head-dim pairs a warp owns
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(chunk, dh, ds);
+  float* sX = reinterpret_cast<float*>(smem + L.oX);  // chunk x ldx  x
+  float* sB = reinterpret_cast<float*>(smem + L.oB);  // chunk x ldb  B
+  float* sC = reinterpret_cast<float*>(smem + L.oC);  // chunk x ldb  C
+  float* sH = reinterpret_cast<float*>(smem + L.oH);  // ds x ldh     H^T
+  float* sDt = reinterpret_cast<float*>(smem + L.oDt);
+  float* sLa = reinterpret_cast<float*>(smem + L.oLa);
+  float* sPre = reinterpret_cast<float*>(smem + L.oPre);
+  float* sCoef = reinterpret_cast<float*>(smem + L.oCoef);
+  const Decays dec{sDt, sLa, sPre,
+                   reinterpret_cast<float*>(smem + L.oSuf),
+                   reinterpret_cast<float*>(smem + L.oErow),
+                   reinterpret_cast<float*>(smem + L.oRowf),
+                   reinterpret_cast<float*>(smem + L.oColf), sCoef,
+                   reinterpret_cast<float*>(smem + L.oTilef),
+                   reinterpret_cast<float*>(smem + L.oDiag)};
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int quad = warp % 4, half = warp / 4;
+  const Warp w{L, sX, sB, sC, sH, dec.erow, dec.rowf, dec.colf, dec.tilef, dec.diag,
+               lane / 4, lane % 4, half * NP};
+  const int bi = blockIdx.x / h, hi = blockIdx.x % h;
+  x += bi * st.xb + hi * st.xh;
+  dt += bi * st.db + hi * st.dh;
+  Bm += bi * st.Bb;
+  Cm += bi * st.Cb;
+  y += bi * st.yb + hi * st.yh;
+  const float a_h = A[hi];
+  const int nrt = L.nrt;
+
+  for (int i = tid; i < DSP * L.ldh; i += NT) sH[i] = 0.0f;
+
+  for (int c0 = 0; c0 < l; c0 += chunk) {
+    __syncthreads();  // the last chunk's reads of the tiles and vectors are done
+    copy_tile(sX, L.ldx, x + c0 * st.xl, st.xl, chunk, dh, DHP);
+    copy_tile(sB, L.ldb, Bm + c0 * st.Bl, st.Bl, chunk, ds, DSP);
+    copy_tile(sC, L.ldb, Cm + c0 * st.Cl, st.Cl, chunk, ds, DSP);
+    cp_async_commit();
+    for (int k = tid; k < chunk; k += NT) {
+      const float d = dt[(c0 + k) * st.dl];
+      sDt[k] = d;
+      sLa[k] = d * a_h;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    blocked_decays<NT>(dec, chunk);
+
+    // y: quad q takes row tiles q and nrt - 1 - q (then q + 4, ...)
+    const bool inter = c0 > 0;
+    for (int pr = quad; pr < (nrt + 1) / 2; pr += 4) {
+      row_tile<DSP, NP>(w, pr, inter, y + c0 * st.yl, st.yl, dh);
+      if (nrt - 1 - pr != pr) {
+        row_tile<DSP, NP>(w, nrt - 1 - pr, inter, y + c0 * st.yl, st.yl, dh);
+      }
+    }
+    if (c0 + chunk >= l) break;
+    __syncthreads();  // every warp has read H^T
+
+    // H^T = exp(total) H^T + (coef o B)^T x: quad q owns state rows
+    // [16 q, 16 q + 16) (then + 64, ...) for its share of the head dim; the
+    // chunk's steps are the summed index, A's columns t and t + 4 standing
+    // for steps 2t and 2t + 1 of each k-step (tf32_mma.cuh), 16 steps at a
+    // time
+    float total = 0.0f;
+    for (int K = 0; K < nrt; ++K) total += sPre[16 * K + 15];
+    const float decay = expf(total);
+    for (int mt = quad; mt < ds / 16; mt += 4) {
+      float acc[2 * NP][4];
+#pragma unroll
+      for (int n = 0; n < 2 * NP; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+      for (int kp = 0; kp < nrt; ++kp) {
+        float part[2 * NP][4];
+#pragma unroll
+        for (int n = 0; n < 2 * NP; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.0f;
+#pragma unroll
+        for (int kk = 2 * kp; kk < 2 * kp + 2; ++kk) {
+          const int r0 = 8 * kk + 2 * w.t;
+          const float q0 = sCoef[r0], q1 = sCoef[r0 + 1];
+          const float* b0 = sB + r0 * L.ldb + 16 * mt + w.g;
+          const float* b1 = b0 + L.ldb;
+          uint32_t ah[4], al[4];
+          split_a(ah, al, q0 * b0[0], q0 * b0[8], q1 * b1[0], q1 * b1[8]);
+          const float* x0 = sX + r0 * L.ldx + 16 * w.np0 + w.g;
+          const float* x1 = x0 + L.ldx;
+#pragma unroll
+          for (int n = 0; n < 2 * NP; ++n) mma3(part[n], ah, al, x0[8 * n], x1[8 * n]);
+        }
+#pragma unroll
+        for (int n = 0; n < 2 * NP; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2 * NP; ++n) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float* hp = sH + (16 * mt + w.g + 8 * hf) * L.ldh + 16 * w.np0 + 8 * n + 2 * w.t;
+          float2 hv = *reinterpret_cast<float2*>(hp);
+          hv.x = decay * hv.x + acc[n][2 * hf];
+          hv.y = decay * hv.y + acc[n][2 * hf + 1];
+          *reinterpret_cast<float2*>(hp) = hv;
+        }
+      }
+    }
+  }
+}
+
+// The route: f32 (checked by the caller), dh, ds and the chunk multiples of
+// 16, dh and ds at most 128, whole chunks, 16-byte aligned bases and
+// strides (a size-1 dimension's stride is never stepped), and the layout
+// within a block's shared memory.  ssd_scan.py's b5_route mirrors it.
+bool takes(const void* x, const void* B, const void* C, const Strides& st, int b, int h, int l,
+           int dh, int ds, int chunk) {
+  bool ok = dh % 16 == 0 && ds % 16 == 0 && chunk % 16 == 0 && dh <= 128 && ds <= 128 &&
+            l % chunk == 0;
+  for (const void* p : {x, B, C}) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const long long strides[] = {st.xb, st.xh, st.xl, st.Bb, st.Bl, st.Cb, st.Cl};
+  const int sizes[] = {b, h, l, b, l, b, l};
+  for (int i = 0; i < 7; ++i) ok = ok && (sizes[i] == 1 || strides[i] % 4 == 0);
+  return ok && static_cast<size_t>(Layout(chunk, dh, ds).total) <= MAX_SMEM;
+}
+
+template <int DHP, int DSP>
+cudaError_t launch(const void* x, const float* dt, const float* A, const void* B, const void* C,
+                   void* y, const Strides& st, int b, int h, int l, int dh, int ds, int chunk,
+                   cudaStream_t stream) {
+  const int smem = Layout(chunk, dh, ds).total;
+  auto kern = ssd_scan_tf32_kernel<DHP, DSP>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<b * h, NT, smem, stream>>>(static_cast<const float*>(x), dt, A,
+                                    static_cast<const float*>(B), static_cast<const float*>(C),
+                                    static_cast<float*>(y), st, h, l, dh, ds, chunk);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* x, const float* dt, const float* A, const void* B,
+                     const void* C, void* y, const Strides& st, int b, int h, int l, int dh,
+                     int ds, int chunk, cudaStream_t stream) {
+  const int dhp = padded_dh(dh), dsp = padded_ds(ds);
+  if (dhp == 32 && dsp == 64) return launch<32, 64>(x, dt, A, B, C, y, st, b, h, l, dh, ds, chunk, stream);
+  if (dhp == 64 && dsp == 64) return launch<64, 64>(x, dt, A, B, C, y, st, b, h, l, dh, ds, chunk, stream);
+  if (dhp <= 64) return launch<64, 128>(x, dt, A, B, C, y, st, b, h, l, dh, ds, chunk, stream);
+  if (dsp == 64) return launch<128, 64>(x, dt, A, B, C, y, st, b, h, l, dh, ds, chunk, stream);
+  return launch<128, 128>(x, dt, A, B, C, y, st, b, h, l, dh, ds, chunk, stream);
+}
+
+}  // namespace tf
 
 }  // namespace
 
 // strides: 13 element strides — x (batch, head, step), dt (batch, head,
 // step), B (batch, step), C (batch, step), y (batch, head, step); the last
 // dim of x, B, C and y is contiguous.  dtype (of x, B, C, y): 0 f32, 1 bf16
-// (the tensor-core kernel where tc::takes, else the CUDA-core kernel), 2
-// bf16 on the CUDA-core kernel whatever the shapes (for comparisons).
+// (each on its tensor-core kernel where tf::takes / tc::takes, else the
+// CUDA-core kernel), 2 bf16 and 3 f32 on the CUDA-core kernel whatever the
+// shapes (for comparisons).
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* B, const void* C, void* y, const long long* strides, int dtype, int b, int h, int l, int dh, int ds, int chunk, void* stream) {
-  if (chunk < 1 || dh < 1 || ds < 1 || dtype < 0 || dtype > 2) {
+  if (chunk < 1 || dh < 1 || ds < 1 || dtype < 0 || dtype > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0 || h == 0 || l == 0) return 0;
@@ -1109,7 +1547,9 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const 
   const float* Af = static_cast<const float*>(A);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) {
+  if (dtype == 0 && tf::takes(x, B, C, st, b, h, l, dh, ds, chunk)) {
+    err = tf::dispatch(x, dtf, Af, B, C, y, st, b, h, l, dh, ds, chunk, s);
+  } else if (dtype == 0 || dtype == 3) {
     err = launch<float>(x, dtf, Af, B, C, y, st, b, h, l, dh, ds, chunk, s);
   } else if (dtype == 1 && tc::takes(x, B, C, st, b, h, l, dh, ds, chunk)) {
     err = tc::dispatch(x, dtf, Af, B, C, y, st, b, h, l, dh, ds, chunk, s);

@@ -11,12 +11,17 @@
 ``ssd_scan_tc_ref``      the tensor-core kernel's arithmetic in plain torch
                          (its blocked decays from ``ssd_tc_decays``, the f32
                          operands split into bf16 high and low halves, f32
-                         accumulation), for the tests.
+                         accumulation), for the tests;
+``ssd_scan_tf32_mirror`` the f32 tensor-core kernel's arithmetic in plain
+                         torch (the same decays, every product 3xTF32 in
+                         the kernel's partials), for the tests.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..tf32 import tf32_matmul
 
 
 def ssd_scan_ref(x, dt, A, B, C):
@@ -185,3 +190,54 @@ def ssd_scan_tc_ref(x, dt, A, B, C, *, chunk=128):
                        + torch.einsum("bhcd,bhcs->bhds", x32[:, :, n], Bc_lo))
         state = dec["total"][:, :, n, None, None] * state + chunk_state
     return torch.stack(ys, dim=2).reshape(b, h, l, dh).to(x.dtype)
+
+
+#: the f32 tensor-core route's partials: each product's summed index is
+#: taken 16 at a time (two k-steps of 8 in the source), M·x one 16-step
+#: slab at a time
+TF32_PARTIAL = 16
+
+
+def _partial_sums(a, b, step, passes):
+    """a @ b over the last dim of a, ``step`` of it at a time: each part a
+    TF32 product (``kernels.tf32.tf32_matmul``), the parts added in order
+    in f32."""
+    out = None
+    for k0 in range(0, a.shape[-1], step):
+        part = tf32_matmul(a[..., k0 : k0 + step], b[..., k0 : k0 + step, :], passes=passes)
+        out = part if out is None else out + part
+    return out
+
+
+def ssd_scan_tf32_mirror(x, dt, A, B, C, *, chunk=128, passes=3):
+    """The f32 tensor-core kernel's arithmetic in plain torch, f32: the
+    decays of :func:`ssd_tc_decays`; each of the four products — G = C·Bᵀ,
+    C·Hᵀ, M·x and the state update (coef∘B)ᵀ·x — as 3xTF32 products of TF32
+    halves, summed 16 at a time over their summed index (M·x one 16-step
+    slab at a time) in f32: y = exp(cum)·(C·Hᵀ) + M_slab0·x_slab0 + … and
+    Hᵀ ← exp(total)·Hᵀ + (coef∘B)ᵀ·x.  ``passes=1`` is the same with
+    one-pass TF32 products (the route never runs it)."""
+    b, h, l, dh = x.shape
+    ds = B.shape[-1]
+    nc = l // chunk
+    f32 = torch.float32
+    dec = ssd_tc_decays(dt.to(f32), A.to(f32), chunk=chunk)
+    x32 = x.to(f32).reshape(b, h, nc, chunk, dh)
+    B32 = B.to(f32).reshape(b, nc, chunk, ds)
+    C32 = C.to(f32).reshape(b, nc, chunk, ds)
+
+    G = _partial_sums(C32, B32.transpose(-1, -2), TF32_PARTIAL, passes)  # (b,nc,c,c)
+    M = G[:, None] * dec["decay"]  # (b,h,nc,c,c)
+    state_t = torch.zeros((b, h, ds, dh), dtype=f32, device=x.device)  # Hᵀ
+    ys = []
+    for n in range(nc):
+        y = dec["erow"][:, :, n, :, None] * _partial_sums(C32[:, None, n], state_t,
+                                                         TF32_PARTIAL, passes)
+        for j0 in range(0, chunk, TF32_PARTIAL):
+            y = y + tf32_matmul(M[:, :, n, :, j0 : j0 + TF32_PARTIAL],
+                                x32[:, :, n, j0 : j0 + TF32_PARTIAL], passes=passes)
+        ys.append(y)
+        coef_b = (B32[:, None, n] * dec["coef"][:, :, n, :, None]).transpose(-1, -2)  # (b,h,ds,c)
+        state_t = (dec["total"][:, :, n, None, None] * state_t
+                   + _partial_sums(coef_b, x32[:, :, n], TF32_PARTIAL, passes))
+    return torch.stack(ys, dim=2).reshape(b, h, l, dh)

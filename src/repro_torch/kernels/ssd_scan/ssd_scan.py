@@ -4,13 +4,15 @@ B5), bound with ctypes.
 
 On CUDA tensors it launches the kernel; on CPU tensors it runs the plain
 chunked version from :mod:`.ref`.  There is no fallback between the two: a
-CUDA tensor launches the kernel or raises.  The kernel has two routes, which
-the C entry point chooses and :func:`b5_route` mirrors: bf16 inputs of the
-right shapes and alignment go to the tensor cores, everything else to the
-CUDA-core kernel.
+CUDA tensor launches the kernel or raises.  The kernel has three routes,
+which the C entry point chooses by shape, dtype and alignment alone and
+:func:`b5_route` mirrors: bf16 inputs of the right shapes and alignment go
+to the tensor cores in bf16, f32 inputs of the same shapes to the tensor
+cores in 3xTF32, everything else to the CUDA-core kernel.
 
 The module-level counter ``launches`` counts kernel launches, so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel; ``route_launches`` splits
+them by route.
 """
 
 from __future__ import annotations
@@ -31,16 +33,25 @@ launches = 0
 MAX_SHARED_BYTES = 232_448
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_BF16_CUDA_CORES = 2  # the entry point's dtype code for bf16 held to the CUDA-core kernel
+# the entry point's dtype codes for inputs held to the CUDA-core kernel
+_CUDA_CORE_CODES = {torch.bfloat16: 2, torch.float32: 3}
+
+#: the routes of :func:`b5_route`
+TENSOR_CORES, TF32_TENSOR_CORES, CUDA_CORES = "tensor cores", "tf32 tensor cores", "cuda cores"
+
+#: B5 launches since the last reset, by route
+route_launches = {TENSOR_CORES: 0, TF32_TENSOR_CORES: 0, CUDA_CORES: 0}
 
 
 def _dtype_code(dtype, cuda_cores: bool) -> int:
-    return _BF16_CUDA_CORES if cuda_cores and dtype == torch.bfloat16 else _DTYPE_CODES[dtype]
+    return (_CUDA_CORE_CODES if cuda_cores else _DTYPE_CODES)[dtype]
 
 
 def reset_launch_counts() -> None:
     global launches
     launches = 0
+    for route in route_launches:
+        route_launches[route] = 0
 
 
 def shared_bytes(chunk: int, dh: int, ds: int) -> int:
@@ -84,6 +95,22 @@ def tc_shared_bytes(chunk: int, dh: int, ds: int) -> int:
     return sum(-(-r // 16) * 16 for r in regions)
 
 
+def tf32_shared_bytes(chunk: int, dh: int, ds: int) -> int:
+    """The f32 tensor-core kernel's dynamic shared memory for one (batch,
+    head) block (``tf::Layout`` in the source): x, B and C of a chunk in f32
+    at the widths the kernel is built for (dh rounded up to 32, 64 or 128,
+    ds to 64 or 128) with rows padded by 4 floats, the transposed state at
+    those widths with rows padded by 8, eight per-step f32 vectors, the
+    tile-to-tile decays and the diagonal tiles' decay tables; each region
+    rounded up to 16 bytes."""
+    nrt = chunk // 16
+    dhp = 32 if dh <= 32 else 64 if dh <= 64 else 128
+    dsp = 64 if ds <= 64 else 128
+    regions = (chunk * (dhp + 4) * 4, chunk * (dsp + 4) * 4, chunk * (dsp + 4) * 4,
+               dsp * (dhp + 8) * 4, *[chunk * 4] * 8, nrt * nrt * 4, chunk * 16 * 4)
+    return sum(-(-r // 16) * 16 for r in regions)
+
+
 def _aligned(t, dims: int) -> bool:
     """16-byte aligned base, and 16-byte aligned strides in the first
     ``dims`` dims (a size-1 dim's stride is never stepped)."""
@@ -93,17 +120,20 @@ def _aligned(t, dims: int) -> bool:
 
 
 def b5_route(x, dt, A, B, C, chunk) -> str:
-    """The kernel B5's entry point runs for these inputs (``tc::takes`` in
-    the source): "tensor cores" for bf16 with dh and ds multiples of 16 up
-    to 128, a chunk that is a multiple of 16 and divides l, 16-byte aligned
-    bases and strides of x, B and C, and a layout within a block's shared
-    memory; else "cuda cores"."""
+    """The kernel B5's entry point runs for these inputs (``tc::takes`` and
+    ``tf::takes`` in the source): for dh and ds multiples of 16 up to 128, a
+    chunk that is a multiple of 16 and divides l, 16-byte aligned bases and
+    strides of x, B and C, and a layout within a block's shared memory,
+    "tensor cores" for bf16 (:func:`tc_shared_bytes`) and "tf32 tensor
+    cores" for f32 (:func:`tf32_shared_bytes`); else "cuda cores"."""
     dh, ds, l = x.shape[-1], B.shape[-1], x.shape[2]
-    ok = (x.dtype == torch.bfloat16 and dh % 16 == 0 and ds % 16 == 0 and chunk % 16 == 0
-          and dh <= 128 and ds <= 128 and l % chunk == 0
-          and _aligned(x, 3) and _aligned(B, 2) and _aligned(C, 2)
-          and tc_shared_bytes(chunk, dh, ds) <= MAX_SHARED_BYTES)
-    return "tensor cores" if ok else "cuda cores"
+    shapes = (dh % 16 == 0 and ds % 16 == 0 and chunk % 16 == 0 and dh <= 128 and ds <= 128
+              and l % chunk == 0 and _aligned(x, 3) and _aligned(B, 2) and _aligned(C, 2))
+    if shapes and x.dtype == torch.bfloat16 and tc_shared_bytes(chunk, dh, ds) <= MAX_SHARED_BYTES:
+        return TENSOR_CORES
+    if shapes and x.dtype == torch.float32 and tf32_shared_bytes(chunk, dh, ds) <= MAX_SHARED_BYTES:
+        return TF32_TENSOR_CORES
+    return CUDA_CORES
 
 
 def _check_cuda_args(x, dt, A, B, C, chunk):
@@ -149,9 +179,9 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk=128, _cuda_cores=False):
     x (b, h, l, dh) and B / C (b, l, ds) in float32 or bfloat16, each with a
     contiguous last dim (other strides free: the model passes views);
     dt (b, h, l) and A (h,) float32.  l must be a multiple of ``chunk``, as
-    in the reference.  ``_cuda_cores`` (private: for comparing the two
-    routes; the model never passes it) sends bf16 inputs to the CUDA-core
-    kernel whatever :func:`b5_route` says.
+    in the reference.  ``_cuda_cores`` (private: for comparing the routes;
+    the model never passes it) sends the inputs to the CUDA-core kernel
+    whatever :func:`b5_route` says.
 
     Forward only: on CUDA inputs that require grad (with grad mode on) it
     raises rather than return an output autograd cannot differentiate.
@@ -177,8 +207,8 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk=128, _cuda_cores=False):
     global launches
     b, h, l, dh = x.shape
     ds = B.shape[-1]
-    route = "cuda cores" if _cuda_cores else b5_route(x, dt, A, B, C, chunk)
-    if route == "cuda cores":
+    route = CUDA_CORES if _cuda_cores else b5_route(x, dt, A, B, C, chunk)
+    if route == CUDA_CORES:
         width, nbytes = cuda_core_layout(chunk, dh, ds)
         if width == 0:
             raise ValueError(
@@ -208,4 +238,5 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk=128, _cuda_cores=False):
             f"(b={b}, h={h}, l={l}, dh={dh}, ds={ds}, chunk={chunk})"
         )
     launches += 1
+    route_launches[route] += 1
     return y

@@ -783,8 +783,9 @@ def test_flash_attention_bf16_ragged(cuda_device, sq, skv, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_unaligned_strides(cuda_device, dtype):
     """Rows that are not 16-byte aligned (a 1-element offset into a wider
-    buffer) and a head dim that is not a multiple of 16 take the CUDA-core
-    path: same results, same tolerances."""
+    buffer) take the CUDA-core path, and so does a bf16 head dim that is
+    not a multiple of 16 (f32 dh 40, a multiple of 8, takes the 3xTF32
+    route): same results, same tolerances."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
 
@@ -798,6 +799,160 @@ def test_flash_attention_unaligned_strides(cuda_device, dtype):
         ref = gqa_attention_plain(q, k, v, causal=True)
         tol = TOL if dtype == torch.float32 else dict(rtol=3e-2, atol=3e-2)
         torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [32, 40, 64, 112, 224, 256])
+def test_flash_attention_f32_route_on_the_model_views(cuda_device, dh, causal):
+    """The f32 tensor-core route (3xTF32) at every head-dim width it is
+    built for, GQA 8 / 2, ragged, on the model's strided (b, s, h, dh)
+    views: against the plain version and the CUDA-core kernel (the same
+    values at a base that is not 16-byte aligned, which routes there),
+    counted on its route, two runs the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+
+    g = torch.Generator().manual_seed(dh * 2 + causal)
+    q = torch.randn((2, 200, 8, dh), generator=g).to(cuda_device).transpose(1, 2)
+    k = torch.randn((2, 333, 2, dh), generator=g).to(cuda_device).transpose(1, 2)
+    v = torch.randn((2, 333, 2, dh), generator=g).to(cuda_device).transpose(1, 2)
+    unaligned = [_off_alignment(t) for t in (q, k, v)]
+    assert fa.b4_route(q, k, v) == "tf32 tensor cores"
+    assert fa.b4_route(*unaligned) == "cuda cores"
+    fa.reset_launch_counts()
+    out = fa.flash_attention_cuda(q, k, v, causal=causal)
+    again = fa.flash_attention_cuda(q, k, v, causal=causal)
+    cores = fa.flash_attention_cuda(*unaligned, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.route_launches == {"tensor cores": 0, "tf32 tensor cores": 2, "cuda cores": 1}
+    assert torch.equal(out, again)
+    ref = gqa_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out, ref, **TOL)
+    torch.testing.assert_close(cores, ref, **TOL)
+
+
+def _off_alignment(x):
+    """x's values in a contiguous tensor whose base lies 4 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _nan_bits(t, index):
+    """t with the card's canonical NaN (bits 0x7fffffff) at ``index``."""
+    t = t.clone()
+    t.view(torch.int32)[index] = 0x7FFFFFFF
+    return t
+
+
+@pytest.mark.cuda
+def test_tf32_split_rounds_as_cvt_rna(cuda_device):
+    """The f32 routes' 3xTF32 split (``split`` in tf32_mma.cuh: hi =
+    tf32(x), lo = tf32(x − hi)) against ``cvt.rna.tf32.f32`` (the library's
+    ``tf32_split_check``) over every sign and exponent with mantissas at and
+    around the rounding boundaries (so ±0, subnormals, ±inf and NaNs of
+    high and low payloads) and 2²⁰ random bit patterns: hi and lo the bits
+    of cvt.rna for every finite x, hi for ±inf too, and lo a NaN wherever
+    x is a NaN or an infinity, so that the products are NaN."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    fn = build.load_library("flash_attention").tf32_split_check
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    mantissas = np.array([0, 1, 0xFFF, 0x1000, 0x1001, 0x1FFF, 0x2000, 0x3000, 0x400000,
+                          0x401000, 0x7FE000, 0x7FEFFF, 0x7FF000, 0x7FFFFF], dtype=np.uint64)
+    grid = ((np.arange(512, dtype=np.uint64) << 23)[:, None] | mantissas).ravel()
+    rand = np.random.default_rng(0).integers(0, 2**32, 1 << 20, dtype=np.uint64)
+    bits = np.concatenate([grid, rand]).astype(np.uint32)
+    x = torch.from_numpy(bits.view(np.int32)).to(cuda_device)
+    out = torch.empty((x.numel(), 4), dtype=torch.int32, device=cuda_device)
+    err = fn(x.data_ptr(), out.data_ptr(), x.numel(),
+             torch.cuda.current_stream(cuda_device).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    hi, lo, cvt_hi, cvt_lo = out.cpu().numpy().view(np.uint32).T
+
+    def is_nan(u):
+        return (u & 0x7FFFFFFF) > 0x7F800000
+
+    nan, inf = is_nan(bits), (bits & 0x7FFFFFFF) == 0x7F800000
+    finite = ~(nan | inf)
+    for name, ours, cvt, where in (("hi", hi, cvt_hi, ~nan), ("lo", lo, cvt_lo, finite)):
+        differ = np.flatnonzero(ours[where] != cvt[where])
+        assert differ.size == 0, (name, [hex(int(u)) for u in bits[where][differ[:8]]])
+    assert nan.sum() > 1000 and inf.sum() >= 2 and is_nan(lo[nan | inf]).all()
+
+
+@pytest.mark.cuda
+def test_f32_routes_carry_nan_as_the_plain_versions(cuda_device):
+    """A NaN with the card's canonical bits in q (B4) or x (B5) comes out of
+    the 3xTF32 routes as NaN where the plain versions give NaN: B4 the same
+    NaNs as the plain version; B5 a NaN wherever the sequential recurrence
+    has one and nowhere the plain chunked version is finite."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
+
+    g = torch.Generator().manual_seed(11)
+    q = _nan_bits(torch.randn((2, 4, 96, 64), generator=g), (0, 1, 37, 5)).to(cuda_device)
+    k, v = (torch.randn((2, 2, 96, 64), generator=g).to(cuda_device) for _ in range(2))
+    assert fa.b4_route(q, k, v) == "tf32 tensor cores"
+    out = fa.flash_attention_cuda(q, k, v, causal=True)
+    ref = gqa_attention_plain(q, k, v, causal=True)
+    assert bool(ref.isnan().any())
+    assert torch.equal(out.isnan(), ref.isnan())
+    torch.testing.assert_close(out.nan_to_num(), ref.nan_to_num(), **TOL)
+
+    x, dt, A, B, C = _ssd_inputs(12, 2, 4, 128, 64, 64, cuda_device, torch.float32)
+    x = _nan_bits(x, (1, 2, 40, 7))
+    assert ssd.b5_route(x, dt, A, B, C, 64) == "tf32 tensor cores"
+    y = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=64)
+    chunked = ssd_scan_chunked_ref(x, dt, A, B, C, chunk=64)
+    recurrence = ssd_scan_ref(*(t.double() for t in (x, dt, A, B, C)))
+    assert bool(recurrence.isnan().any())
+    assert bool(y.isnan()[recurrence.isnan()].all())
+    assert not bool(y.isnan()[~chunked.isnan()].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,dh,ds,chunk", [(8, 64, 64, 128), (4, 64, 128, 128), (6, 32, 16, 16),
+                                           (3, 48, 80, 64), (3, 128, 64, 64)])
+def test_ssd_scan_f32_route_on_the_model_views(cuda_device, h, dh, ds, chunk):
+    """The f32 tensor-core route (3xTF32) at zamba2's, mamba2-370m's and the
+    reduced presets' widths and two others, on the model's strided f32
+    views: against the plain chunked version, the recurrence and the
+    CUDA-core kernel (forced), counted on its route, two runs the same
+    bits."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
+
+    g = torch.Generator().manual_seed(h + dh + ds + chunk)
+    b, l, di = 2, 256, h * dh
+    xBC = torch.randn((b, l, di + 2 * ds), generator=g).to(cuda_device)
+    x = xBC[..., :di].reshape(b, l, h, dh).transpose(1, 2)
+    dt = F.softplus(torch.randn((b, l, h), generator=g) - 1.0).to(cuda_device).transpose(1, 2)
+    A = -torch.linspace(1.0, 16.0, h, device=cuda_device)
+    args = (x, dt, A, xBC[..., di : di + ds], xBC[..., di + ds :])
+    assert ssd.b5_route(*args, chunk) == "tf32 tensor cores"
+    ssd.reset_launch_counts()
+    out = ssd.ssd_scan_cuda(*args, chunk=chunk)
+    again = ssd.ssd_scan_cuda(*args, chunk=chunk)
+    forced = ssd.ssd_scan_cuda(*args, chunk=chunk, _cuda_cores=True)
+    torch.cuda.synchronize()
+    assert ssd.route_launches == {"tensor cores": 0, "tf32 tensor cores": 2, "cuda cores": 1}
+    assert torch.equal(out, again)
+    tol = SSD_TOL[torch.float32]
+    torch.testing.assert_close(out, ssd_scan_chunked_ref(*args, chunk=chunk), **tol)
+    torch.testing.assert_close(out.double(), ssd_scan_ref(*(t.double() for t in args)), **tol)
+    torch.testing.assert_close(out, forced, **tol)
 
 
 def _ssd_inputs(seed, b, h, l, dh, ds, dev, dtype):

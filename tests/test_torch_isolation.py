@@ -1,9 +1,9 @@
 """The port stands alone, and runs on the GPU unless told otherwise.
 
 * No module of ``src/repro_torch`` — and not ``chip_smoke.py``, which drives
-  it on the GPU machine, nor the port's examples (``examples/torch_*.py``) —
-  imports ``jax`` or anything of the reference package ``repro``, not even
-  its JAX-free modules.
+  it on the GPU machine, nor the port's examples (``examples/torch_*.py``),
+  nor its timing scripts (``scripts/*.py``) — imports ``jax`` or anything
+  of the reference package ``repro``, not even its JAX-free modules.
 * An entry point called without ``device="cpu"`` runs on CUDA, and raises
   when there is no GPU instead of carrying on quietly on the CPU.
 """
@@ -20,7 +20,8 @@ from repro_torch import SKI, ExactGP, NoCudaDeviceError, params_from_jax, resolv
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "examples").glob("torch_*.py")))
+              + sorted((ROOT / "examples").glob("torch_*.py"))
+              + sorted((ROOT / "scripts").glob("*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -43,7 +44,8 @@ def test_port_files_were_found():
             "chip_smoke.py", "torch_quickstart.py", "torch_large_scale_ski.py",
             "adam.py", "adafactor.py", "clipping.py", "schedules.py", "compression.py",
             "checkpointer.py", "fault.py", "train.py", "pipeline.py", "tree.py",
-            "torch_train_gp_e2e.py", "torch_deep_kernel_lm.py", "torch_posterior_serving.py"} <= names
+            "torch_train_gp_e2e.py", "torch_deep_kernel_lm.py", "torch_posterior_serving.py",
+            "time_bf16_kernels.py", "time_f32_lm_kernels.py", "tf32.py"} <= names
     assert len(PORT_FILES) >= 20
 
 

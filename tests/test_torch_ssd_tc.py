@@ -4,8 +4,9 @@ The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``
 and ``chip_smoke.py``).  What the CPU can hold:
 
 * the route rule, ``ssd_scan.b5_route`` — the mirror of the entry point's
-  ``tc::takes`` — on aligned and unaligned views, f32, and dh, ds and
-  chunks that are not multiples of 16;
+  ``tc::takes`` — on aligned and unaligned views, f32 (the 3xTF32 route,
+  ``tests/test_torch_tf32_routes.py``), and dh, ds and chunks that are not
+  multiples of 16;
 * the route's shared memory, ``tc_shared_bytes``, against the layout in
   the source and against the 232,448 bytes a block may use;
 * the plain-torch mirror of the kernel's arithmetic — its blocked decay
@@ -127,7 +128,7 @@ ROUTE_CASES = {
     "chunk 32, dh 32, ds 16": (lambda: _contiguous(dh=32, ds=16), 32, "tensor cores"),
     "a size-1 batch with an odd stride": (_single_batch_odd_stride, 128, "tensor cores"),
     "dh = ds = 128 at chunk 64": (lambda: _contiguous(dh=128, ds=128), 64, "tensor cores"),
-    "f32": (lambda: _contiguous(dtype=torch.float32), 128, "cuda cores"),
+    "f32": (lambda: _contiguous(dtype=torch.float32), 128, "tf32 tensor cores"),
     "rows one element into a wider buffer": (_unaligned, 128, "cuda cores"),
     "dh 40": (lambda: _contiguous(dh=40), 128, "cuda cores"),
     "dh 8, ds 4": (lambda: _contiguous(dh=8, ds=4), 64, "cuda cores"),
