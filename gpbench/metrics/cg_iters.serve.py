@@ -1,0 +1,8 @@
+"""cg_iters.serve: CG iterations per build or append, the mean of the program's
+``cg_iterations`` histogram over the traced window."""
+
+from gpbench.harness import readers
+
+
+def read(run):
+    return readers.histogram_mean(run.registry, "cg_iterations")

@@ -1,0 +1,9 @@
+"""Shared set-up of the benchmark's tests: the checkout root on sys.path,
+so ``import gpbench`` works from any working directory."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
